@@ -4,19 +4,30 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure raises and the script
-exits non-zero without printing a result:
+Phases, each printing its own lines and its seconds; any failure raises
+and the script exits non-zero without printing a result:
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: compile ``csrc/fdtd_chunk.cu`` with nvcc for sm_90a;
-3. kernel vs plain: one 500-step chunk of the small test scene and of the
+2. build: compile ``csrc/fdtd_chunk.cu`` and ``csrc/fdtd_stream.cu`` with
+   nvcc for sm_90a, both at once; print ptxas registers and memory;
+3. K1 vs plain: one 500-step chunk of the small test scene and of the
    canonical patch under MUR, PEC and CPML, through the CUDA kernels and
    through their plain PyTorch twins on the same card; then each kernel
    alone against its twin at the canonical shape, with its time;
-4. main path: ``prepare_patch_fixed`` + ``run_prepared_fixed`` on the
-   canonical 2.45 GHz FR-4 patch, with the kernel launch counts;
+4. main path (canonical slice): ``prepare_patch_fixed`` +
+   ``run_prepared_fixed`` on the canonical 2.45 GHz FR-4 patch, which
+   resolves to the chunk kernels, with the kernel launch counts;
 5. golden physics: the openEMS Simple_Patch_Antenna tutorial scene;
-6. times: kernel and plain at the canonical and the 161×121×160 grids.
+6. times: K1 and plain at the canonical and the 161×121×160 grids;
+7. K2 vs plain: ``stream_steps`` alone and one 480-step chunk in stream
+   mode against the plain twins (small scene MUR/PEC/PML_4 and its
+   z = 131 variant, T = 1..4), and stream mode against chunk mode;
+8. main path (large-grid slice): the 4.2M-cell mixed patch+horn scene
+   through ``MultiPatchScene.simulate``, which resolves to the stream
+   kernel, with launch counts; then 2,000 steps kernel vs plain;
+9. horn golden: the 12 GHz pyramidal horn against Balanis's 14.06 dBi;
+10. times: forced chunk against forced stream at the tall grid and the
+    mixed scene, K2's device time per launch beside its bound.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -25,6 +36,8 @@ exits non-zero when CUDA is unavailable.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,8 +48,14 @@ import torch
 
 RTOL = 2e-4  # the JAX package's own kernel-vs-XLA tolerance
 ATOL_REL = 1e-5  # atol = 1e-5 · max|plain|
-SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_chunk.cu"
-REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1376"
+K1_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_chunk.cu"
+K1_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1376"
+K2_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_stream.cu"
+K2_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:468"
+# NVIDIA H100 SXM data sheet peaks (at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+JAX_MIXED_STEPS = 22_500  # the JAX package's step count for the mixed scene
 
 
 def say(phase: str, msg: str) -> None:
@@ -111,14 +130,34 @@ def tall_scene():
     return scene, grid, 2.45e9, 1.225e9
 
 
-def one_chunk_sim(make_scene, boundary, n_steps=500):
-    """Exactly one chunk: ``n_steps`` steps, a probe sample every 50."""
+def tall131_scene():
+    """The small scene with 131 z lines (tests/test_stream_kernel.py)."""
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+    mb = MeshBuilder()
+    mb.add_line("x", [-40, 40, 0.0, -6.0])
+    mb.add_line("y", [-30, 30, 0.0])
+    mb.add_line("z", np.linspace(-20, 30, 131))
+    grid = mb.build(5.0)
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
+    scene.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
+    scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
+    scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
+    return scene, grid, 2.45e9, 1.225e9
+
+
+def one_chunk_sim(make_scene, boundary, n_steps=500, mode=None, T=None,
+                  decim=50):
+    """One chunk of ``n_steps`` steps (a multiple of ``decim``) with a
+    probe sample every ``decim``; ``mode`` forces "chunk" or "stream"."""
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
 
     scene, grid, f0, fc = make_scene()
     cfg = FDTDConfig(n_steps_max=n_steps, check_every=n_steps,
                      end_criteria=1e-30, boundary=boundary,
-                     probe_decimation=50)
+                     probe_decimation=decim, pallas_mode=mode, stream_T=T)
     return build_simulation(
         scene, grid, f0=f0, fc=fc, cfg=cfg, device="cuda",
         port_freqs_hz=np.linspace(2e9, 3e9, 51),
@@ -148,6 +187,22 @@ def host_ms(fn, reps=50, warmup=5) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def events_ms(fn, reps=5, warmup=2) -> float:
+    """Milliseconds per call between two CUDA events, no sleep kernel:
+    device time where the device, not the host, is the slower side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def device_ms(fn, reps=20, warmup=5) -> float:
     """Device milliseconds per call: a sleep kernel holds the stream while
     the calls are queued behind it, so the CUDA events bracket device work
@@ -172,6 +227,23 @@ def device_ms(fn, reps=20, warmup=5) -> float:
     return a.elapsed_time(b) / reps
 
 
+def compare_runs(ko, po, what="") -> float:
+    """Assert two runs' output surfaces agree; return the max |err|."""
+    assert ko["steps"] == po["steps"], (what, ko["steps"], po["steps"])
+    err = 0.0
+    for i, (a, b) in enumerate(zip(ko["fields"], po["fields"])):
+        err = max(err, close(f"{what} field {i}", a, b))
+    for key in ("uf", "if_"):
+        err = max(err, close(f"{what} {key}", ko[key], po[key]))
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(ko[key], po[key]):
+            err = max(err, close(f"{what} {key}", a, b))
+    for grp in ("psi_e", "psi_h"):
+        for k, v in po["state"][grp].items():
+            err = max(err, close(f"{what} {grp} {k}", ko["state"][grp][k], v))
+    return err
+
+
 def phase_kernel_vs_plain():
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
@@ -182,20 +254,10 @@ def phase_kernel_vs_plain():
     ):
         for boundary in boundaries:
             sim = one_chunk_sim(make, boundary)
+            assert sim.pallas_mode == "chunk", sim.pallas_mode_reason
             ko, tk = timed_run(sim, fdtd_cuda.kernels)
             po, tp = timed_run(sim, fdtd_cuda.plain)
-            assert ko["steps"] == po["steps"], (ko["steps"], po["steps"])
-            err = 0.0
-            for i, (a, b) in enumerate(zip(ko["fields"], po["fields"])):
-                err = max(err, close(f"field {i}", a, b))
-            for key in ("uf", "if_"):
-                err = max(err, close(key, ko[key], po[key]))
-            for key in ("nf_e", "nf_h"):
-                for a, b in zip(ko[key], po[key]):
-                    err = max(err, close(key, a, b))
-            for grp in ("psi_e", "psi_h"):
-                for k, v in po["state"][grp].items():
-                    err = max(err, close(f"{grp} {k}", ko["state"][grp][k], v))
+            err = compare_runs(ko, po, f"{label} {boundary}")
             worst = max(worst, err)
             say("3", f"{label} {sim.grid.shape} {boundary}: {ko['steps']} steps "
                      f"kernel == plain (rtol {RTOL}, atol {ATOL_REL}*max|plain|), "
@@ -288,6 +350,7 @@ def phase_main_path():
     params = canonical_params()
     prep = prepare_patch_fixed(params, device="cuda")
     assert prep.ok, prep.message
+    assert prep.sim.pallas_mode == "chunk", prep.sim.pallas_mode_reason
     fdtd_cuda.reset_launch_counts()
     res = run_prepared_fixed(prep, frequency_hz=params.frequency_hz, verbose=0)
     counts = dict(fdtd_cuda.launches)
@@ -354,7 +417,7 @@ def phase_times(prep, res, counts, per_kernel, card):
              f"(sum of launches x device time per launch), idle share "
              f"{1 - busy / t_kern:.2f} [{card}]")
     t0 = time.perf_counter()
-    tall = one_chunk_sim(tall_scene, "MUR")
+    tall = one_chunk_sim(tall_scene, "MUR", mode="chunk")
     prep_tall = time.perf_counter() - t0
     tcells = tall.grid.num_cells
     # kernel, plain, kernel, plain: the first run of a new simulation also
@@ -378,6 +441,287 @@ def phase_times(prep, res, counts, per_kernel, card):
              f"idle share {1 - busy / tk:.2f} [{card}]")
 
 
+def bound(nbytes: float, flops: float):
+    """(least milliseconds, "bytes" | "operations"): the bytes the call
+    must move over the HBM rate against its float32 operations over the
+    float32 peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(name, sim):
+    """Bound of one K1 launch at ``sim``'s shapes: each input read once,
+    each output written once (float32); operations counted per cell."""
+    ops = sim.operands
+    nx, ny, nz = ops.shape
+    n = nx * ny * nz
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    if name == "h_update":  # E, H in; H out (+ psi_h in and out)
+        return bound(4 * n * (9 + psi), n * (21 + 2 * psi))
+    if name == "e_update":  # E, H, ca, cb, src in; E out (+ psi_e)
+        return bound(4 * n * (15 + n_src + psi), n * (27 + 2 * psi))
+    if name == "mur_faces":  # axis 0: 2 walls x 2 components x y-z plane
+        wall_cells = 4 * ny * nz
+        return bound(4 * 4 * wall_cells, 3 * wall_cells)
+    rows, k = ops.probe_idx.shape  # probe_gather: index, weight, value
+    return bound(rows * k * 12 + rows * 4, 2 * rows * k)
+
+
+def k2_bound(sim, T):
+    """Bound of one stream launch: fields, coefficients and sources in
+    once, fields out once; T steps of H and E updates."""
+    ops = sim.operands
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    nbytes = 4 * n * (6 + 6 + n_src + 6 + 2 * psi)
+    return bound(nbytes, T * n * (48 + 4 * psi))
+
+
+def fields_of(st):
+    return (*st.e[st.parity], *st.h, *st.psi_e, *st.psi_h)
+
+
+def phase_stream_vs_plain(card):
+    """K2 against its plain twin: one launch on a random state, then one
+    480-step chunk in stream mode (a probe sample every 48 steps, a
+    multiple of every T), kernel against plain and against chunk mode
+    (K1's kernels)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    worst = 0.0
+    for label, make, boundaries in (
+        ("small", small_scene, ("MUR", "PEC", "PML_4")),
+        ("z131", tall131_scene, ("MUR",)),
+    ):
+        for boundary in boundaries:
+            for T in (1, 2, 3, 4):
+                sim = one_chunk_sim(make, boundary, 480, "stream", T, decim=48)
+                assert sim.pallas_mode == "stream" and sim.stream_T == T
+                base = random_state(sim, seed=11)
+                sk, sp = clone_state(base), clone_state(base)
+                wf = [0.37, -0.21, 0.55, 0.13][:T]
+                fdtd_stream.stream_steps(sim.operands, sk, wf)
+                fdtd_stream.stream_steps_plain(sim.operands, sp, wf)
+                torch.cuda.synchronize()
+                e1 = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
+                         enumerate(zip(fields_of(sk), fields_of(sp))))
+                ko, tk = timed_run(sim, fdtd_stream.kernels)
+                po, tp = timed_run(sim, fdtd_stream.plain)
+                e2 = compare_runs(ko, po, f"{label} {boundary} T={T}")
+                csim = one_chunk_sim(make, boundary, 480, "chunk", decim=48)
+                co, tc = timed_run(csim, fdtd_cuda.kernels)
+                e3 = compare_runs(ko, co, f"{label} {boundary} T={T} vs chunk")
+                worst = max(worst, e1, e2, e3)
+                say("7", f"{label} {sim.grid.shape} {boundary} T={T}: "
+                         f"stream_steps == plain, max |err| {e1:.3e}; "
+                         f"{ko['steps']}-step chunk stream kernel == plain "
+                         f"{e2:.3e}, == chunk kernels {e3:.3e}; stream "
+                         f"{tk:.3f} s, plain {tp:.3f} s, chunk {tc:.3f} s "
+                         f"[{card}]")
+    return worst
+
+
+def mixed_designer():
+    """The mixed patch+horn scene of the JAX package's bench: the 2.45 GHz
+    FR-4 patch and the 86×43 → 150×110×60 mm horn at x = 0.18 m, rotated
+    25° about z, mesh quality 2."""
+    from fdtd_solver_antennas_tpu_torch import HornAntennaParams
+    from fdtd_solver_antennas_tpu_torch.frontends.designer import MultiPatchScene
+
+    scene = MultiPatchScene(device="cuda")
+    scene.add_patch(canonical_params())
+    scene.add_horn(
+        HornAntennaParams.from_user_units(
+            frequency_ghz=2.45, throat_a_mm=86.0, throat_b_mm=43.0,
+            aperture_A_mm=150.0, aperture_B_mm=110.0, length_mm=60.0),
+        center_x_m=0.18, rot_z_deg=25.0)
+    scene.controls.mesh_quality = 2
+    return scene
+
+
+def phase_mixed_main_path(card):
+    """The large-grid slice through ``MultiPatchScene.simulate``; it must
+    resolve to the stream kernel and end on the energy criterion. Then
+    ~2,000 steps of the same simulation, kernels against plain twins."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    scene = mixed_designer()
+    seen = {}
+    real_prepare = scene.prepare
+
+    def prepare(**kw):  # keep the prepared simulation and its seconds
+        t0 = time.perf_counter()
+        seen["prep"] = real_prepare(**kw)
+        seen["seconds"] = time.perf_counter() - t0
+        return seen["prep"]
+
+    scene.prepare = prepare
+    logs = []
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    res = scene.simulate(log_cb=logs.append)
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches}
+    prep = seen["prep"]
+    assert prep.ok, prep.message
+    assert res.ok, res.message
+    sim = prep.sim
+    T, decim, steps = sim.stream_T, sim.probe_decim, res.steps_run
+    say("8", f"mixed scene prepared in {seen['seconds']:.1f} s on the host: "
+             f"grid {sim.grid.shape} ({sim.grid.num_cells} cells); "
+             f"{logs[-1]}")
+    assert sim.pallas_mode == "stream" and T >= 2, sim.pallas_mode_reason
+    assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
+    assert counts["probe_gather"] == steps // decim, counts
+    for name in ("h_update", "e_update", "mur_faces"):
+        assert counts[name] == 0, counts
+    assert np.isfinite(res.Dmax) and res.Dmax > 0
+    s11s = res.diagnostics["s11_all_ports"]
+    assert len(s11s) == 2 and all(np.all(np.isfinite(s)) for s in s11s)
+    assert np.all(np.isfinite(res.intensity))
+    e_ratio = res.diagnostics["energy_ratio"]
+    assert steps < sim.cfg.n_steps_max and e_ratio < sim.cfg.end_criteria, (
+        steps, sim.cfg.n_steps_max, e_ratio)
+    s11_db = [float(20 * np.log10(np.abs(s).min())) for s in s11s]
+    say("8", f"mixed scene on {sim.device}: stream T={T}, decim {decim}; "
+             f"{steps} steps (JAX package: {JAX_MIXED_STEPS}) in "
+             f"{res.wall_time_s:.3f} s, {res.mcells_per_s:.1f} "
+             f"Mcell-updates/s; ended on energy ratio {e_ratio:.3e} < "
+             f"{sim.cfg.end_criteria:.3e} before {sim.cfg.n_steps_max}; "
+             f"Dmax {10 * np.log10(res.Dmax):.3f} dBi, |S11|min per port "
+             f"{s11_db[0]:.2f} / {s11_db[1]:.2f} dB; launches {counts} [{card}]")
+
+    cut = dataclasses.replace(
+        sim, cfg=dataclasses.replace(sim.cfg, n_steps_max=2000))
+    ko, tk = timed_run(cut, fdtd_stream.kernels)
+    po, tp = timed_run(cut, fdtd_stream.plain)
+    err = compare_runs(ko, po, "mixed 2000 steps")
+    say("8", f"mixed scene, {ko['steps']} steps: stream kernel == plain "
+             f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}; kernel "
+             f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
+    return sim, res, counts
+
+
+def phase_horn_golden():
+    """The 12 GHz pyramidal horn of tests/test_horn.py on the card."""
+    from fdtd_solver_antennas_tpu_torch import HornAntennaParams
+    from fdtd_solver_antennas_tpu_torch.solvers.horn import (
+        prepare_horn, pyramidal_horn_directivity_dbi, run_prepared_horn)
+
+    hp = HornAntennaParams.from_user_units(
+        frequency_ghz=12.0, throat_a_mm=19.05, throat_b_mm=9.525,
+        aperture_A_mm=48.0, aperture_B_mm=36.0, length_mm=40.0)
+    prep = prepare_horn(hp, device="cuda", mesh_ppw=14.0, theta_step_deg=5.0,
+                        phi_step_deg=15.0, n_steps_max=6000)
+    assert prep.ok, prep.message
+    res = run_prepared_horn(prep, frequency_hz=12e9, verbose=0)
+    assert res.ok, res.message
+    theory = pyramidal_horn_directivity_dbi(hp)
+    dmax = 10 * np.log10(res.Dmax)
+    e_ratio = res.diagnostics["energy_ratio"]
+    assert abs(theory - 14.06) < 0.05, theory
+    assert abs(dmax - theory) < 1.5, f"horn Dmax {dmax:.2f} dBi vs {theory:.2f}"
+    assert res.steps_run < 6000 and e_ratio < 1e-3, (res.steps_run, e_ratio)
+    say("9", f"horn {prep.sim.grid.shape} ({prep.sim.pallas_mode} mode): Dmax "
+             f"{dmax:.3f} dBi against Balanis {theory:.3f} dBi, "
+             f"{res.steps_run} steps, energy ratio {e_ratio:.2e}")
+
+
+def stream_kernel_alone(sim, phase, card):
+    """``stream_steps`` against its twin on a random state at ``sim``'s
+    shapes, and both timed on the device."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    ops, T = sim.operands, sim.stream_T
+    wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
+    base = random_state(sim, seed=13)
+    sk, sp = clone_state(base), clone_state(base)
+    del base
+    fdtd_stream.stream_steps(ops, sk, wf)
+    fdtd_stream.stream_steps_plain(ops, sp, wf)
+    torch.cuda.synchronize()
+    err = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
+              enumerate(zip(fields_of(sk), fields_of(sp))))
+    ms = device_ms(lambda: fdtd_stream.stream_steps(ops, sk, wf))
+    # the plain twin's host blocks behind a held stream (it cannot queue
+    # past the sleep kernel), so it is timed by events alone: its ~60
+    # PyTorch ops per step each run longer than the host takes to issue
+    plain_ms = events_ms(lambda: fdtd_stream.stream_steps_plain(ops, sp, wf))
+    rows = ops.probe_idx.shape[0]
+    out = torch.zeros(rows, device=sim.device)
+    probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
+    b_ms, b_by = k2_bound(sim, T)
+    mur, pml = ops.mur is not None, ops.pml is not None
+    _core, _origin, tiles = fdtd_stream.tiling(ops.shape, mur, pml)
+    smem = fdtd_stream.smem_bytes(ops.shape, T, mur, pml)
+    say(phase, f"stream_steps at {sim.grid.shape}, T={T}: kernel == plain, "
+               f"max |err| {err:.3e}; device {ms * 1e3:.1f} us/launch "
+               f"({ms * 1e3 / T:.1f} us/step), plain {plain_ms * 1e3:.1f} us; "
+               f"bound {b_ms * 1e3:.1f} us by {b_by} "
+               f"({b_ms / ms:.2f} of it); {int(np.prod(tiles))} blocks of "
+               f"{smem} B dynamic shared memory; probe_gather "
+               f"{probe_ms * 1e3:.1f} us [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, probe_ms=probe_ms)
+
+
+def phase_stream_times(mixed, mixed_res, mixed_counts, card):
+    """Forced chunk against forced stream, warm, at the tall grid and the
+    mixed scene (chunk, stream, stream, chunk); K2's device time per
+    launch beside its bound; the mixed run's idle share."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    tall_chunk = one_chunk_sim(tall_scene, "MUR", 480, "chunk", decim=48)
+    tall_stream = one_chunk_sim(tall_scene, "MUR", 480, "stream", decim=48)
+    cfg = dataclasses.replace(mixed.cfg, n_steps_max=2000)
+    mixed_stream = dataclasses.replace(mixed, cfg=cfg)
+    mixed_chunk = dataclasses.replace(mixed, cfg=cfg, pallas_mode="chunk",
+                                      stream_T=1)
+    stream_wall = {}
+    for label, chunk_sim, stream_sim in (("tall", tall_chunk, tall_stream),
+                                         ("mixed", mixed_chunk, mixed_stream)):
+        cells = stream_sim.grid.num_cells
+        times = []
+        for sim, impl in ((chunk_sim, fdtd_cuda.kernels),
+                          (stream_sim, fdtd_stream.kernels),
+                          (stream_sim, fdtd_stream.kernels),
+                          (chunk_sim, fdtd_cuda.kernels)):
+            out, t = timed_run(sim, impl)
+            times.append(t)
+        steps = out["steps"]
+        stream_wall[label] = (times[2], steps)
+        rate = [cells * steps / t / 1e6 for t in times]
+        say("10", f"{label} {stream_sim.grid.shape}, {steps} steps (decim "
+                  f"{stream_sim.probe_decim}): chunk {times[0]:.3f} / "
+                  f"{times[3]:.3f} s ({rate[0]:.1f} / {rate[3]:.1f} "
+                  f"Mcell-updates/s), stream T={stream_sim.stream_T} "
+                  f"{times[1]:.3f} / {times[2]:.3f} s ({rate[1]:.1f} / "
+                  f"{rate[2]:.1f} Mcell-updates/s) [{card}]")
+    tall = stream_kernel_alone(tall_stream, "10", card)
+    wall, steps = stream_wall["tall"]
+    busy = (steps // tall_stream.stream_T * tall["ms"]
+            + steps // tall_stream.probe_decim * tall["probe_ms"]) / 1e3
+    say("10", f"tall second stream run: kernels busy {busy:.3f} s of "
+              f"{wall:.3f} s wall, idle share {1 - busy / wall:.2f} [{card}]")
+    k2 = stream_kernel_alone(mixed, "10", card)
+    busy = (mixed_counts["stream_steps"] * k2["ms"]
+            + mixed_counts["probe_gather"] * k2["probe_ms"]) / 1e3
+    wall = mixed_res.wall_time_s
+    say("10", f"mixed main-path run: kernels busy {busy:.3f} s of {wall:.3f} s "
+              f"wall (launches x device time per launch), idle share "
+              f"{1 - busy / wall:.2f} [{card}]")
+    return k2
+
+
+def timed_phase(tag, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(tag, f"phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -392,32 +736,57 @@ def main() -> int:
              f"count {torch.cuda.device_count()}")
     print(card, flush=True)
 
-    # 2. build
-    from fdtd_solver_antennas_tpu_torch.ops import _build, fdtd_cuda
+    # 2. build both libraries at once
+    from fdtd_solver_antennas_tpu_torch.ops import _build, fdtd_cuda, fdtd_stream
 
-    lib_path, build_s, log = _build.build("fdtd_chunk")
-    say("2", f"built {lib_path.name} in {build_s:.1f} s (nvcc "
-             f"{' '.join(_build.NVCC_FLAGS[:2])})")
-    for ln in log.splitlines():
-        if "registers" in ln:
-            say("2", f"ptxas: {ln.strip()}")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(_build.build, name)
+                  for name in ("fdtd_chunk", "fdtd_stream")}
+        builds = {name: f.result() for name, f in builds.items()}
+    for name, (lib_path, build_s, log) in builds.items():
+        say("2", f"built {lib_path.name} in {build_s:.1f} s (nvcc "
+                 f"{' '.join(_build.NVCC_FLAGS[:2])})")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                say("2", f"ptxas {name}: {ln.strip()}")
     fdtd_cuda._library()
+    fdtd_stream._library()
+    say("2", f"phase took {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernel vs plain on the card
-    worst = phase_kernel_vs_plain()
+    # 3. K1 vs plain on the card
+    worst = timed_phase("3", phase_kernel_vs_plain)
     say("3", f"all chunk comparisons agree; worst max |err| {worst:.3e}")
-    per_kernel = phase_each_kernel(one_chunk_sim(canonical_scene, "MUR"))
+    canonical = one_chunk_sim(canonical_scene, "MUR")
+    per_kernel = phase_each_kernel(canonical)
 
-    # 4.-6.
-    prep, res, counts = phase_main_path()
-    phase_golden()
-    phase_times(prep, res, counts, per_kernel, card)
+    # 4.-6. the canonical slice
+    prep, res, counts = timed_phase("4", phase_main_path)
+    timed_phase("5", phase_golden)
+    timed_phase("6", phase_times, prep, res, counts, per_kernel, card)
 
+    # 7.-10. the large-grid slice
+    worst = timed_phase("7", phase_stream_vs_plain, card)
+    say("7", f"all stream comparisons agree; worst max |err| {worst:.3e}")
+    mixed, mixed_res, mixed_counts = timed_phase(
+        "8", phase_mixed_main_path, card)
+    timed_phase("9", phase_horn_golden)
+    k2 = timed_phase("10", phase_stream_times, mixed, mixed_res,
+                     mixed_counts, card)
+
+    keys = ("max_abs_err", "ms", "plain_ms")
     table = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": counts[name],
-         **{k: per_kernel[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
+        {"name": name, "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": counts[name],
+         **{k: per_kernel[name][k] for k in keys},
+         **dict(zip(("bound_ms", "bound_by"), k1_bound(name, canonical))),
+         "library_ms": None}
         for name in fdtd_cuda.KERNELS
+    ] + [
+        {"name": "stream_steps", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": mixed_counts["stream_steps"],
+         **{k: k2[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None}
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

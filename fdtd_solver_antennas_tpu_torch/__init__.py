@@ -7,11 +7,20 @@ hand-written kernels of ``csrc/``; on the CPU it runs their plain PyTorch
 twins (``ops/fdtd_cuda.py``).
 """
 
-from .models.params import Metal, MetalProperties, PatchAntennaParams, metal_defaults
+from .models.params import (
+    HornAntennaParams,
+    Metal,
+    MetalProperties,
+    PatchAntennaParams,
+    metal_defaults,
+)
 from .solvers.base import FDTDSolverResult, SolverPrepared, SolverProbe
+from .solvers.microstrip import FeedDirection
 from .solvers.patch_fixed import prepare_patch_fixed, probe_fdtd, run_prepared_fixed
 
 __all__ = [
+    "FeedDirection",
+    "HornAntennaParams",
     "Metal",
     "MetalProperties",
     "PatchAntennaParams",

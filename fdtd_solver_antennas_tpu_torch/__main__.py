@@ -1,9 +1,9 @@
-"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd ...``.
+"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|horn ...``.
 
-Counterpart of the ``fdtd --solver fixed`` subcommand of
+Counterpart of the ``fdtd --solver fixed`` and ``horn`` subcommands of
 ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
-canonical patch, a JSON summary, ``s11.npz`` and a Touchstone file. It
-draws no plots.
+canonical patch (JSON summary, ``s11.npz`` and a Touchstone file) or of
+a pyramidal horn (JSON summary and ``s11.npz``). It draws no plots.
 """
 
 from __future__ import annotations
@@ -38,7 +38,22 @@ def main(argv=None) -> None:
         "--device", type=str, default="cuda",
         help="'cuda' runs the CUDA kernels, 'cpu' their plain PyTorch twins",
     )
+    h = sub.add_parser("horn", help="Pyramidal horn FDTD: gain pattern + S11")
+    h.add_argument("--frequency-ghz", type=float, required=True)
+    h.add_argument("--throat-a-mm", type=float, required=True)
+    h.add_argument("--throat-b-mm", type=float, required=True)
+    h.add_argument("--aperture-A-mm", type=float, required=True)
+    h.add_argument("--aperture-B-mm", type=float, required=True)
+    h.add_argument("--length-mm", type=float, required=True)
+    h.add_argument("--outdir", type=str, default="outputs")
+    h.add_argument(
+        "--device", type=str, default="cuda",
+        help="'cuda' runs the CUDA kernels, 'cpu' their plain PyTorch twins",
+    )
     args = parser.parse_args(argv)
+    if args.cmd == "horn":
+        _horn(args)
+        return
 
     from .models.params import PatchAntennaParams
     from .post.touchstone import write_touchstone
@@ -86,6 +101,39 @@ def main(argv=None) -> None:
         comments=[f"{args.solver} patch, f0={params.frequency_hz/1e9:g} GHz"],
     )
     print(f"Saved: {ts}")
+
+
+def _horn(args) -> None:
+    """The ``horn`` subcommand: prepare and run, then the JAX CLI's JSON
+    summary and ``s11.npz`` (no plot)."""
+    from .models.params import HornAntennaParams
+    from .solvers.horn import prepare_horn, run_prepared_horn
+
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    hp = HornAntennaParams.from_user_units(
+        frequency_ghz=args.frequency_ghz,
+        throat_a_mm=args.throat_a_mm,
+        throat_b_mm=args.throat_b_mm,
+        aperture_A_mm=args.aperture_A_mm,
+        aperture_B_mm=args.aperture_B_mm,
+        length_mm=args.length_mm,
+    )
+    prep = prepare_horn(hp, device=args.device, verbose=1)
+    if not prep.ok:
+        raise SystemExit(f"prepare failed: {prep.message}")
+    res = run_prepared_horn(prep, frequency_hz=hp.frequency_hz)
+    if not res.ok:
+        raise SystemExit(f"run failed: {res.message}")
+    print(json.dumps({
+        "Dmax_dbi": 10 * np.log10(res.Dmax),
+        "radiation_efficiency": res.radiation_efficiency,
+        "steps": res.steps_run,
+        "mcells_per_s": res.mcells_per_s,
+        "device": res.diagnostics.get("device"),
+    }, indent=2))
+    np.savez(outdir / "s11.npz", freq_hz=res.freq, s11=res.s11, z_in=res.z_in)
+    print(f"Saved: {outdir / 's11.npz'}")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,10 @@
-from .params import Metal, MetalProperties, PatchAntennaParams, metal_defaults
+from .params import (
+    HornAntennaParams,
+    Metal,
+    MetalProperties,
+    PatchAntennaParams,
+    metal_defaults,
+)
 from .scene import (
     PEC,
     Box,
@@ -17,6 +23,7 @@ __all__ = [
     "MetalProperties",
     "metal_defaults",
     "PatchAntennaParams",
+    "HornAntennaParams",
     "Material",
     "PEC",
     "Box",

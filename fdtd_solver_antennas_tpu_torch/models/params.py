@@ -1,4 +1,5 @@
-"""Parameter models for the patch antenna (SI internals, mm/GHz constructors).
+"""Parameter models for the patch and horn antennas (SI internals, mm/GHz
+constructors).
 
 Counterpart of ``fdtd_solver_antennas_tpu/models/params.py`` as plain
 dataclasses: the same field names, the same ``from_user_units``
@@ -152,3 +153,89 @@ class PatchAntennaParams:
     @property
     def W_mm(self) -> Optional[float]:
         return None if self.patch_width_m is None else self.patch_width_m * 1e3
+
+
+@dataclass
+class HornAntennaParams:
+    """Rectangular pyramidal horn antenna parameters (SI units internally).
+
+    TE10 polarization implied (E along b); placement and rotation belong to
+    scene instances, not here.
+    """
+
+    frequency_hz: float
+    throat_a_m: float  # throat width a, broad dimension
+    throat_b_m: float  # throat height b, narrow dimension
+    aperture_A_m: float
+    aperture_B_m: float
+    length_m: float  # horn axial length L
+    metal: MetalProperties = field(
+        default_factory=lambda: dataclasses.replace(metal_defaults[Metal.COPPER])
+    )
+
+    def __post_init__(self) -> None:
+        for name in ("frequency_hz", "throat_a_m", "throat_b_m",
+                     "aperture_A_m", "aperture_B_m", "length_m"):
+            setattr(self, name, float(getattr(self, name)))
+            _require(getattr(self, name) > 0, f"{name} must be > 0")
+
+    @classmethod
+    def from_user_units(
+        cls,
+        *,
+        frequency_ghz: float,
+        throat_a_mm: float,
+        throat_b_mm: float,
+        aperture_A_mm: float,
+        aperture_B_mm: float,
+        length_mm: float,
+        metal: str = "copper",
+    ) -> "HornAntennaParams":
+        return cls(
+            frequency_hz=frequency_ghz * 1e9,
+            throat_a_m=throat_a_mm * 1e-3,
+            throat_b_m=throat_b_mm * 1e-3,
+            aperture_A_m=aperture_A_mm * 1e-3,
+            aperture_B_m=aperture_B_mm * 1e-3,
+            length_m=length_mm * 1e-3,
+            metal=_resolve_metal(metal, None),
+        )
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HornAntennaParams":
+        """Build from the JAX package's ``HornAntennaParams.model_dump()``."""
+        d = dict(d)
+        metal = d.pop("metal", None)
+        if isinstance(metal, dict):
+            metal = MetalProperties(**metal)
+        if metal is not None:
+            d["metal"] = metal
+        return cls(**d)
+
+    def to_dict(self) -> dict:
+        """The ``model_dump()`` layout: plain fields, ``metal`` nested."""
+        return dataclasses.asdict(self)
+
+    @property
+    def frequency_ghz(self) -> float:
+        return self.frequency_hz / 1e9
+
+    @property
+    def throat_a_mm(self) -> float:
+        return self.throat_a_m * 1e3
+
+    @property
+    def throat_b_mm(self) -> float:
+        return self.throat_b_m * 1e3
+
+    @property
+    def aperture_A_mm(self) -> float:
+        return self.aperture_A_m * 1e3
+
+    @property
+    def aperture_B_mm(self) -> float:
+        return self.aperture_B_m * 1e3
+
+    @property
+    def length_mm(self) -> float:
+        return self.length_m * 1e3

@@ -12,9 +12,12 @@ Counterpart of ``fdtd_solver_antennas_tpu/ops/fdtd.py`` (its XLA path):
   matmuls;
 - an energy-decay early exit checked once per chunk.
 
-The step itself is the four kernels of ``ops/fdtd_cuda.py``: on a CUDA
-device the run launches them, on the CPU it runs their plain PyTorch
-twins. There is no other switch. The accumulators and the resumable state
+The step itself is the four kernels of ``ops/fdtd_cuda.py`` ("chunk"
+mode, K1) or, for grids whose working set exceeds the L2, the T-step
+kernel of ``ops/fdtd_stream.py`` ("stream" mode, K2), with K1's
+``probe_gather`` between launches; :func:`resolve_pallas_mode` picks one.
+On a CUDA device the run launches the kernels, on the CPU it runs their
+plain PyTorch twins. There is no other switch. The accumulators and the resumable state
 keep the JAX package's layouts (stacked real/imaginary float32, fields in
 the 3-D grid layout), so a checkpoint carries across in both directions
 (:func:`state_from_numpy`, :func:`state_to_numpy`).
@@ -31,7 +34,7 @@ import torch
 
 from ..models.scene import LumpedPortSpec, Scene
 from ..physics import C0, EPS0, ETA0, MU0
-from . import fdtd_cuda
+from . import fdtd_cuda, fdtd_stream
 from .fdtd_cuda import PSI_KEYS, YeeOperands
 from .mesh import YeeGrid
 from .source import gaussian_excitation, source_active_steps
@@ -87,6 +90,13 @@ class FDTDConfig:
     # Probe/DFT sampling stride. None → the largest D keeping the sampling
     # interval D·dt below 1/(2.5·(f0+fc)); 1 samples every step.
     probe_decimation: int | None = None
+    # Stepping kernels, under the JAX package's names: "chunk" (K1's
+    # kernels, one launch per half-step) or "stream" (K2's, T steps per
+    # launch). None → auto: stream when the working set exceeds the L2.
+    pallas_mode: str | None = None
+    # Leapfrog steps per stream launch. None → the deepest the kernel's
+    # shared-memory tile allows, at most the probe decimation.
+    stream_T: int | None = None
 
     def pml_cells(self) -> int:
         """0 when not a PML boundary, else the slab thickness in cells."""
@@ -190,6 +200,9 @@ class PreparedSimulation:
     face_layout: List[Tuple[int, int, int]]  # (offset, nu, nv) per face
     n_face_slots: int  # T: E (or H) face samples per probe interval
     _coeffs_np: Dict[str, np.ndarray] = None  # host copies of ``coeffs``
+    pallas_mode: str = "chunk"  # resolved stepping kernels: "chunk" | "stream"
+    stream_T: int = 1  # leapfrog steps per stream launch
+    pallas_mode_reason: str = ""
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -233,8 +246,60 @@ class PreparedSimulation:
         ``abort_cb() -> bool`` is checked after every chunk and stops the
         run (``aborted=True``, the state is a valid checkpoint).
         """
-        return run_simulation(self, fdtd_cuda.kernels, resume_state,
+        return run_simulation(self, fdtd_stream.kernels, resume_state,
                               progress_cb, abort_cb)
+
+
+# ---------------------------------------------------------------------------
+# which kernels step the run
+# ---------------------------------------------------------------------------
+
+# The H100's L2 cache. A working set above it comes from device memory at
+# every K1 step; the stream kernel fetches it once per T steps instead.
+L2_BYTES = 50 * 1024 * 1024
+
+
+def working_set_bytes(shape, n_src: int, pml: bool) -> int:
+    """Bytes a step touches: six fields, ca/cb, the source stamps and,
+    under CPML, the twelve ψ."""
+    cells = int(np.prod(shape))
+    return 4 * cells * (12 + int(n_src) + (12 if pml else 0))
+
+
+def resolve_pallas_mode(cfg: FDTDConfig, shape, n_src: int,
+                        probe_decim: int) -> Tuple[str, int, int, str]:
+    """``(mode, stream_T, probe_decim, reason)`` for a run of ``shape``.
+
+    Mirrors the JAX package's ``_resolve_pallas_mode``: ``cfg.pallas_mode``
+    forces "chunk" or "stream"; None picks "stream" when the working set
+    exceeds :data:`L2_BYTES`, else "chunk". In stream mode T is
+    ``cfg.stream_T`` or the deepest the kernel's tile allows, at most the
+    probe decimation, and the decimation is rounded down to a multiple of
+    T. A forced ``stream_T`` that cannot be honoured raises.
+    """
+    forced = cfg.pallas_mode
+    if forced not in (None, "chunk", "stream"):
+        raise ValueError(f"pallas_mode={forced!r}: use None, 'chunk' or 'stream'")
+    mur = cfg.boundary.upper().startswith("MUR")
+    pml = cfg.pml_cells() > 0
+    ws = working_set_bytes(shape, n_src, pml)
+    fits = f"working set {ws / 1e6:.1f} MB, L2 {L2_BYTES / 1e6:.1f} MB"
+    if forced == "chunk" or (forced is None and ws <= L2_BYTES):
+        why = "forced" if forced else "fits the L2"
+        return "chunk", 1, probe_decim, f"chunk kernels ({why}; {fits})"
+    t_max = fdtd_stream.max_T(shape, mur, pml)
+    want = cfg.stream_T
+    if want is not None and not (1 <= want <= t_max and want <= probe_decim):
+        raise ValueError(
+            f"stream_T={want} cannot be honored: the kernel's shared-memory "
+            f"tile allows T <= {t_max} for grid {tuple(shape)} and the probe "
+            f"decimation {probe_decim} bounds it too")
+    T = want or min(t_max, probe_decim)
+    probe_decim = max(T, (probe_decim // T) * T)
+    why = "forced" if forced else "exceeds the L2"
+    core = fdtd_stream.tile_core(mur, pml)
+    return "stream", T, probe_decim, (
+        f"stream kernel ({why}; {fits}) [T={T}, core tile {core}]")
 
 
 # ---------------------------------------------------------------------------
@@ -662,6 +727,8 @@ def build_simulation(
         # 10^-3 in amplitude.
         probe_decim = max(1, int(1.0 / (2.5 * (f0 + fc) * dt)))
     probe_decim = min(probe_decim, max(1, int(cfg.check_every)))
+    mode, stream_T, probe_decim, mode_reason = resolve_pallas_mode(
+        cfg, padded_shape, len({prt.axis for prt in ports}), probe_decim)
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -687,6 +754,9 @@ def build_simulation(
         face_layout=[],
         n_face_slots=0,
         _coeffs_np=coeffs_np,
+        pallas_mode=mode,
+        stream_T=stream_T,
+        pallas_mode_reason=mode_reason,
     )
     gathers = build_probe_gathers(sim)
     sim.face_layout, sim.n_face_slots = gathers[4], gathers[5]
@@ -772,12 +842,14 @@ def state_from_numpy(state, device) -> dict:
 def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
                    progress_cb=None, abort_cb=None) -> dict:
     """The chunk loop of :meth:`PreparedSimulation.run`, stepping with
-    ``impl`` — :data:`fdtd_cuda.kernels` (kernel on CUDA, plain twin on
-    CPU) or :data:`fdtd_cuda.plain` (plain twins everywhere, to compare
-    with the kernels on the card).
+    ``impl`` — :data:`fdtd_stream.kernels` (kernels on CUDA, plain twins
+    on CPU) or :data:`fdtd_stream.plain` (plain twins everywhere, to
+    compare with the kernels on the card). A chunk-mode run also takes
+    :data:`fdtd_cuda.kernels` or :data:`fdtd_cuda.plain`.
 
-    A chunk is ``n_sub`` probe intervals of ``D`` steps. After each
-    interval every probe is sampled into a staging buffer; after each
+    A chunk is ``n_sub`` probe intervals of ``D`` steps: D leapfrog steps
+    in chunk mode, D / T stream launches of T steps in stream mode. After
+    each interval every probe is sampled into a staging buffer; after each
     chunk the samples fold into the DFT accumulators as matmuls, and the
     energy check decides whether to stop (one host sync per chunk).
     """
@@ -785,6 +857,13 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     dev = sim.device
     ops = sim.operands
     decim = int(sim.probe_decim)
+    T_stream = int(sim.stream_T) if sim.pallas_mode == "stream" else 0
+    if T_stream and not hasattr(impl, "stream_steps"):
+        raise ValueError("a stream-mode run needs an impl with stream_steps "
+                         "(fdtd_stream.kernels or fdtd_stream.plain)")
+    if T_stream and decim % T_stream:
+        raise ValueError(f"probe decimation {decim} is not a multiple of "
+                         f"stream_T={T_stream}")
     n_sub = max(1, int(cfg.check_every) // decim)
     chunk = n_sub * decim
     n_chunks_max = int(math.ceil(cfg.n_steps_max / chunk))
@@ -850,9 +929,14 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     while n < cfg.n_steps_max:
         n0 = n
         for j in range(n_sub):
-            for _ in range(decim):
-                fdtd_cuda.leapfrog_step(impl, ops, st, wf[n])
-                n += 1
+            if T_stream:
+                for _ in range(decim // T_stream):
+                    impl.stream_steps(ops, st, wf[n:n + T_stream])
+                    n += T_stream
+            else:
+                for _ in range(decim):
+                    fdtd_cuda.leapfrog_step(impl, ops, st, wf[n])
+                    n += 1
             impl.probe_gather(ops, st, bufs[j])
 
         # DFT flush: sample j sits after step n0 + (j+1)·D — E at that

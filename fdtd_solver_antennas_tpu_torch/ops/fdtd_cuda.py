@@ -73,9 +73,10 @@ class YeeState:
     """The fields a step advances. ``e[parity]`` is the current E;
     ``e_update`` writes ``e[1 - parity]`` and :func:`leapfrog_step` flips
     ``parity``. ψ tuples follow :data:`PSI_KEYS` and are empty without
-    CPML. The kernels update the tensors in place and pack their pointers
-    once per (operands, state) pair, so a state's tensors are never
-    swapped for others."""
+    CPML. These kernels update the tensors in place and pack their
+    pointers once per (operands, state) pair. The stream stepper
+    (``ops/fdtd_stream.py``) writes a second set of tensors, points the
+    state at it and drops the packed pointers."""
 
     e: list  # [(Ex, Ey, Ez), (Ex, Ey, Ez)]
     h: Tuple[torch.Tensor, ...]
@@ -83,6 +84,7 @@ class YeeState:
     psi_h: Tuple[torch.Tensor, ...] = ()
     parity: int = 0
     _cargs: object = None
+    _stream: object = None  # the stream stepper's second field set
 
     @property
     def fields(self) -> Tuple[torch.Tensor, ...]:

@@ -1,0 +1,261 @@
+"""The stream stepper: T leapfrog steps per CUDA launch, and its plain twin.
+
+Counterpart of ``build_pallas_stream_stepper`` in
+``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py`` (the TPU kernel K2), which
+carries the grids whose working set does not fit the chunk kernel. The
+port computes the same T steps with one kernel of ``csrc/fdtd_stream.cu``
+that tiles the grid in 3-D and keeps each tile, with a halo of T cells,
+in shared memory for the T steps:
+
+- :func:`stream_steps`: T = ``len(wf_t)`` leapfrog steps (H, E with source
+  sample ``wf_t[k]`` at inner step k, MUR walls x → y → z), with ψ under
+  CPML. On a CUDA tensor it launches the kernel or raises; on a CPU
+  tensor it runs :func:`stream_steps_plain`, which is T calls of
+  ``fdtd_cuda.leapfrog_step`` with the plain twins.
+
+The engine samples probes between launches with K1's ``probe_gather``.
+``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
+K1. :data:`kernels` and :data:`plain` are the engine's full sets of entry
+points (K1's four and ``stream_steps``) that ``ops/fdtd.py::run_simulation``
+steps with.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from . import fdtd_cuda
+from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+
+KERNELS = ("stream_steps",)
+
+# kernel launches per wrapper; only the wrapper's CUDA branch adds to it
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+# Shared memory one block may use on Hopper (H100/H200), bytes.
+SMEM_LIMIT = 232_448
+# Steps per launch the kernel accepts (the source samples ride in its
+# parameters).
+MAX_T = 8
+# Core tile (x, y, z) per boundary kind: the halo of T cells per side
+# must fit SMEM_LIMIT at the depths the engine uses (T = 4 under MUR and
+# CPML, 5 under PEC).
+_CORE = {"mur": (8, 8, 16), "pec": (8, 8, 16), "pml": (4, 8, 8)}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def tile_core(mur: bool, pml: bool) -> Tuple[int, int, int]:
+    """The core tile the kernel uses for this boundary kind."""
+    return _CORE["pml" if pml else "mur" if mur else "pec"]
+
+
+def smem_bytes(shape, T: int, mur: bool, pml: bool) -> int:
+    """Shared memory of one block: the largest region (core + 2T per axis,
+    clipped to the array) × the arrays it holds (E and H, a second E under
+    MUR, the twelve ψ under CPML). ``csrc/fdtd_stream.cu`` computes the
+    same."""
+    cells = 1
+    for n, c in zip(shape, tile_core(mur, pml)):
+        cells *= min(int(n), c + 2 * int(T))
+    return 4 * cells * (6 + 3 * bool(mur) + 12 * bool(pml))
+
+
+def max_T(shape, mur: bool, pml: bool) -> int:
+    """The deepest T in 1..MAX_T whose tile fits the shared memory."""
+    fits = [t for t in range(1, MAX_T + 1)
+            if smem_bytes(shape, t, mur, pml) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"no stream tile fits {SMEM_LIMIT} bytes for {shape}")
+    return max(fits)
+
+
+def tiling(shape, mur: bool, pml: bool):
+    """``(core, origin, tiles)`` per axis. Tile b covers
+    [b·core − origin, (b+1)·core − origin) ∩ [0, n). Under MUR a wall cell
+    needs its inner neighbour's new E, so no core may be a lone last
+    plane: where n % core == 1 the tiling shifts down by one cell."""
+    core = tile_core(mur, pml)
+    origin = tuple(int(bool(mur) and n % c == 1) for n, c in zip(shape, core))
+    tiles = tuple(-(-(n + o) // c) for n, o, c in zip(shape, origin, core))
+    return core, origin, tiles
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twin (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def stream_steps_plain(ops: YeeOperands, st: YeeState,
+                       wf_t: Sequence[float]) -> None:
+    for s in wf_t:
+        fdtd_cuda.leapfrog_step(fdtd_cuda.plain, ops, st, s)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I3 = ctypes.c_int * 3
+
+
+class _StreamArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct StreamArgs`` in csrc/fdtd_stream.cu."""
+
+    _fields_ = [
+        ("e_in", _P * 3), ("h_in", _P * 3), ("pe_in", _P * 6), ("ph_in", _P * 6),
+        ("e_out", _P * 3), ("h_out", _P * 3), ("pe_out", _P * 6),
+        ("ph_out", _P * 6),
+        ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
+        ("inv_p", _P * 3), ("inv_d", _P * 3),
+        ("bh", _P * 3), ("ch", _P * 3), ("be", _P * 3), ("ce", _P * 3),
+        ("n", _I3), ("q", _I3), ("core", _I3), ("origin", _I3), ("tiles", _I3),
+        ("has_pml", ctypes.c_int), ("has_mur", ctypes.c_int),
+        ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
+    ]
+
+
+_lib = None
+
+
+def _library():
+    """Build (first use) and bind the kernel library."""
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.load("fdtd_stream")
+        for name in ("fdtd_stream_args_size", "fdtd_stream_max_t"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.fdtd_stream_smem_bytes.argtypes = [_P, ctypes.c_int]
+        lib.fdtd_stream_smem_bytes.restype = ctypes.c_longlong
+        lib.fdtd_stream_error_string.argtypes = [ctypes.c_int]
+        lib.fdtd_stream_error_string.restype = ctypes.c_char_p
+        lib.fdtd_stream_steps.argtypes = [_P, _P, ctypes.c_int, _P]
+        lib.fdtd_stream_steps.restype = ctypes.c_int
+        if lib.fdtd_stream_args_size() != ctypes.sizeof(_StreamArgs):
+            raise RuntimeError(
+                f"StreamArgs layout mismatch: C {lib.fdtd_stream_args_size()} "
+                f"bytes, ctypes {ctypes.sizeof(_StreamArgs)}")
+        if lib.fdtd_stream_max_t() != MAX_T:
+            raise RuntimeError("MAX_T differs between C and Python")
+        _lib = lib
+    return _lib
+
+
+def _field_set(st: YeeState):
+    """The state's current fields as one tuple: E3, H3, ψ_e6, ψ_h6."""
+    return (*st.e[st.parity], *st.h, *st.psi_e, *st.psi_h)
+
+
+class _StreamBuffers:
+    """The state's second set of fields and the packed arguments of both
+    launch directions (set 0 → set 1, set 1 → set 0). A launch reads one
+    set and writes the other; the wrapper then points the state at the
+    set it wrote. Kept on the state (``YeeState._stream``); the structs
+    must outlive every launch."""
+
+    def __init__(self, ops: YeeOperands, st: YeeState):
+        dev = ops.device
+        shp = tuple(ops.shape)
+        first = _field_set(st)
+        self.ops = ops
+        self.sets = (first, tuple(torch.empty_like(t) for t in first))
+        self.args = tuple(self._pack(ops, self.sets[i], self.sets[1 - i], dev, shp)
+                          for i in range(2))
+        self.addr = tuple(ctypes.addressof(a) for a in self.args)
+
+    @staticmethod
+    def _pack(ops, src, dst, dev, shp) -> _StreamArgs:
+        if ops.mur is not None and min(ops.grid_shape) < 3:
+            raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+        pml = ops.pml is not None
+        a = _StreamArgs()
+        for m in range(3):
+            a.e_in[m] = _ptr(src[m], shp, dev=dev)
+            a.h_in[m] = _ptr(src[3 + m], shp, dev=dev)
+            a.e_out[m] = _ptr(dst[m], shp, dev=dev)
+            a.h_out[m] = _ptr(dst[3 + m], shp, dev=dev)
+            a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
+            a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
+            a.src[m] = _ptr(ops.src[m], shp, dev=dev)
+            a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
+            a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
+        if pml:
+            for m in range(3):
+                for key in ("bh", "ch", "be", "ce"):
+                    getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
+            for m in range(6):
+                a.pe_in[m] = _ptr(src[6 + m], shp, dev=dev)
+                a.ph_in[m] = _ptr(src[12 + m], shp, dev=dev)
+                a.pe_out[m] = _ptr(dst[6 + m], shp, dev=dev)
+                a.ph_out[m] = _ptr(dst[12 + m], shp, dev=dev)
+        core, origin, tiles = tiling(shp, ops.mur is not None, pml)
+        a.n[:] = shp
+        a.q[:] = ops.grid_shape
+        a.core[:] = core
+        a.origin[:] = origin
+        a.tiles[:] = tiles
+        a.has_pml = int(pml)
+        a.has_mur = int(ops.mur is not None)
+        a.dtmu = ops.dtmu
+        for b in range(3):
+            for side in range(2):
+                a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+        return a
+
+    def current(self, ops: YeeOperands, st: YeeState):
+        """Index of the set the state points at, or None if neither."""
+        if ops is not self.ops:
+            return None
+        now = _field_set(st)
+        for i, s in enumerate(self.sets):
+            if len(s) == len(now) and all(x is y for x, y in zip(s, now)):
+                return i
+        return None
+
+
+def stream_steps(ops: YeeOperands, st: YeeState, wf_t: Sequence[float]) -> None:
+    """Advance ``st`` by T = ``len(wf_t)`` leapfrog steps; ``wf_t[k]`` is the
+    source sample of inner step k. On CUDA the state afterwards points at
+    the other of its two field sets (its earlier tensors hold the fields
+    from before the launch)."""
+    T = len(wf_t)
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"stream_steps takes 1..{MAX_T} samples, got {T}")
+    if not _on_cuda(st.h[0]):
+        return stream_steps_plain(ops, st, wf_t)
+    lib = _library()
+    buf = st._stream
+    cur = buf.current(ops, st) if buf is not None else None
+    if cur is None:
+        buf = st._stream = _StreamBuffers(ops, st)
+        cur = 0
+    samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
+    code = lib.fdtd_stream_steps(buf.addr[cur], ctypes.addressof(samples), T,
+                                 _stream(ops.device))
+    if code != 0:
+        msg = lib.fdtd_stream_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel stream_steps failed: {msg} ({code})")
+    launches["stream_steps"] += 1
+    nxt = buf.sets[1 - cur]
+    st.e[st.parity] = nxt[0:3]
+    st.h = nxt[3:6]
+    if ops.pml is not None:
+        st.psi_e = nxt[6:12]
+        st.psi_h = nxt[12:18]
+    st._cargs = None  # K1's packed pointers named the other set
+
+
+# the engine's entry points: K1's four and the stream stepper, through the
+# kernels (CUDA tensors) or always through the plain twins
+kernels = SimpleNamespace(**vars(fdtd_cuda.kernels), stream_steps=stream_steps)
+plain = SimpleNamespace(**vars(fdtd_cuda.plain), stream_steps=stream_steps_plain)

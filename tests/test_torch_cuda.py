@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene
-from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
     FDTDConfig,
     build_simulation,
@@ -117,6 +117,96 @@ def test_each_kernel_equals_its_twin_bit_for_bit(cuda, boundary):
         for x, y in zip((*a.e[1], *a.h, *a.psi_e, *a.psi_h),
                         (*b.e[1], *b.h, *b.psi_e, *b.psi_h), strict=True):
             assert torch.equal(x, y)
+
+
+def _stream_sim(boundary, tall=False, T=None, n_steps=120, mode="stream"):
+    """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines),
+    forced onto the stream kernel with ``T`` steps per launch."""
+    mb = MeshBuilder()
+    pml = boundary.startswith("PML")
+    span = 52 if pml else 40
+    mb.add_line("x", [-span, span, 0.0, -6.0])
+    mb.add_line("y", [-span * 0.75, span * 0.75, 0.0])
+    if tall:
+        mb.add_line("z", np.linspace(-20, 30, 131))
+    else:
+        mb.add_line("z", [-20, 30])
+        mb.add_line("z", np.linspace(0, 1.6, 3))
+    grid = mb.build(4.0 if pml else 5.0)
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
+    scene.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
+    scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
+    scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
+    cfg = FDTDConfig(n_steps_max=n_steps, check_every=40, end_criteria=1e-30,
+                     boundary=boundary, probe_decimation=4,
+                     pallas_mode=mode, stream_T=T if mode == "stream" else None)
+    return build_simulation(
+        scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
+        port_freqs_hz=np.linspace(2e9, 3e9, 7),
+        nf_freqs_hz=np.array([2.45e9]))
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("boundary,tall", [("MUR", False), ("PEC", False),
+                                           ("PML_4", False), ("MUR", True)])
+def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
+    """One launch of T steps on a random state against T plain steps;
+    the launch writes the state's other field set."""
+    sim = _stream_sim(boundary, tall, T)
+    ops = sim.operands
+    base = _random_state(sim, cuda, seed=5)
+    wf = [0.37, -0.21, 0.55, 0.13][:T]
+    a, b = _clone(base), _clone(base)
+    before = a.h[0]
+    fdtd_stream.reset_launch_counts()
+    fdtd_stream.stream_steps(ops, a, wf)
+    assert fdtd_stream.launches == {"stream_steps": 1}
+    assert a.h[0] is not before
+    fdtd_stream.stream_steps_plain(ops, b, wf)
+    torch.cuda.synchronize()
+    for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                    (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_stream_run_matches_plain_and_chunk(cuda, boundary):
+    """A forced stream run through the kernel equals the same run through
+    the plain twins and the chunk kernels; every launch is counted."""
+    sim = _stream_sim(boundary, T=4)
+    assert sim.pallas_mode == "stream" and sim.stream_T == 4
+    fdtd_stream.reset_launch_counts()
+    fdtd_cuda.reset_launch_counts()
+    k = run_simulation(sim, fdtd_stream.kernels)
+    assert fdtd_stream.launches["stream_steps"] == 120 // 4
+    assert fdtd_cuda.launches["probe_gather"] == 120 // 4
+    assert fdtd_cuda.launches["h_update"] == 0
+    p = run_simulation(sim, fdtd_stream.plain)
+    c = run_simulation(_stream_sim(boundary, mode="chunk"), fdtd_cuda.kernels)
+    for ref in (p, c):
+        assert k["steps"] == ref["steps"] == 120
+        for fa, fb in zip(k["fields"], ref["fields"], strict=True):
+            _close(fa, fb)
+        for key in ("uf", "if_"):
+            _close(k[key], ref[key])
+        for key in ("nf_e", "nf_h"):
+            for a, b in zip(k[key], ref[key], strict=True):
+                _close(a, b)
+        for grp in ("psi_e", "psi_h"):
+            for name, v in ref["state"][grp].items():
+                _close(k["state"][grp][name], v)
+
+
+def test_stream_shared_memory_formula_matches_the_kernel(cuda):
+    sim = _stream_sim("MUR", tall=True, T=4)
+    st = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=False)
+    fdtd_stream.stream_steps(sim.operands, st, [0.0] * 4)
+    lib = fdtd_stream._library()
+    for T in range(1, fdtd_stream.MAX_T + 1):
+        for i in range(2):
+            assert lib.fdtd_stream_smem_bytes(st._stream.addr[i], T) == \
+                fdtd_stream.smem_bytes(sim.padded_shape, T, True, False)
 
 
 def test_wrappers_reject_bad_operands(cuda):
