@@ -8,8 +8,9 @@ Phases, each printing its own lines and its seconds; any failure raises
 and the script exits non-zero without printing a result:
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: compile ``csrc/fdtd_chunk.cu`` and ``csrc/fdtd_stream.cu`` with
-   nvcc for sm_90a, both at once; print ptxas registers and memory;
+2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_stream.cu`` and
+   ``csrc/fdtd_shard.cu`` with nvcc for sm_90a, all at once; print ptxas
+   registers and memory;
 3. K1 vs plain: one 500-step chunk of the small test scene and of the
    canonical patch under MUR, PEC and CPML, through the CUDA kernels and
    through their plain PyTorch twins on the same card; then each kernel
@@ -27,7 +28,18 @@ and the script exits non-zero without printing a result:
    kernel, with launch counts; then 2,000 steps kernel vs plain;
 9. horn golden: the 12 GHz pyramidal horn against Balanis's 14.06 dBi;
 10. times: forced chunk against forced stream at the tall grid and the
-    mixed scene, K2's device time per launch beside its bound.
+    mixed scene, K2's device time per launch beside its bound;
+11. K3 vs plain: ``shard_steps`` alone against ``shard_steps_plain`` on
+    random slab states (owned rows): the canonical slab at one rank
+    (m = 120) for a K = 32 and a remainder window under MUR, PEC, an
+    interior rank of a 4-way split under MUR and PML_4, a straddle slab;
+    device time per launch beside its bound;
+12. main path (explicit slice): the canonical patch through
+    ``build_explicit_run`` on one card (one rank), with launch counts,
+    held to the chunk-mode run of phase 4, S11 and Dmax from the port's
+    post-processing;
+13. times: the JAX bench's pinned explicit run (160,000 steps) beside
+    chunk mode on the same scene.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -52,10 +64,13 @@ K1_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_chunk.cu"
 K1_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1376"
 K2_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_stream.cu"
 K2_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:468"
+K3_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_shard.cu"
+K3_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1953"
 # NVIDIA H100 SXM data sheet peaks (at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 JAX_MIXED_STEPS = 22_500  # the JAX package's step count for the mixed scene
+PINNED_STEPS = 160_000  # bench.py's explicit-path run (bench_shard_kernel_1dev)
 
 
 def say(phase: str, msg: str) -> None:
@@ -332,11 +347,12 @@ def phase_each_kernel(sim, phase="3"):
             plain_host_ms=host_ms(lambda: call(fc.plain, sp, out_p)),
         )
         result[name] = dict(max_abs_err=err, **t)
+        b_ms, b_by = k1_bound(name, sim)
         say(phase, f"{name} at {sim.grid.shape}: kernel == plain, max |err| "
                    f"{err:.3e}; device {t['ms'] * 1e3:.1f} us/launch (plain "
-                   f"{t['plain_ms'] * 1e3:.1f} us), host clock "
-                   f"{t['host_ms'] * 1e3:.1f} us/call (plain "
-                   f"{t['plain_host_ms'] * 1e3:.1f} us)")
+                   f"{t['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+                   f"by {b_by}), host clock {t['host_ms'] * 1e3:.1f} us/call "
+                   f"(plain {t['plain_host_ms'] * 1e3:.1f} us)")
     return result
 
 
@@ -465,8 +481,11 @@ def k1_bound(name, sim):
     if name == "mur_faces":  # axis 0: 2 walls x 2 components x y-z plane
         wall_cells = 4 * ny * nz
         return bound(4 * 4 * wall_cells, 3 * wall_cells)
-    rows, k = ops.probe_idx.shape  # probe_gather: index, weight, value
-    return bound(rows * k * 12 + rows * 4, 2 * rows * k)
+    # probe_gather: index, weight and value of each table entry this run's
+    # data needs (the table's zero-weight padding is not work), rows out
+    rows = ops.probe_idx.shape[0]
+    used = int(torch.count_nonzero(ops.probe_w))
+    return bound(used * 12 + rows * 4, 2 * used)
 
 
 def k2_bound(sim, T):
@@ -653,6 +672,7 @@ def stream_kernel_alone(sim, phase, card):
     out = torch.zeros(rows, device=sim.device)
     probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
     b_ms, b_by = k2_bound(sim, T)
+    probe_b_ms, probe_b_by = k1_bound("probe_gather", sim)
     mur, pml = ops.mur is not None, ops.pml is not None
     _core, _origin, tiles = fdtd_stream.tiling(ops.shape, mur, pml)
     smem = fdtd_stream.smem_bytes(ops.shape, T, mur, pml)
@@ -662,7 +682,8 @@ def stream_kernel_alone(sim, phase, card):
                f"bound {b_ms * 1e3:.1f} us by {b_by} "
                f"({b_ms / ms:.2f} of it); {int(np.prod(tiles))} blocks of "
                f"{smem} B dynamic shared memory; probe_gather "
-               f"{probe_ms * 1e3:.1f} us [{card}]")
+               f"{probe_ms * 1e3:.1f} us (bound {probe_b_ms * 1e3:.2f} us by "
+               f"{probe_b_by}) [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, probe_ms=probe_ms)
 
@@ -715,6 +736,210 @@ def phase_stream_times(mixed, mixed_res, mixed_counts, card):
     return k2
 
 
+def straddle_scene():
+    """13 x lines: at 4 ranks (Px = 16, n = 4) the top MUR wall, row 12,
+    is the first row of the last block (tests/test_torch_shard.py)."""
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+    mb = MeshBuilder()
+    mb.add_line("x", np.linspace(0, 12, 13))
+    mb.add_line("y", np.linspace(0, 15, 16))
+    mb.add_line("z", np.linspace(0, 19, 20))
+    grid = mb.build(1.0)
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [3, 4, 8], [9, 11, 10], 0)
+    scene.add_metal_box("patch", [4, 6, 10], [8, 10, 10], priority=10)
+    scene.add_metal_box("gnd", [3, 4, 8], [9, 11, 8], priority=10)
+    scene.add_lumped_port(1, 50.0, [6, 8, 8], [6, 8, 10], direction="z")
+    return scene, grid, 2.45e9, 1.225e9
+
+
+def shard_sim(make_scene, boundary, n_dev, decim):
+    """A simulation padded for an x-split over ``n_dev`` ranks."""
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
+
+    scene, grid, f0, fc = make_scene()
+    cfg = FDTDConfig(n_steps_max=480, check_every=480, end_criteria=1e-30,
+                     boundary=boundary, probe_decimation=decim)
+    return build_simulation(
+        scene, grid, f0=f0, fc=fc, cfg=cfg, device="cuda",
+        port_freqs_hz=np.linspace(2e9, 3e9, 51), nf_freqs_hz=np.array([2.45e9]),
+        nf_margin_cells=2, pad_multiple=(n_dev, 1, 1))
+
+
+def k3_bound(sh, k):
+    """Bound of one ``shard_steps`` launch of k steps on slab ``sh``: the
+    fields (and ψ) in and out once, ca/cb and the sources in once; k
+    steps of H and E updates over the slab's cells, as ``k2_bound``
+    counts them."""
+    ops = sh.ops
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    nbytes = 4 * n * (6 + 6 + n_src + 6 + 2 * psi)
+    return bound(nbytes, k * n * (48 + 4 * psi))
+
+
+def phase_shard_vs_plain(card):
+    """K3 against its twin: one launch on a seeded random slab state per
+    case, owned rows compared; the canonical one-rank launch timed."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_shard
+
+    cases = (  # (label, scene, boundary, n_dev, rank, decim, window)
+        ("canonical", canonical_scene, "MUR", 1, 0, 89, "K"),
+        ("canonical", canonical_scene, "MUR", 1, 0, 89, "rem"),
+        ("canonical", canonical_scene, "PEC", 1, 0, 89, "K"),
+        ("canonical", canonical_scene, "MUR", 4, 2, 89, "K"),
+        ("canonical", canonical_scene, "PML_4", 4, 1, 89, "rem"),
+        ("straddle", straddle_scene, "MUR", 4, 3, 4, "K"),
+    )
+    worst = 0.0
+    timed = None
+    for label, make, boundary, n_dev, rank, decim, window in cases:
+        sim = shard_sim(make, boundary, n_dev, decim)
+        sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank)
+        k = sh.K if window == "K" else sh.rem
+        rng = np.random.default_rng(19 + rank)
+        sk = sh.new_state()
+        for t in (*sk.e[0], *sk.e[1], *sk.h, *sk.psi_e, *sk.psi_h):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        sp = clone_state(sk)
+        wf = list(rng.uniform(-1.0, 1.0, k))
+        fdtd_shard.shard_steps(sh.ops, sk, wf)
+        fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
+        torch.cuda.synchronize()
+        assert sk.parity == sp.parity
+        err = max(close(f"shard_steps {i}", a[sh.owned], b[sh.owned])
+                  for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
+        same = all(torch.equal(a[sh.owned], b[sh.owned])
+                   for a, b in zip(fields_of(sk), fields_of(sp)))
+        worst = max(worst, err)
+        extra = ""
+        if timed is None and label == "canonical" and boundary == "MUR":
+            ms = device_ms(lambda: fdtd_shard.shard_steps(sh.ops, sk, wf), reps=10)
+            plain_ms = events_ms(lambda: fdtd_shard.shard_steps_plain(sh.ops, sp, wf),
+                                 reps=2, warmup=1)
+            b_ms, b_by = k3_bound(sh, k)
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         blocks=fdtd_shard.grid_blocks(), m=sh.m, k=k)
+            extra = (f"; device {ms * 1e3:.1f} us/launch ({ms * 1e3 / k:.2f} "
+                     f"us/step), plain {plain_ms * 1e3:.1f} us, bound "
+                     f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} of it), "
+                     f"{timed['blocks']} blocks of "
+                     f"{fdtd_shard._library().fdtd_shard_threads()} threads")
+        say("11", f"{label} {sim.grid.shape} {boundary}, {n_dev} rank(s), rank "
+                  f"{rank}: slab {sh.ops.shape}, K={sh.K} W={sh.W} rem={sh.rem}, "
+                  f"window {k}: shard_steps == plain on owned rows "
+                  f"(bit-equal {same}), max |err| {err:.3e}{extra} [{card}]")
+    return dict(max_abs_err=worst, **timed)
+
+
+def phase_explicit_main_path(chunk_res, card):
+    """The explicit slice: the canonical patch through
+    ``build_explicit_run`` on one card, as bench.py drives the JAX
+    package's explicit path, with S11 and Dmax from the port's post."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
+        prepare_patch_fixed, run_prepared_fixed)
+
+    params = canonical_params()
+    prep = prepare_patch_fixed(params, device="cuda")
+    assert prep.ok, prep.message
+    run = build_explicit_run(prep.sim)
+    sh = run.stepper
+    outs = []
+
+    def explicit():
+        outs.append(run())
+        return outs[-1]
+
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    res = run_prepared_fixed(prep, frequency_hz=params.frequency_hz, verbose=0,
+                             run=explicit)
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
+              **fdtd_shard.launches}
+    assert res.ok, res.message
+    out = outs[0]
+    D = prep.sim.probe_decim
+    intervals = out["steps"] // D
+    per_interval = -(-D // sh.K)
+    assert out["steps"] % D == 0, (out["steps"], D)
+    assert counts["shard_steps"] == intervals * per_interval, counts
+    assert counts["probe_gather"] == intervals, counts
+    for name in ("h_update", "e_update", "mur_faces", "stream_steps"):
+        assert counts[name] == 0, counts
+    assert out["steps"] == chunk_res.steps_run, (out["steps"], chunk_res.steps_run)
+    ref = prep.sim.run()
+    err = compare_runs(out, ref, "explicit vs chunk")
+    same = all(torch.equal(a, b) for a, b in zip(out["fields"], ref["fields"]))
+    s11_db = 20 * np.log10(np.maximum(np.abs(res.s11), 1e-12))
+    dmax_dbi = 10 * np.log10(res.Dmax)
+    assert np.all(np.isfinite(res.intensity)) and np.isfinite(res.Dmax)
+    assert 5.0 < dmax_dbi < 8.0, f"Dmax {dmax_dbi:.2f} dBi outside 5-8"
+    assert s11_db.min() < -8.0, f"|S11|min {s11_db.min():.2f} dB not < -8"
+    say("12", f"canonical patch {prep.sim.grid.shape} through build_explicit_run "
+              f"on {prep.sim.device}, one rank: slab {sh.ops.shape}, K={sh.K}, "
+              f"D={D} ({per_interval} launches per interval); {out['steps']} "
+              f"steps (chunk mode {chunk_res.steps_run}) in {res.wall_time_s:.3f} s, "
+              f"{res.mcells_per_s:.1f} Mcell-updates/s; == chunk mode (uf, if_, "
+              f"nf_e, nf_h, fields; fields bit-equal {same}), max |err| "
+              f"{err:.3e}; f_res {res.f_res_hz / 1e9:.4f} GHz, |S11|min "
+              f"{s11_db.min():.2f} dB, Dmax {dmax_dbi:.3f} dBi; launches "
+              f"{counts} [{card}]")
+    return res, counts
+
+
+def phase_explicit_times(k3, explicit_res, explicit_counts, card):
+    """The JAX bench's pinned explicit run: 160,000 steps on one card,
+    explicit path and chunk mode on the same scene (explicit, chunk,
+    chunk, explicit)."""
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import prepare_patch_fixed
+
+    prep = prepare_patch_fixed(canonical_params(), device="cuda",
+                               n_steps_max=PINNED_STEPS, end_criteria=1e-30)
+    assert prep.ok, prep.message
+    sim = prep.sim
+    run = build_explicit_run(sim)
+    cells = sim.grid.num_cells
+    times = {}
+    for label, fn in (("explicit", run), ("chunk", sim.run),
+                      ("chunk", sim.run), ("explicit", run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(label, []).append(time.perf_counter() - t0)
+        steps = int(out["steps"])
+        assert PINNED_STEPS <= steps <= 161_000, steps
+        assert np.all(np.isfinite(out["uf"]))
+    for label, ts in times.items():
+        rates = [cells * steps / t / 1e6 for t in ts]
+        say("13", f"pinned canonical run {sim.grid.shape}, {steps} steps, "
+                  f"{label}: {ts[0]:.3f} / {ts[1]:.3f} s = {rates[0]:.1f} / "
+                  f"{rates[1]:.1f} Mcell-updates/s, "
+                  f"{min(ts) / steps * 1e6:.2f} us/step [{card}]")
+    # busy time: steps x the device time per step of a full K-step launch
+    # (a remainder launch carries fewer steps, so launches x the K-step
+    # time would overcount it)
+    per_step = k3["ms"] / k3["k"] / 1e3
+    wall = min(times["explicit"])
+    launches = steps // sim.probe_decim * -(-sim.probe_decim // run.kernel_window)
+    busy = steps * per_step
+    say("13", f"pinned explicit run: {launches} shard_steps launches, {steps} "
+              f"steps x {per_step * 1e6:.2f} us = {busy:.3f} s busy of "
+              f"{wall:.3f} s wall, idle share {1 - busy / wall:.2f} [{card}]")
+    busy = explicit_res.steps_run * per_step
+    say("13", f"explicit main-path run (phase 12): {explicit_counts['shard_steps']} "
+              f"launches, shard_steps busy {busy:.3f} s of "
+              f"{explicit_res.wall_time_s:.3f} s wall, idle share "
+              f"{1 - busy / explicit_res.wall_time_s:.2f} [{card}]")
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -736,13 +961,14 @@ def main() -> int:
              f"count {torch.cuda.device_count()}")
     print(card, flush=True)
 
-    # 2. build both libraries at once
-    from fdtd_solver_antennas_tpu_torch.ops import _build, fdtd_cuda, fdtd_stream
+    # 2. build the three libraries at once
+    from fdtd_solver_antennas_tpu_torch.ops import (
+        _build, fdtd_cuda, fdtd_shard, fdtd_stream)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(_build.build, name)
-                  for name in ("fdtd_chunk", "fdtd_stream")}
+    libs = ("fdtd_chunk", "fdtd_stream", "fdtd_shard")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        builds = {name: pool.submit(_build.build, name) for name in libs}
         builds = {name: f.result() for name, f in builds.items()}
     for name, (lib_path, build_s, log) in builds.items():
         say("2", f"built {lib_path.name} in {build_s:.1f} s (nvcc "
@@ -752,6 +978,7 @@ def main() -> int:
                 say("2", f"ptxas {name}: {ln.strip()}")
     fdtd_cuda._library()
     fdtd_stream._library()
+    fdtd_shard._library()
     say("2", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 vs plain on the card
@@ -774,6 +1001,14 @@ def main() -> int:
     k2 = timed_phase("10", phase_stream_times, mixed, mixed_res,
                      mixed_counts, card)
 
+    # 11.-13. the explicit slice
+    k3 = timed_phase("11", phase_shard_vs_plain, card)
+    say("11", f"all shard comparisons agree; worst max |err| {k3['max_abs_err']:.3e}")
+    explicit_res, explicit_counts = timed_phase(
+        "12", phase_explicit_main_path, res, card)
+    timed_phase("13", phase_explicit_times, k3, explicit_res, explicit_counts,
+                card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": K1_SOURCE,
@@ -786,7 +1021,11 @@ def main() -> int:
         {"name": "stream_steps", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": mixed_counts["stream_steps"],
          **{k: k2[k] for k in (*keys, "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": None},
+        {"name": "shard_steps", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": explicit_counts["shard_steps"],
+         **{k: k3[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None},
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

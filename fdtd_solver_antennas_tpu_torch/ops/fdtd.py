@@ -41,8 +41,6 @@ from .source import gaussian_excitation, source_active_steps
 from .voxelize import cell_to_edge_average, voxelize
 
 _AXIS_OF = {"x": 0, "y": 1, "z": 2}
-# cells between the outer wall (or the CPML slab) and the Huygens box
-_NF_MARGIN_CELLS = 4
 
 
 def resolve_device(device) -> torch.device:
@@ -200,6 +198,10 @@ class PreparedSimulation:
     face_layout: List[Tuple[int, int, int]]  # (offset, nu, nv) per face
     n_face_slots: int  # T: E (or H) face samples per probe interval
     _coeffs_np: Dict[str, np.ndarray] = None  # host copies of ``coeffs``
+    # host copies of (inv_p, inv_d, mur_coef, pml): the 1-D spacing
+    # profiles per axis, the MUR coefficients ((x0, x1), (y0, y1), (z0, z1))
+    # or None, and the CPML profiles {axis: {"node"|"half": (b, c)}} or None
+    _aux: tuple = None
     pallas_mode: str = "chunk"  # resolved stepping kernels: "chunk" | "stream"
     stream_T: int = 1  # leapfrog steps per stream launch
     pallas_mode_reason: str = ""
@@ -603,14 +605,24 @@ def build_simulation(
     cfg: FDTDConfig = FDTDConfig(),
     port_freqs_hz: Optional[np.ndarray] = None,
     nf_freqs_hz: Optional[np.ndarray] = None,
+    nf_margin_cells: int = 4,
+    pad_multiple: Tuple[int, int, int] = (1, 1, 1),
 ) -> PreparedSimulation:
     """Voxelize, build the coefficients and probes, and move them to
-    ``device`` ('cuda' runs the kernels, 'cpu' the plain twins)."""
+    ``device`` ('cuda' runs the kernels, 'cpu' the plain twins).
+
+    ``nf_margin_cells`` is the gap between the outer wall (or the CPML
+    slab, plus 3) and the Huygens box. ``pad_multiple`` zero-pads every
+    3-D array so each axis is a multiple of the given value; pad cells
+    carry zero ca/cb, zero inverse spacings and no source, so their fields
+    stay zero and the physics is unchanged. The explicit multi-device run
+    (``parallel/explicit.py``) needs ``Px`` divisible by its rank count.
+    """
     dev = resolve_device(device)
     if scene.msl_ports:
         raise NotImplementedError(
             "MSL ports are not ported to fdtd_solver_antennas_tpu_torch yet")
-    Px, Py, Pz = grid.shape
+    Qx, Qy, Qz = grid.shape
     dt = grid.courant_dt(cfg.courant)
 
     vox = voxelize(scene, grid)
@@ -672,7 +684,13 @@ def build_simulation(
         unit = (cb_col / (prt.spec.resistance * area)).astype(np.float32)
         prt.src_col = (unit * prt.spec.excite).astype(np.float32)
 
-    padded_shape = tuple(grid.shape)
+    # --- zero padding for shard divisibility ----------------------------
+    padded_shape = tuple(
+        int(-(-grid.shape[a] // pad_multiple[a]) * pad_multiple[a])
+        for a in range(3))
+    if padded_shape != tuple(grid.shape):
+        pads = [(0, padded_shape[a] - grid.shape[a]) for a in range(3)]
+        coeffs_np = {k: np.pad(v, pads) for k, v in coeffs_np.items()}
 
     # --- inverse spacing vectors -------------------------------------------
     inv_p, inv_d = {}, {}
@@ -702,8 +720,8 @@ def build_simulation(
     pml = _cpml_profiles(grid, padded_shape, dt, npml) if npml > 0 else None
 
     # --- NF2FF faces ----------------------------------------------------------
-    m = max(_NF_MARGIN_CELLS, npml + 3)  # keep the box out of the PML
-    faces = _build_faces(grid, (m, Px - 1 - m, m, Py - 1 - m, m, Pz - 1 - m))
+    m = max(nf_margin_cells, npml + 3)  # keep the box out of the PML
+    faces = _build_faces(grid, (m, Qx - 1 - m, m, Qy - 1 - m, m, Qz - 1 - m))
 
     # --- excitation ------------------------------------------------------------
     n_src = source_active_steps(f0, fc, dt)
@@ -757,11 +775,12 @@ def build_simulation(
         pallas_mode=mode,
         stream_T=stream_T,
         pallas_mode_reason=mode_reason,
+        _aux=(inv_p, inv_d, mur_coef, pml),
     )
     gathers = build_probe_gathers(sim)
     sim.face_layout, sim.n_face_slots = gathers[4], gathers[5]
-    probe_idx, probe_w = _probe_table(gathers, Px * Py * Pz)
-    src = build_src_mats(sim, Px, Py, Pz)
+    probe_idx, probe_w = _probe_table(gathers, int(np.prod(padded_shape)))
+    src = build_src_mats(sim, *padded_shape)
     sim.operands = YeeOperands(
         shape=padded_shape,
         grid_shape=tuple(grid.shape),
@@ -839,6 +858,96 @@ def state_from_numpy(state, device) -> dict:
 # the time loop
 # ---------------------------------------------------------------------------
 
+class ProbeDFT:
+    """One chunk's probe samples and the DFT sums they fold into.
+
+    ``bufs[j]`` is the staging row of probe interval j, in the probe
+    table's row order (port V, port I, face E, face H); :meth:`flush`
+    folds the chunk's samples into ``acc`` as matmuls. Shared by the
+    single-device loop and the explicit multi-device run, whose ranks
+    keep partial sums.
+    """
+
+    def __init__(self, sim: PreparedSimulation, n_sub: int, dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        n_ports, T = n_probe_rows(sim), sim.n_face_slots
+        n_pf, n_nf = len(sim.port_freqs_hz), len(sim.nf_freqs_hz)
+        self.decim = int(sim.probe_decim)
+        self.acc = {
+            "uf": torch.zeros((2, n_ports, n_pf), **f32),
+            "if_": torch.zeros((2, n_ports, n_pf), **f32),
+            "nf_e": torch.zeros((2, n_nf, T), **f32),
+            "nf_h": torch.zeros((2, n_nf, T), **f32),
+        }
+        self.w_port = torch.from_numpy(
+            (2 * math.pi * sim.port_freqs_hz).astype(np.float32)).to(dev)
+        self.w_nf = torch.from_numpy(
+            (2 * math.pi * sim.nf_freqs_hz).astype(np.float32)).to(dev)
+        self.j_idx = torch.arange(n_sub, **f32)
+        # float32 scalars as Python floats: exact, and no host→device copy
+        self.dt32 = float(np.float32(sim.dt))
+        self.half_dt32 = float(np.float32(0.5 * sim.dt))
+        self.bufs = torch.zeros((n_sub, 2 * n_ports + 2 * T), **f32)
+        b = self.bufs
+        self._v, self._i = b[:, :n_ports], b[:, n_ports:2 * n_ports]
+        self._fe, self._fh = b[:, 2 * n_ports:2 * n_ports + T], b[:, 2 * n_ports + T:]
+
+    def flush(self, n0: int) -> None:
+        """Fold the chunk that started after step ``n0`` into ``acc``.
+
+        Sample j sits after step n0 + (j+1)·D — E at that time, H half a
+        step earlier. Angles in float32, as the JAX package forms them;
+        layout (re, −im).
+        """
+        acc = self.acc
+        t_e = ((self.j_idx + 1.0) * self.decim + float(n0)) * self.dt32
+        t_h = t_e - self.half_dt32
+
+        def dft(w, t):
+            ang = w[:, None] * t[None, :]
+            return torch.cos(ang), torch.sin(ang)
+
+        ce, se = dft(self.w_port, t_e)
+        ch, sh = dft(self.w_port, t_h)
+        b_v, b_i = self._v, self._i
+        acc["uf"] += torch.stack([ce @ b_v, -(se @ b_v)]).transpose(1, 2)
+        acc["if_"] += torch.stack([ch @ b_i, -(sh @ b_i)]).transpose(1, 2)
+        ce, se = dft(self.w_nf, t_e)
+        ch, sh = dft(self.w_nf, t_h)
+        acc["nf_e"] += torch.stack([ce @ self._fe, -(se @ self._fe)])
+        acc["nf_h"] += torch.stack([ch @ self._fh, -(sh @ self._fh)])
+
+
+def chunk_geometry(sim: PreparedSimulation) -> Tuple[int, int, int, int]:
+    """``(D, n_sub, chunk, n_chunks_max)``: the probe decimation, probe
+    intervals per chunk, steps per chunk and the most chunks a run takes."""
+    decim = int(sim.probe_decim)
+    n_sub = max(1, int(sim.cfg.check_every) // decim)
+    chunk = n_sub * decim
+    return decim, n_sub, chunk, int(math.ceil(sim.cfg.n_steps_max / chunk))
+
+
+def padded_waveform(sim: PreparedSimulation) -> List[float]:
+    """The source samples as Python floats, zero-padded to whole chunks
+    past any start: a chunk that overruns ``n_steps_max`` injects zeros,
+    never replays source samples."""
+    _decim, _n_sub, chunk, n_chunks_max = chunk_geometry(sim)
+    wf = np.zeros(max(n_chunks_max * chunk, len(sim.waveform)) + chunk,
+                  np.float32)
+    wf[: len(sim.waveform)] = sim.waveform
+    return wf.tolist()
+
+
+def resume_decim_scale(resume_state, decim: int) -> float:
+    """Factor for a checkpoint's DFT sums: they were built at the
+    checkpoint's probe decimation, so old/new keeps the dft_dt = dt·decim
+    factor a correct integral (1 for an untagged checkpoint)."""
+    old = resume_state.get("decim")
+    if old is None:
+        return 1.0
+    return float(np.float32(int(_to_numpy(old))) / np.float32(decim))
+
+
 def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
                    progress_cb=None, abort_cb=None) -> dict:
     """The chunk loop of :meth:`PreparedSimulation.run`, stepping with
@@ -856,7 +965,7 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     cfg = sim.cfg
     dev = sim.device
     ops = sim.operands
-    decim = int(sim.probe_decim)
+    decim, n_sub, _chunk, _n_chunks = chunk_geometry(sim)
     T_stream = int(sim.stream_T) if sim.pallas_mode == "stream" else 0
     if T_stream and not hasattr(impl, "stream_steps"):
         raise ValueError("a stream-mode run needs an impl with stream_steps "
@@ -864,34 +973,19 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     if T_stream and decim % T_stream:
         raise ValueError(f"probe decimation {decim} is not a multiple of "
                          f"stream_T={T_stream}")
-    n_sub = max(1, int(cfg.check_every) // decim)
-    chunk = n_sub * decim
-    n_chunks_max = int(math.ceil(cfg.n_steps_max / chunk))
-    n_ports = n_probe_rows(sim)
-    T = sim.n_face_slots
     f32 = dict(dtype=torch.float32, device=dev)
 
     st = fdtd_cuda.new_state(sim.padded_shape, dev, ops.pml is not None)
-    acc = {
-        "uf": torch.zeros((2, n_ports, len(sim.port_freqs_hz)), **f32),
-        "if_": torch.zeros((2, n_ports, len(sim.port_freqs_hz)), **f32),
-        "nf_e": torch.zeros((2, len(sim.nf_freqs_hz), T), **f32),
-        "nf_h": torch.zeros((2, len(sim.nf_freqs_hz), T), **f32),
-    }
+    probes = ProbeDFT(sim, n_sub, dev)
+    acc = probes.acc
     n = 0
     e_max = torch.zeros((), **f32)
     ratio = 1.0
     if resume_state is not None:
+        scale = resume_decim_scale(resume_state, decim)
         rs = state_from_numpy(sim._adapt_resume_arrays(resume_state), dev)
-        old = rs.pop("decim", None)
-        if old is not None:
-            # the sums were built at the old cadence; scale them so the
-            # dft_dt = dt·decim factor stays a correct integral
-            scale = float(np.float32(old) / np.float32(decim))
-            for k in acc:
-                rs[k] = rs[k] * scale
         for k in acc:
-            acc[k].copy_(rs[k])
+            acc[k].copy_(rs[k] * scale if scale != 1.0 else rs[k])
         for dst, src in zip(st.fields, rs["fields"]):
             dst.copy_(src)
         if ops.pml is not None and rs["psi_e"]:
@@ -903,26 +997,8 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
         e_max.fill_(rs["e_max"])
         ratio = rs["e_ratio"]
 
-    # zero-padded to whole chunks past any start: a chunk that overruns
-    # n_steps_max injects zeros, never replays source samples
-    wf = np.zeros(max(n_chunks_max * chunk, len(sim.waveform)) + chunk,
-                  np.float32)
-    wf[: len(sim.waveform)] = sim.waveform
-    wf = wf.tolist()
-
-    w_port = torch.from_numpy(
-        (2 * math.pi * sim.port_freqs_hz).astype(np.float32)).to(dev)
-    w_nf = torch.from_numpy(
-        (2 * math.pi * sim.nf_freqs_hz).astype(np.float32)).to(dev)
-    j_idx = torch.arange(n_sub, **f32)
-    # float32 scalars as Python floats: exact, and no host→device copy
-    dt32 = float(np.float32(sim.dt))
-    half_dt32 = float(np.float32(0.5 * sim.dt))
-    bufs = torch.zeros((n_sub, ops.probe_idx.shape[0]), **f32)
-    b_v = bufs[:, :n_ports]
-    b_i = bufs[:, n_ports:2 * n_ports]
-    b_fe = bufs[:, 2 * n_ports:2 * n_ports + T]
-    b_fh = bufs[:, 2 * n_ports + T:]
+    wf = padded_waveform(sim)
+    bufs = probes.bufs
     end = np.float32(cfg.end_criteria)
 
     aborted = False
@@ -938,25 +1014,7 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
                     fdtd_cuda.leapfrog_step(impl, ops, st, wf[n])
                     n += 1
             impl.probe_gather(ops, st, bufs[j])
-
-        # DFT flush: sample j sits after step n0 + (j+1)·D — E at that
-        # time, H half a step earlier. Angles in float32, as the JAX
-        # package forms them; layout (re, −im).
-        t_e = ((j_idx + 1.0) * decim + float(n0)) * dt32
-        t_h = t_e - half_dt32
-
-        def dft(w, t):
-            ang = w[:, None] * t[None, :]
-            return torch.cos(ang), torch.sin(ang)
-
-        ce, se = dft(w_port, t_e)
-        ch, sh = dft(w_port, t_h)
-        acc["uf"] += torch.stack([ce @ b_v, -(se @ b_v)]).transpose(1, 2)
-        acc["if_"] += torch.stack([ch @ b_i, -(sh @ b_i)]).transpose(1, 2)
-        ce, se = dft(w_nf, t_e)
-        ch, sh = dft(w_nf, t_h)
-        acc["nf_e"] += torch.stack([ce @ b_fe, -(se @ b_fe)])
-        acc["nf_h"] += torch.stack([ch @ b_fh, -(sh @ b_fh)])
+        probes.flush(n0)
 
         # energy-decay check over the current E
         energy = sum((e * e).sum() for e in st.e[st.parity])

@@ -62,6 +62,10 @@ class YeeOperands:
     pml: Optional[Dict[str, Tuple[torch.Tensor, ...]]]  # bh ch be ce
     probe_idx: torch.Tensor  # (rows, k) int32
     probe_w: torch.Tensor  # (rows, k) float32
+    # A rank's x-slab (``ops/fdtd_shard.py``): the slab rows of the MUR x
+    # walls, global rows 0 and Qx−1, which may lie outside the slab. None
+    # for a whole grid, whose x walls sit at rows 0 and grid_shape[0]−1.
+    mur_x_rows: Optional[Tuple[int, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -85,6 +89,7 @@ class YeeState:
     parity: int = 0
     _cargs: object = None
     _stream: object = None  # the stream stepper's second field set
+    _shard: object = None  # the shard stepper's packed arguments
 
     @property
     def fields(self) -> Tuple[torch.Tensor, ...]:

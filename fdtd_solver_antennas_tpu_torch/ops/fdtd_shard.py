@@ -1,0 +1,373 @@
+"""The shard stepper: K leapfrog steps of one rank's x-slab per CUDA launch.
+
+Counterpart of ``build_pallas_shard_stepper`` in
+``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py`` (the TPU kernel K3), the
+per-device kernel of the explicit multi-device run
+(``parallel/explicit.py``). The grid is cut along x into ``n_dev`` blocks
+of ``n = Px // n_dev`` rows. Each rank keeps its block with a halo of
+``W`` rows on each side, a slab of ``m = n + 2W`` rows, and advances it
+K steps per launch. Dependencies travel one row per step, so after K ≤ W
+steps the owned rows ``[W, W + n)`` are exact; the caller then restocks
+the halos from the neighbours (one exchange per K steps).
+
+- :func:`build_shard_stepper`: the geometry (n, K, W, m and the
+  remainder ``rem = D % K``) and the slab's operands, a
+  :class:`~.fdtd_cuda.YeeOperands` of shape ``(m, Py, Pz)``: ca/cb, x
+  profiles and source stamps cut from the host copies, rows outside
+  ``[0, Px)`` zero; a slab-local probe table; the slab rows of the MUR x
+  walls (the JAX package's one-hot ``m0``/``mt`` columns).
+- :func:`shard_steps`: ``len(wf_window)`` steps (K, or the remainder) in
+  one launch of ``csrc/fdtd_shard.cu``; on a CPU tensor
+  :func:`shard_steps_plain`, the same steps built from K1's plain twins
+  with the x walls placed by ``mur_x_rows``. A CUDA tensor always goes to
+  the kernel; a failed build or launch raises.
+
+``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
+K1. The TPU kernel's VMEM picker (``shard_vmem_bytes``) does not carry
+over: K defaults to ``min(n, D, 32)``. K only sets how often halos are
+exchanged; the owned rows come out the same for any K.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import fdtd_cuda
+from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+
+KERNELS = ("shard_steps",)
+
+# kernel launches per wrapper; only the wrapper's CUDA branch adds to it
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+# Steps per launch the kernel accepts (the source samples ride in its
+# parameters).
+MAX_K = 64
+# Largest z extent of the slab route; above it the JAX package takes its
+# sharded stream kernel, which the port does not have yet.
+MAX_PZ = 128
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def shard_geometry(Px: int, Qx: int, D: int, n_dev: int, mur: bool,
+                   k_steps: Optional[int] = None) -> Tuple[int, int, int, int, int]:
+    """``(n, K, W, m, rem)`` of an x-split of ``Px`` rows over ``n_dev``
+    ranks, D steps per probe interval.
+
+    K is ``k_steps`` or ``min(n, D, 32)``. When the top MUR wall (global
+    row Qx−1) is a block's first row, its fix at the K-th step reads the
+    lowest halo row, which edge effects reach after K steps: then
+    K ≤ n − 1 and the halo is one row wider, W = K + 1.
+    """
+    if Px % n_dev:
+        raise ValueError(
+            f"padded x extent {Px} not divisible by {n_dev} ranks; build the "
+            f"simulation with pad_multiple=({n_dev}, 1, 1)")
+    n = Px // n_dev
+    if n < 2:
+        raise ValueError(f"need >= 2 rows per rank (Px={Px}, {n_dev} ranks)")
+    straddle = mur and (Qx - 1) % n == 0
+    K = int(k_steps) if k_steps else min(n, D, 32)
+    if straddle:
+        K = min(K, n - 1)
+    if not 1 <= K <= min(n, D, MAX_K):
+        raise ValueError(
+            f"k_steps={K} must be in [1, min(n={n}, D={D}, {MAX_K})]")
+    W = K + 1 if straddle else K
+    return n, K, W, n + 2 * W, D % K
+
+
+@dataclasses.dataclass
+class ShardStepper:
+    """One rank's slab: geometry and operands on one device."""
+
+    n_dev: int
+    rank: int
+    n: int  # owned rows
+    K: int  # steps per launch
+    W: int  # halo rows per side
+    m: int  # slab rows, n + 2W
+    rem: int  # D % K: steps of the last launch of a probe interval
+    ops: YeeOperands
+
+    @property
+    def owned(self) -> slice:
+        """Slab rows this rank owns."""
+        return slice(self.W, self.W + self.n)
+
+    @property
+    def rows(self) -> slice:
+        """Global rows this rank owns."""
+        return slice(self.rank * self.n, (self.rank + 1) * self.n)
+
+    def new_state(self) -> YeeState:
+        return fdtd_cuda.new_state(self.ops.shape, self.ops.device,
+                                   self.ops.pml is not None)
+
+
+def _slab_rows(ga: np.ndarray, rank: int, n: int, W: int, m: int) -> np.ndarray:
+    """Global (Px, …) rows → this rank's halo-extended (m, …) rows; rows
+    outside [0, Px) are zero (out-of-domain fields are zero, and so must
+    their update coefficients be)."""
+    ga = np.asarray(ga, np.float32)
+    out = np.zeros((m,) + ga.shape[1:], np.float32)
+    g0 = rank * n - W
+    s0, s1 = max(0, g0), min(ga.shape[0], g0 + m)
+    out[s0 - g0:s1 - g0] = ga[s0:s1]
+    return out
+
+
+def _slab_probe_table(idx: np.ndarray, w: np.ndarray, shape, rank: int,
+                      n: int, W: int, m: int):
+    """The global probe table (flat indices into the (Px, Py, Pz) stack
+    [Ex Ey Ez Hx Hy Hz]) → indices into this rank's (m, Py, Pz) slab stack.
+    Entries on rows the rank does not own get index 0 and weight 0, so the
+    rank's samples are partial sums (the JAX package's
+    ``_localize_gathers``)."""
+    Px, Py, Pz = shape
+    plane = Py * Pz
+    idx = idx.astype(np.int64)
+    comp, rest = np.divmod(idx, Px * plane)
+    i, jk = np.divmod(rest, plane)
+    own = (i >= rank * n) & (i < (rank + 1) * n)
+    local = (comp * m + W + i - rank * n) * plane + jk
+    return (np.where(own, local, 0).astype(np.int32),
+            np.where(own, w, 0.0).astype(np.float32))
+
+
+def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
+                        device=None) -> ShardStepper:
+    """The slab of ``rank`` of an x-split over ``n_dev`` ranks, with its
+    operands on ``device`` (default ``sim.device``). Everything is cut on
+    the host from ``sim._coeffs_np`` and ``sim._aux``; only the slab goes
+    to the device."""
+    from .fdtd import _probe_table, build_probe_gathers, build_src_mats
+
+    Px, Py, Pz = sim.padded_shape
+    if Pz > MAX_PZ:
+        raise ValueError(f"Pz={Pz} > {MAX_PZ}: not the shard kernel's route")
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} outside [0, {n_dev})")
+    Qx = sim.grid.shape[0]
+    mur = sim.cfg.boundary.upper().startswith("MUR")
+    n, K, W, m, rem = shard_geometry(Px, Qx, int(sim.probe_decim), n_dev,
+                                     mur, k_steps)
+    dev = torch.device(device) if device is not None else sim.device
+    inv_p, inv_d, mur_coef, pml = sim._aux
+
+    def rows(a):
+        return _slab_rows(a, rank, n, W, m)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def axis_vec(prof, a):  # x profiles are cut to the slab
+        return to_dev(rows(prof) if a == 0 else prof)
+
+    coeffs = {k: to_dev(rows(v)) for k, v in sim._coeffs_np.items()}
+    src = build_src_mats(sim, Px, Py, Pz)
+    probe_idx, probe_w = _probe_table(build_probe_gathers(sim), Px * Py * Pz)
+    probe_idx, probe_w = _slab_probe_table(probe_idx, probe_w, (Px, Py, Pz),
+                                           rank, n, W, m)
+    g0 = rank * n - W  # global row of slab row 0
+    ops = YeeOperands(
+        shape=(m, Py, Pz),
+        grid_shape=tuple(sim.grid.shape),
+        dtmu=sim.operands.dtmu,
+        inv_p=tuple(axis_vec(inv_p[a], a) for a in range(3)),
+        inv_d=tuple(axis_vec(inv_d[a], a) for a in range(3)),
+        ca=tuple(coeffs["ca_" + c] for c in ("ex", "ey", "ez")),
+        cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")),
+        src=tuple(to_dev(rows(src[a])) if a in src else None for a in range(3)),
+        mur=mur_coef,
+        pml=None if pml is None else {
+            key: tuple(axis_vec(pml[a][kind][j], a) for a in range(3))
+            for key, kind, j in (("bh", "half", 0), ("ch", "half", 1),
+                                 ("be", "node", 0), ("ce", "node", 1))
+        },
+        probe_idx=to_dev(probe_idx),
+        probe_w=to_dev(probe_w),
+        mur_x_rows=(0 - g0, Qx - 1 - g0),
+    )
+    return ShardStepper(n_dev=n_dev, rank=rank, n=n, K=K, W=W, m=m, rem=rem,
+                        ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twin (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def mur_x_rows_plain(ops: YeeOperands, st: YeeState) -> None:
+    """The MUR x walls of a slab at rows ``ops.mur_x_rows``, skipped when
+    outside the slab; a neighbour past the slab edge reads 0."""
+    Eo = st.e[st.parity]
+    En = st.e[1 - st.parity]
+    m = ops.shape[0]
+    for side, wall in enumerate(ops.mur_x_rows):
+        if not 0 <= wall < m:
+            continue
+        nb = wall - 1 if side else wall + 1
+        c = ops.mur[0][side]
+        for comp in (1, 2):
+            if 0 <= nb < m:
+                eo_nb, en_nb = Eo[comp][nb], En[comp][nb]
+            else:
+                eo_nb = en_nb = torch.zeros_like(Eo[comp][wall])
+            En[comp][wall].copy_(eo_nb + c * (en_nb - Eo[comp][wall]))
+
+
+def shard_steps_plain(ops: YeeOperands, st: YeeState,
+                      wf_window: Sequence[float]) -> None:
+    """``len(wf_window)`` leapfrog steps of a slab: H, E with source
+    sample ``wf_window[k]``, then the MUR walls x (at ``mur_x_rows``), y,
+    z, each reading the old E."""
+    for s in wf_window:
+        fdtd_cuda.h_update_plain(ops, st)
+        fdtd_cuda.e_update_plain(ops, st, s)
+        if ops.mur is not None:
+            mur_x_rows_plain(ops, st)
+            fdtd_cuda.mur_faces_plain(ops, st, 1)
+            fdtd_cuda.mur_faces_plain(ops, st, 2)
+        st.parity ^= 1
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+
+
+class _ShardArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct ShardArgs`` in csrc/fdtd_shard.cu."""
+
+    _fields_ = [
+        ("e", _P * 6), ("h", _P * 3), ("psi_e", _P * 6), ("psi_h", _P * 6),
+        ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
+        ("inv_p", _P * 3), ("inv_d", _P * 3),
+        ("bh", _P * 3), ("ch", _P * 3), ("be", _P * 3), ("ce", _P * 3),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("qy", ctypes.c_int), ("qz", ctypes.c_int),
+        ("x_wall", ctypes.c_int * 2),
+        ("has_pml", ctypes.c_int), ("has_mur", ctypes.c_int),
+        ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
+        ("wf", ctypes.c_float * MAX_K),
+    ]
+
+
+_lib = None
+
+
+def _library():
+    """Build (first use) and bind the kernel library."""
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.load("fdtd_shard")
+        for name in ("fdtd_shard_args_size", "fdtd_shard_max_k",
+                     "fdtd_shard_threads"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.fdtd_shard_grid_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.fdtd_shard_grid_blocks.restype = ctypes.c_int
+        lib.fdtd_shard_error_string.argtypes = [ctypes.c_int]
+        lib.fdtd_shard_error_string.restype = ctypes.c_char_p
+        lib.fdtd_shard_steps.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
+        lib.fdtd_shard_steps.restype = ctypes.c_int
+        if lib.fdtd_shard_args_size() != ctypes.sizeof(_ShardArgs):
+            raise RuntimeError(
+                f"ShardArgs layout mismatch: C {lib.fdtd_shard_args_size()} "
+                f"bytes, ctypes {ctypes.sizeof(_ShardArgs)}")
+        if lib.fdtd_shard_max_k() != MAX_K:
+            raise RuntimeError("MAX_K differs between C and Python")
+        _lib = lib
+    return _lib
+
+
+def grid_blocks() -> int:
+    """Blocks of the cooperative launch: as many as the card keeps
+    resident at once (one launch must hold every block)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    code = lib.fdtd_shard_grid_blocks(ctypes.byref(out))
+    if code != 0:
+        msg = lib.fdtd_shard_error_string(code).decode()
+        raise RuntimeError(f"shard_steps occupancy query failed: {msg} ({code})")
+    return out.value
+
+
+def _cuda_args(ops: YeeOperands, st: YeeState) -> _ShardArgs:
+    """The packed kernel arguments of (ops, st), built once per pair and
+    kept on the state; the kernel updates the state's tensors in place,
+    so the pointers stay valid across launches and halo restocks."""
+    cached = st._shard
+    if cached is not None and cached[0] is ops:
+        return cached[1]
+    if ops.mur_x_rows is None:
+        raise ValueError("shard_steps needs slab operands (build_shard_stepper)")
+    dev = ops.device
+    shp = tuple(ops.shape)
+    if ops.mur is not None and min(ops.grid_shape) < 3:
+        raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+    a = _ShardArgs()
+    for p in range(2):
+        for m in range(3):
+            a.e[3 * p + m] = _ptr(st.e[p][m], shp, dev=dev)
+    for m in range(3):
+        a.h[m] = _ptr(st.h[m], shp, dev=dev)
+        a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
+        a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
+        a.src[m] = _ptr(ops.src[m], shp, dev=dev)
+        a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
+        a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
+    if ops.pml is not None:
+        for m in range(3):
+            for key in ("bh", "ch", "be", "ce"):
+                getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
+        for m in range(6):
+            a.psi_e[m] = _ptr(st.psi_e[m], shp, dev=dev)
+            a.psi_h[m] = _ptr(st.psi_h[m], shp, dev=dev)
+    a.nx, a.ny, a.nz = shp
+    a.qy, a.qz = ops.grid_shape[1:]
+    a.x_wall[:] = ops.mur_x_rows
+    a.has_pml = int(ops.pml is not None)
+    a.has_mur = int(ops.mur is not None)
+    a.dtmu = ops.dtmu
+    for b in range(3):
+        for side in range(2):
+            a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+    st._shard = (ops, a)
+    return a
+
+
+def shard_steps(ops: YeeOperands, st: YeeState,
+                wf_window: Sequence[float]) -> None:
+    """Advance a slab state by ``len(wf_window)`` leapfrog steps in one
+    launch; ``wf_window[k]`` is the source sample of step k. The kernel
+    updates the state's tensors in place; ``st.parity`` names the E
+    buffer that holds the result."""
+    k = len(wf_window)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"shard_steps takes 1..{MAX_K} samples, got {k}")
+    if not _on_cuda(st.h[0]):
+        return shard_steps_plain(ops, st, wf_window)
+    lib = _library()
+    a = _cuda_args(ops, st)
+    a.wf[:k] = [float(s) for s in wf_window]
+    code = lib.fdtd_shard_steps(ctypes.addressof(a), st.parity, k,
+                                _stream(ops.device))
+    if code != 0:
+        msg = lib.fdtd_shard_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel shard_steps failed: {msg} ({code})")
+    launches["shard_steps"] += 1
+    st.parity ^= k & 1

@@ -239,14 +239,18 @@ def nf2ff_transform(
     theta_deg: np.ndarray,
     phi_deg: np.ndarray,
     center_m: np.ndarray | None = None,
-    device="cpu",
+    device="cuda",
 ) -> FarField:
     """Transform accumulated Huygens-box DFTs to the far field.
 
     ``faces`` are ``ops.fdtd.FaceRuntime``; ``nf_e[i]``/``nf_h[i]`` are the
     (nf, 2, nu, nv) complex accumulators for face i (tangential u, v
-    components in face order). The radiation integrals run on ``device``.
+    components in face order). The radiation integrals run on ``device``:
+    the card by default, where asking for CUDA without one raises.
     """
+    from ..ops.fdtd import resolve_device
+
+    device = resolve_device(device)
     nf_e = [_face_complex(a) for a in nf_e]
     nf_h = [_face_complex(a) for a in nf_h]
     freq_hz = np.atleast_1d(np.asarray(freq_hz, float))

@@ -167,17 +167,26 @@ def run_prepared_fixed(
     verbose: int = 1,
     progress_cb=None,
     abort_cb=None,
+    run=None,
 ) -> FDTDSolverResult:
     """Run the prepared simulation and extract the dBi pattern grid:
     NF2FF at the resonance, dBi via 20·log10(E/Emax) + 10·log10(Dmax),
-    plus the S11 sweep from the port DFTs."""
+    plus the S11 sweep from the port DFTs.
+
+    ``run`` replaces ``sim.run`` with another runner of the same
+    simulation that returns the same output dict, such as
+    ``parallel.build_explicit_run(prepared.sim)``; the callbacks apply to
+    ``sim.run`` only."""
     try:
         if not prepared.ok or prepared.sim is None:
             return FDTDSolverResult(False, prepared.message)
         sim = prepared.sim
 
         t_start = time.perf_counter()
-        out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
+        if run is not None:
+            out = run()
+        else:
+            out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
         steps = int(out["steps"])
         wall = time.perf_counter() - t_start  # out["uf"] is on the host
         if out.get("aborted"):

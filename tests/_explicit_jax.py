@@ -1,0 +1,45 @@
+"""The JAX package's side of the explicit-path tests: its simulations of
+the scenes in ``_explicit_ranks.py`` and its explicit run on a mesh of
+the first n virtual CPU devices, with the shard kernel in interpret mode."""
+
+import functools
+
+import jax
+import numpy as np
+
+from fdtd_solver_antennas_tpu.models.scene import Scene
+from fdtd_solver_antennas_tpu.ops.fdtd import FDTDConfig, build_simulation
+from fdtd_solver_antennas_tpu.ops.mesh import MeshBuilder
+from fdtd_solver_antennas_tpu.parallel import build_explicit_run, make_device_mesh
+
+from _explicit_ranks import build_kwargs, controls, scene
+
+
+def jax_sim(kind, boundary, n_dev, **ctl):
+    sc, grid = scene(MeshBuilder, Scene, kind)
+    cfg = FDTDConfig(use_pallas=False, **controls(boundary, **ctl))
+    return build_simulation(sc, grid, cfg=cfg, **build_kwargs(n_dev))
+
+
+def jax_explicit(kind, boundary, n_dev, resume_state=None, **ctl):
+    mesh = make_device_mesh((n_dev,), ("x",), devices=jax.devices()[:n_dev])
+    run = build_explicit_run(jax_sim(kind, boundary, n_dev, **ctl), mesh,
+                             use_kernel=True)
+    return run(resume_state=resume_state)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_refs(kind, boundary, n_dev, ctl=()):
+    """(single-device run, explicit run) of the JAX package; ``ctl`` as
+    sorted (key, value) pairs."""
+    ctl = dict(ctl)
+    return (jax_sim(kind, boundary, n_dev, **ctl).run(),
+            jax_explicit(kind, boundary, n_dev, **ctl))
+
+
+def numpy_state(state) -> dict:
+    """A JAX state as numpy arrays."""
+    return {k: (tuple(np.asarray(f) for f in v) if k == "fields" else
+                {kk: np.asarray(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else np.asarray(v))
+            for k, v in state.items()}

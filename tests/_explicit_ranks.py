@@ -1,0 +1,185 @@
+"""Scenes and the rank worker of the explicit-path tests.
+
+The worker runs in processes started by ``torch.multiprocessing.spawn``,
+which import this module by name, so it imports nothing of JAX: the test
+files that hold the port against the JAX package import JAX themselves.
+"""
+
+from datetime import timedelta
+
+import numpy as np
+
+FREQS = dict(port_freqs_hz=np.linspace(2e9, 3e9, 7),
+             nf_freqs_hz=np.array([2.45e9]))
+N_STEPS = 120
+
+
+def scene(mesh_builder, scene_cls, kind):
+    """``small``: the scene of tests/test_sharding.py::_build (22×21×21);
+    ``straddle``: a 13-line x axis, so that at 4 ranks (Px = 16, n = 4)
+    the top MUR wall, row 12, is the first row of the last block."""
+    mb = mesh_builder()
+    sc = scene_cls()
+    if kind == "small":
+        mb.add_line("x", [-40, 40, 0.0, -6.0])
+        mb.add_line("y", [-40, 40, 0.0])
+        mb.add_line("z", [-20, 30])
+        mb.add_line("z", np.linspace(0, 1.6, 3))
+        grid = mb.build(4.0)
+        sc.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
+        sc.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
+        sc.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
+        sc.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
+    else:
+        mb.add_line("x", np.linspace(0, 12, 13))
+        mb.add_line("y", np.linspace(0, 15, 16))
+        mb.add_line("z", np.linspace(0, 19, 20))
+        grid = mb.build(1.0)
+        sc.add_material_box("sub", 4.3, 0.005, [3, 4, 8], [9, 11, 10], 0)
+        sc.add_metal_box("patch", [4, 6, 10], [8, 10, 10], priority=10)
+        sc.add_metal_box("gnd", [3, 4, 8], [9, 11, 8], priority=10)
+        sc.add_lumped_port(1, 50.0, [6, 8, 8], [6, 8, 10], direction="z")
+    return sc, grid
+
+
+def controls(boundary, n_steps=N_STEPS, decim=10, check_every=60):
+    return dict(n_steps_max=n_steps, check_every=check_every,
+                end_criteria=1e-30, boundary=boundary, probe_decimation=decim)
+
+
+def build_kwargs(n_dev):
+    return dict(f0=2.45e9, fc=1.225e9, nf_margin_cells=2,
+                pad_multiple=(n_dev, 1, 1), **FREQS)
+
+
+def port_sim(kind, boundary, n_dev, **ctl):
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
+    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+    sc, grid = scene(MeshBuilder, Scene, kind)
+    return build_simulation(sc, grid, cfg=FDTDConfig(**controls(boundary, **ctl)),
+                            device="cpu", **build_kwargs(n_dev))
+
+
+# ---------------------------------------------------------------------------
+# outputs and checkpoints through .npz files
+# ---------------------------------------------------------------------------
+
+_STATE_KEYS = ("uf", "if_", "nf_e", "nf_h", "n", "e_max", "e_ratio", "decim")
+
+
+def _state_arrays(st) -> dict:
+    arrs = {f"field{i}": np.asarray(f) for i, f in enumerate(st["fields"])}
+    for grp in ("psi_e", "psi_h"):
+        arrs.update({f"{grp}:{k}": np.asarray(v)
+                     for k, v in (st.get(grp) or {}).items()})
+    for k in _STATE_KEYS:
+        if st.get(k) is not None:
+            arrs[f"state:{k}"] = np.asarray(st[k])
+    return arrs
+
+
+def save_out(path, out):
+    """A run's output surface and its state as numpy arrays."""
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import state_to_numpy
+
+    arrs = _state_arrays(state_to_numpy(out["state"]))
+    arrs["uf"], arrs["if_"] = out["uf"], out["if_"]
+    for key in ("nf_e", "nf_h"):
+        for i, a in enumerate(out[key]):
+            arrs[f"{key}{i}"] = a
+    np.savez(path, **arrs)
+
+
+def load_state(npz) -> dict:
+    """A checkpoint written by :func:`save_out` or :func:`spawn_run`, as
+    either package resumes it."""
+    st = {"fields": tuple(npz[f"field{i}"] for i in range(6))}
+    for grp in ("psi_e", "psi_h"):
+        st[grp] = {k.split(":")[1]: npz[k] for k in npz.files
+                   if k.startswith(grp + ":")}
+    for k in _STATE_KEYS:
+        if f"state:{k}" in npz.files:
+            st[k] = npz[f"state:{k}"]
+    return st
+
+
+def load_out(path) -> dict:
+    npz = np.load(path)
+    n_faces = sum(k.startswith("nf_e") and k[4:].isdigit() for k in npz.files)
+    st = load_state(npz)
+    return dict(
+        fields=st["fields"], uf=npz["uf"], if_=npz["if_"],
+        nf_e=[npz[f"nf_e{i}"] for i in range(n_faces)],
+        nf_h=[npz[f"nf_h{i}"] for i in range(n_faces)],
+        steps=int(st["n"]), e_ratio=float(st["e_ratio"]), state=st,
+    )
+
+
+def assert_close_surface(out, ref, rtol, atol_rel):
+    """The output surfaces of two runs agree: same steps; uf, if_, nf_e,
+    nf_h, e_ratio, fields and ψ at ``rtol`` and ``atol_rel``·max|ref|."""
+
+    def close(a, b, what):
+        a, b = np.asarray(a), np.asarray(b)
+        atol = atol_rel * max(float(np.abs(b).max()), 1e-20)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=what)
+
+    assert int(out["steps"]) == int(ref["steps"])
+    close(out["e_ratio"], float(ref["e_ratio"]), "e_ratio")
+    close(out["uf"], ref["uf"], "uf")
+    close(out["if_"], ref["if_"], "if_")
+    for key in ("nf_e", "nf_h"):
+        for i, (a, b) in enumerate(zip(out[key], ref[key], strict=True)):
+            close(a, b, f"{key}[{i}]")
+    for i, (a, b) in enumerate(zip(out["fields"], ref["fields"], strict=True)):
+        close(a, b, f"field {i}")
+    for grp in ("psi_e", "psi_h"):
+        theirs = ref["state"].get(grp) or {}
+        assert set(out["state"].get(grp) or {}) == set(theirs), grp
+        for k, v in theirs.items():
+            close(out["state"][grp][k], v, f"{grp} {k}")
+
+
+def rank_worker(rank, world, store, jobs):
+    """One rank of a gloo process group that runs the port's explicit
+    path for each job ``(out_path, kind, boundary, ctl, resume_path)`` in
+    turn; rank 0 writes each output surface to its ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    try:
+        from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+
+        for out_path, kind, boundary, ctl, resume_path in jobs:
+            sim = port_sim(kind, boundary, world, **ctl)
+            resume = load_state(np.load(resume_path)) if resume_path else None
+            out = build_explicit_run(sim, group=dist.group.WORLD)(
+                resume_state=resume)
+            if rank == 0:
+                save_out(out_path, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_runs(tmp_path, world, jobs):
+    """Run the port's explicit path over ``world`` gloo ranks, one process
+    group for every job ``name: (kind, boundary, ctl, resume_state)``;
+    rank 0's output surface per name."""
+    import torch.multiprocessing as mp
+
+    specs = []
+    for name, (kind, boundary, ctl, resume_state) in jobs.items():
+        resume_path = None
+        if resume_state is not None:
+            resume_path = str(tmp_path / f"resume-{name}.npz")
+            np.savez(resume_path, **_state_arrays(resume_state))
+        specs.append((str(tmp_path / f"out-{name}.npz"), kind, boundary, ctl,
+                      resume_path))
+    mp.spawn(rank_worker, nprocs=world,
+             args=(world, str(tmp_path / "store"), specs))
+    return {name: load_out(spec[0]) for name, spec in zip(jobs, specs)}

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene
-from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
 from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
     FDTDConfig,
     build_simulation,
@@ -31,8 +31,9 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _sim(boundary, n_steps=120):
-    """The small scene of tests/test_pallas_kernel.py, on the card."""
+def _sim(boundary, n_steps=120, decim=4, pad_x=1):
+    """The small scene of tests/test_pallas_kernel.py, on the card, its x
+    extent padded to a multiple of ``pad_x``."""
     mb = MeshBuilder()
     mb.add_line("x", [-40, 40, 0.0, -6.0])
     mb.add_line("y", [-40, 40, 0.0])
@@ -45,11 +46,12 @@ def _sim(boundary, n_steps=120):
     scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
     scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
     cfg = FDTDConfig(n_steps_max=n_steps, check_every=n_steps,
-                     end_criteria=1e-30, boundary=boundary, probe_decimation=4)
+                     end_criteria=1e-30, boundary=boundary,
+                     probe_decimation=decim)
     return build_simulation(
         scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
         port_freqs_hz=np.linspace(2e9, 3e9, 11),
-        nf_freqs_hz=np.array([2.45e9]))
+        nf_freqs_hz=np.array([2.45e9]), pad_multiple=(pad_x, 1, 1))
 
 
 def _close(a, b, rtol=2e-4):
@@ -222,3 +224,68 @@ def test_wrappers_reject_bad_operands(cuda):
     pec = _sim("PEC")
     with pytest.raises(ValueError, match="MUR"):
         fdtd_cuda.mur_faces(pec.operands, st, 0)
+
+
+@pytest.mark.parametrize("boundary,n_dev,rank,window", [
+    ("MUR", 1, 0, "K"), ("MUR", 1, 0, "rem"), ("PEC", 4, 2, "K"),
+    ("PML_4", 4, 1, "K"), ("PML_4", 4, 0, "rem"), ("MUR", 4, 3, "rem"),
+])
+def test_shard_steps_equals_its_twin(cuda, boundary, n_dev, rank, window):
+    """One cooperative launch of k steps on a random slab state against k
+    plain steps, bit for bit on the owned rows. Px = 19 (20 at 4 ranks):
+    one rank takes K = 19 with remainder 7 of D = 45, four ranks K = 5
+    with remainder 4 of D = 9."""
+    sim = _sim(boundary, decim=45 if n_dev == 1 else 9, pad_x=n_dev)
+    sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank)
+    k = sh.K if window == "K" else sh.rem
+    assert k >= 1
+    rng = np.random.default_rng(23 + rank)
+    a = sh.new_state()
+    for t in (*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    b = _clone(a)
+    wf = list(rng.uniform(-1.0, 1.0, k))
+    fdtd_shard.reset_launch_counts()
+    fdtd_shard.shard_steps(sh.ops, a, wf)
+    assert fdtd_shard.launches == {"shard_steps": 1}
+    fdtd_shard.shard_steps_plain(sh.ops, b, wf)
+    torch.cuda.synchronize()
+    assert a.parity == b.parity == k & 1
+    for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                    (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
+        assert torch.equal(x[sh.owned], y[sh.owned])
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
+    """The explicit path on one rank launches only the shard kernel and
+    K1's probe gather, and equals the chunk-mode run."""
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+
+    sim = _sim(boundary, decim=12)
+    run = build_explicit_run(sim)
+    assert run.kernel_window == 12 and sim.operands.shape[0] >= 12
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    out = run()
+    assert fdtd_shard.launches == {"shard_steps": 120 // 12}
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0,
+                                  "mur_faces": 0, "probe_gather": 120 // 12}
+    assert out["fields"][0].device.type == "cuda"
+    ref = sim.run()
+    assert out["steps"] == ref["steps"] == 120
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        assert torch.equal(a, b)
+    for key in ("uf", "if_"):
+        _close(out[key], ref[key])
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(out[key], ref[key], strict=True):
+            _close(a, b)
+
+
+def test_shard_kernel_launch_fits_the_card(cuda):
+    """The cooperative grid is what the card keeps resident at once."""
+    blocks = fdtd_shard.grid_blocks()
+    props = torch.cuda.get_device_properties(cuda)
+    assert props.multi_processor_count <= blocks
+    assert blocks % props.multi_processor_count == 0

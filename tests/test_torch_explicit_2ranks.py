@@ -1,0 +1,46 @@
+"""The port's explicit run over 2 gloo ranks against the JAX package.
+
+One ``torch.multiprocessing.spawn`` of a gloo process group of 2 ranks
+(a ``file://`` store in the test's temporary directory, one intra-op
+thread per rank) runs every job of this file in turn: MUR, PEC and PML_4
+on the scene of ``tests/test_sharding.py::_build`` padded to
+``(2, 1, 1)``, and a run resumed from a JAX explicit checkpoint. Each run is held to the JAX package's single-device
+run and to its explicit run on a 2-device mesh with the shard kernel in
+interpret mode, at the JAX package's own explicit-path tolerance
+(rtol 1e-3, atol 1e-4·max|ref|, ``tests/test_sharding.py:92-98``).
+"""
+
+import pytest
+
+from _explicit_jax import jax_explicit, jax_refs, numpy_state
+from _explicit_ranks import assert_close_surface, spawn_runs
+
+RTOL, ATOL_REL = 1e-3, 1e-4
+WORLD = 2
+CTL = dict(n_steps=60, check_every=30)  # two chunks of 3 probe intervals
+
+
+def _refs(kind, boundary, ctl=CTL):
+    return jax_refs(kind, boundary, WORLD, tuple(sorted(ctl.items())))
+
+
+@pytest.fixture(scope="module")
+def outs(tmp_path_factory):
+    """The port's output surface of every job, from one spawn."""
+    jobs = {b: ("small", b, CTL, None) for b in ("MUR", "PEC", "PML_4")}
+    half = jax_explicit("small", "MUR", WORLD, **dict(CTL, n_steps=30))
+    jobs["resume"] = ("small", "MUR", CTL, numpy_state(half["state"]))
+    return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_ranks_match_jax_single_device_and_explicit(outs, boundary):
+    out = outs[boundary]
+    assert out["fields"][0].shape == (22, 21, 21)
+    for ref in _refs("small", boundary):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
+def test_ranks_resume_a_jax_explicit_checkpoint(outs):
+    assert_close_surface(outs["resume"], _refs("small", "MUR")[1], RTOL,
+                         ATOL_REL)

@@ -1,0 +1,58 @@
+"""The port's explicit run over 4 gloo ranks against the JAX package.
+
+One ``torch.multiprocessing.spawn`` of a gloo process group of 4 ranks
+(a ``file://`` store in the test's temporary directory, one intra-op
+thread per rank) runs every job of this file in turn: MUR, PEC and PML_4
+on the scene of ``tests/test_sharding.py::_build`` padded to
+``(4, 1, 1)``, a straddle geometry (Qx = 13, Px = 16, n = 4:
+the top MUR wall on a block's first row) and a checkpoint for the
+JAX package to resume. Each run is held to the JAX package's single-device
+run and to its explicit run on a 4-device mesh with the shard kernel in
+interpret mode, at the JAX package's own explicit-path tolerance
+(rtol 1e-3, atol 1e-4·max|ref|, ``tests/test_sharding.py:92-98``).
+"""
+
+import pytest
+
+from _explicit_jax import jax_explicit, jax_refs
+from _explicit_ranks import assert_close_surface, spawn_runs
+
+RTOL, ATOL_REL = 1e-3, 1e-4
+WORLD = 4
+CTL = dict(n_steps=60, check_every=30)  # two chunks of 3 probe intervals
+STRADDLE = dict(CTL, decim=4)  # K = 3, W = 4, remainder 1
+
+
+def _refs(kind, boundary, ctl=CTL):
+    return jax_refs(kind, boundary, WORLD, tuple(sorted(ctl.items())))
+
+
+@pytest.fixture(scope="module")
+def outs(tmp_path_factory):
+    """The port's output surface of every job, from one spawn."""
+    jobs = {b: ("small", b, CTL, None) for b in ("MUR", "PEC", "PML_4")}
+    jobs["straddle"] = ("straddle", "MUR", STRADDLE, None)
+    jobs["half"] = ("small", "PML_4", dict(CTL, n_steps=30), None)
+    return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_ranks_match_jax_single_device_and_explicit(outs, boundary):
+    out = outs[boundary]
+    assert out["fields"][0].shape == (24, 21, 21)
+    for ref in _refs("small", boundary):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
+def test_straddle(outs):
+    out = outs["straddle"]
+    assert out["fields"][0].shape == (16, 16, 20)
+    for ref in _refs("straddle", "MUR", STRADDLE):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
+def test_jax_explicit_resumes_a_ranks_checkpoint(outs):
+    half = outs["half"]
+    assert int(half["steps"]) == 30
+    out = jax_explicit("small", "PML_4", WORLD, resume_state=half["state"], **CTL)
+    assert_close_surface(out, _refs("small", "PML_4")[1], RTOL, ATOL_REL)

@@ -162,6 +162,20 @@ def test_prepare_on_cuda_without_cuda_fails_loudly():
     assert not probe_fdtd("cuda").ok
 
 
+def test_nf2ff_defaults_to_the_card():
+    """Like every entry point of the port, the far-field transform runs on
+    the card unless the caller asks for the CPU."""
+    import inspect
+
+    from fdtd_solver_antennas_tpu_torch.post.nf2ff import nf2ff_transform
+
+    default = inspect.signature(nf2ff_transform).parameters["device"].default
+    assert default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            nf2ff_transform([], [], [], 1e-12, [2.45e9], [0.0], [0.0])
+
+
 def test_probe_reports_the_torch_device():
     probe = probe_fdtd("cpu")
     assert probe.ok and probe.api["backend"] == ["cpu"]
