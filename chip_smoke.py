@@ -8,9 +8,9 @@ Phases, each printing its own lines and its seconds; any failure raises
 and the script exits non-zero without printing a result:
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_stream.cu`` and
-   ``csrc/fdtd_shard.cu`` with nvcc for sm_90a, all at once; print ptxas
-   registers and memory;
+2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_stream.cu``,
+   ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu`` and ``csrc/roll_chain.cu``
+   with nvcc for sm_90a, all at once; print ptxas registers and memory;
 3. K1 vs plain: one 500-step chunk of the small test scene and of the
    canonical patch under MUR, PEC and CPML, through the CUDA kernels and
    through their plain PyTorch twins on the same card; then each kernel
@@ -39,7 +39,17 @@ and the script exits non-zero without printing a result:
     held to the chunk-mode run of phase 4, S11 and Dmax from the port's
     post-processing;
 13. times: the JAX bench's pinned explicit run (160,000 steps) beside
-    chunk mode on the same scene.
+    chunk mode on the same scene;
+14. K4 (interval slice): ``interval_steps`` alone against its plain twin
+    on random states at the canonical patch (MUR and PEC, D = 89) and the
+    161×121×160 grid, device time per launch beside its bound; then the
+    canonical patch through ``fdtd_steps.build_stepper``'s ``step_fn`` for
+    125 intervals (11,125 steps) from zero fields, held to the same steps
+    through K1's field kernels;
+15. K5 (roofline slice): ``roll_chain`` against its twin at 56×7,040,
+    then the roofline entry point
+    ``fdtd_solver_antennas_tpu_torch.examples.chunk_roofline.main()`` on
+    the card, which prints its JSON line.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -66,6 +76,10 @@ K2_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_stream.cu"
 K2_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:468"
 K3_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_shard.cu"
 K3_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1953"
+K4_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_steps.cu"
+K4_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:64"
+K5_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/roll_chain.cu"
+K5_REPLACES = "examples/chunk_roofline.py:46"
 # NVIDIA H100 SXM data sheet peaks (at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -940,6 +954,163 @@ def phase_explicit_times(k3, explicit_res, explicit_counts, card):
               f"{1 - busy / explicit_res.wall_time_s:.2f} [{card}]")
 
 
+def k4_bound(ops, d):
+    """Bound of one ``interval_steps`` launch of d steps: the fields in
+    and out once, ca/cb, the sources and the d samples in once; d steps
+    of H and E updates, as ``k2_bound`` counts them."""
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    return bound(4 * n * (6 + 6 + n_src + 6) + 4 * d, d * n * 48)
+
+
+def phase_steps_vs_plain(card):
+    """K4 against its twin: one launch of D steps on a seeded random state
+    per case, every field compared; each case timed on the device."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    cases = (("canonical", canonical_scene, "MUR", 89),
+             ("canonical", canonical_scene, "PEC", 89),
+             ("tall", tall_scene, "MUR", 50))
+    worst, timed = 0.0, None
+    for label, make, boundary, decim in cases:
+        sim = one_chunk_sim(make, boundary, 10 * decim, mode="chunk",
+                            decim=decim)
+        ops, D = sim.operands, sim.probe_decim
+        assert D == decim, (D, decim)
+        base = random_state(sim, seed=47)
+        sk, sp = clone_state(base), clone_state(base)
+        del base
+        wf = torch.from_numpy(np.random.default_rng(53).uniform(
+            -1.0, 1.0, D).astype(np.float32)).to(sim.device)
+        wf_list = wf.tolist()
+        fdtd_steps.interval_steps(ops, sk, wf)
+        fdtd_steps.interval_steps_plain(ops, sp, wf_list)
+        torch.cuda.synchronize()
+        assert sk.parity == sp.parity
+        err = max(close(f"interval_steps {i}", a, b) for i, (a, b) in
+                  enumerate(zip(fields_of(sk), fields_of(sp))))
+        same = all(torch.equal(a, b) for a, b in zip(fields_of(sk), fields_of(sp)))
+        worst = max(worst, err)
+        ms = device_ms(lambda: fdtd_steps.interval_steps(ops, sk, wf), reps=10)
+        plain_ms = events_ms(
+            lambda: fdtd_steps.interval_steps_plain(ops, sp, wf_list),
+            reps=2, warmup=1)
+        b_ms, b_by = k4_bound(ops, D)
+        say("14", f"{label} {sim.grid.shape} {boundary}, D={D}: interval_steps "
+                  f"== plain (bit-equal {same}), max |err| {err:.3e}; device "
+                  f"{ms * 1e3:.1f} us/launch ({ms * 1e3 / D:.2f} us/step), plain "
+                  f"{plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by {b_by} "
+                  f"({b_ms / ms:.4f} of it), {fdtd_steps.grid_blocks()} "
+                  f"resident blocks of {fdtd_steps._library().fdtd_steps_threads()} "
+                  f"threads [{card}]")
+        if timed is None:  # the canonical MUR case goes in the kernel table
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=worst, **timed)
+
+
+def phase_steps_main_path(k4, card):
+    """The interval slice: the canonical patch through ``build_stepper``'s
+    ``step_fn``, 125 intervals of D = 89 steps from zero fields, held to the
+    same 11,125 steps through K1's field kernels (no probes); the run's
+    idle share from phase 14's device time per launch."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_steps
+
+    intervals = 125
+    sim = one_chunk_sim(canonical_scene, "MUR", intervals * 89, decim=89)
+    D, shape, dev = sim.probe_decim, sim.padded_shape, sim.device
+    steps = intervals * D
+    step_fn, to_flat, from_flat = fdtd_steps.build_stepper(sim, *sim._aux[:3])
+    wf = torch.from_numpy(np.asarray(sim.waveform[:steps], np.float32)).to(dev)
+    fields = tuple(to_flat(torch.zeros(shape, device=dev)) for _ in range(6))
+    fdtd_steps.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(intervals):
+        fields = step_fn(fields, wf[i * D:(i + 1) * D])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fdtd_steps.launches["interval_steps"]
+    assert launches == intervals, fdtd_steps.launches
+    fields = tuple(from_flat(f) for f in fields)
+
+    st = fdtd_cuda.new_state(shape, dev, pml=False)
+    samples = wf.tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in samples:
+        fdtd_cuda.leapfrog_step(fdtd_cuda.kernels, sim.operands, st, s)
+    torch.cuda.synchronize()
+    k1_wall = time.perf_counter() - t0
+    err = max(close(f"step_fn vs K1 field {i}", a, b)
+              for i, (a, b) in enumerate(zip(fields, st.fields)))
+    same = all(torch.equal(a, b) for a, b in zip(fields, st.fields))
+    peak = max(float(f.abs().max()) for f in fields)
+    assert np.isfinite(peak) and peak > 0, peak
+    cells = sim.grid.num_cells
+    say("14", f"canonical patch {sim.grid.shape} through build_stepper: "
+              f"{launches} interval_steps launches, {steps} steps from zero "
+              f"fields in {wall:.3f} s ({cells * steps / wall / 1e6:.1f} "
+              f"Mcell-updates/s); K1's field kernels, same steps, no probes: "
+              f"{k1_wall:.3f} s; fields == K1 (bit-equal {same}), max |err| "
+              f"{err:.3e}, max |field| {peak:.3e} [{card}]")
+    busy = launches * k4["ms"] / 1e3
+    say("14", f"interval run: {launches} launches x {k4['ms'] * 1e3:.1f} us = "
+              f"{busy:.3f} s busy of {wall:.3f} s wall, idle share "
+              f"{1 - busy / wall:.3f} [{card}]")
+    return launches
+
+
+def k5_bound(R, C, iters):
+    """Bound of one ``roll_chain`` launch: the array in and out once; 2
+    adds and 2 multiplies per element per iteration (the shifts move data
+    inside shared memory, neither bytes nor operations of this count)."""
+    return bound(2 * 4 * R * C, 4 * R * C * iters)
+
+
+def phase_roll_chain(card):
+    """K5 against its twin at the roofline's default shape, timed on the
+    device; then the roofline entry point on the card, its launches
+    counted."""
+    from fdtd_solver_antennas_tpu_torch.examples import chunk_roofline
+    from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
+
+    R, C, iters = 56, 55 * 128, 200
+    a = torch.from_numpy(np.random.default_rng(59).uniform(
+        0.5, 1.5, (R, C)).astype(np.float32)).to("cuda")
+    out, ref = rc.roll_chain(a, iters), rc.roll_chain_plain(a, iters)
+    torch.cuda.synchronize()
+    err = close("roll_chain", out, ref)
+    same = torch.equal(out, ref)
+    assert same, "roll_chain is not bit-equal to its twin"
+    ms = device_ms(lambda: rc.roll_chain(a, iters))
+    plain_ms = events_ms(lambda: rc.roll_chain_plain(a, iters), reps=2, warmup=1)
+    b_ms, b_by = k5_bound(R, C, iters)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say("15", f"roll_chain {R}x{C}, {iters} iterations: kernel == plain "
+              f"(bit-equal {same}), max |err| {err:.3e}; device {ms * 1e3:.1f} "
+              f"us/launch, plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
+              f"us by {b_by}; {R} blocks, one per row, on {R} of {sms} SMs "
+              f"[{card}]")
+    print(card, flush=True)
+    rc.reset_launch_counts()
+    res = chunk_roofline.main([])
+    launches = rc.launches["roll_chain"]
+    assert launches > 0 and res["calibration"]["device"] == torch.cuda.get_device_name(0)
+    assert np.isfinite(res["bound_gcells_per_s"]) and res["bound_gcells_per_s"] > 0
+    cal = res["calibration"]
+    say("15", f"roofline: shift rate {res['roll_rate_gelems_per_s']:.1f} Gelem/s "
+              f"on {cal['blocks']} of {cal['sm_count']} SMs ({cal['iters']} "
+              f"iterations, {cal['wall_s'] * 1e6:.1f} us, empty launch "
+              f"{cal['floor_s'] * 1e6:.1f} us); bound for a kernel taking "
+              f"{res['rolls_per_padded_elem']} neighbour reads per cell-step "
+              f"from shared memory: {res['bound_gcells_per_s']:.2f} Gcell/s "
+              f"on those SMs, {res['bound_gcells_per_s'] * sms / cal['blocks']:.2f} "
+              f"Gcell/s scaled to all {sms}; {launches} roll_chain launches "
+              f"[{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, launches=launches)
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -961,12 +1132,13 @@ def main() -> int:
              f"count {torch.cuda.device_count()}")
     print(card, flush=True)
 
-    # 2. build the three libraries at once
+    # 2. build the five libraries at once
     from fdtd_solver_antennas_tpu_torch.ops import (
-        _build, fdtd_cuda, fdtd_shard, fdtd_stream)
+        _build, fdtd_cuda, fdtd_shard, fdtd_steps, fdtd_stream, roll_chain)
 
     t0 = time.perf_counter()
-    libs = ("fdtd_chunk", "fdtd_stream", "fdtd_shard")
+    libs = ("fdtd_chunk", "fdtd_stream", "fdtd_shard", "fdtd_steps",
+            "roll_chain")
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         builds = {name: pool.submit(_build.build, name) for name in libs}
         builds = {name: f.result() for name, f in builds.items()}
@@ -979,6 +1151,8 @@ def main() -> int:
     fdtd_cuda._library()
     fdtd_stream._library()
     fdtd_shard._library()
+    fdtd_steps._library()
+    roll_chain._library()
     say("2", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 vs plain on the card
@@ -1009,6 +1183,11 @@ def main() -> int:
     timed_phase("13", phase_explicit_times, k3, explicit_res, explicit_counts,
                 card)
 
+    # 14. the interval slice; 15. the roofline slice
+    k4 = timed_phase("14", phase_steps_vs_plain, card)
+    k4["launches"] = timed_phase("14", phase_steps_main_path, k4, card)
+    k5 = timed_phase("15", phase_roll_chain, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": K1_SOURCE,
@@ -1026,6 +1205,14 @@ def main() -> int:
          "replaces": K3_REPLACES, "launches": explicit_counts["shard_steps"],
          **{k: k3[k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": row["launches"],
+         **{k: row[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None}
+        for name, source, replaces, row in (
+            ("interval_steps", K4_SOURCE, K4_REPLACES, k4),
+            ("roll_chain", K5_SOURCE, K5_REPLACES, k5))
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -90,6 +90,7 @@ class YeeState:
     _cargs: object = None
     _stream: object = None  # the stream stepper's second field set
     _shard: object = None  # the shard stepper's packed arguments
+    _steps: object = None  # the interval stepper's packed arguments
 
     @property
     def fields(self) -> Tuple[torch.Tensor, ...]:

@@ -1,0 +1,248 @@
+"""The interval stepper: the D = ``probe_decim`` steps of one probe
+interval per CUDA launch, with no probes.
+
+Counterpart of ``build_pallas_stepper`` in
+``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py`` (the TPU kernel K4), the
+per-interval MUR/PEC stepper that the chunk kernel (K1) replaced in the
+JAX package's run loop. Its contract is its own: ``step_fn(fields6,
+wf_chunk)`` advances the six fields by D leapfrog steps (H, then E with
+ca/cb and the port-source FMA ``src·wf[d]``, then the MUR walls x → y → z
+or nothing under PEC) and samples nothing.
+
+- :func:`build_stepper`: the operands on a device and
+  ``(step_fn, to_flat, from_flat)``. In the port's plain (x, y, z) layout
+  ``to_flat``/``from_flat`` are identities; the TPU's 128-lane layout and
+  its roll wrap do not carry over, nor do its ``Pz ≤ 128`` limit and its
+  ``alias`` switch. CPML raises ``ValueError``, as in the JAX builder.
+- :func:`interval_steps`: ``len(wf)`` steps of a :class:`YeeState` in one
+  launch of ``csrc/fdtd_steps.cu``; on a CPU tensor
+  :func:`interval_steps_plain`, the same steps as K1's plain
+  ``leapfrog_step``. A CUDA tensor always goes to the kernel; a failed
+  build or launch raises.
+
+``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
+K1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from . import fdtd_cuda
+from .fdtd import resolve_device
+from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+
+KERNELS = ("interval_steps",)
+
+# kernel launches per wrapper; only the wrapper's CUDA branch adds to it
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
+    """The interval stepper of ``sim`` on ``device`` (default
+    ``sim.device``: the card unless the simulation was built on the CPU).
+
+    ``inv_p``, ``inv_d`` and ``mur_coef`` are the host copies of
+    ``sim._aux``: per-axis spacing profiles and the MUR coefficients
+    ``((x0, x1), (y0, y1), (z0, z1))``. ca/cb and the source stamps come
+    from ``sim.operands``. Returns ``(step_fn, to_flat, from_flat)``:
+    ``step_fn(fields, wf_chunk)`` advances the six ``(Px, Py, Pz)``
+    float32 tensors ``(Ex, Ey, Ez, Hx, Hy, Hz)`` by the D samples of
+    ``wf_chunk`` (a sequence, or a float32 tensor on the device) in place
+    and returns them.
+    """
+    if sim.cfg.pml_cells() > 0:
+        raise ValueError("the interval stepper supports MUR/PEC boundaries only")
+    mur = sim.cfg.boundary.upper().startswith("MUR")
+    if mur and mur_coef is None:
+        raise ValueError("a MUR simulation needs its MUR coefficients")
+    D = int(sim.probe_decim)
+    dev = resolve_device(device) if device is not None else sim.device
+    base = sim.operands
+    shape = tuple(sim.padded_shape)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    no_probes = torch.zeros((0, 1), dtype=torch.int32, device=dev)
+    ops = YeeOperands(
+        shape=shape,
+        grid_shape=tuple(sim.grid.shape),
+        dtmu=base.dtmu,
+        inv_p=tuple(to_dev(inv_p[a]) for a in range(3)),
+        inv_d=tuple(to_dev(inv_d[a]) for a in range(3)),
+        ca=tuple(t.to(dev) for t in base.ca),
+        cb=tuple(t.to(dev) for t in base.cb),
+        src=tuple(None if t is None else t.to(dev) for t in base.src),
+        mur=tuple(tuple(float(c) for c in pair) for pair in mur_coef)
+        if mur else None,
+        pml=None,
+        probe_idx=no_probes,
+        probe_w=no_probes.float(),
+    )
+    scratch = tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
+                    for _ in range(3))  # the second E buffer
+
+    def step_fn(fields, wf_chunk):
+        fields = tuple(fields)
+        if len(fields) != 6:
+            raise ValueError(f"step_fn takes six fields, got {len(fields)}")
+        for f in fields:
+            if tuple(f.shape) != shape:
+                raise ValueError(f"field shape {tuple(f.shape)} != {shape}")
+        if len(wf_chunk) != D:
+            raise ValueError(f"step_fn takes D = {D} samples, got {len(wf_chunk)}")
+        st = YeeState(e=[fields[:3], scratch], h=fields[3:])
+        interval_steps(ops, st, wf_chunk)
+        if st.parity:  # odd D: the result sits in the second buffer
+            for f, e in zip(fields[:3], scratch):
+                f.copy_(e)
+        return fields
+
+    return step_fn, _identity, _identity
+
+
+def _identity(a: torch.Tensor) -> torch.Tensor:
+    """The port keeps fields in the (x, y, z) layout the kernel takes."""
+    return a
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twin (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def interval_steps_plain(ops: YeeOperands, st: YeeState, wf) -> None:
+    """``len(wf)`` leapfrog steps: K1's plain ``leapfrog_step`` with the
+    source sample ``wf[d]`` at step d."""
+    samples = wf.tolist() if torch.is_tensor(wf) else [float(s) for s in wf]
+    for s in samples:
+        fdtd_cuda.leapfrog_step(fdtd_cuda.plain, ops, st, s)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+
+
+class _StepsArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct StepsArgs`` in csrc/fdtd_steps.cu."""
+
+    _fields_ = [
+        ("e", _P * 6), ("h", _P * 3),
+        ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
+        ("inv_p", _P * 3), ("inv_d", _P * 3),
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
+        ("qx", ctypes.c_int), ("qy", ctypes.c_int), ("qz", ctypes.c_int),
+        ("has_mur", ctypes.c_int),
+        ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
+    ]
+
+
+_lib = None
+
+
+def _library():
+    """Build (first use) and bind the kernel library."""
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.load("fdtd_steps")
+        for name in ("fdtd_steps_args_size", "fdtd_steps_threads"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.fdtd_steps_grid_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.fdtd_steps_grid_blocks.restype = ctypes.c_int
+        lib.fdtd_steps_error_string.argtypes = [ctypes.c_int]
+        lib.fdtd_steps_error_string.restype = ctypes.c_char_p
+        lib.fdtd_steps_interval.argtypes = [_P, ctypes.c_int, ctypes.c_int,
+                                            _P, _P]
+        lib.fdtd_steps_interval.restype = ctypes.c_int
+        if lib.fdtd_steps_args_size() != ctypes.sizeof(_StepsArgs):
+            raise RuntimeError(
+                f"StepsArgs layout mismatch: C {lib.fdtd_steps_args_size()} "
+                f"bytes, ctypes {ctypes.sizeof(_StepsArgs)}")
+        _lib = lib
+    return _lib
+
+
+def grid_blocks() -> int:
+    """Blocks of the cooperative launch: as many as the card keeps
+    resident at once (one launch must hold every block)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    code = lib.fdtd_steps_grid_blocks(ctypes.byref(out))
+    if code != 0:
+        msg = lib.fdtd_steps_error_string(code).decode()
+        raise RuntimeError(f"interval_steps occupancy query failed: {msg} ({code})")
+    return out.value
+
+
+def _cuda_args(ops: YeeOperands, st: YeeState) -> _StepsArgs:
+    """The packed kernel arguments of (ops, st), built once per pair and
+    kept on the state; the kernel updates the state's tensors in place,
+    so the pointers stay valid across launches."""
+    cached = st._steps
+    if cached is not None and cached[0] is ops:
+        return cached[1]
+    if ops.pml is not None:
+        raise ValueError("the interval stepper supports MUR/PEC boundaries only")
+    if ops.mur is not None and min(ops.grid_shape) < 3:
+        raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+    dev = ops.device
+    shp = tuple(ops.shape)
+    a = _StepsArgs()
+    for p in range(2):
+        for m in range(3):
+            a.e[3 * p + m] = _ptr(st.e[p][m], shp, dev=dev)
+    for m in range(3):
+        a.h[m] = _ptr(st.h[m], shp, dev=dev)
+        a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
+        a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
+        a.src[m] = _ptr(ops.src[m], shp, dev=dev)
+        a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
+        a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
+    a.nx, a.ny, a.nz = shp
+    a.qx, a.qy, a.qz = ops.grid_shape
+    a.has_mur = int(ops.mur is not None)
+    a.dtmu = ops.dtmu
+    for b in range(3):
+        for side in range(2):
+            a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+    st._steps = (ops, a)
+    return a
+
+
+def interval_steps(ops: YeeOperands, st: YeeState, wf: Sequence[float]) -> None:
+    """Advance a state by ``len(wf)`` leapfrog steps in one launch;
+    ``wf[d]`` is the source sample of step d (a sequence, or a float32
+    tensor on the state's device, which is read in place). The kernel
+    updates the state's tensors in place; ``st.parity`` names the E
+    buffer that holds the result."""
+    if len(wf) < 1:
+        raise ValueError("interval_steps takes at least one sample")
+    if not _on_cuda(st.h[0]):
+        return interval_steps_plain(ops, st, wf)
+    lib = _library()
+    a = _cuda_args(ops, st)
+    samples = torch.as_tensor(wf, dtype=torch.float32, device=ops.device)
+    d = samples.numel()
+    code = lib.fdtd_steps_interval(ctypes.addressof(a), st.parity, d,
+                                   _ptr(samples, (d,), dev=ops.device),
+                                   _stream(ops.device))
+    if code != 0:
+        msg = lib.fdtd_steps_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel interval_steps failed: {msg} ({code})")
+    launches["interval_steps"] += 1
+    st.parity ^= d & 1

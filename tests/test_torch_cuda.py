@@ -289,3 +289,89 @@ def test_shard_kernel_launch_fits_the_card(cuda):
     props = torch.cuda.get_device_properties(cuda)
     assert props.multi_processor_count <= blocks
     assert blocks % props.multi_processor_count == 0
+
+
+def _canonical_sim(boundary):
+    """The canonical 2.45 GHz FR-4 patch on the card (D = 89)."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import build_patch_scene
+
+    scene, grid, f0, fc = build_patch_scene(PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02))
+    cfg = FDTDConfig(n_steps_max=1000, end_criteria=1e-30, boundary=boundary)
+    return build_simulation(scene, grid, f0=f0, fc=fc, cfg=cfg, device="cuda",
+                            port_freqs_hz=np.linspace(2e9, 3e9, 11),
+                            nf_freqs_hz=np.array([2.45e9]))
+
+
+@pytest.mark.parametrize("scene", ["small", "canonical"])
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_interval_steps_equals_its_twin(cuda, scene, boundary):
+    """Three successive launches of one probe interval each on a random
+    state against the plain steps, bit for bit after every launch."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    sim = _sim(boundary, decim=9) if scene == "small" else _canonical_sim(boundary)
+    D = sim.probe_decim
+    if scene == "canonical":
+        assert D == 89
+    step_fn, _, _ = fdtd_steps.build_stepper(sim, *sim._aux[:3])
+    a = _random_state(sim, cuda, seed=29)
+    b = _clone(a)
+    rng = np.random.default_rng(31)
+    fdtd_steps.reset_launch_counts()
+    for i in range(3):
+        wf = torch.from_numpy(rng.uniform(-1.0, 1.0, D).astype(np.float32)).to(cuda)
+        fdtd_steps.interval_steps(sim.operands, a, wf)
+        fdtd_steps.interval_steps_plain(sim.operands, b, wf)
+        torch.cuda.synchronize()
+        assert fdtd_steps.launches == {"interval_steps": i + 1}
+        assert a.parity == b.parity
+        for x, y in zip(a.fields, b.fields, strict=True):
+            assert torch.equal(x, y)
+
+
+def test_step_fn_runs_on_the_card_by_default(cuda):
+    """``build_stepper`` takes the simulation's device; an odd interval's
+    result lands in the caller's tensors, held to the plain steps."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    sim = _sim("MUR", decim=7)
+    step_fn, _, _ = fdtd_steps.build_stepper(sim, *sim._aux[:3])
+    ref = _random_state(sim, cuda, seed=37)
+    fields = tuple(f.clone() for f in ref.fields)
+    wf = torch.linspace(-1.0, 1.0, 7, device=cuda)
+    fdtd_steps.reset_launch_counts()
+    out = step_fn(fields, wf)
+    assert all(x is y for x, y in zip(out, fields))
+    assert fdtd_steps.launches == {"interval_steps": 1}
+    fdtd_steps.interval_steps_plain(sim.operands, ref, wf)
+    for x, y in zip(out, ref.fields, strict=True):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("R,C,iters", [(56, 55 * 128, 7), (3, 300, 4),
+                                       (2, 16384, 2), (5, 512, 0)])
+def test_roll_chain_equals_its_twin_bit_for_bit(cuda, R, C, iters):
+    from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
+
+    rng = np.random.default_rng(41)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, (R, C)).astype(np.float32)).to(cuda)
+    rc.reset_launch_counts()
+    out = rc.roll_chain(a, iters)
+    assert rc.launches == {"roll_chain": 1}
+    assert torch.equal(out, rc.roll_chain_plain(a, iters))
+    with pytest.raises(ValueError, match="C <="):
+        rc.roll_chain(torch.zeros(1, 16385, device=cuda), 1)
+
+
+def test_roofline_entry_point_runs_on_the_card(cuda):
+    from fdtd_solver_antennas_tpu_torch.examples import chunk_roofline
+    from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
+
+    rc.reset_launch_counts()
+    cal = chunk_roofline.calibrate_rolls(iters=50, best_of=2)
+    assert cal["device"] == torch.cuda.get_device_name(cuda)
+    assert cal["shape"] == [56, 7040] and cal["iters"] >= 50
+    assert cal["wall_s"] >= chunk_roofline.FLOOR_RATIO * cal["floor_s"] > 0
+    assert cal["roll_gelems_per_s"] > 0 and rc.launches["roll_chain"] >= 5
