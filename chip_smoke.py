@@ -22,13 +22,19 @@ and the script exits non-zero without printing a result:
 6. times: K1 and plain at the canonical and the 161×121×160 grids;
 7. K2 vs plain: ``stream_steps`` alone and one 480-step chunk in stream
    mode against the plain twins (small scene MUR/PEC/PML_4 and its
-   z = 131 variant, T = 1..4), and stream mode against chunk mode;
+   z = 131 variant, T = 1..4), and stream mode against chunk mode; each
+   boundary's route asserted (the march under MUR and PEC, the tile
+   kernel under CPML);
 8. main path (large-grid slice): the 4.2M-cell mixed patch+horn scene
    through ``MultiPatchScene.simulate``, which resolves to the stream
-   kernel, with launch counts; then 2,000 steps kernel vs plain;
+   kernel and goes through the march, with launch counts, its wall time
+   and idle share (the march's device time per launch timed on the same
+   grid); then 2,000 steps kernel vs plain;
 9. horn golden: the 12 GHz pyramidal horn against Balanis's 14.06 dBi;
 10. times: forced chunk against forced stream at the tall grid and the
-    mixed scene, K2's device time per launch beside its bound;
+    mixed scene; the march's device time per launch and per step beside
+    its bound, the tile kernel forced on the same state, and K1's; the
+    march's time per step at each T up to the resolved one;
 11. K3 vs plain: ``shard_steps`` alone against ``shard_steps_plain`` on
     random slab states (owned rows): the canonical slab at one rank
     (m = 120) for a K = 32 and a remainder window under MUR, PEC, an
@@ -525,36 +531,45 @@ def phase_stream_vs_plain(card):
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     worst = 0.0
+    tile_launches = 0
     for label, make, boundaries in (
         ("small", small_scene, ("MUR", "PEC", "PML_4")),
         ("z131", tall131_scene, ("MUR",)),
     ):
         for boundary in boundaries:
+            route = "stream_tile" if boundary.startswith("PML") else "stream_march"
             for T in (1, 2, 3, 4):
                 sim = one_chunk_sim(make, boundary, 480, "stream", T, decim=48)
                 assert sim.pallas_mode == "stream" and sim.stream_T == T
                 base = random_state(sim, seed=11)
                 sk, sp = clone_state(base), clone_state(base)
                 wf = [0.37, -0.21, 0.55, 0.13][:T]
+                fdtd_stream.reset_launch_counts()
                 fdtd_stream.stream_steps(sim.operands, sk, wf)
+                assert fdtd_stream.launches_by_kernel[route] == 1, route
                 fdtd_stream.stream_steps_plain(sim.operands, sp, wf)
                 torch.cuda.synchronize()
                 e1 = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
                          enumerate(zip(fields_of(sk), fields_of(sp))))
+                fdtd_stream.reset_launch_counts()
                 ko, tk = timed_run(sim, fdtd_stream.kernels)
+                counts = dict(fdtd_stream.launches_by_kernel)
+                assert counts[route] == 480 // T == sum(counts.values()), counts
+                if route == "stream_tile" and T == 4:
+                    tile_launches = counts[route]
                 po, tp = timed_run(sim, fdtd_stream.plain)
                 e2 = compare_runs(ko, po, f"{label} {boundary} T={T}")
                 csim = one_chunk_sim(make, boundary, 480, "chunk", decim=48)
                 co, tc = timed_run(csim, fdtd_cuda.kernels)
                 e3 = compare_runs(ko, co, f"{label} {boundary} T={T} vs chunk")
                 worst = max(worst, e1, e2, e3)
-                say("7", f"{label} {sim.grid.shape} {boundary} T={T}: "
+                say("7", f"{label} {sim.grid.shape} {boundary} T={T}, {route}: "
                          f"stream_steps == plain, max |err| {e1:.3e}; "
                          f"{ko['steps']}-step chunk stream kernel == plain "
                          f"{e2:.3e}, == chunk kernels {e3:.3e}; stream "
                          f"{tk:.3f} s, plain {tp:.3f} s, chunk {tc:.3f} s "
                          f"[{card}]")
-    return worst
+    return worst, tile_launches
 
 
 def mixed_designer():
@@ -596,7 +611,8 @@ def phase_mixed_main_path(card):
     fdtd_cuda.reset_launch_counts()
     fdtd_stream.reset_launch_counts()
     res = scene.simulate(log_cb=logs.append)
-    counts = {**fdtd_cuda.launches, **fdtd_stream.launches}
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
+              **fdtd_stream.launches_by_kernel}
     prep = seen["prep"]
     assert prep.ok, prep.message
     assert res.ok, res.message
@@ -607,6 +623,7 @@ def phase_mixed_main_path(card):
              f"{logs[-1]}")
     assert sim.pallas_mode == "stream" and T >= 2, sim.pallas_mode_reason
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
+    assert counts["stream_march"] == steps // T and counts["stream_tile"] == 0, counts
     assert counts["probe_gather"] == steps // decim, counts
     for name in ("h_update", "e_update", "mur_faces"):
         assert counts[name] == 0, counts
@@ -625,6 +642,14 @@ def phase_mixed_main_path(card):
              f"{sim.cfg.end_criteria:.3e} before {sim.cfg.n_steps_max}; "
              f"Dmax {10 * np.log10(res.Dmax):.3f} dBi, |S11|min per port "
              f"{s11_db[0]:.2f} / {s11_db[1]:.2f} dB; launches {counts} [{card}]")
+    k2 = stream_kernel_alone(sim, "8", card)
+    busy = (counts["stream_steps"] * k2["ms"]
+            + counts["probe_gather"] * k2["probe_ms"]) / 1e3
+    wall = res.wall_time_s
+    say("8", f"mixed main-path run: {wall:.3f} s wall, kernels busy {busy:.3f} s "
+             f"(launches x device time per launch: march {k2['ms'] * 1e3:.1f} us, "
+             f"probe_gather {k2['probe_ms'] * 1e3:.1f} us), idle share "
+             f"{1 - busy / wall:.3f} [{card}]")
 
     cut = dataclasses.replace(
         sim, cfg=dataclasses.replace(sim.cfg, n_steps_max=2000))
@@ -634,7 +659,7 @@ def phase_mixed_main_path(card):
     say("8", f"mixed scene, {ko['steps']} steps: stream kernel == plain "
              f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}; kernel "
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
-    return sim, res, counts
+    return sim, res, counts, k2
 
 
 def phase_horn_golden():
@@ -663,21 +688,27 @@ def phase_horn_golden():
 
 
 def stream_kernel_alone(sim, phase, card):
-    """``stream_steps`` against its twin on a random state at ``sim``'s
-    shapes, and both timed on the device."""
+    """``stream_steps`` (the march under MUR and PEC) and the tile kernel
+    forced on the same random state, each against the twin at ``sim``'s
+    shapes, and all three timed on the device."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     ops, T = sim.operands, sim.stream_T
+    mur, pml = ops.mur is not None, ops.pml is not None
     wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
     base = random_state(sim, seed=13)
-    sk, sp = clone_state(base), clone_state(base)
+    sk, st, sp = clone_state(base), clone_state(base), clone_state(base)
     del base
     fdtd_stream.stream_steps(ops, sk, wf)
+    fdtd_stream.stream_steps_tile(ops, st, wf)
     fdtd_stream.stream_steps_plain(ops, sp, wf)
     torch.cuda.synchronize()
     err = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
               enumerate(zip(fields_of(sk), fields_of(sp))))
+    tile_err = max(close(f"stream tile {i}", a, b) for i, (a, b) in
+                   enumerate(zip(fields_of(st), fields_of(sp))))
     ms = device_ms(lambda: fdtd_stream.stream_steps(ops, sk, wf))
+    tile_ms = device_ms(lambda: fdtd_stream.stream_steps_tile(ops, st, wf))
     # the plain twin's host blocks behind a held stream (it cannot queue
     # past the sleep kernel), so it is timed by events alone: its ~60
     # PyTorch ops per step each run longer than the host takes to issue
@@ -687,29 +718,39 @@ def stream_kernel_alone(sim, phase, card):
     probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
     b_ms, b_by = k2_bound(sim, T)
     probe_b_ms, probe_b_by = k1_bound("probe_gather", sim)
-    mur, pml = ops.mur is not None, ops.pml is not None
     _core, _origin, tiles = fdtd_stream.tiling(ops.shape, mur, pml)
     smem = fdtd_stream.smem_bytes(ops.shape, T, mur, pml)
-    say(phase, f"stream_steps at {sim.grid.shape}, T={T}: kernel == plain, "
+    route = "tile kernel"
+    if not pml:
+        core, _o, mt, (seg, _so, segs), m_smem = fdtd_stream.march_plan(
+            ops.shape, ops.grid_shape, T, mur)
+        route = (f"march: {mt[0] * mt[1] * segs} blocks ({mt[0]}x{mt[1]} tiles "
+                 f"of {core[0]}x{core[1]}, {segs} x segments of {seg}), "
+                 f"{m_smem} B dynamic shared memory")
+    say(phase, f"stream_steps at {sim.grid.shape}, T={T}, {route}: == plain, "
                f"max |err| {err:.3e}; device {ms * 1e3:.1f} us/launch "
-               f"({ms * 1e3 / T:.1f} us/step), plain {plain_ms * 1e3:.1f} us; "
-               f"bound {b_ms * 1e3:.1f} us by {b_by} "
-               f"({b_ms / ms:.2f} of it); {int(np.prod(tiles))} blocks of "
-               f"{smem} B dynamic shared memory; probe_gather "
-               f"{probe_ms * 1e3:.1f} us (bound {probe_b_ms * 1e3:.2f} us by "
-               f"{probe_b_by}) [{card}]")
+               f"({ms * 1e3 / T:.1f} us/step), bound {b_ms * 1e3:.1f} us by "
+               f"{b_by} ({b_ms / ms:.3f} of it); tile kernel on the same state "
+               f"== plain, max |err| {tile_err:.3e}, {tile_ms * 1e3:.1f} "
+               f"us/launch ({tile_ms * 1e3 / T:.1f} us/step, "
+               f"{int(np.prod(tiles))} blocks of {smem} B); plain "
+               f"{plain_ms * 1e3:.1f} us; probe_gather {probe_ms * 1e3:.1f} us "
+               f"(bound {probe_b_ms * 1e3:.2f} us by {probe_b_by}) [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, probe_ms=probe_ms)
+                bound_by=b_by, probe_ms=probe_ms, tile_ms=tile_ms,
+                tile_err=tile_err)
 
 
-def phase_stream_times(mixed, mixed_res, mixed_counts, card):
+def phase_stream_times(k2, card):
     """Forced chunk against forced stream, warm, at the tall grid and the
-    mixed scene (chunk, stream, stream, chunk); K2's device time per
-    launch beside its bound; the mixed run's idle share."""
+    mixed scene (chunk, stream, stream, chunk), per step; the march's and
+    the tile kernel's device time per launch at the tall grid (the mixed
+    scene's come from phase 8) beside the bound."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     tall_chunk = one_chunk_sim(tall_scene, "MUR", 480, "chunk", decim=48)
     tall_stream = one_chunk_sim(tall_scene, "MUR", 480, "stream", decim=48)
+    mixed = k2["sim"]
     cfg = dataclasses.replace(mixed.cfg, n_steps_max=2000)
     mixed_stream = dataclasses.replace(mixed, cfg=cfg)
     mixed_chunk = dataclasses.replace(mixed, cfg=cfg, pallas_mode="chunk",
@@ -728,26 +769,38 @@ def phase_stream_times(mixed, mixed_res, mixed_counts, card):
         steps = out["steps"]
         stream_wall[label] = (times[2], steps)
         rate = [cells * steps / t / 1e6 for t in times]
+        us = [t / steps * 1e6 for t in times]
         say("10", f"{label} {stream_sim.grid.shape}, {steps} steps (decim "
-                  f"{stream_sim.probe_decim}): chunk {times[0]:.3f} / "
-                  f"{times[3]:.3f} s ({rate[0]:.1f} / {rate[3]:.1f} "
-                  f"Mcell-updates/s), stream T={stream_sim.stream_T} "
-                  f"{times[1]:.3f} / {times[2]:.3f} s ({rate[1]:.1f} / "
-                  f"{rate[2]:.1f} Mcell-updates/s) [{card}]")
+                  f"{stream_sim.probe_decim}): K1 chunk {times[0]:.3f} / "
+                  f"{times[3]:.3f} s ({us[0]:.1f} / {us[3]:.1f} us/step, "
+                  f"{rate[0]:.1f} / {rate[3]:.1f} Mcell-updates/s), stream "
+                  f"(march) T={stream_sim.stream_T} {times[1]:.3f} / "
+                  f"{times[2]:.3f} s ({us[1]:.1f} / {us[2]:.1f} us/step, "
+                  f"{rate[1]:.1f} / {rate[2]:.1f} Mcell-updates/s) [{card}]")
     tall = stream_kernel_alone(tall_stream, "10", card)
     wall, steps = stream_wall["tall"]
     busy = (steps // tall_stream.stream_T * tall["ms"]
             + steps // tall_stream.probe_decim * tall["probe_ms"]) / 1e3
     say("10", f"tall second stream run: kernels busy {busy:.3f} s of "
               f"{wall:.3f} s wall, idle share {1 - busy / wall:.2f} [{card}]")
-    k2 = stream_kernel_alone(mixed, "10", card)
-    busy = (mixed_counts["stream_steps"] * k2["ms"]
-            + mixed_counts["probe_gather"] * k2["probe_ms"]) / 1e3
-    wall = mixed_res.wall_time_s
-    say("10", f"mixed main-path run: kernels busy {busy:.3f} s of {wall:.3f} s "
-              f"wall (launches x device time per launch), idle share "
-              f"{1 - busy / wall:.2f} [{card}]")
-    return k2
+    # the march's time per step against T on the mixed scene's state: the
+    # resolver takes the deepest T the tiles allow
+    base = random_state(mixed, seed=17)
+    per_T = []
+    for T in range(1, mixed.stream_T + 1):
+        wf = [0.37, -0.21, 0.55, 0.13, 0.4][:T]
+        ms = device_ms(lambda: fdtd_stream.stream_steps(mixed.operands, base, wf))
+        per_T.append(f"T={T} {ms * 1e3:.1f} us ({ms * 1e3 / T:.1f} us/step)")
+    del base
+    say("10", f"mixed {mixed.grid.shape}, march by T: {', '.join(per_T)} [{card}]")
+    say("10", f"mixed {mixed.grid.shape}: march {k2['ms'] * 1e3:.1f} us/launch "
+              f"({k2['ms'] * 1e3 / mixed.stream_T:.1f} us/step, {k2['bound_ms'] / k2['ms']:.3f} "
+              f"of the {k2['bound_ms'] * 1e3:.1f} us bound), tile kernel "
+              f"{k2['tile_ms'] * 1e3:.1f} us/launch; tall {tall_stream.grid.shape}: "
+              f"march {tall['ms'] * 1e3:.1f} us/launch ({tall['bound_ms'] / tall['ms']:.3f} "
+              f"of the {tall['bound_ms'] * 1e3:.1f} us bound), tile kernel "
+              f"{tall['tile_ms'] * 1e3:.1f} us/launch [{card}]")
+    return tall
 
 
 def straddle_scene():
@@ -1022,6 +1075,7 @@ def phase_steps_main_path(k4, card):
     step_fn, to_flat, from_flat = fdtd_steps.build_stepper(sim, *sim._aux[:3])
     wf = torch.from_numpy(np.asarray(sim.waveform[:steps], np.float32)).to(dev)
     fields = tuple(to_flat(torch.zeros(shape, device=dev)) for _ in range(6))
+    first = fields
     fdtd_steps.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1031,6 +1085,9 @@ def phase_steps_main_path(k4, card):
     wall = time.perf_counter() - t0
     launches = fdtd_steps.launches["interval_steps"]
     assert launches == intervals, fdtd_steps.launches
+    # step_fn returns new tensors and leaves its inputs alone
+    assert all(f is not g for f, g in zip(fields, first))
+    assert all(int(torch.count_nonzero(f)) == 0 for f in first)
     fields = tuple(from_flat(f) for f in fields)
 
     st = fdtd_cuda.new_state(shape, dev, pml=False)
@@ -1167,13 +1224,13 @@ def main() -> int:
     timed_phase("6", phase_times, prep, res, counts, per_kernel, card)
 
     # 7.-10. the large-grid slice
-    worst = timed_phase("7", phase_stream_vs_plain, card)
+    worst, tile_launches = timed_phase("7", phase_stream_vs_plain, card)
     say("7", f"all stream comparisons agree; worst max |err| {worst:.3e}")
-    mixed, mixed_res, mixed_counts = timed_phase(
+    mixed, mixed_res, mixed_counts, k2 = timed_phase(
         "8", phase_mixed_main_path, card)
+    k2["sim"] = mixed
     timed_phase("9", phase_horn_golden)
-    k2 = timed_phase("10", phase_stream_times, mixed, mixed_res,
-                     mixed_counts, card)
+    timed_phase("10", phase_stream_times, k2, card)
 
     # 11.-13. the explicit slice
     k3 = timed_phase("11", phase_shard_vs_plain, card)
@@ -1198,9 +1255,16 @@ def main() -> int:
         for name in fdtd_cuda.KERNELS
     ] + [
         {"name": "stream_steps", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": mixed_counts["stream_steps"],
+         "replaces": K2_REPLACES, "launches": mixed_counts["stream_march"],
          **{k: k2[k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None},
+        # the CPML route: launches from phase 7's PML_4 stream run (T = 4),
+        # times on the mixed scene's state (forced), as the march's
+        {"name": "stream_steps_tile", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": tile_launches,
+         "max_abs_err": k2["tile_err"], "ms": k2["tile_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "shard_steps", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": explicit_counts["shard_steps"],
          **{k: k3[k] for k in (*keys, "bound_ms", "bound_by")},

@@ -1,15 +1,22 @@
 // The stream stepper for Hopper (sm_90a): T leapfrog steps per launch,
-// bound to Python with ctypes.
+// bound to Python with ctypes. Two kernels share one argument struct:
+//
+//   - march_kernel (MUR and PEC walls; fdtd_stream_march): a y-z tile
+//     marching along x with T time levels of a few planes in shared
+//     memory (2.5-D temporal blocking), described below at its code;
+//   - stream_kernel (CPML; fdtd_stream_steps): a 3-D tile with a halo of
+//     T cells on every side, E, H and the twelve psi in shared memory.
 //
 // Replaces: fdtd_solver_antennas_tpu/ops/fdtd_pallas.py::build_pallas_stream_stepper
 // (the TPU stream kernel, K2). K2 streams blocks of whole y-z planes
 // through 128 MB of VMEM and advances T steps per fetch with trapezoidal
 // halo recompute. On the H100 one y-z plane of the 4.2M-cell mixed scene
 // is 122 KB per field, so six fields do not fit the 227 KB of shared
-// memory a block may use. This kernel tiles in 3-D instead:
+// memory a block may use: the march streams planes of a y-z tile
+// instead, the tile kernel tiles in 3-D:
 //
-//   - each block owns a core tile (host-chosen, e.g. 8x8x16 cells) and
-//     loads the tile plus a halo of T cells on each side of each axis
+//   - each block owns a core tile (host-chosen, 4x8x8 cells under CPML)
+//     and loads the tile plus a halo of T cells on each side of each axis
 //     (clipped to the grid) into dynamic shared memory: E, H, under MUR a
 //     second E buffer, under CPML the twelve psi arrays;
 //   - it runs T H/E half-step pairs in shared memory. H reads E at +1 and
@@ -27,7 +34,8 @@
 // is carried over; the arrays stay the plain contiguous (Px, Py, Pz)
 // float32 layout of the port's plain twins (ops/fdtd_cuda.py).
 //
-// Semantics are those of T calls of ops/fdtd_cuda.py::leapfrog_step:
+// Semantics of both kernels are those of T calls of
+// ops/fdtd_cuda.py::leapfrog_step:
 //   - a neighbour outside the grid reads 0 (never wraps or clamps); a
 //     neighbour outside the loaded region also reads 0, which only ever
 //     feeds cells outside the valid region;
@@ -37,20 +45,19 @@
 //     Every block applies the fix to every wall cell it computes, core or
 //     halo. The y wall reads the x-fixed new E, the z wall the x- and
 //     y-fixed one; every wall reads the old E at the wall and neighbour
-//     planes from the second E buffer, which keeps it until the next step.
-//     A wall cell needs its neighbour's new E, so no core may be a lone
-//     last plane: the host shifts the tiling by one cell where it would be;
+//     planes (the tile kernel keeps a second E buffer until the next
+//     step). A wall cell needs its neighbour's new E, so no core may be a
+//     lone last plane: the host shifts the tiling by one cell where it
+//     would be;
 //   - CPML: psi_h updates with H over H's region, psi_e with E over E's.
 //
 // What bounds it on the card: a launch must read every field, coefficient
 // and source once and write every field once, ((6 + 6 + n_src) in + 6 out)
 // x 4 B per cell under MUR, 344 MB on the mixed scene, >= 103 us at
-// 3.35 TB/s, or 26 us per step at T = 4. This first design is the simple,
-// exact version: the halo reloads and the halo recompute (a 6144-cell
-// region for a 1024-cell core at T = 4) and the per-step coefficient
-// reads cost more than that floor. Fewer recomputed cells (larger cores
-// through TMA-fed pipelines), coefficients in shared memory and fewer
-// integer divisions are the next steps.
+// 3.35 TB/s, or 26 us per step at T = 4. The tile kernel's halo reloads
+// and halo recompute (a 6144-cell region for a 1024-cell core at T = 4)
+// cost more than that floor; the march reads each value about once per
+// launch times its y-z halo ratio and recomputes no x halo.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py). No
@@ -95,6 +102,13 @@ struct StreamArgs {
   int has_mur;
   float dtmu;              // dt / mu0
   float mur_c[3][2];       // MUR coefficient per axis and side
+  // the march's plan (ops/fdtd_stream.py::march_plan), MUR/PEC only
+  int m_core[2];           // y-z core tile
+  int m_origin[2];         // tile b covers [b*core - origin, (b+1)*core - origin)
+  int m_tiles[2];
+  int m_seg;               // x segment length, origin and count, as a tile
+  int m_seg_origin;
+  int m_segs;
 };
 
 struct Samples {
@@ -392,6 +406,345 @@ stream_kernel(const StreamArgs a, const int T, const Samples wf) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The march (MUR and PEC walls): a y-z tile marching along x
+// ---------------------------------------------------------------------------
+//
+// Each block owns a y-z core tile (m_core: 16x16 under MUR, 14x14 under
+// PEC) of one x
+// segment (m_seg planes) and holds a region of the core plus T cells on
+// each side in y and z, clipped to the array. One thread owns one region
+// cell (j, k) of every plane. The block marches along x: iteration p
+// loads plane p (E and H, level 0) and then advances every level t =
+// 1..T by one plane, level t working on plane p - t, one plane behind
+// level t - 1 (2.5-D temporal blocking):
+//
+//   - H at level t, plane x, reads level t-1's E at x and x+1; E at level
+//     t, plane x, reads level t's H at x-1 and x and its own old E. Both
+//     update in place: each plane's slot of the ring holds the highest
+//     level reached, and T + 2 planes are alive at once (the loaded one
+//     down to the plane below level T's);
+//   - level t covers planes [x0 - T + t - 1, x1 + T - t) and the y-z box
+//     [c0 - T + t - 1, c1 + T - t) (clipped), the cone the core needs, as
+//     in stream_kernel; after level T the core of plane x is written to
+//     the other field set;
+//   - the MUR walls, per level: the y and z fixes of plane x follow its E
+//     (they read the old E of plane x, which the E phase saves in `O`).
+//     The lower x wall needs plane 1's new E, so plane 0's E phase waits
+//     for plane 1's step, which then updates plane 0 from its own H and
+//     old E (still in the ring), fixes it (x) from plane 1's new and old
+//     E and fixes its y and z walls beside plane 1's. The upper x wall
+//     needs plane q-2's new E before its y and z fixes: plane q-2's step
+//     computes the x-fixed y and z components of plane q-1 into `W`,
+//     from the old E of plane q-1 (still level t-1 in the ring), and
+//     plane q-1's step takes them from there;
+//   - ca, cb and the source stamps are read from device memory at every
+//     level, issued before the H phase; a plane's values stay in L2
+//     between its T levels. The per-axis spacings of y and z sit in
+//     registers.
+//
+// Every value of E and H is read from device memory once per launch,
+// times the y-z halo ratio (24x24 region for a 16x16 core at T = 4:
+// 2.25) and the segment's trapezoid ((m_seg + 2T) / m_seg). No block
+// sees another block's output. Shared memory: E and H rings 6 (T+2)
+// floats per region cell, under MUR 6 more for `O` and 2 for `W`:
+// 101,376 B at T = 4 (MUR), so two blocks fit one SM.
+
+// One thread per region cell, at most a 24x24 region (T = 4 under MUR with
+// a 16x16 core, T = 5 under PEC with 14x14), and two blocks an SM: 56
+// registers a thread at most.
+constexpr int kMarchThreads = 576;
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// Region cells of one plane at T (the largest block's), and floats per cell.
+__host__ __device__ inline int march_cells(const StreamArgs& a, int T) {
+  return imin(a.n[1], a.m_core[0] + 2 * T) * imin(a.n[2], a.m_core[1] + 2 * T);
+}
+
+__host__ __device__ inline int march_floats(const StreamArgs& a, int T) {
+  return 6 * (T + 2) + (a.has_mur ? 8 : 0);
+}
+
+// Curl of H at region cell c of plane x (backward differences; a
+// neighbour outside the region or the grid reads 0). H holds plane x,
+// Hm plane x-1 (null at x = 0); components at stride P.
+__device__ __forceinline__ void march_curl_h(const float* H, const float* Hm,
+                                             int P, int c, int Lz, bool ym,
+                                             bool zm, float idx_, float idy,
+                                             float idz, float cu[3]) {
+  const float hx = H[c], hy = H[P + c], hz = H[2 * P + c];
+  const float hz_ym = ym ? H[2 * P + c - Lz] : 0.f;
+  const float hy_zm = zm ? H[P + c - 1] : 0.f;
+  const float hx_zm = zm ? H[c - 1] : 0.f;
+  const float hz_xm = Hm ? Hm[2 * P + c] : 0.f;
+  const float hy_xm = Hm ? Hm[P + c] : 0.f;
+  const float hx_ym = ym ? H[c - Lz] : 0.f;
+  const float dHz_y = (hz - hz_ym) * idy;
+  const float dHy_z = (hy - hy_zm) * idz;
+  const float dHx_z = (hx - hx_zm) * idz;
+  const float dHz_x = (hz - hz_xm) * idx_;
+  const float dHy_x = (hy - hy_xm) * idx_;
+  const float dHx_y = (hx - hx_ym) * idy;
+  cu[0] = dHz_y - dHy_z;
+  cu[1] = dHx_z - dHz_x;
+  cu[2] = dHy_x - dHx_y;
+}
+
+// ca, cb and the source stamps of one cell (device memory index g); the
+// stamp is 0 where a component has none (and then not added).
+struct Coef {
+  float ca[3], cb[3], src[3];
+};
+
+__device__ __forceinline__ Coef march_coef(const StreamArgs& a, int64_t g) {
+  Coef k;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    k.ca[m] = __ldg(a.ca[m] + g);
+    k.cb[m] = __ldg(a.cb[m] + g);
+    k.src[m] = a.src[m] != nullptr ? __ldg(a.src[m] + g) : 0.f;
+  }
+  return k;
+}
+
+// E at region cell c of one plane: E' = ca E + cb curl (+ src s), the old
+// E saved to O (under MUR). Returns the new values; the caller stores.
+__device__ __forceinline__ void march_e_cell(const StreamArgs& a,
+                                             const float* E, float* O, int P,
+                                             int c, const Coef& k,
+                                             const float cu[3], float s,
+                                             float out[3]) {
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const float old = E[m * P + c];
+    if (O) O[m * P + c] = old;
+    float v = k.ca[m] * old + k.cb[m] * cu[m];
+    if (a.src[m] != nullptr) v = v + k.src[m] * s;
+    out[m] = v;
+  }
+}
+
+// MUR on one wall cell of a y-z plane: E'[w] = Eo[nb] + c (E'[nb] - Eo[w])
+// for the two components m0, m1 (the axes other than the wall's).
+__device__ __forceinline__ void march_fix(float* E, const float* O, int P,
+                                          int c, int cn, float coef, int m0,
+                                          int m1) {
+  E[m0 * P + c] = O[m0 * P + cn] + coef * (E[m0 * P + cn] - O[m0 * P + c]);
+  E[m1 * P + c] = O[m1 * P + cn] + coef * (E[m1 * P + cn] - O[m1 * P + c]);
+}
+
+__global__ void __launch_bounds__(kMarchThreads, 2)
+march_kernel(const StreamArgs a, const int T, const Samples wf) {
+  extern __shared__ float sm[];
+  int bid = blockIdx.x;
+  const int tz = bid % a.m_tiles[1];
+  bid /= a.m_tiles[1];
+  const int ty = bid % a.m_tiles[0];
+  const int seg = bid / a.m_tiles[0];
+  const int n0 = a.n[0], n1 = a.n[1], n2 = a.n[2];
+  const int q0 = a.q[0], q1 = a.q[1], q2 = a.q[2];
+  const int cy0 = max(0, ty * a.m_core[0] - a.m_origin[0]);
+  const int cy1 = min(n1, (ty + 1) * a.m_core[0] - a.m_origin[0]);
+  const int cz0 = max(0, tz * a.m_core[1] - a.m_origin[1]);
+  const int cz1 = min(n2, (tz + 1) * a.m_core[1] - a.m_origin[1]);
+  const int x0 = max(0, seg * a.m_seg - a.m_seg_origin);
+  const int x1 = min(n0, (seg + 1) * a.m_seg - a.m_seg_origin);
+  if (cy0 >= cy1 || cz0 >= cz1 || x0 >= x1) return;
+  const int ry = max(0, cy0 - T), rz = max(0, cz0 - T);
+  const int Ly = min(n1, cy1 + T) - ry, Lz = min(n2, cz1 + T) - rz;
+  const int P = Ly * Lz;
+  const int R = T + 2;
+  const bool mur = a.has_mur != 0;
+  // shared memory: E ring [R][3][P], H ring [R][3][P]; under MUR the old
+  // E of the planes a step fixes, O [2][3][P] (by plane parity), and the
+  // upper x wall's x-fixed Ey, Ez, W [2][P]
+  float* Er = sm;
+  float* Hr = Er + 3 * R * P;
+  float* O = Hr + 3 * R * P;
+  float* W = O + 6 * P;
+  const int total = P * (6 * R + (mur ? 8 : 0));
+  for (int i = threadIdx.x; i < total; i += blockDim.x) sm[i] = 0.f;
+
+  const int c = threadIdx.x;  // this thread's region cell
+  const bool live = c < P;
+  const int j = live ? c / Lz : 0;
+  const int k = live ? c - j * Lz : 0;
+  const int gy = ry + j, gz = rz + k;
+  const int64_t plane = (int64_t)n1 * n2;
+  const int64_t cell = (int64_t)gy * n2 + gz;
+  const bool yp = j + 1 < Ly, zp = k + 1 < Lz, ym = j > 0, zm = k > 0;
+  const float ipy = live ? __ldg(a.inv_p[1] + gy) : 0.f;
+  const float ipz = live ? __ldg(a.inv_p[2] + gz) : 0.f;
+  const float idy = live ? __ldg(a.inv_d[1] + gy) : 0.f;
+  const float idz = live ? __ldg(a.inv_d[2] + gz) : 0.f;
+  const bool core = live && gy >= cy0 && gy < cy1 && gz >= cz0 && gz < cz1;
+  // MUR walls of y and z at this cell: side (0 low, 1 high) or -1, and the
+  // neighbour's region cell (the fix is skipped where it lies outside)
+  int yside = -1, zside = -1, yn = 0, zn = 0;
+  if (mur && live) {
+    if (gy == 0 && yp) { yside = 0; yn = c + Lz; }
+    if (gy == q1 - 1 && ym) { yside = 1; yn = c - Lz; }
+    if (gz == 0 && zp) { zside = 0; zn = c + 1; }
+    if (gz == q2 - 1 && zm) { zside = 1; zn = c - 1; }
+  }
+  const bool has_yw = mur && (ry == 0 || (ry <= q1 - 1 && q1 - 1 < ry + Ly));
+  const bool has_zw = mur && (rz == 0 || (rz <= q2 - 1 && q2 - 1 < rz + Lz));
+
+  const int xs = max(0, x0 - T);   // planes loaded: [xs, xl)
+  const int xl = min(n0, x1 + T);
+  float pre[6];                    // the next plane, in flight
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      pre[m] = __ldg(a.e_in[m] + xs * plane + cell);
+      pre[3 + m] = __ldg(a.h_in[m] + xs * plane + cell);
+    }
+  }
+  __syncthreads();  // the zeroed shared memory
+
+  for (int p = xs; p <= x1 - 1 + T; ++p) {
+    if (p < xl) {
+      const int s = p % R;
+      if (live) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          Er[(s * 3 + m) * P + c] = pre[m];
+          Hr[(s * 3 + m) * P + c] = pre[3 + m];
+        }
+        if (p + 1 < xl) {
+          const int64_t g = (p + 1) * plane + cell;
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            pre[m] = __ldg(a.e_in[m] + g);
+            pre[3 + m] = __ldg(a.h_in[m] + g);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int t = 1; t <= T; ++t) {
+      const int x = p - t;
+      const int lo = max(0, x0 - T + t - 1);
+      if (x < lo || x >= min(n0, x1 + T - t)) continue;
+      const float s = wf.s[t - 1];
+      float* E = Er + (x % R) * 3 * P;
+      float* H = Hr + (x % R) * 3 * P;
+      const float* Hm = x > 0 ? Hr + ((x - 1) % R) * 3 * P : nullptr;
+      const bool act =
+          live && gy >= max(cy0 - T + t - 1, ry) && gy < min(cy1 + T - t, ry + Ly) &&
+          gz >= max(cz0 - T + t - 1, rz) && gz < min(cz1 + T - t, rz + Lz);
+      // the lower x wall's plane waits for plane 1 (see above)
+      const bool defer0 = mur && x == 0;
+      const bool with0 = mur && x == 1 && lo == 0;
+      // this plane's coefficients, in flight during the H phase
+      Coef coef;
+      if (act && !defer0) coef = march_coef(a, x * plane + cell);
+
+      // H at level t from level t-1's E at x and x+1
+      if (act) {
+        const float* Ep = x + 1 < n0 ? Er + ((x + 1) % R) * 3 * P : nullptr;
+        const float ex = E[c], ey = E[P + c], ez = E[2 * P + c];
+        const float ez_yp = yp ? E[2 * P + c + Lz] : 0.f;
+        const float ey_zp = zp ? E[P + c + 1] : 0.f;
+        const float ex_zp = zp ? E[c + 1] : 0.f;
+        const float ez_xp = Ep ? Ep[2 * P + c] : 0.f;
+        const float ey_xp = Ep ? Ep[P + c] : 0.f;
+        const float ex_yp = yp ? E[c + Lz] : 0.f;
+        const float ipx = __ldg(a.inv_p[0] + x);
+        const float dEz_y = (ez_yp - ez) * ipy;
+        const float dEy_z = (ey_zp - ey) * ipz;
+        const float dEx_z = (ex_zp - ex) * ipz;
+        const float dEz_x = (ez_xp - ez) * ipx;
+        const float dEy_x = (ey_xp - ey) * ipx;
+        const float dEx_y = (ex_yp - ex) * ipy;
+        H[c] = H[c] - a.dtmu * (dEz_y - dEy_z);
+        H[P + c] = H[P + c] - a.dtmu * (dEx_z - dEz_x);
+        H[2 * P + c] = H[2 * P + c] - a.dtmu * (dEy_x - dEx_y);
+      }
+      __syncthreads();
+
+      // E at level t (and plane 0's, held back from the step before)
+      if (act && !defer0) {
+        float* Ox = mur ? O + (x & 1) * 3 * P : nullptr;
+        float cu[3], v[3];
+        march_curl_h(H, Hm, P, c, Lz, ym, zm, __ldg(a.inv_d[0] + x), idy, idz,
+                     cu);
+        march_e_cell(a, E, Ox, P, c, coef, cu, s, v);
+        E[c] = v[0];
+        if (mur && x == q0 - 1) {  // x-fixed by plane q-2's step
+          E[P + c] = W[c];
+          E[2 * P + c] = W[P + c];
+        } else {
+          E[P + c] = v[1];
+          E[2 * P + c] = v[2];
+        }
+        if (mur && x == q0 - 2) {  // the upper x wall from this new E
+          const float* Ew = Er + ((x + 1) % R) * 3 * P;  // still level t-1
+          const float cx = a.mur_c[0][1];
+          W[c] = Ox[P + c] + cx * (v[1] - Ew[P + c]);
+          W[P + c] = Ox[2 * P + c] + cx * (v[2] - Ew[2 * P + c]);
+        }
+        if (with0) {  // plane 0: E from its own H and old E, then x-fixed
+          float* E0 = Er;
+          float* O0 = O;
+          float cu0[3], v0[3];
+          march_curl_h(Hr, nullptr, P, c, Lz, ym, zm, __ldg(a.inv_d[0]), idy,
+                       idz, cu0);
+          march_e_cell(a, E0, O0, P, c, march_coef(a, cell), cu0, s, v0);
+          const float cx = a.mur_c[0][0];
+          E0[c] = v0[0];
+          E0[P + c] = Ox[P + c] + cx * (v[1] - O0[P + c]);
+          E0[2 * P + c] = Ox[2 * P + c] + cx * (v[2] - O0[2 * P + c]);
+        }
+      }
+      __syncthreads();
+
+      // the y, then z walls of plane x (and of plane 0 with plane 1)
+      if (has_yw) {
+        if (act && yside >= 0) {
+          const float cy = a.mur_c[1][yside];
+          if (!defer0) march_fix(E, O + (x & 1) * 3 * P, P, c, yn, cy, 0, 2);
+          if (with0) march_fix(Er, O, P, c, yn, cy, 0, 2);
+        }
+        __syncthreads();
+      }
+      if (has_zw) {
+        if (act && zside >= 0) {
+          const float cz = a.mur_c[2][zside];
+          if (!defer0) march_fix(E, O + (x & 1) * 3 * P, P, c, zn, cz, 0, 1);
+          if (with0) march_fix(Er, O, P, c, zn, cz, 0, 1);
+        }
+        __syncthreads();
+      }
+
+      // after level T the core is final: write it to the other field set
+      if (t == T && core) {
+        if (!defer0 && x >= x0 && x < x1) {
+          const int64_t g = x * plane + cell;
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            a.e_out[m][g] = E[m * P + c];
+            a.h_out[m][g] = H[m * P + c];
+          }
+        }
+        if (with0 && x0 == 0) {
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            a.e_out[m][cell] = Er[m * P + c];
+            a.h_out[m][cell] = Hr[m * P + c];
+          }
+        }
+      }
+    }
+  }
+}
+
+static int64_t march_smem_bytes(const StreamArgs* a, int T) {
+  return (int64_t)march_cells(*a, T) * march_floats(*a, T) * (int64_t)sizeof(float);
+}
+
 // Shared memory one block needs: the largest region (core + 2T per axis,
 // clipped to the array) times the arrays it holds.
 static int64_t smem_bytes(const StreamArgs* a, int T) {
@@ -429,6 +782,27 @@ int fdtd_stream_steps(const StreamArgs* a, const float* wf, int T,
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)a->tiles[0] * a->tiles[1] * a->tiles[2];
   stream_kernel<<<blocks, kThreads, (size_t)bytes, (cudaStream_t)stream>>>(
+      *a, T, s);
+  return (int)cudaGetLastError();
+}
+
+long long fdtd_march_smem_bytes(const StreamArgs* a, int T) {
+  return (long long)march_smem_bytes(a, T);
+}
+
+int fdtd_stream_march(const StreamArgs* a, const float* wf, int T,
+                      void* stream) {
+  if (T < 1 || T > kMaxT || a->has_pml) return (int)cudaErrorInvalidValue;
+  const int threads = (march_cells(*a, T) + 31) / 32 * 32;
+  if (threads > kMarchThreads) return (int)cudaErrorInvalidConfiguration;
+  Samples s = {};
+  for (int k = 0; k < T; ++k) s.s[k] = wf[k];
+  const int64_t bytes = march_smem_bytes(a, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)a->m_tiles[0] * a->m_tiles[1] * a->m_segs;
+  march_kernel<<<blocks, threads, (size_t)bytes, (cudaStream_t)stream>>>(
       *a, T, s);
   return (int)cudaGetLastError();
 }

@@ -299,9 +299,10 @@ def resolve_pallas_mode(cfg: FDTDConfig, shape, n_src: int,
     T = want or min(t_max, probe_decim)
     probe_decim = max(T, (probe_decim // T) * T)
     why = "forced" if forced else "exceeds the L2"
-    core = fdtd_stream.tile_core(mur, pml)
+    route = (f"tile kernel, core tile {fdtd_stream.tile_core(mur, pml)}" if pml
+             else f"march, y-z core {fdtd_stream.march_core(mur)}")
     return "stream", T, probe_decim, (
-        f"stream kernel ({why}; {fits}) [T={T}, core tile {core}]")
+        f"stream kernel ({why}; {fits}) [T={T}, {route}]")
 
 
 # ---------------------------------------------------------------------------

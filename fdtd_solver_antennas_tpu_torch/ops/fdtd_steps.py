@@ -55,10 +55,10 @@ def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
     ``sim._aux``: per-axis spacing profiles and the MUR coefficients
     ``((x0, x1), (y0, y1), (z0, z1))``. ca/cb and the source stamps come
     from ``sim.operands``. Returns ``(step_fn, to_flat, from_flat)``:
-    ``step_fn(fields, wf_chunk)`` advances the six ``(Px, Py, Pz)``
-    float32 tensors ``(Ex, Ey, Ez, Hx, Hy, Hz)`` by the D samples of
-    ``wf_chunk`` (a sequence, or a float32 tensor on the device) in place
-    and returns them.
+    ``step_fn(fields, wf_chunk)`` returns six new ``(Px, Py, Pz)`` float32
+    tensors ``(Ex, Ey, Ez, Hx, Hy, Hz)``, the given six advanced by the D
+    samples of ``wf_chunk`` (a sequence, or a float32 tensor on the
+    device), and leaves its inputs as they were, as the JAX stepper does.
     """
     if sim.cfg.pml_cells() > 0:
         raise ValueError("the interval stepper supports MUR/PEC boundaries only")
@@ -89,8 +89,6 @@ def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
         probe_idx=no_probes,
         probe_w=no_probes.float(),
     )
-    scratch = tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
-                    for _ in range(3))  # the second E buffer
 
     def step_fn(fields, wf_chunk):
         fields = tuple(fields)
@@ -101,12 +99,12 @@ def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
                 raise ValueError(f"field shape {tuple(f.shape)} != {shape}")
         if len(wf_chunk) != D:
             raise ValueError(f"step_fn takes D = {D} samples, got {len(wf_chunk)}")
-        st = YeeState(e=[fields[:3], scratch], h=fields[3:])
+        # the kernel steps a copy; the second E buffer is new too
+        st = YeeState(e=[tuple(f.clone() for f in fields[:3]),
+                         tuple(torch.empty_like(f) for f in fields[:3])],
+                      h=tuple(f.clone() for f in fields[3:]))
         interval_steps(ops, st, wf_chunk)
-        if st.parity:  # odd D: the result sits in the second buffer
-            for f, e in zip(fields[:3], scratch):
-                f.copy_(e)
-        return fields
+        return st.fields
 
     return step_fn, _identity, _identity
 

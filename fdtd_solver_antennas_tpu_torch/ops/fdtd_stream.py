@@ -3,21 +3,31 @@
 Counterpart of ``build_pallas_stream_stepper`` in
 ``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py`` (the TPU kernel K2), which
 carries the grids whose working set does not fit the chunk kernel. The
-port computes the same T steps with one kernel of ``csrc/fdtd_stream.cu``
-that tiles the grid in 3-D and keeps each tile, with a halo of T cells,
-in shared memory for the T steps:
+port computes the same T steps with one of two kernels of
+``csrc/fdtd_stream.cu``:
+
+- ``march_kernel`` (MUR and PEC walls): a y–z tile that marches along x
+  over a segment of planes and keeps T + 1 time levels of a few planes in
+  shared memory (2.5-D temporal blocking); :func:`march_plan` cuts the
+  grid into tiles and segments;
+- ``stream_kernel`` (CPML): a 3-D tile with a halo of T cells per side,
+  E, H and the twelve ψ in shared memory for the T steps; :func:`tiling`.
 
 - :func:`stream_steps`: T = ``len(wf_t)`` leapfrog steps (H, E with source
   sample ``wf_t[k]`` at inner step k, MUR walls x → y → z), with ψ under
-  CPML. On a CUDA tensor it launches the kernel or raises; on a CPU
-  tensor it runs :func:`stream_steps_plain`, which is T calls of
-  ``fdtd_cuda.leapfrog_step`` with the plain twins.
+  CPML. On a CUDA tensor it launches the march (``ops.pml is None``) or
+  the tile kernel (CPML), or raises; it never falls back to the other
+  kernel or the twin. On a CPU tensor it runs :func:`stream_steps_plain`,
+  which is T calls of ``fdtd_cuda.leapfrog_step`` with the plain twins.
+- :func:`stream_steps_tile`: the tile kernel on any boundary, for timing
+  it beside the march.
 
 The engine samples probes between launches with K1's ``probe_gather``.
-``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
-K1. :data:`kernels` and :data:`plain` are the engine's full sets of entry
-points (K1's four and ``stream_steps``) that ``ops/fdtd.py::run_simulation``
-steps with.
+``launches`` counts ``stream_steps`` launches, as ``fdtd_cuda.launches``
+does for K1, and ``launches_by_kernel`` counts them per kernel
+(``stream_march``, ``stream_tile``). :data:`kernels` and :data:`plain`
+are the engine's full sets of entry points (K1's four and
+``stream_steps``) that ``ops/fdtd.py::run_simulation`` steps with.
 """
 
 from __future__ import annotations
@@ -35,33 +45,50 @@ KERNELS = ("stream_steps",)
 
 # kernel launches per wrapper; only the wrapper's CUDA branch adds to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the same launches by the kernel that ran
+ROUTES = ("stream_march", "stream_tile")
+launches_by_kernel: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 # Shared memory one block may use on Hopper (H100/H200), bytes.
 SMEM_LIMIT = 232_448
 # Steps per launch the kernel accepts (the source samples ride in its
 # parameters).
 MAX_T = 8
-# Core tile (x, y, z) per boundary kind: the halo of T cells per side
-# must fit SMEM_LIMIT at the depths the engine uses (T = 4 under MUR and
-# CPML, 5 under PEC).
+# Core tile (x, y, z) of the tile kernel per boundary kind: the halo of T
+# cells per side must fit SMEM_LIMIT at the depths the engine uses (T = 4
+# under MUR and CPML, 5 under PEC).
 _CORE = {"mur": (8, 8, 16), "pec": (8, 8, 16), "pml": (4, 8, 8)}
+# The march: y-z core tile per boundary kind, one thread per region cell
+# (core + 2T per axis, at most MARCH_THREADS: a 24x24 region at T = 4
+# under MUR and T = 5 under PEC), and the blocks it aims for: two per SM
+# on the H100's 132.
+_MARCH_CORE = {"mur": (16, 16), "pec": (14, 14)}
+MARCH_THREADS = 576
+MARCH_BLOCKS = 2 * 132
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
+    for k in ROUTES:
+        launches_by_kernel[k] = 0
 
 
 def tile_core(mur: bool, pml: bool) -> Tuple[int, int, int]:
-    """The core tile the kernel uses for this boundary kind."""
+    """The core tile the tile kernel uses for this boundary kind."""
     return _CORE["pml" if pml else "mur" if mur else "pec"]
 
 
+def march_core(mur: bool) -> Tuple[int, int]:
+    """The march's y-z core tile for MUR or PEC walls."""
+    return _MARCH_CORE["mur" if mur else "pec"]
+
+
 def smem_bytes(shape, T: int, mur: bool, pml: bool) -> int:
-    """Shared memory of one block: the largest region (core + 2T per axis,
-    clipped to the array) × the arrays it holds (E and H, a second E under
-    MUR, the twelve ψ under CPML). ``csrc/fdtd_stream.cu`` computes the
-    same."""
+    """Shared memory of one block of the tile kernel: the largest region
+    (core + 2T per axis, clipped to the array) × the arrays it holds (E
+    and H, a second E under MUR, the twelve ψ under CPML).
+    ``csrc/fdtd_stream.cu`` computes the same."""
     cells = 1
     for n, c in zip(shape, tile_core(mur, pml)):
         cells *= min(int(n), c + 2 * int(T))
@@ -69,9 +96,13 @@ def smem_bytes(shape, T: int, mur: bool, pml: bool) -> int:
 
 
 def max_T(shape, mur: bool, pml: bool) -> int:
-    """The deepest T in 1..MAX_T whose tile fits the shared memory."""
+    """The deepest T in 1..MAX_T that both kernels of the boundary take:
+    the tile kernel's tile fits the shared memory (it binds at the large
+    grids: 4 under MUR and CPML, 5 under PEC) and, under MUR and PEC, the
+    march's region fits its threads and shared memory."""
     fits = [t for t in range(1, MAX_T + 1)
-            if smem_bytes(shape, t, mur, pml) <= SMEM_LIMIT]
+            if smem_bytes(shape, t, mur, pml) <= SMEM_LIMIT
+            and (pml or _march_cells_smem(shape, t, mur)[1] is not None)]
     if not fits:
         raise ValueError(f"no stream tile fits {SMEM_LIMIT} bytes for {shape}")
     return max(fits)
@@ -86,6 +117,73 @@ def tiling(shape, mur: bool, pml: bool):
     origin = tuple(int(bool(mur) and n % c == 1) for n, c in zip(shape, core))
     tiles = tuple(-(-(n + o) // c) for n, o, c in zip(shape, origin, core))
     return core, origin, tiles
+
+
+def _cut(n: int, q: int, core: int, mur: bool) -> Tuple[int, int]:
+    """``(origin, pieces)`` of one axis cut into cores of ``core`` cells:
+    piece b covers [b·core − origin, (b+1)·core − origin) ∩ [0, n). Under
+    MUR no piece may be the lone wall plane q − 1 (its fix needs the
+    neighbour's new E): the cut shifts down by one cell where one would
+    start there."""
+    origin = int(bool(mur) and (q - 1) % core == 0)
+    return origin, -(-(n + origin) // core)
+
+
+def _march_layout(shape, grid_shape, mur: bool):
+    """The T-independent part of :func:`march_plan`. The x segments: the
+    length (at least 3 planes) whose blocks finish soonest, counting
+    rounds of :data:`MARCH_BLOCKS` resident blocks times the planes a
+    block marches (its segment and the trapezoid's 2T more, taken at
+    T = 4)."""
+    n0, n1, n2 = (int(v) for v in shape)
+    q0, q1, q2 = (int(v) for v in grid_shape)
+    core = march_core(mur)
+    oy, ty = _cut(n1, q1, core[0], mur)
+    oz, tz = _cut(n2, q2, core[1], mur)
+
+    def finish(seg):
+        rounds = -(-ty * tz * -(-n0 // seg) // MARCH_BLOCKS)
+        return rounds * (seg + 8), -seg
+
+    seg = min({max(3, -(-n0 // k)) for k in range(1, n0 + 1)}, key=finish)
+    ox, segs = _cut(n0, q0, seg, mur)
+    return core, (oy, oz), (ty, tz), (seg, ox, segs)
+
+
+def _march_cells_smem(shape, T: int, mur: bool):
+    """Region cells of the march's largest block and its shared memory
+    (None where either is past the limit)."""
+    core = march_core(mur)
+    cells = (min(int(shape[1]), core[0] + 2 * T)
+             * min(int(shape[2]), core[1] + 2 * T))
+    smem = 4 * cells * (6 * (T + 2) + (8 if mur else 0))
+    fits = cells <= MARCH_THREADS and smem <= SMEM_LIMIT
+    return cells, smem if fits else None
+
+
+def march_plan(shape, grid_shape, T: int, mur: bool):
+    """How the march cuts a grid for a T-step launch (MUR or PEC walls).
+
+    Returns ``(core_yz, origin_yz, tiles_yz, x_segments, smem_bytes)``.
+    Tile (by, bz) covers y in [by·core_y − origin_y, (by+1)·core_y −
+    origin_y) and likewise z, clipped to the array; ``x_segments`` is
+    ``(length, origin, count)``, segment s covering [s·length − origin,
+    (s+1)·length − origin). There are ``tiles_y·tiles_z·count`` blocks.
+    A block
+    holds the region core + T cells per side in y and z, one thread per
+    region cell; ``smem_bytes`` is the largest block's shared memory: the
+    E and H rings of T + 2 planes, under MUR the old E of two planes and
+    the upper x wall's two fixed components. ``csrc/fdtd_stream.cu``
+    computes the same from the packed arguments. Raises ``ValueError``
+    where a region outgrows the threads or the shared memory."""
+    core, origin, tiles, segments = _march_layout(shape, grid_shape, mur)
+    cells, smem = _march_cells_smem(shape, T, mur)
+    if smem is None:
+        raise ValueError(
+            f"the march takes no T={T} at {tuple(shape)}: {cells} region "
+            f"cells (at most {MARCH_THREADS}) or their shared memory past "
+            f"{SMEM_LIMIT} B")
+    return core, origin, tiles, segments, smem
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +217,9 @@ class _StreamArgs(ctypes.Structure):
         ("n", _I3), ("q", _I3), ("core", _I3), ("origin", _I3), ("tiles", _I3),
         ("has_pml", ctypes.c_int), ("has_mur", ctypes.c_int),
         ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
+        ("m_core", ctypes.c_int * 2), ("m_origin", ctypes.c_int * 2),
+        ("m_tiles", ctypes.c_int * 2), ("m_seg", ctypes.c_int),
+        ("m_seg_origin", ctypes.c_int), ("m_segs", ctypes.c_int),
     ]
 
 
@@ -135,12 +236,14 @@ def _library():
         for name in ("fdtd_stream_args_size", "fdtd_stream_max_t"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        lib.fdtd_stream_smem_bytes.argtypes = [_P, ctypes.c_int]
-        lib.fdtd_stream_smem_bytes.restype = ctypes.c_longlong
+        for name in ("fdtd_stream_smem_bytes", "fdtd_march_smem_bytes"):
+            getattr(lib, name).argtypes = [_P, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.fdtd_stream_error_string.argtypes = [ctypes.c_int]
         lib.fdtd_stream_error_string.restype = ctypes.c_char_p
-        lib.fdtd_stream_steps.argtypes = [_P, _P, ctypes.c_int, _P]
-        lib.fdtd_stream_steps.restype = ctypes.c_int
+        for name in ("fdtd_stream_steps", "fdtd_stream_march"):
+            getattr(lib, name).argtypes = [_P, _P, ctypes.c_int, _P]
+            getattr(lib, name).restype = ctypes.c_int
         if lib.fdtd_stream_args_size() != ctypes.sizeof(_StreamArgs):
             raise RuntimeError(
                 f"StreamArgs layout mismatch: C {lib.fdtd_stream_args_size()} "
@@ -172,6 +275,7 @@ class _StreamBuffers:
         self.args = tuple(self._pack(ops, self.sets[i], self.sets[1 - i], dev, shp)
                           for i in range(2))
         self.addr = tuple(ctypes.addressof(a) for a in self.args)
+        self.march_T = set()  # the T whose shared memory C and Python agree on
 
     @staticmethod
     def _pack(ops, src, dst, dev, shp) -> _StreamArgs:
@@ -210,6 +314,13 @@ class _StreamBuffers:
         for b in range(3):
             for side in range(2):
                 a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+        if not pml:
+            core, origin, tiles, (seg, seg_origin, segs) = _march_layout(
+                shp, ops.grid_shape, ops.mur is not None)
+            a.m_core[:] = core
+            a.m_origin[:] = origin
+            a.m_tiles[:] = tiles
+            a.m_seg, a.m_seg_origin, a.m_segs = seg, seg_origin, segs
         return a
 
     def current(self, ops: YeeOperands, st: YeeState):
@@ -225,9 +336,22 @@ class _StreamBuffers:
 
 def stream_steps(ops: YeeOperands, st: YeeState, wf_t: Sequence[float]) -> None:
     """Advance ``st`` by T = ``len(wf_t)`` leapfrog steps; ``wf_t[k]`` is the
-    source sample of inner step k. On CUDA the state afterwards points at
-    the other of its two field sets (its earlier tensors hold the fields
-    from before the launch)."""
+    source sample of inner step k. On CUDA it launches the march (MUR,
+    PEC) or the tile kernel (CPML); the state afterwards points at the
+    other of its two field sets (its earlier tensors hold the fields from
+    before the launch)."""
+    _stream_launch(ops, st, wf_t, "stream_tile" if ops.pml is not None
+                   else "stream_march")
+
+
+def stream_steps_tile(ops: YeeOperands, st: YeeState,
+                      wf_t: Sequence[float]) -> None:
+    """:func:`stream_steps` through the tile kernel on any boundary (the
+    CPML route, timed beside the march under MUR and PEC)."""
+    _stream_launch(ops, st, wf_t, "stream_tile")
+
+
+def _stream_launch(ops, st, wf_t, kernel: str) -> None:
     T = len(wf_t)
     if not 1 <= T <= MAX_T:
         raise ValueError(f"stream_steps takes 1..{MAX_T} samples, got {T}")
@@ -239,13 +363,25 @@ def stream_steps(ops: YeeOperands, st: YeeState, wf_t: Sequence[float]) -> None:
     if cur is None:
         buf = st._stream = _StreamBuffers(ops, st)
         cur = 0
+    if kernel == "stream_march":
+        launch = lib.fdtd_stream_march
+        if T not in buf.march_T:
+            smem = march_plan(ops.shape, ops.grid_shape, T, ops.mur is not None)[4]
+            got = lib.fdtd_march_smem_bytes(buf.addr[cur], T)
+            if got != smem:
+                raise RuntimeError(f"march shared memory: C {got} B, "
+                                   f"march_plan {smem} B at T={T}")
+            buf.march_T.add(T)
+    else:
+        launch = lib.fdtd_stream_steps
     samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
-    code = lib.fdtd_stream_steps(buf.addr[cur], ctypes.addressof(samples), T,
-                                 _stream(ops.device))
+    code = launch(buf.addr[cur], ctypes.addressof(samples), T,
+                  _stream(ops.device))
     if code != 0:
         msg = lib.fdtd_stream_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel stream_steps failed: {msg} ({code})")
+        raise RuntimeError(f"CUDA kernel {kernel} failed: {msg} ({code})")
     launches["stream_steps"] += 1
+    launches_by_kernel[kernel] += 1
     nxt = buf.sets[1 - cur]
     st.e[st.parity] = nxt[0:3]
     st.h = nxt[3:6]

@@ -8,6 +8,8 @@ JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -121,7 +123,8 @@ def test_each_kernel_equals_its_twin_bit_for_bit(cuda, boundary):
             assert torch.equal(x, y)
 
 
-def _stream_sim(boundary, tall=False, T=None, n_steps=120, mode="stream"):
+def _stream_sim(boundary, tall=False, T=None, n_steps=120, mode="stream",
+                decim=4):
     """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines),
     forced onto the stream kernel with ``T`` steps per launch."""
     mb = MeshBuilder()
@@ -141,7 +144,7 @@ def _stream_sim(boundary, tall=False, T=None, n_steps=120, mode="stream"):
     scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
     scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
     cfg = FDTDConfig(n_steps_max=n_steps, check_every=40, end_criteria=1e-30,
-                     boundary=boundary, probe_decimation=4,
+                     boundary=boundary, probe_decimation=decim,
                      pallas_mode=mode, stream_T=T if mode == "stream" else None)
     return build_simulation(
         scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
@@ -164,6 +167,8 @@ def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
     assert fdtd_stream.launches == {"stream_steps": 1}
+    route = "stream_tile" if boundary.startswith("PML") else "stream_march"
+    assert fdtd_stream.launches_by_kernel[route] == 1
     assert a.h[0] is not before
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
@@ -182,6 +187,9 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     fdtd_cuda.reset_launch_counts()
     k = run_simulation(sim, fdtd_stream.kernels)
     assert fdtd_stream.launches["stream_steps"] == 120 // 4
+    route = "stream_tile" if boundary.startswith("PML") else "stream_march"
+    assert fdtd_stream.launches_by_kernel == {
+        "stream_march": 0, "stream_tile": 0, route: 120 // 4}
     assert fdtd_cuda.launches["probe_gather"] == 120 // 4
     assert fdtd_cuda.launches["h_update"] == 0
     p = run_simulation(sim, fdtd_stream.plain)
@@ -198,6 +206,93 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
         for grp in ("psi_e", "psi_h"):
             for name, v in ref["state"][grp].items():
                 _close(k["state"][grp][name], v)
+
+
+def _lone_sim(boundary, T):
+    """43×33×49 lines: with the march's 16×16 core, y and z end on the
+    lone-plane shift (n % 16 == 1), and x is cut into 3-plane segments
+    (43 % 3 == 1) that shift too."""
+    mb = MeshBuilder()
+    mb.add_line("x", np.linspace(-21, 21, 43))
+    mb.add_line("y", np.linspace(-16, 16, 33))
+    mb.add_line("z", np.linspace(-24, 24, 49))
+    grid = mb.build(4.0)
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [-10, -10, 0], [10, 10, 2], 0)
+    scene.add_metal_box("patch", [-8, -6, 2], [8, 6, 2], priority=10)
+    scene.add_metal_box("gnd", [-10, -10, 0], [10, 10, 0], priority=10)
+    scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 2], direction="z")
+    cfg = FDTDConfig(n_steps_max=120, check_every=40, end_criteria=1e-30,
+                     boundary=boundary, probe_decimation=T,
+                     pallas_mode="stream", stream_T=T)
+    return build_simulation(
+        scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
+        port_freqs_hz=np.linspace(2e9, 3e9, 7),
+        nf_freqs_hz=np.array([2.45e9]))
+
+
+_MARCH_CASES = [(b, sc, T) for b in ("MUR", "PEC") for sc in ("small", "z131", "lone")
+                for T in range(1, 6 if b == "PEC" else 5)]
+
+
+@pytest.mark.parametrize("boundary,scene,T", _MARCH_CASES)
+def test_stream_march_equals_its_twin(cuda, boundary, scene, T):
+    """One march launch of T steps on a random state against T plain
+    steps (rtol 2e-4, atol 1e-5·max|plain|), on grids cut into several x
+    segments; the lone-plane grid shifts its cut on every axis."""
+    sim = (_lone_sim(boundary, T) if scene == "lone"
+           else _stream_sim(boundary, scene == "z131", T, decim=T))
+    ops = sim.operands
+    mur = boundary == "MUR"
+    _, origin, _, (_, seg_origin, segs), smem = fdtd_stream.march_plan(
+        ops.shape, ops.grid_shape, T, mur)
+    assert segs >= 2 and smem <= fdtd_stream.SMEM_LIMIT
+    if scene == "lone":
+        assert tuple(ops.shape) == (43, 33, 49)
+        assert (origin, seg_origin) == (((1, 1), 1) if mur else ((0, 0), 0))
+    base = _random_state(sim, cuda, seed=43 + T)
+    wf = [0.37, -0.21, 0.55, 0.13, -0.4][:T]
+    a, b = _clone(base), _clone(base)
+    fdtd_stream.reset_launch_counts()
+    fdtd_stream.stream_steps(ops, a, wf)
+    assert fdtd_stream.launches_by_kernel == {"stream_march": 1, "stream_tile": 0}
+    fdtd_stream.stream_steps_plain(ops, b, wf)
+    torch.cuda.synchronize()
+    for x, y in zip((*a.e[a.parity], *a.h), (*b.e[b.parity], *b.h), strict=True):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_stream_march_run_on_the_lone_plane_grid_matches_chunk(cuda, boundary):
+    """A 120-step stream run through the march on the lone-plane grid
+    equals the same run through K1's chunk kernels."""
+    sim = _lone_sim(boundary, 4)
+    fdtd_stream.reset_launch_counts()
+    k = run_simulation(sim, fdtd_stream.kernels)
+    assert fdtd_stream.launches_by_kernel["stream_march"] == 120 // 4
+    chunk = dataclasses.replace(sim, pallas_mode="chunk", stream_T=1)
+    c = run_simulation(chunk, fdtd_cuda.kernels)
+    assert k["steps"] == c["steps"] == 120
+    for fa, fb in zip(k["fields"], c["fields"], strict=True):
+        _close(fa, fb)
+    for key in ("uf", "if_"):
+        _close(k[key], c[key])
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(k[key], c[key], strict=True):
+            _close(a, b)
+
+
+def test_march_shared_memory_formula_matches_the_kernel(cuda):
+    for boundary in ("MUR", "PEC"):
+        sim = _stream_sim(boundary, tall=True, T=4)
+        st = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=False)
+        fdtd_stream.stream_steps(sim.operands, st, [0.0] * 4)
+        lib = fdtd_stream._library()
+        mur = boundary == "MUR"
+        for T in range(1, fdtd_stream.max_T(sim.padded_shape, mur, False) + 1):
+            plan = fdtd_stream.march_plan(sim.padded_shape, sim.grid.shape, T, mur)
+            for i in range(2):
+                assert lib.fdtd_march_smem_bytes(st._stream.addr[i], T) == plan[4]
 
 
 def test_stream_shared_memory_formula_matches_the_kernel(cuda):
@@ -333,7 +428,8 @@ def test_interval_steps_equals_its_twin(cuda, scene, boundary):
 
 def test_step_fn_runs_on_the_card_by_default(cuda):
     """``build_stepper`` takes the simulation's device; an odd interval's
-    result lands in the caller's tensors, held to the plain steps."""
+    result comes back in new tensors, held to the plain steps, and the
+    caller's tensors keep their values."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
 
     sim = _sim("MUR", decim=7)
@@ -343,7 +439,9 @@ def test_step_fn_runs_on_the_card_by_default(cuda):
     wf = torch.linspace(-1.0, 1.0, 7, device=cuda)
     fdtd_steps.reset_launch_counts()
     out = step_fn(fields, wf)
-    assert all(x is y for x, y in zip(out, fields))
+    assert not any(x is y for x, y in zip(out, fields))
+    for x, y in zip(fields, ref.fields, strict=True):  # inputs unchanged
+        assert torch.equal(x, y)
     assert fdtd_steps.launches == {"interval_steps": 1}
     fdtd_steps.interval_steps_plain(sim.operands, ref, wf)
     for x, y in zip(out, ref.fields, strict=True):

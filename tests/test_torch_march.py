@@ -1,0 +1,367 @@
+"""The stream march's plan (``fdtd_stream.march_plan``) and its schedule, on the CPU.
+
+The march (``march_kernel`` in ``csrc/fdtd_stream.cu``) carries stream
+mode under MUR and PEC walls: each block owns a y–z tile of one x segment
+and marches along x with T time levels of a few planes in shared memory.
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``
+holds it to its twin there). Here the plan is checked on its own terms
+(every core cell of every plane written by exactly one block, no core or
+segment a lone wall plane, shared memory within the card's limit, the
+mixed scene filling the card) and the kernel's schedule, transcribed
+step for step into NumPy (:func:`emulate_march`), is held to the plain
+twin ``stream_steps_plain`` bit for bit: the same planes, levels, boxes,
+ring slots, deferred lower wall and held-over upper wall, on grids cut
+into several tiles and segments.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
+from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+MIXED = (141, 201, 152)  # the 4.2M-cell mixed patch+horn scene
+TALL = (161, 121, 160)  # the tall patch
+SHAPES = [MIXED, TALL, (56, 55, 50), (19, 17, 13), (33, 49, 17), (161, 121, 131)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Test workers share the cores (pytest-xdist)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pieces(n, length, origin, count):
+    return [(max(0, b * length - origin), min(n, (b + 1) * length - origin))
+            for b in range(count)]
+
+
+def _blocks(shape, grid_shape, T, mur):
+    core, origin, tiles, (seg, so, segs), smem = fdtd_stream.march_plan(
+        shape, grid_shape, T, mur)
+    xs = _pieces(shape[0], seg, so, segs)
+    ys = _pieces(shape[1], core[0], origin[0], tiles[0])
+    zs = _pieces(shape[2], core[1], origin[1], tiles[1])
+    return xs, ys, zs, smem
+
+
+def _max_Ts():
+    for shape, mur in itertools.product(SHAPES, (True, False)):
+        for T in range(1, fdtd_stream.max_T(shape, mur, False) + 1):
+            yield shape, mur, T
+
+
+@pytest.mark.parametrize("shape,mur,T", list(_max_Ts()))
+def test_plan_covers_every_core_cell_once(shape, mur, T):
+    xs, ys, zs, _ = _blocks(shape, shape, T, mur)
+    count = np.zeros(shape, np.int32)
+    for (x0, x1), (y0, y1), (z0, z1) in itertools.product(xs, ys, zs):
+        count[x0:x1, y0:y1, z0:z1] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(17, 33, 49), (35, 18, 65)])
+@pytest.mark.parametrize("grid_pad", [0, 3])
+def test_plan_leaves_no_lone_wall_plane(shape, grid_pad):
+    """Under MUR no core (y, z) and no segment (x) is the lone wall plane
+    q − 1 or the lone plane 0, also where the array is padded past the
+    grid."""
+    grid = tuple(n - grid_pad for n in shape)
+    xs, ys, zs, _ = _blocks(shape, grid, 4, True)
+    for pieces, q in zip((xs, ys, zs), grid):
+        for a, b in pieces:
+            assert b - a >= 1
+            assert (a, b) != (q - 1, q) and (a, b) != (0, 1)
+
+
+def test_plan_shared_memory_fits_every_T_max_T_allows():
+    for shape, mur, T in _max_Ts():
+        *_, smem = fdtd_stream.march_plan(shape, shape, T, mur)
+        assert smem <= fdtd_stream.SMEM_LIMIT, (shape, mur, T)
+    # the depths the engine picks at the large grids: 4 under MUR, 5 PEC,
+    # both small enough for two blocks an SM (two 1 KB reserves)
+    for shape in (MIXED, TALL):
+        assert fdtd_stream.max_T(shape, True, False) == 4
+        assert fdtd_stream.max_T(shape, False, False) == 5
+        for mur, T in ((True, 4), (False, 5)):
+            smem = fdtd_stream.march_plan(shape, shape, T, mur)[4]
+            assert 2 * (smem + 1024) <= 233_472, (shape, mur, smem)
+    assert fdtd_stream.march_plan(MIXED, MIXED, 4, True)[4] == 24 * 24 * 4 * 44
+
+
+def test_mixed_scene_fills_the_card():
+    core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
+        MIXED, MIXED, 4, True)
+    assert tiles == (13, 10) and segs == 2
+    blocks = tiles[0] * tiles[1] * segs
+    assert 132 <= blocks <= fdtd_stream.MARCH_BLOCKS
+    assert fdtd_stream.march_plan(TALL, TALL, 4, True)[2:4] == ((8, 10), (54, 0, 3))
+
+
+def test_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="march takes no T=8"):
+        fdtd_stream.march_plan(MIXED, MIXED, 8, True)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's schedule in NumPy
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return None if t is None else t.numpy()
+
+
+def emulate_march(ops, st, wf):
+    """``march_kernel`` of ``csrc/fdtd_stream.cu`` block by block, in
+    float32 with the kernel's order of operations. Returns the new (E, H);
+    cells no block writes stay NaN."""
+    n0, n1, n2 = ops.shape
+    q0, q1, q2 = ops.grid_shape
+    T = len(wf)
+    mur = ops.mur is not None
+    f32 = np.float32
+    core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
+        ops.shape, ops.grid_shape, T, mur)
+    E_in = [_np(e) for e in st.e[st.parity]]
+    H_in = [_np(h) for h in st.h]
+    ca, cb, src = ([_np(a) for a in arr] for arr in (ops.ca, ops.cb, ops.src))
+    ip, idd = [_np(a) for a in ops.inv_p], [_np(a) for a in ops.inv_d]
+    dtmu = f32(ops.dtmu)
+    mc = [[f32(c) for c in pair] for pair in ops.mur] if mur else None
+    E_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    H_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    R = T + 2
+
+    def shift(a, axis, d):
+        """a[i + d] along ``axis`` (d = ±1), 0 past the region."""
+        out = np.zeros_like(a)
+        src_ = [slice(None)] * a.ndim
+        dst = [slice(None)] * a.ndim
+        if d > 0:
+            src_[axis], dst[axis] = slice(1, None), slice(0, -1)
+        else:
+            src_[axis], dst[axis] = slice(0, -1), slice(1, None)
+        out[tuple(dst)] = a[tuple(src_)]
+        return out
+
+    for sg, by, bz in itertools.product(range(segs), range(tiles[0]), range(tiles[1])):
+        cy0, cy1 = max(0, by * core[0] - origin[0]), min(n1, (by + 1) * core[0] - origin[0])
+        cz0, cz1 = max(0, bz * core[1] - origin[1]), min(n2, (bz + 1) * core[1] - origin[1])
+        x0, x1 = max(0, sg * seg - so), min(n0, (sg + 1) * seg - so)
+        if cy0 >= cy1 or cz0 >= cz1 or x0 >= x1:
+            continue
+        ry, rz = max(0, cy0 - T), max(0, cz0 - T)
+        Ly, Lz = min(n1, cy1 + T) - ry, min(n2, cz1 + T) - rz
+        sy, sz = slice(ry, ry + Ly), slice(rz, rz + Lz)
+        Er = np.zeros((R, 3, Ly, Lz), f32)
+        Hr = np.zeros((R, 3, Ly, Lz), f32)
+        O = np.zeros((2, 3, Ly, Lz), f32)
+        W = np.zeros((2, Ly, Lz), f32)
+        gy = ry + np.arange(Ly)[:, None]
+        gz = rz + np.arange(Lz)[None, :]
+        ipy, ipz = ip[1][sy][:, None], ip[2][sz][None, :]
+        idy, idz = idd[1][sy][:, None], idd[2][sz][None, :]
+        core_m = (gy >= cy0) & (gy < cy1) & (gz >= cz0) & (gz < cz1)
+
+        def curl_h(H, Hm, idx_):
+            hx, hy, hz = H
+            hz_xm = Hm[2] if Hm is not None else np.zeros_like(hz)
+            hy_xm = Hm[1] if Hm is not None else np.zeros_like(hy)
+            dHz_y = (hz - shift(hz, 0, -1)) * idy
+            dHy_z = (hy - shift(hy, 1, -1)) * idz
+            dHx_z = (hx - shift(hx, 1, -1)) * idz
+            dHz_x = (hz - hz_xm) * idx_
+            dHy_x = (hy - hy_xm) * idx_
+            dHx_y = (hx - shift(hx, 0, -1)) * idy
+            return dHz_y - dHy_z, dHx_z - dHz_x, dHy_x - dHx_y
+
+        def e_cell(E, x, cu, s):
+            g = (x, sy, sz)
+            v = []
+            for m in range(3):
+                val = ca[m][g] * E[m] + cb[m][g] * cu[m]
+                if src[m] is not None:
+                    val = val + src[m][g] * f32(s)
+                v.append(val)
+            return v
+
+        def fix(E, Oo, act, axis, side, coef, comps):
+            """MUR on the wall rows (axis 0 = y, 1 = z) of one plane."""
+            g, L = (gy, Ly) if axis == 0 else (gz, Lz)
+            wall = 0 if side == 0 else (q1 if axis == 0 else q2) - 1
+            lw = wall - (ry if axis == 0 else rz)
+            ln = lw + (1 if side == 0 else -1)
+            if not (0 <= lw < L and 0 <= ln < L):
+                return
+            sel = (lambda a, i: a[i, :]) if axis == 0 else (lambda a, i: a[:, i])
+            rows = sel(act, lw)
+            for m in comps:
+                new = sel(Oo[m], ln) + coef * (sel(E[m], ln) - sel(Oo[m], lw))
+                sel(E[m], lw)[rows] = new[rows]
+
+        xs_, xl = max(0, x0 - T), min(n0, x1 + T)
+        for p in range(xs_, x1 + T):
+            if p < xl:
+                for m in range(3):
+                    Er[p % R, m] = E_in[m][p, sy, sz]
+                    Hr[p % R, m] = H_in[m][p, sy, sz]
+            for t in range(1, T + 1):
+                x = p - t
+                lo = max(0, x0 - T + t - 1)
+                if x < lo or x >= min(n0, x1 + T - t):
+                    continue
+                s = wf[t - 1]
+                E, H = Er[x % R], Hr[x % R]
+                Hm = Hr[(x - 1) % R] if x > 0 else None
+                act = ((gy >= max(cy0 - T + t - 1, ry)) & (gy < min(cy1 + T - t, ry + Ly))
+                       & (gz >= max(cz0 - T + t - 1, rz)) & (gz < min(cz1 + T - t, rz + Lz)))
+                defer0 = mur and x == 0
+                with0 = mur and x == 1 and lo == 0
+                # H
+                ex, ey, ez = E
+                Ep = Er[(x + 1) % R] if x + 1 < n0 else np.zeros_like(E)
+                ipx = ip[0][x]
+                dEz_y = (shift(ez, 0, 1) - ez) * ipy
+                dEy_z = (shift(ey, 1, 1) - ey) * ipz
+                dEx_z = (shift(ex, 1, 1) - ex) * ipz
+                dEz_x = (Ep[2] - ez) * ipx
+                dEy_x = (Ep[1] - ey) * ipx
+                dEx_y = (shift(ex, 0, 1) - ex) * ipy
+                for m, d in enumerate((dEz_y - dEy_z, dEx_z - dEz_x, dEy_x - dEx_y)):
+                    H[m][act] = (H[m] - dtmu * d)[act]
+                # E
+                if not defer0:
+                    Ox = O[x & 1]
+                    cu = curl_h(H, Hm, idd[0][x])
+                    old = E.copy()
+                    v = e_cell(old, x, cu, s)
+                    if mur:
+                        Ox[:, act] = old[:, act]
+                    E[0][act] = v[0][act]
+                    if mur and x == q0 - 1:
+                        E[1][act], E[2][act] = W[0][act], W[1][act]
+                    else:
+                        E[1][act], E[2][act] = v[1][act], v[2][act]
+                    if mur and x == q0 - 2:
+                        Ew = Er[(x + 1) % R]
+                        cx = mc[0][1]
+                        W[0][act] = (Ox[1] + cx * (v[1] - Ew[1]))[act]
+                        W[1][act] = (Ox[2] + cx * (v[2] - Ew[2]))[act]
+                    if with0:
+                        E0 = Er[0]
+                        cu0 = curl_h(Hr[0], None, idd[0][0])
+                        old0 = E0.copy()
+                        v0 = e_cell(old0, 0, cu0, s)
+                        O[0][:, act] = old0[:, act]
+                        cx = mc[0][0]
+                        E0[0][act] = v0[0][act]
+                        E0[1][act] = (Ox[1] + cx * (v[1] - O[0][1]))[act]
+                        E0[2][act] = (Ox[2] + cx * (v[2] - O[0][2]))[act]
+                if mur:
+                    for axis, comps in ((0, (0, 2)), (1, (0, 1))):
+                        for side in (0, 1):
+                            coef = mc[axis + 1][side]
+                            if not defer0:
+                                fix(E, O[x & 1], act, axis, side, coef, comps)
+                            if with0:
+                                fix(Er[0], O[0], act, axis, side, coef, comps)
+                if t == T:
+                    planes = []
+                    if not defer0 and x0 <= x < x1:
+                        planes.append(x)
+                    if with0 and x0 == 0:
+                        planes.append(0)
+                    for px in planes:
+                        for m in range(3):
+                            E_out[m][px, sy, sz][core_m] = Er[px % R, m][core_m]
+                            H_out[m][px, sy, sz][core_m] = Hr[px % R, m][core_m]
+    return E_out, H_out
+
+
+def _sim(boundary, tall=False):
+    """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines)."""
+    mb = MeshBuilder()
+    mb.add_line("x", [-40, 40, 0.0, -6.0])
+    mb.add_line("y", [-30, 30, 0.0])
+    if tall:
+        mb.add_line("z", np.linspace(-20, 30, 131))
+    else:
+        mb.add_line("z", [-20, 30])
+        mb.add_line("z", np.linspace(0, 1.6, 3))
+    grid = mb.build(5.0)
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
+    scene.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
+    scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
+    scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
+    cfg = FDTDConfig(n_steps_max=40, check_every=40, end_criteria=1e-30,
+                     boundary=boundary, probe_decimation=4)
+    return build_simulation(scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg,
+                            device="cpu", port_freqs_hz=np.linspace(2e9, 3e9, 5),
+                            nf_freqs_hz=np.array([2.45e9]))
+
+
+def _random_state(shape, seed):
+    rng = np.random.default_rng(seed)
+    st = fdtd_cuda.new_state(shape, "cpu", pml=False)
+    for t in (*st.e[0], *st.e[1], *st.h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    return st
+
+
+@pytest.mark.parametrize("boundary,tall,T,core", [
+    ("MUR", False, 1, (5, 4)), ("MUR", False, 2, (6, 5)),
+    ("MUR", False, 3, (4, 6)), ("MUR", False, 4, (5, 4)),
+    ("PEC", False, 2, (5, 4)), ("PEC", False, 5, (6, 5)),
+    ("MUR", True, 4, (16, 16)), ("PEC", True, 3, (14, 14)),
+])
+def test_schedule_equals_the_plain_twin(monkeypatch, boundary, tall, T, core):
+    """The kernel's schedule against T plain leapfrog steps on a random
+    state, bit for bit, with small cores so that the grid is cut into
+    several tiles per axis and several x segments (lone-plane shifts
+    included where the shapes give them)."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, boundary.lower(), core)
+    sim = _sim(boundary, tall)
+    ops = sim.operands
+    shape = tuple(ops.shape)
+    _, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
+        shape, ops.grid_shape, T, boundary == "MUR")
+    assert segs >= 2 and tiles[1] >= 2 and (tall or tiles[0] >= 2)
+    st = _random_state(shape, seed=17 + T)
+    wf = [0.37, -0.21, 0.55, 0.13, 0.4][:T]
+    E, H = emulate_march(ops, st, wf)
+    fdtd_stream.stream_steps_plain(ops, st, wf)
+    for got, ref in zip((*E, *H), st.fields, strict=True):
+        np.testing.assert_array_equal(got, ref.numpy())
+
+
+def test_schedule_with_the_lone_plane_shift(monkeypatch):
+    """A cut whose cores and segments would end on the lone wall plane on
+    every axis (n % core == 1) shifts by one cell, and the schedule still
+    equals the twin."""
+    sim = _sim("MUR")
+    ops = sim.operands
+    n0, n1, n2 = ops.shape
+    core = (n1 - 1) // 2, (n2 - 1) // 2
+    assert n1 % core[0] == 1 and n2 % core[1] == 1
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, "mur", core)
+    tiles = fdtd_stream.march_plan(ops.shape, ops.grid_shape, 3, True)[2]
+    assert n0 == 19  # seven segments of 3 planes: 19 % 3 == 1
+    monkeypatch.setattr(fdtd_stream, "MARCH_BLOCKS", tiles[0] * tiles[1] * 7)
+    _, origin, _, (seg, so, segs), _ = fdtd_stream.march_plan(
+        ops.shape, ops.grid_shape, 3, True)
+    assert origin == (1, 1) and (seg, so, segs) == (3, 1, 7)
+    st = _random_state(ops.shape, seed=5)
+    wf = [0.2, -0.4, 0.7]
+    E, H = emulate_march(ops, st, wf)
+    fdtd_stream.stream_steps_plain(ops, st, wf)
+    for got, ref in zip((*E, *H), st.fields, strict=True):
+        np.testing.assert_array_equal(got, ref.numpy())

@@ -146,17 +146,18 @@ def test_plain_step_fn_equals_leapfrog_steps(boundary, tall):
     for _ in range(3):
         wf = rng.uniform(-1.0, 1.0, D).astype(np.float32)
         out = step_fn(fields, wf)
-        assert all(a is b for a, b in zip(out, fields))  # updated in place
+        assert not any(a is b for a, b in zip(out, fields))  # new tensors
         for s in wf:
             fdtd_cuda.leapfrog_step(fdtd_cuda.plain, ops, st, float(s))
         for a, b in zip(out, st.fields, strict=True):
             assert torch.equal(a, b)
+        fields = out
     assert fdtd_steps.launches == {"interval_steps": 0}
 
 
 def test_odd_interval_lands_in_the_callers_tensors():
-    """With D odd the last E sits in the second buffer; step_fn copies it
-    back, so the caller's tensors hold the result."""
+    """With D odd the last E sits in the second buffer; the tensors
+    step_fn returns hold the result all the same."""
     sim = _port_sim("MUR")
     fields = _random_fields(sim, seed=8)
     ref = fdtd_cuda.new_state(sim.padded_shape, "cpu", pml=False)
@@ -164,11 +165,43 @@ def test_odd_interval_lands_in_the_callers_tensors():
         t.copy_(f)
     odd = fdtd_steps.build_stepper(
         _with_decim(sim, 3), *sim._aux[:3])[0]
-    odd(fields, [0.1, -0.2, 0.3])
+    out = odd(fields, [0.1, -0.2, 0.3])
     fdtd_steps.interval_steps_plain(sim.operands, ref, [0.1, -0.2, 0.3])
     assert ref.parity == 1
-    for a, b in zip(fields, ref.fields, strict=True):
+    for a, b in zip(out, ref.fields, strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_step_fn_leaves_its_inputs_unchanged(boundary):
+    """As the JAX stepper returns new arrays: the six input tensors are
+    bit for bit what they were after a call, and the outputs still equal
+    the TPU interval kernel's (interpret mode) from the same inputs."""
+    import jax.numpy as jnp
+
+    jsim = _jax_sim(boundary)
+    psim = _port_sim(boundary)
+    wf = np.asarray(jsim.waveform, np.float32)
+    jstep, jto, jfrom = build_pallas_stepper(jsim, *jsim._aux[:3])
+    pstep, _, _ = fdtd_steps.build_stepper(psim, *psim._aux[:3])
+    jf = tuple(jto(jnp.zeros(jsim.grid.shape, jnp.float32)) for _ in range(6))
+    pf = _zero_fields(psim)
+    for i in range(2):  # from zero fields into a live state, as above
+        chunk = wf[i * D:(i + 1) * D]
+        jf = jstep(jf, jnp.asarray(chunk))
+        pf = pstep(pf, chunk)
+    before = tuple(f.clone() for f in pf)
+    chunk = wf[2 * D:3 * D]
+    out = pstep(pf, chunk)
+    for a, b in zip(pf, before, strict=True):
+        assert torch.equal(a, b)
+    refs = [np.asarray(jfrom(b)) for b in jstep(jf, jnp.asarray(chunk))]
+    scale = max(float(np.abs(r).max()) for r in refs)
+    assert scale > 0
+    for c, (a, ref) in enumerate(zip(out, refs, strict=True)):
+        assert a is not pf[c]
+        np.testing.assert_allclose(a.numpy(), ref, rtol=RTOL, atol=1e-5 * scale,
+                                   err_msg=f"field {c}")
 
 
 def _with_decim(sim, decim):
