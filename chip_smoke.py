@@ -39,18 +39,25 @@ and the script exits non-zero without printing a result:
     random slab states (owned rows): the canonical slab at one rank
     (m = 120) for a K = 32 and a remainder window under MUR, PEC, an
     interior rank of a 4-way split under MUR and PML_4, a straddle slab;
-    device time per launch beside its bound;
+    the storage form the shape picks and, forced, the other one; each
+    line gives the form, blocks × threads and grid barriers a step; the
+    canonical launch's device time per launch and per step beside its
+    bound and the first design's time;
 12. main path (explicit slice): the canonical patch through
-    ``build_explicit_run`` on one card (one rank), with launch counts,
-    held to the chunk-mode run of phase 4, S11 and Dmax from the port's
-    post-processing;
+    ``build_explicit_run`` on one card (one rank), with launch counts
+    (by storage form), held to the chunk-mode run of phase 4, S11 and
+    Dmax from the port's post-processing;
 13. times: the JAX bench's pinned explicit run (160,000 steps) beside
-    chunk mode on the same scene;
+    chunk mode on the same scene, and K3's launch and per-step time
+    beside the first design's;
 14. K4 (interval slice): ``interval_steps`` alone against its plain twin
-    on random states at the canonical patch (MUR and PEC, D = 89) and the
-    161×121×160 grid, device time per launch beside its bound; then the
-    canonical patch through ``fdtd_steps.build_stepper``'s ``step_fn`` for
-    125 intervals (11,125 steps) from zero fields, held to the same steps
+    on random states at the canonical patch (MUR and PEC, D = 89, both
+    storage forms) and the 161×121×160 grid, with form, blocks ×
+    threads, barriers a step, device time per launch and per step beside
+    its bound, the first design's time and an empty cooperative launch of
+    2·D grid barriers at the same blocks × threads; then the canonical
+    patch through ``fdtd_steps.build_stepper``'s ``step_fn`` for 125
+    intervals (11,125 steps) from zero fields, held to the same steps
     through K1's field kernels;
 15. K5 (roofline slice): ``roll_chain`` against its twin at 56×7,040,
     then the roofline entry point
@@ -91,6 +98,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 JAX_MIXED_STEPS = 22_500  # the JAX package's step count for the mixed scene
 PINNED_STEPS = 160_000  # bench.py's explicit-path run (bench_shard_kernel_1dev)
+# The first design of K3 and K4 (5 grid barriers a step under MUR, every
+# operand re-read each pass), us per launch on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md): K3 at the canonical one-rank slab, K = 32; K4 at the
+# canonical patch (D = 89) and the 161x121x160 grid (D = 50).
+K3_FIRST_US = {"MUR": (650.2, 653.9)}
+K4_FIRST_US = {("canonical", "MUR"): (1413.0, 1428.4),
+               ("canonical", "PEC"): (680.3, 682.2),
+               ("tall", "MUR"): (6941.0, 6944.2)}
 
 
 def say(phase: str, msg: str) -> None:
@@ -848,57 +863,82 @@ def k3_bound(sh, k):
     return bound(nbytes, k * n * (48 + 4 * psi))
 
 
+def first_text(us) -> str:
+    return "not measured" if us is None else f"{us[0]:,.1f}-{us[1]:,.1f} us/launch"
+
+
+def plan_text(plan) -> str:
+    """A persistent stepper's launch: form, blocks × threads, barriers."""
+    from fdtd_solver_antennas_tpu_torch.ops import persist
+
+    cells = (f", {plan.cells_per_thread} cells a thread, {plan.smem_bytes:,} B "
+             "shared" if plan.form == "resident" else "")
+    return (f"{plan.form} form ({plan.blocks} blocks x {plan.threads} threads"
+            f"{cells}), {persist.BARRIERS_PER_STEP} grid barriers a step")
+
+
 def phase_shard_vs_plain(card):
     """K3 against its twin: one launch on a seeded random slab state per
-    case, owned rows compared; the canonical one-rank launch timed."""
+    case, owned rows compared, in the form the shape picks and, at the
+    canonical slab, in both forms; the canonical one-rank launch timed in
+    each form beside the bound and the first design's time."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_shard
 
-    cases = (  # (label, scene, boundary, n_dev, rank, decim, window)
-        ("canonical", canonical_scene, "MUR", 1, 0, 89, "K"),
-        ("canonical", canonical_scene, "MUR", 1, 0, 89, "rem"),
-        ("canonical", canonical_scene, "PEC", 1, 0, 89, "K"),
-        ("canonical", canonical_scene, "MUR", 4, 2, 89, "K"),
-        ("canonical", canonical_scene, "PML_4", 4, 1, 89, "rem"),
-        ("straddle", straddle_scene, "MUR", 4, 3, 4, "K"),
+    cases = (  # (label, scene, boundary, n_dev, rank, decim, window, forms)
+        ("canonical", canonical_scene, "MUR", 1, 0, 89, "K", (None, "streamed")),
+        ("canonical", canonical_scene, "MUR", 1, 0, 89, "rem", (None,)),
+        ("canonical", canonical_scene, "PEC", 1, 0, 89, "K", (None, "streamed")),
+        ("canonical", canonical_scene, "MUR", 4, 2, 89, "K", (None,)),
+        ("canonical", canonical_scene, "PML_4", 4, 1, 89, "rem", (None, "streamed")),
+        ("straddle", straddle_scene, "MUR", 4, 3, 4, "K", (None, "streamed")),
     )
     worst = 0.0
     timed = None
-    for label, make, boundary, n_dev, rank, decim, window in cases:
+    for label, make, boundary, n_dev, rank, decim, window, forms in cases:
         sim = shard_sim(make, boundary, n_dev, decim)
         sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank)
         k = sh.K if window == "K" else sh.rem
         rng = np.random.default_rng(19 + rank)
-        sk = sh.new_state()
-        for t in (*sk.e[0], *sk.e[1], *sk.h, *sk.psi_e, *sk.psi_h):
+        base = sh.new_state()
+        for t in (*base.e[0], *base.e[1], *base.h, *base.psi_e, *base.psi_h):
             t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
-        sp = clone_state(sk)
         wf = list(rng.uniform(-1.0, 1.0, k))
-        fdtd_shard.shard_steps(sh.ops, sk, wf)
+        sp = clone_state(base)
         fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
-        torch.cuda.synchronize()
-        assert sk.parity == sp.parity
-        err = max(close(f"shard_steps {i}", a[sh.owned], b[sh.owned])
-                  for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
-        same = all(torch.equal(a[sh.owned], b[sh.owned])
-                   for a, b in zip(fields_of(sk), fields_of(sp)))
-        worst = max(worst, err)
-        extra = ""
-        if timed is None and label == "canonical" and boundary == "MUR":
-            ms = device_ms(lambda: fdtd_shard.shard_steps(sh.ops, sk, wf), reps=10)
-            plain_ms = events_ms(lambda: fdtd_shard.shard_steps_plain(sh.ops, sp, wf),
-                                 reps=2, warmup=1)
-            b_ms, b_by = k3_bound(sh, k)
-            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         blocks=fdtd_shard.grid_blocks(), m=sh.m, k=k)
-            extra = (f"; device {ms * 1e3:.1f} us/launch ({ms * 1e3 / k:.2f} "
-                     f"us/step), plain {plain_ms * 1e3:.1f} us, bound "
-                     f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} of it), "
-                     f"{timed['blocks']} blocks of "
-                     f"{fdtd_shard._library().fdtd_shard_threads()} threads")
-        say("11", f"{label} {sim.grid.shape} {boundary}, {n_dev} rank(s), rank "
-                  f"{rank}: slab {sh.ops.shape}, K={sh.K} W={sh.W} rem={sh.rem}, "
-                  f"window {k}: shard_steps == plain on owned rows "
-                  f"(bit-equal {same}), max |err| {err:.3e}{extra} [{card}]")
+        for form in forms:
+            sk = clone_state(base)
+            plan = fdtd_shard.launch_plan(sh.ops, sk, form)
+            fdtd_shard.shard_steps(sh.ops, sk, wf, form=form)
+            torch.cuda.synchronize()
+            assert sk.parity == sp.parity
+            err = max(close(f"shard_steps {i}", a[sh.owned], b[sh.owned])
+                      for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
+            same = all(torch.equal(a[sh.owned], b[sh.owned])
+                       for a, b in zip(fields_of(sk), fields_of(sp)))
+            worst = max(worst, err)
+            extra = ""
+            if label == "canonical" and n_dev == 1 and window == "K":
+                ms = device_ms(lambda: fdtd_shard.shard_steps(sh.ops, sk, wf, form=form),
+                               reps=10)
+                b_ms, b_by = k3_bound(sh, k)
+                extra = (f"; device {ms * 1e3:.1f} us/launch ({ms * 1e3 / k:.2f} "
+                         f"us/step), first design "
+                         f"{first_text(K3_FIRST_US.get(boundary))}; bound "
+                         f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} of it)")
+                if boundary == "MUR" and form is None:
+                    spare = clone_state(sp)  # sp stays the reference
+                    plain_ms = events_ms(
+                        lambda: fdtd_shard.shard_steps_plain(sh.ops, spare, wf),
+                        reps=2, warmup=1)
+                    del spare
+                    timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, m=sh.m, k=k, plan=plan)
+                    extra += f", plain {plain_ms * 1e3:.1f} us"
+            say("11", f"{label} {sim.grid.shape} {boundary}, {n_dev} rank(s), rank "
+                      f"{rank}: slab {sh.ops.shape}, K={sh.K} W={sh.W} rem={sh.rem}, "
+                      f"window {k}, {plan_text(plan)}: shard_steps == plain on "
+                      f"owned rows (bit-equal {same}), max |err| {err:.3e}{extra} "
+                      f"[{card}]")
     return dict(max_abs_err=worst, **timed)
 
 
@@ -929,9 +969,13 @@ def phase_explicit_main_path(chunk_res, card):
                              run=explicit)
     counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
               **fdtd_shard.launches}
+    forms = dict(fdtd_shard.launches_by_form)
     assert res.ok, res.message
     out = outs[0]
     D = prep.sim.probe_decim
+    plan = fdtd_shard.launch_plan(sh.ops, sh.new_state())
+    assert forms == {plan.form: counts["shard_steps"], **{
+        f: 0 for f in forms if f != plan.form}}, (forms, plan)
     intervals = out["steps"] // D
     per_interval = -(-D // sh.K)
     assert out["steps"] % D == 0, (out["steps"], D)
@@ -956,7 +1000,8 @@ def phase_explicit_main_path(chunk_res, card):
               f"nf_e, nf_h, fields; fields bit-equal {same}), max |err| "
               f"{err:.3e}; f_res {res.f_res_hz / 1e9:.4f} GHz, |S11|min "
               f"{s11_db.min():.2f} dB, Dmax {dmax_dbi:.3f} dBi; launches "
-              f"{counts} [{card}]")
+              f"{counts}, shard_steps by form {forms}, {plan_text(plan)} "
+              f"[{card}]")
     return res, counts
 
 
@@ -994,6 +1039,13 @@ def phase_explicit_times(k3, explicit_res, explicit_counts, card):
     # (a remainder launch carries fewer steps, so launches x the K-step
     # time would overcount it)
     per_step = k3["ms"] / k3["k"] / 1e3
+    first = K3_FIRST_US["MUR"]
+    say("13", f"shard_steps in these runs: {plan_text(k3['plan'])}; "
+              f"{k3['ms'] * 1e3:.1f} us per {k3['k']}-step launch, "
+              f"{per_step * 1e6:.2f} us/step (first design "
+              f"{first[0]:,.1f}-{first[1]:,.1f} us/launch, "
+              f"{first[0] / k3['k']:.2f}-{first[1] / k3['k']:.2f} us/step), bound "
+              f"{k3['bound_ms'] * 1e3:.2f} us/launch [{card}]")
     wall = min(times["explicit"])
     launches = steps // sim.probe_decim * -(-sim.probe_decim // run.kernel_window)
     busy = steps * per_step
@@ -1018,46 +1070,64 @@ def k4_bound(ops, d):
 
 def phase_steps_vs_plain(card):
     """K4 against its twin: one launch of D steps on a seeded random state
-    per case, every field compared; each case timed on the device."""
+    per case, every field compared, in the form the shape picks and, at
+    the canonical patch, in both forms; each timed on the device beside
+    the bound, the first design's time and an empty cooperative launch of
+    2·D grid barriers at the same block count (the design's floor)."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
 
-    cases = (("canonical", canonical_scene, "MUR", 89),
-             ("canonical", canonical_scene, "PEC", 89),
-             ("tall", tall_scene, "MUR", 50))
+    cases = (("canonical", canonical_scene, "MUR", 89, (None, "streamed")),
+             ("canonical", canonical_scene, "PEC", 89, (None, "streamed")),
+             ("tall", tall_scene, "MUR", 50, (None,)))
     worst, timed = 0.0, None
-    for label, make, boundary, decim in cases:
+    for label, make, boundary, decim, forms in cases:
         sim = one_chunk_sim(make, boundary, 10 * decim, mode="chunk",
                             decim=decim)
         ops, D = sim.operands, sim.probe_decim
         assert D == decim, (D, decim)
         base = random_state(sim, seed=47)
-        sk, sp = clone_state(base), clone_state(base)
-        del base
         wf = torch.from_numpy(np.random.default_rng(53).uniform(
             -1.0, 1.0, D).astype(np.float32)).to(sim.device)
         wf_list = wf.tolist()
-        fdtd_steps.interval_steps(ops, sk, wf)
+        sp = clone_state(base)
         fdtd_steps.interval_steps_plain(ops, sp, wf_list)
-        torch.cuda.synchronize()
-        assert sk.parity == sp.parity
-        err = max(close(f"interval_steps {i}", a, b) for i, (a, b) in
-                  enumerate(zip(fields_of(sk), fields_of(sp))))
-        same = all(torch.equal(a, b) for a, b in zip(fields_of(sk), fields_of(sp)))
-        worst = max(worst, err)
-        ms = device_ms(lambda: fdtd_steps.interval_steps(ops, sk, wf), reps=10)
-        plain_ms = events_ms(
-            lambda: fdtd_steps.interval_steps_plain(ops, sp, wf_list),
-            reps=2, warmup=1)
         b_ms, b_by = k4_bound(ops, D)
-        say("14", f"{label} {sim.grid.shape} {boundary}, D={D}: interval_steps "
-                  f"== plain (bit-equal {same}), max |err| {err:.3e}; device "
-                  f"{ms * 1e3:.1f} us/launch ({ms * 1e3 / D:.2f} us/step), plain "
-                  f"{plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by {b_by} "
-                  f"({b_ms / ms:.4f} of it), {fdtd_steps.grid_blocks()} "
-                  f"resident blocks of {fdtd_steps._library().fdtd_steps_threads()} "
-                  f"threads [{card}]")
-        if timed is None:  # the canonical MUR case goes in the kernel table
-            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        for form in forms:
+            sk = clone_state(base)
+            plan = fdtd_steps.launch_plan(ops, sk, form)
+            fdtd_steps.interval_steps(ops, sk, wf, form=form)
+            torch.cuda.synchronize()
+            assert sk.parity == sp.parity
+            err = max(close(f"interval_steps {i}", a, b) for i, (a, b) in
+                      enumerate(zip(fields_of(sk), fields_of(sp))))
+            same = all(torch.equal(a, b)
+                       for a, b in zip(fields_of(sk), fields_of(sp)))
+            worst = max(worst, err)
+            ms = device_ms(lambda: fdtd_steps.interval_steps(ops, sk, wf, form=form),
+                           reps=10)
+            barrier_ms = device_ms(
+                lambda: fdtd_steps.grid_barriers(plan, 2 * D), reps=10)
+            extra = ""
+            if timed is None:  # the canonical MUR case goes in the kernel table
+                spare = clone_state(sp)  # sp stays the reference
+                plain_ms = events_ms(
+                    lambda: fdtd_steps.interval_steps_plain(ops, spare, wf_list),
+                    reps=2, warmup=1)
+                del spare
+                timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, plan=plan, barrier_ms=barrier_ms)
+                extra = f", plain {plain_ms * 1e3:.1f} us"
+            first = K4_FIRST_US[(label, boundary)] if form is None else None
+            say("14", f"{label} {sim.grid.shape} {boundary}, D={D}, "
+                      f"{plan_text(plan)}: interval_steps == plain (bit-equal "
+                      f"{same}), max |err| {err:.3e}; device {ms * 1e3:.1f} "
+                      f"us/launch ({ms * 1e3 / D:.2f} us/step), first design "
+                      f"{first_text(first)}; bound {b_ms * 1e3:.2f} us by {b_by} "
+                      f"({b_ms / ms:.4f} of it); {2 * D} grid barriers alone "
+                      f"on {plan.blocks} blocks {barrier_ms * 1e3:.1f} us "
+                      f"({barrier_ms * 1e3 / D:.2f} us/step, "
+                      f"{barrier_ms / ms:.2f} of the launch){extra} [{card}]")
+        del base, sk, sp
     return dict(max_abs_err=worst, **timed)
 
 
@@ -1085,6 +1155,8 @@ def phase_steps_main_path(k4, card):
     wall = time.perf_counter() - t0
     launches = fdtd_steps.launches["interval_steps"]
     assert launches == intervals, fdtd_steps.launches
+    forms = dict(fdtd_steps.launches_by_form)
+    assert forms[k4["plan"].form] == intervals, (forms, k4["plan"])
     # step_fn returns new tensors and leaves its inputs alone
     assert all(f is not g for f, g in zip(fields, first))
     assert all(int(torch.count_nonzero(f)) == 0 for f in first)
@@ -1111,7 +1183,8 @@ def phase_steps_main_path(k4, card):
               f"{k1_wall:.3f} s; fields == K1 (bit-equal {same}), max |err| "
               f"{err:.3e}, max |field| {peak:.3e} [{card}]")
     busy = launches * k4["ms"] / 1e3
-    say("14", f"interval run: {launches} launches x {k4['ms'] * 1e3:.1f} us = "
+    say("14", f"interval run: {launches} launches ({forms}, "
+              f"{plan_text(k4['plan'])}) x {k4['ms'] * 1e3:.1f} us = "
               f"{busy:.3f} s busy of {wall:.3f} s wall, idle share "
               f"{1 - busy / wall:.3f} [{card}]")
     return launches

@@ -2,8 +2,9 @@
 
 Counterpart of ``fdtd_solver_antennas_tpu/native/build.py``: one shared
 library with a plain C interface, built at first use and loaded with
-``ctypes``. The library is named by a hash of its sources and flags, so
-an edited source never loads a stale build. Builds go to ``_build/``
+``ctypes``. The library is named by a hash of its sources (the ``.cu``
+file and the ``csrc/`` headers it includes) and flags, so an edited
+source or header never loads a stale build. Builds go to ``_build/``
 beside the package (listed in ``.gitignore``).
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -44,16 +47,35 @@ def find_nvcc() -> str:
     )
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with
+    ``#include "..."``, directly or through another header."""
+    out = [CSRC / f"{name}.cu"]
+    for path in out:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists() and header not in out:
+                out.append(header)
+    return out
+
+
+def tag(name: str) -> str:
+    """The hash that names the library: its sources and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str = "fdtd_chunk") -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless a build of the same source exists.
+    """Compile ``csrc/<name>.cu`` unless a build of the same sources exists.
 
     Returns ``(library path, build seconds, compiler log)``; seconds and
     log are 0 and "" when an existing build was reused.
     """
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{tag}.so"
+    lib = BUILD_DIR / f"lib{name}_{tag(name)}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +88,7 @@ def build(name: str = "fdtd_chunk") -> tuple[Path, float, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    (BUILD_DIR / f"lib{name}_{tag}.log").write_text(log)
+    (BUILD_DIR / f"{lib.stem}.log").write_text(log)
     return lib, seconds, log
 
 

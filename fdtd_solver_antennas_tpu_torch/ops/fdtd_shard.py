@@ -17,14 +17,18 @@ the halos from the neighbours (one exchange per K steps).
   ``[0, Px)`` zero; a slab-local probe table; the slab rows of the MUR x
   walls (the JAX package's one-hot ``m0``/``mt`` columns).
 - :func:`shard_steps`: ``len(wf_window)`` steps (K, or the remainder) in
-  one launch of ``csrc/fdtd_shard.cu``; on a CPU tensor
-  :func:`shard_steps_plain`, the same steps built from K1's plain twins
-  with the x walls placed by ``mur_x_rows``. A CUDA tensor always goes to
-  the kernel; a failed build or launch raises.
+  one launch of ``csrc/fdtd_shard.cu`` (2 grid barriers a step, the MUR
+  walls fused into the E pass; the storage form, resident or streamed,
+  picked from the shape by :func:`launch_plan`, see ``ops/persist.py``);
+  on a CPU tensor :func:`shard_steps_plain`, the same steps built from
+  K1's plain twins with the x walls placed by ``mur_x_rows``. A CUDA
+  tensor always goes to the kernel; a failed plan, build or launch
+  raises.
 
 ``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
-K1. The TPU kernel's VMEM picker (``shard_vmem_bytes``) does not carry
-over: K defaults to ``min(n, D, 32)``. K only sets how often halos are
+K1, and ``launches_by_form`` the same launches by storage form. The TPU
+kernel's VMEM picker (``shard_vmem_bytes``) does not carry over: K
+defaults to ``min(n, D, 32)``. K only sets how often halos are
 exchanged; the owned rows come out the same for any K.
 """
 
@@ -37,13 +41,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import fdtd_cuda
-from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+from . import fdtd_cuda, persist
+from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _stream
 
 KERNELS = ("shard_steps",)
 
 # kernel launches per wrapper; only the wrapper's CUDA branch adds to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the same launches by storage form (``persist.FORMS``)
+launches_by_form: Dict[str, int] = dict.fromkeys(persist.FORMS, 0)
 
 # Steps per launch the kernel accepts (the source samples ride in its
 # parameters).
@@ -56,6 +62,8 @@ MAX_PZ = 128
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
+    for k in persist.FORMS:
+        launches_by_form[k] = 0
 
 
 def shard_geometry(Px: int, Qx: int, D: int, n_dev: int, mur: bool,
@@ -245,23 +253,13 @@ def shard_steps_plain(ops: YeeOperands, st: YeeState,
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_PREFIX = "fdtd_shard"
 
 
 class _ShardArgs(ctypes.Structure):
     """Field-for-field mirror of ``struct ShardArgs`` in csrc/fdtd_shard.cu."""
 
-    _fields_ = [
-        ("e", _P * 6), ("h", _P * 3), ("psi_e", _P * 6), ("psi_h", _P * 6),
-        ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
-        ("inv_p", _P * 3), ("inv_d", _P * 3),
-        ("bh", _P * 3), ("ch", _P * 3), ("be", _P * 3), ("ce", _P * 3),
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("qy", ctypes.c_int), ("qz", ctypes.c_int),
-        ("x_wall", ctypes.c_int * 2),
-        ("has_pml", ctypes.c_int), ("has_mur", ctypes.c_int),
-        ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
-        ("wf", ctypes.c_float * MAX_K),
-    ]
+    _fields_ = [("o", persist.PersistOps), ("wf", ctypes.c_float * MAX_K)]
 
 
 _lib = None
@@ -274,15 +272,11 @@ def _library():
         from . import _build
 
         lib = _build.load("fdtd_shard")
-        for name in ("fdtd_shard_args_size", "fdtd_shard_max_k",
-                     "fdtd_shard_threads"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        lib.fdtd_shard_grid_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.fdtd_shard_grid_blocks.restype = ctypes.c_int
-        lib.fdtd_shard_error_string.argtypes = [ctypes.c_int]
-        lib.fdtd_shard_error_string.restype = ctypes.c_char_p
-        lib.fdtd_shard_steps.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
+        persist.bind(lib, _PREFIX)
+        lib.fdtd_shard_max_k.argtypes = []
+        lib.fdtd_shard_max_k.restype = ctypes.c_int
+        lib.fdtd_shard_steps.argtypes = [_P, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int, _P]
         lib.fdtd_shard_steps.restype = ctypes.c_int
         if lib.fdtd_shard_args_size() != ctypes.sizeof(_ShardArgs):
             raise RuntimeError(
@@ -295,15 +289,9 @@ def _library():
 
 
 def grid_blocks() -> int:
-    """Blocks of the cooperative launch: as many as the card keeps
-    resident at once (one launch must hold every block)."""
-    lib = _library()
-    out = ctypes.c_int(0)
-    code = lib.fdtd_shard_grid_blocks(ctypes.byref(out))
-    if code != 0:
-        msg = lib.fdtd_shard_error_string(code).decode()
-        raise RuntimeError(f"shard_steps occupancy query failed: {msg} ({code})")
-    return out.value
+    """Blocks the card keeps resident at once for the streamed form, the
+    most any launch uses (one launch must hold every block)."""
+    return persist.grid_blocks(_library(), _PREFIX, "shard_steps")
 
 
 def _cuda_args(ops: YeeOperands, st: YeeState) -> _ShardArgs:
@@ -315,47 +303,31 @@ def _cuda_args(ops: YeeOperands, st: YeeState) -> _ShardArgs:
         return cached[1]
     if ops.mur_x_rows is None:
         raise ValueError("shard_steps needs slab operands (build_shard_stepper)")
-    dev = ops.device
-    shp = tuple(ops.shape)
-    if ops.mur is not None and min(ops.grid_shape) < 3:
-        raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
     a = _ShardArgs()
-    for p in range(2):
-        for m in range(3):
-            a.e[3 * p + m] = _ptr(st.e[p][m], shp, dev=dev)
-    for m in range(3):
-        a.h[m] = _ptr(st.h[m], shp, dev=dev)
-        a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
-        a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
-        a.src[m] = _ptr(ops.src[m], shp, dev=dev)
-        a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
-        a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
-    if ops.pml is not None:
-        for m in range(3):
-            for key in ("bh", "ch", "be", "ce"):
-                getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
-        for m in range(6):
-            a.psi_e[m] = _ptr(st.psi_e[m], shp, dev=dev)
-            a.psi_h[m] = _ptr(st.psi_h[m], shp, dev=dev)
-    a.nx, a.ny, a.nz = shp
-    a.qy, a.qz = ops.grid_shape[1:]
-    a.x_wall[:] = ops.mur_x_rows
-    a.has_pml = int(ops.pml is not None)
-    a.has_mur = int(ops.mur is not None)
-    a.dtmu = ops.dtmu
-    for b in range(3):
-        for side in range(2):
-            a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+    a.o = persist.pack(ops, st, ops.mur_x_rows)
     st._shard = (ops, a)
     return a
 
 
+def launch_plan(ops: YeeOperands, st: YeeState,
+                form: Optional[str] = None) -> persist.Plan:
+    """The storage form, blocks × threads and shared bytes the kernel
+    launches with for (ops, st): ``form`` None lets the shape pick (the
+    resident form where the operands fit on chip), else "resident" or
+    "streamed"."""
+    a = _cuda_args(ops, st)
+    return persist.plan(_library(), _PREFIX, ops, ctypes.addressof(a), form,
+                        "shard_steps")
+
+
 def shard_steps(ops: YeeOperands, st: YeeState,
-                wf_window: Sequence[float]) -> None:
+                wf_window: Sequence[float], *,
+                form: Optional[str] = None) -> None:
     """Advance a slab state by ``len(wf_window)`` leapfrog steps in one
     launch; ``wf_window[k]`` is the source sample of step k. The kernel
     updates the state's tensors in place; ``st.parity`` names the E
-    buffer that holds the result."""
+    buffer that holds the result. ``form`` forces a storage form
+    (:func:`launch_plan`); the CPU runs the plain twin whatever it says."""
     k = len(wf_window)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"shard_steps takes 1..{MAX_K} samples, got {k}")
@@ -363,11 +335,12 @@ def shard_steps(ops: YeeOperands, st: YeeState,
         return shard_steps_plain(ops, st, wf_window)
     lib = _library()
     a = _cuda_args(ops, st)
+    plan = launch_plan(ops, st, form)
     a.wf[:k] = [float(s) for s in wf_window]
     code = lib.fdtd_shard_steps(ctypes.addressof(a), st.parity, k,
+                                plan.cells_per_thread, plan.blocks,
                                 _stream(ops.device))
-    if code != 0:
-        msg = lib.fdtd_shard_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel shard_steps failed: {msg} ({code})")
+    persist.check(lib, _PREFIX, code, "shard_steps")
     launches["shard_steps"] += 1
+    launches_by_form[plan.form] += 1
     st.parity ^= k & 1

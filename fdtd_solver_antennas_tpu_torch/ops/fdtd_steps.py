@@ -15,24 +15,26 @@ or nothing under PEC) and samples nothing.
   its roll wrap do not carry over, nor do its ``Pz ≤ 128`` limit and its
   ``alias`` switch. CPML raises ``ValueError``, as in the JAX builder.
 - :func:`interval_steps`: ``len(wf)`` steps of a :class:`YeeState` in one
-  launch of ``csrc/fdtd_steps.cu``; on a CPU tensor
-  :func:`interval_steps_plain`, the same steps as K1's plain
+  launch of ``csrc/fdtd_steps.cu`` (2 grid barriers a step, the MUR walls
+  fused into the E pass; the storage form, resident or streamed, picked
+  from the shape by :func:`launch_plan`, see ``ops/persist.py``); on a
+  CPU tensor :func:`interval_steps_plain`, the same steps as K1's plain
   ``leapfrog_step``. A CUDA tensor always goes to the kernel; a failed
-  build or launch raises.
+  plan, build or launch raises.
 
 ``launches`` counts kernel launches, as ``fdtd_cuda.launches`` does for
-K1.
+K1, and ``launches_by_form`` the same launches by storage form.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from . import fdtd_cuda
+from . import fdtd_cuda, persist
 from .fdtd import resolve_device
 from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
 
@@ -40,11 +42,15 @@ KERNELS = ("interval_steps",)
 
 # kernel launches per wrapper; only the wrapper's CUDA branch adds to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the same launches by storage form (``persist.FORMS``)
+launches_by_form: Dict[str, int] = dict.fromkeys(persist.FORMS, 0)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
+    for k in persist.FORMS:
+        launches_by_form[k] = 0
 
 
 def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
@@ -131,20 +137,13 @@ def interval_steps_plain(ops: YeeOperands, st: YeeState, wf) -> None:
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_PREFIX = "fdtd_steps"
 
 
 class _StepsArgs(ctypes.Structure):
     """Field-for-field mirror of ``struct StepsArgs`` in csrc/fdtd_steps.cu."""
 
-    _fields_ = [
-        ("e", _P * 6), ("h", _P * 3),
-        ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
-        ("inv_p", _P * 3), ("inv_d", _P * 3),
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("qx", ctypes.c_int), ("qy", ctypes.c_int), ("qz", ctypes.c_int),
-        ("has_mur", ctypes.c_int),
-        ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
-    ]
+    _fields_ = [("o", persist.PersistOps)]
 
 
 _lib = None
@@ -157,16 +156,13 @@ def _library():
         from . import _build
 
         lib = _build.load("fdtd_steps")
-        for name in ("fdtd_steps_args_size", "fdtd_steps_threads"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        lib.fdtd_steps_grid_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.fdtd_steps_grid_blocks.restype = ctypes.c_int
-        lib.fdtd_steps_error_string.argtypes = [ctypes.c_int]
-        lib.fdtd_steps_error_string.restype = ctypes.c_char_p
-        lib.fdtd_steps_interval.argtypes = [_P, ctypes.c_int, ctypes.c_int,
-                                            _P, _P]
+        persist.bind(lib, _PREFIX)
+        lib.fdtd_steps_interval.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P,
+                                            ctypes.c_int, ctypes.c_int, _P]
         lib.fdtd_steps_interval.restype = ctypes.c_int
+        lib.fdtd_steps_barriers.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, _P]
+        lib.fdtd_steps_barriers.restype = ctypes.c_int
         if lib.fdtd_steps_args_size() != ctypes.sizeof(_StepsArgs):
             raise RuntimeError(
                 f"StepsArgs layout mismatch: C {lib.fdtd_steps_args_size()} "
@@ -176,15 +172,9 @@ def _library():
 
 
 def grid_blocks() -> int:
-    """Blocks of the cooperative launch: as many as the card keeps
-    resident at once (one launch must hold every block)."""
-    lib = _library()
-    out = ctypes.c_int(0)
-    code = lib.fdtd_steps_grid_blocks(ctypes.byref(out))
-    if code != 0:
-        msg = lib.fdtd_steps_error_string(code).decode()
-        raise RuntimeError(f"interval_steps occupancy query failed: {msg} ({code})")
-    return out.value
+    """Blocks the card keeps resident at once for the streamed form, the
+    most any launch uses (one launch must hold every block)."""
+    return persist.grid_blocks(_library(), _PREFIX, "interval_steps")
 
 
 def _cuda_args(ops: YeeOperands, st: YeeState) -> _StepsArgs:
@@ -196,51 +186,56 @@ def _cuda_args(ops: YeeOperands, st: YeeState) -> _StepsArgs:
         return cached[1]
     if ops.pml is not None:
         raise ValueError("the interval stepper supports MUR/PEC boundaries only")
-    if ops.mur is not None and min(ops.grid_shape) < 3:
-        raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
-    dev = ops.device
-    shp = tuple(ops.shape)
     a = _StepsArgs()
-    for p in range(2):
-        for m in range(3):
-            a.e[3 * p + m] = _ptr(st.e[p][m], shp, dev=dev)
-    for m in range(3):
-        a.h[m] = _ptr(st.h[m], shp, dev=dev)
-        a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
-        a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
-        a.src[m] = _ptr(ops.src[m], shp, dev=dev)
-        a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
-        a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
-    a.nx, a.ny, a.nz = shp
-    a.qx, a.qy, a.qz = ops.grid_shape
-    a.has_mur = int(ops.mur is not None)
-    a.dtmu = ops.dtmu
-    for b in range(3):
-        for side in range(2):
-            a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+    a.o = persist.pack(ops, st, (0, ops.grid_shape[0] - 1))
     st._steps = (ops, a)
     return a
 
 
-def interval_steps(ops: YeeOperands, st: YeeState, wf: Sequence[float]) -> None:
+def launch_plan(ops: YeeOperands, st: YeeState,
+                form: Optional[str] = None) -> persist.Plan:
+    """The storage form, blocks × threads and shared bytes the kernel
+    launches with for (ops, st): ``form`` None lets the shape pick (the
+    resident form where the operands fit on chip), else "resident" or
+    "streamed"."""
+    a = _cuda_args(ops, st)
+    return persist.plan(_library(), _PREFIX, ops, ctypes.addressof(a), form,
+                        "interval_steps")
+
+
+def interval_steps(ops: YeeOperands, st: YeeState, wf: Sequence[float], *,
+                   form: Optional[str] = None) -> None:
     """Advance a state by ``len(wf)`` leapfrog steps in one launch;
     ``wf[d]`` is the source sample of step d (a sequence, or a float32
     tensor on the state's device, which is read in place). The kernel
     updates the state's tensors in place; ``st.parity`` names the E
-    buffer that holds the result."""
+    buffer that holds the result. ``form`` forces a storage form
+    (:func:`launch_plan`); the CPU runs the plain twin whatever it says."""
     if len(wf) < 1:
         raise ValueError("interval_steps takes at least one sample")
     if not _on_cuda(st.h[0]):
         return interval_steps_plain(ops, st, wf)
     lib = _library()
     a = _cuda_args(ops, st)
+    plan = launch_plan(ops, st, form)
     samples = torch.as_tensor(wf, dtype=torch.float32, device=ops.device)
     d = samples.numel()
     code = lib.fdtd_steps_interval(ctypes.addressof(a), st.parity, d,
                                    _ptr(samples, (d,), dev=ops.device),
+                                   plan.cells_per_thread, plan.blocks,
                                    _stream(ops.device))
-    if code != 0:
-        msg = lib.fdtd_steps_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel interval_steps failed: {msg} ({code})")
+    persist.check(lib, _PREFIX, code, "interval_steps")
     launches["interval_steps"] += 1
+    launches_by_form[plan.form] += 1
     st.parity ^= d & 1
+
+
+def grid_barriers(plan: persist.Plan, n: int) -> None:
+    """One cooperative launch of a plan's blocks × threads that runs ``n``
+    grid barriers and nothing else, on the current stream: the floor under
+    a launch of n/2 steps by that plan (a measuring tool, not a step of any
+    path; not counted)."""
+    lib = _library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    code = lib.fdtd_steps_barriers(plan.blocks, plan.threads, n, _stream(dev))
+    persist.check(lib, _PREFIX, code, "grid_barriers")

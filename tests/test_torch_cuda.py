@@ -448,6 +448,128 @@ def test_step_fn_runs_on_the_card_by_default(cuda):
         assert x.device.type == "cuda" and torch.equal(x, y)
 
 
+# ---------------------------------------------------------------------------
+# the persistent steppers K3 and K4: both storage forms, every boundary
+# ---------------------------------------------------------------------------
+
+def _synthetic_ops(shape, boundary, device, seed=43):
+    """Random operands of ``shape`` (grid = array) on ``device``; the
+    source on Ez only."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*s, lo=-1.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, s).astype(np.float32)).to(device)
+
+    return fdtd_cuda.YeeOperands(
+        shape=tuple(shape), grid_shape=tuple(shape), dtmu=0.25,
+        inv_p=tuple(arr(n, lo=0.2) for n in shape),
+        inv_d=tuple(arr(n, lo=0.2) for n in shape),
+        ca=tuple(arr(*shape, lo=0.5) for _ in range(3)),
+        cb=tuple(arr(*shape) for _ in range(3)),
+        src=(None, None, arr(*shape)),
+        mur=((0.3, -0.2), (0.1, 0.4), (-0.5, 0.2)) if boundary == "MUR" else None,
+        pml=None,
+        probe_idx=torch.zeros((0, 1), dtype=torch.int32, device=device),
+        probe_w=torch.zeros((0, 1), device=device))
+
+
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_interval_steps_forms_equal_the_twin(cuda, boundary, form):
+    """Three successive launches of each storage form against the plain
+    steps, bit for bit after every launch; the cell count is no multiple
+    of the threads launched, so the last block and thread are partial."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    sim = _sim(boundary, decim=9)
+    a = _random_state(sim, cuda, seed=61)
+    b = _clone(a)
+    plan = fdtd_steps.launch_plan(sim.operands, a, form)
+    assert plan.form == form
+    assert (plan.cells_per_thread > 0) == (form == "resident")
+    cells = int(np.prod(sim.padded_shape))
+    assert cells % (plan.blocks * plan.threads) != 0
+    rng = np.random.default_rng(67)
+    fdtd_steps.reset_launch_counts()
+    for i in range(3):
+        wf = torch.from_numpy(rng.uniform(-1.0, 1.0, 9).astype(np.float32)).to(cuda)
+        fdtd_steps.interval_steps(sim.operands, a, wf, form=form)
+        fdtd_steps.interval_steps_plain(sim.operands, b, wf)
+        torch.cuda.synchronize()
+        assert fdtd_steps.launches_by_form[form] == i + 1
+        assert a.parity == b.parity
+        for x, y in zip(a.fields, b.fields, strict=True):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("boundary,n_dev,rank", [
+    ("MUR", 1, 0), ("MUR", 4, 3), ("MUR", 4, 0), ("PEC", 4, 2),
+    ("PML_4", 4, 1),
+])
+def test_shard_steps_forms_equal_the_twin(cuda, boundary, n_dev, rank, form):
+    """Three successive K-step launches of each storage form on one slab
+    against the plain steps, owned rows bit for bit after every launch
+    (no halo restock between them: the slab alone)."""
+    sim = _sim(boundary, decim=45 if n_dev == 1 else 9, pad_x=n_dev)
+    sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank)
+    rng = np.random.default_rng(71 + rank)
+    a = sh.new_state()
+    for t in (*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    b = _clone(a)
+    plan = fdtd_shard.launch_plan(sh.ops, a, form)
+    assert plan.form == form
+    assert int(np.prod(sh.ops.shape)) % (plan.blocks * plan.threads) != 0
+    fdtd_shard.reset_launch_counts()
+    for i in range(3):
+        wf = list(rng.uniform(-1.0, 1.0, sh.K))
+        fdtd_shard.shard_steps(sh.ops, a, wf, form=form)
+        fdtd_shard.shard_steps_plain(sh.ops, b, wf)
+        torch.cuda.synchronize()
+        assert fdtd_shard.launches_by_form[form] == i + 1
+        assert a.parity == b.parity
+        for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                        (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
+            assert torch.equal(x[sh.owned], y[sh.owned])
+
+
+def test_persistent_steppers_pick_the_form_from_the_shape(cuda):
+    """The canonical grid and slab hold their operands on chip, at most
+    two blocks an SM; the 161×121×160 grid streams them, and forcing the
+    resident form there raises."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    canonical = _canonical_sim("MUR")
+    st = fdtd_cuda.new_state(canonical.padded_shape, cuda, pml=False)
+    plan = fdtd_steps.launch_plan(canonical.operands, st)
+    assert plan.form == "resident" and plan.blocks <= 2 * sms
+    assert plan.cells_per_thread * plan.blocks * plan.threads >= 56 * 55 * 50
+    sh = fdtd_shard.build_shard_stepper(canonical, 1, 0)
+    plan = fdtd_shard.launch_plan(sh.ops, sh.new_state())
+    assert plan.form == "resident" and sh.ops.shape == (120, 55, 50)
+    tall = _synthetic_ops((161, 121, 160), "MUR", cuda)
+    st = fdtd_cuda.new_state(tall.shape, cuda, pml=False)
+    assert fdtd_steps.launch_plan(tall, st).form == "streamed"
+    with pytest.raises(ValueError, match="resident form does not fit"):
+        fdtd_steps.launch_plan(tall, st, "resident")
+    with pytest.raises(ValueError, match="form must be"):
+        fdtd_steps.launch_plan(tall, st, "registers")
+
+
+def test_grid_barrier_launch_runs_at_the_steppers_block_count(cuda):
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_steps
+
+    canonical = _canonical_sim("PEC")
+    st = fdtd_cuda.new_state(canonical.padded_shape, cuda, pml=False)
+    plan = fdtd_steps.launch_plan(canonical.operands, st)
+    fdtd_steps.reset_launch_counts()
+    fdtd_steps.grid_barriers(plan, 2 * 89)
+    torch.cuda.synchronize()
+    assert fdtd_steps.launches == {"interval_steps": 0}
+
+
 @pytest.mark.parametrize("R,C,iters", [(56, 55 * 128, 7), (3, 300, 4),
                                        (2, 16384, 2), (5, 512, 0)])
 def test_roll_chain_equals_its_twin_bit_for_bit(cuda, R, C, iters):
