@@ -12,14 +12,27 @@ and the script exits non-zero without printing a result:
    ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu`` and ``csrc/roll_chain.cu``
    with nvcc for sm_90a, all at once; print ptxas registers and memory;
 3. K1 vs plain: one 500-step chunk of the small test scene and of the
-   canonical patch under MUR, PEC and CPML, through the CUDA kernels and
-   through their plain PyTorch twins on the same card; then each kernel
-   alone against its twin at the canonical shape, with its time;
+   canonical patch under MUR, PEC and CPML, through the chunk kernel and
+   through the plain PyTorch twins on the same card; then
+   ``chunk_steps`` alone (one launch of 5 intervals of D = 89 from parity
+   1) against its twin and against the per-step kernels
+   (``fdtd_cuda.step_kernels``) at the canonical patch under MUR, PEC and
+   PML_8 in the storage form the shape picks and, forced, the streamed
+   one, and at the 161×121×160 grid (streamed), with form, blocks ×
+   threads, device time per launch and per step beside the bound; then
+   each per-step kernel alone against its twin at the canonical shape,
+   with its time;
 4. main path (canonical slice): ``prepare_patch_fixed`` +
    ``run_prepared_fixed`` on the canonical 2.45 GHz FR-4 patch, which
-   resolves to the chunk kernels, with the kernel launch counts;
+   resolves to chunk mode: one ``chunk_steps`` launch per termination
+   chunk (counts and storage form printed), no per-step launch;
 5. golden physics: the openEMS Simple_Patch_Antenna tutorial scene;
-6. times: K1 and plain at the canonical and the 161×121×160 grids;
+6. times: the canonical run through ``chunk_steps`` and through the
+   per-step kernels in turns (new, old, old, new), each with its wall
+   time, device time per launch and per step and idle share (the
+   per-step route's launches counted in that run); the same for the
+   PML_8 patch run; one forced-chunk 500-step chunk of the 161×121×160
+   grid through both routes and the plain twins, per step;
 7. K2 vs plain: ``stream_steps`` alone and one 480-step chunk in stream
    mode against the plain twins (small scene MUR/PEC/PML_4 and its
    z = 131 variant, T = 1..4), and stream mode against chunk mode; each
@@ -315,6 +328,96 @@ def phase_kernel_vs_plain():
     return worst
 
 
+def step_route_ms(ops, st, out):
+    """Device milliseconds of one leapfrog step through the per-step
+    kernels (``h_update``, ``e_update`` and, under MUR, ``mur_faces`` on
+    the three axes) and of one ``probe_gather``, each timed alone on
+    ``st``."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda as fc
+
+    step = (device_ms(lambda: fc.h_update(ops, st))
+            + device_ms(lambda: fc.e_update(ops, st, 0.37)))
+    if ops.mur is not None:
+        step += device_ms(lambda: [fc.mur_faces(ops, st, a) for a in range(3)])
+    return step, device_ms(lambda: fc.probe_gather(ops, st, out))
+
+
+def phase_chunk_steps(card):
+    """``chunk_steps`` against its plain twin and against the per-step
+    kernels (``fdtd_cuda.step_kernels``): one launch of n_sub intervals
+    from parity 1 and step 7 on a seeded random state, every field, ψ and
+    probe sample compared, in the form the shape picks and, at the
+    canonical patch, the streamed form forced; each timed on the device
+    beside its bound, the per-step route's device time for the same
+    chunk beside it. Returns the rows by (grid, boundary, form)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    cases = (("canonical", canonical_scene, "MUR", 89, 5, (None, "streamed")),
+             ("canonical", canonical_scene, "PEC", 89, 5, (None, "streamed")),
+             ("canonical", canonical_scene, "PML_8", 89, 5, (None, "streamed")),
+             ("tall", tall_scene, "MUR", 50, 10, (None,)))
+    rows = {}
+    for label, make, boundary, decim, n_sub, forms in cases:
+        sim = one_chunk_sim(make, boundary, n_sub * decim, mode="chunk",
+                            decim=decim)
+        ops, D = sim.operands, sim.probe_decim
+        assert D == decim, (D, decim)
+        base = random_state(sim, seed=83)
+        base.parity = 1
+        wf = torch.from_numpy(np.random.default_rng(89).uniform(
+            -1.0, 1.0, 7 + n_sub * D).astype(np.float32)).to(sim.device)
+        bufs = torch.zeros((n_sub, ops.probe_idx.shape[0]), device=sim.device)
+        sp, bp = clone_state(base), bufs.clone()
+        fdtd_cuda.chunk_steps_plain(ops, sp, wf, 7, n_sub, D, bp)
+        so, bo = clone_state(base), bufs.clone()
+        fdtd_cuda.step_kernels.chunk_steps(ops, so, wf, 7, n_sub, D, bo)
+        torch.cuda.synchronize()
+        steps = n_sub * D
+        # the per-step route's device time for the same chunk, from each
+        # of its kernels timed alone (a chunk's thousands of launches would
+        # overflow the queue behind the sleep)
+        step_ms, gather_ms = step_route_ms(ops, clone_state(so), bo[0].clone())
+        old_ms = steps * step_ms + n_sub * gather_ms
+        b_ms, b_by = k1_chunk_bound(ops, n_sub, D)
+        for form in forms:
+            sk, bk = clone_state(base), bufs.clone()
+            plan = fdtd_cuda.chunk_launch_plan(ops, sk, form)
+            fdtd_cuda.chunk_steps(ops, sk, wf, 7, n_sub, D, bk, form=form)
+            torch.cuda.synchronize()
+            assert sk.parity == sp.parity == 1 ^ steps & 1
+            got, ref = (*fields_of(sk), bk), (*fields_of(sp), bp)
+            err = max(close(f"chunk_steps {i}", a, b)
+                      for i, (a, b) in enumerate(zip(got, ref)))
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            same_old = all(torch.equal(a, b) for a, b in
+                           zip(got, (*fields_of(so), bo)))
+            ms = device_ms(lambda: fdtd_cuda.chunk_steps(
+                ops, sk, wf, 7, n_sub, D, bk, form=form),
+                reps=10 if label == "canonical" else 3, warmup=2)
+            row = dict(max_abs_err=err, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                       plan=plan, old_ms=old_ms, steps=steps, same=same)
+            extra = ""
+            if (label, boundary, form) == ("canonical", "MUR", None):
+                spare, bspare = clone_state(sp), bp.clone()
+                row["plain_ms"] = events_ms(lambda: fdtd_cuda.chunk_steps_plain(
+                    ops, spare, wf, 7, n_sub, D, bspare), reps=1, warmup=1)
+                del spare
+                extra = f", plain {row['plain_ms'] * 1e3:,.1f} us"
+            rows[(label, boundary, form)] = row
+            say("3", f"{label} {sim.grid.shape} {boundary}, {n_sub} intervals "
+                     f"x D={D}, {plan_text(plan)}: chunk_steps == plain "
+                     f"(fields, psi and probe samples; bit-equal {same}), max "
+                     f"|err| {err:.3e}, == per-step kernels (bit-equal "
+                     f"{same_old}); device {ms * 1e3:,.1f} us/launch "
+                     f"({ms * 1e3 / steps:.2f} us/step), per-step kernels "
+                     f"{old_ms * 1e3:,.1f} us for the same chunk "
+                     f"({old_ms * 1e3 / steps:.2f} us/step); bound "
+                     f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.4f} of it)"
+                     f"{extra} [{card}]")
+        del base, sk, sp, so
+    return rows
+
+
 def random_state(sim, seed):
     """A state of ``sim``'s shape with fields and ψ from a seeded normal
     draw (numpy), on the card."""
@@ -393,8 +496,10 @@ def phase_each_kernel(sim, phase="3"):
 
 def phase_main_path():
     """The canonical patch through the library entry points the CLI
-    calls; every kernel must have been launched by this run."""
+    calls: one ``chunk_steps`` launch per termination chunk, in the form
+    the shape picks, and no per-step launch."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
     from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
         prepare_patch_fixed, run_prepared_fixed)
 
@@ -402,12 +507,21 @@ def phase_main_path():
     prep = prepare_patch_fixed(params, device="cuda")
     assert prep.ok, prep.message
     assert prep.sim.pallas_mode == "chunk", prep.sim.pallas_mode_reason
+    plan = fdtd_cuda.chunk_launch_plan(
+        prep.sim.operands,
+        fdtd_cuda.new_state(prep.sim.padded_shape, prep.sim.device, pml=False))
     fdtd_cuda.reset_launch_counts()
     res = run_prepared_fixed(prep, frequency_hz=params.frequency_hz, verbose=0)
     counts = dict(fdtd_cuda.launches)
+    forms = dict(fdtd_cuda.launches_by_form)
     assert res.ok, res.message
-    for name in fdtd_cuda.KERNELS:
-        assert counts[name] > 0, f"main path launched no {name}: {counts}"
+    _D, _n_sub, chunk, _ = chunk_geometry(prep.sim)
+    chunks = -(-res.steps_run // chunk)
+    assert counts["chunk_steps"] == chunks > 0, counts
+    assert forms == {plan.form: chunks, **{
+        f: 0 for f in forms if f != plan.form}}, (forms, plan)
+    for name in ("h_update", "e_update", "mur_faces", "probe_gather"):
+        assert counts[name] == 0, f"main path launched {name}: {counts}"
     s11_db = 20 * np.log10(np.maximum(np.abs(res.s11), 1e-12))
     dmax_dbi = 10 * np.log10(res.Dmax)
     for arr in (res.s11, res.z_in, res.intensity):
@@ -419,7 +533,8 @@ def phase_main_path():
              f"{res.steps_run} steps in {res.wall_time_s:.3f} s, "
              f"{res.mcells_per_s:.1f} Mcell-updates/s; f_res "
              f"{res.f_res_hz / 1e9:.4f} GHz, |S11|min {s11_db.min():.2f} dB, "
-             f"Dmax {dmax_dbi:.3f} dBi; launches {counts}")
+             f"Dmax {dmax_dbi:.3f} dBi; launches {counts}, chunk_steps by "
+             f"form {forms} ({chunk} steps a launch), {plan_text(plan)}")
     return prep, res, counts
 
 
@@ -448,48 +563,123 @@ def phase_golden():
              f"{dip:.2f} dB, Dmax {dmax:.3f} dBi, {res.steps_run} steps")
 
 
-def phase_times(prep, res, counts, per_kernel, card):
-    """Wall time and Mcell-updates/s, kernel and plain, at the canonical
-    size (the whole run) and at the tall grid (one chunk); the device's
-    busy share of the canonical run from the per-launch device times."""
+def route_runs(sim, label, card):
+    """``sim`` through ``chunk_steps`` and through the per-step kernels in
+    turns (new, old, old, new), both outputs compared; the launches of
+    each route counted in its first run. Returns walls, counts, steps."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
+    walls = {"chunk": [], "step": []}
+    counts, outs = {}, {}
+    for route in ("chunk", "step", "step", "chunk"):
+        impl = fdtd_cuda.kernels if route == "chunk" else fdtd_cuda.step_kernels
+        fdtd_cuda.reset_launch_counts()
+        out, t = timed_run(sim, impl)
+        walls[route].append(t)
+        counts.setdefault(route, dict(fdtd_cuda.launches))
+        outs.setdefault(route, out)
+    err = compare_runs(outs["chunk"], outs["step"], f"{label} chunk vs step")
+    same = all(torch.equal(a, b) for a, b in
+               zip(outs["chunk"]["fields"], outs["step"]["fields"]))
+    steps = outs["chunk"]["steps"]
+    assert counts["chunk"]["chunk_steps"] > 0 and counts["step"]["chunk_steps"] == 0
+    per_step = ("h_update", "e_update", "probe_gather") + (
+        ("mur_faces",) if sim.operands.mur is not None else ())
+    for name in per_step:
+        assert counts["step"][name] > 0, (name, counts["step"])
+    say("6", f"{label} {sim.grid.shape}, {steps} steps: chunk_steps route == "
+             f"per-step route (fields bit-equal {same}), max |err| {err:.3e}; "
+             f"launches: chunk_steps route {counts['chunk']['chunk_steps']}, "
+             f"per-step route {counts['step']} [{card}]")
+    return walls, counts, steps
+
+
+def idle_text(walls, busy) -> str:
+    return " / ".join(f"{1 - busy / t:.3f}" for t in walls)
+
+
+def phase_times(prep, res, per_kernel, k1c, card):
+    """Wall time, device time and idle share of the canonical run through
+    ``chunk_steps`` and through the per-step kernels in the same call,
+    with the plain twins' wall; the same for the PML_8 patch run; one
+    forced-chunk chunk of the tall grid through both routes and the plain
+    twins, per step."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import prepare_patch_fixed
+
     sim = prep.sim
-    _, t_plain = timed_run(sim, fdtd_cuda.plain)
-    _, t_kern = timed_run(sim, fdtd_cuda.kernels)
-    steps = res.steps_run
     cells = sim.grid.num_cells
-    say("6", f"canonical {sim.grid.shape}, {steps} steps: kernel "
-             f"{t_kern:.3f} s = {cells * steps / t_kern / 1e6:.1f} Mcell-updates/s; "
-             f"plain {t_plain:.3f} s = {cells * steps / t_plain / 1e6:.1f} "
+    _, t_plain = timed_run(sim, fdtd_cuda.plain)
+    say("6", f"canonical {sim.grid.shape}, {res.steps_run} steps: plain twins "
+             f"{t_plain:.3f} s = {cells * res.steps_run / t_plain / 1e6:.1f} "
              f"Mcell-updates/s [{card}]")
-    busy = sum(counts[k] * per_kernel[k]["ms"] for k in counts) / 1e3
-    say("6", f"canonical run: kernels busy {busy:.3f} s of {t_kern:.3f} s wall "
-             f"(sum of launches x device time per launch), idle share "
-             f"{1 - busy / t_kern:.2f} [{card}]")
+    for label, run_sim, key in (
+            ("canonical", sim, ("canonical", "MUR", None)),
+            ("PML_8 patch", None, ("canonical", "PML_8", None))):
+        if run_sim is None:
+            pprep = prepare_patch_fixed(canonical_params(), device="cuda",
+                                        boundary="PML_8")
+            assert pprep.ok, pprep.message
+            run_sim = pprep.sim
+            assert run_sim.pallas_mode == "chunk", run_sim.pallas_mode_reason
+        walls, rc, steps = route_runs(run_sim, label, card)
+        k = k1c[key]
+        launches = rc["chunk"]["chunk_steps"]
+        new_busy = launches * k["ms"] / 1e3
+        old_busy = launches * k["old_ms"] / 1e3  # the same chunks, per step
+        rate = [cells * steps / t / 1e6 for t in walls["chunk"]]
+        say("6", f"{label} run, chunk_steps: {launches} launches of "
+                 f"{k['steps']} steps ({plan_text(k['plan'])}), "
+                 f"{walls['chunk'][0]:.3f} / {walls['chunk'][1]:.3f} s wall "
+                 f"({rate[0]:.1f} / {rate[1]:.1f} Mcell-updates/s), device "
+                 f"{k['ms'] * 1e3:,.1f} us/launch ({k['ms'] * 1e3 / k['steps']:.2f} "
+                 f"us/step), busy {new_busy:.3f} s, idle share "
+                 f"{idle_text(walls['chunk'], new_busy)} [{card}]")
+        say("6", f"{label} run, per-step kernels: {walls['step'][0]:.3f} / "
+                 f"{walls['step'][1]:.3f} s wall, device {k['old_ms'] * 1e3:,.1f} "
+                 f"us per {k['steps']}-step chunk ({k['old_ms'] * 1e3 / k['steps']:.2f} "
+                 f"us/step), busy {old_busy:.3f} s, idle share "
+                 f"{idle_text(walls['step'], old_busy)} [{card}]")
+        if label == "canonical":  # the per-step kernels' own device times
+            busy = sum(rc["step"][n] * per_kernel[n]["ms"]
+                       for n in per_kernel) / 1e3
+            say("6", f"canonical run, per-step kernels by launch: busy "
+                     f"{busy:.3f} s (launches x device time per launch), idle "
+                     f"share {idle_text(walls['step'], busy)} [{card}]")
+            step_counts = rc["step"]
     t0 = time.perf_counter()
     tall = one_chunk_sim(tall_scene, "MUR", mode="chunk")
     prep_tall = time.perf_counter() - t0
     tcells = tall.grid.num_cells
-    # kernel, plain, kernel, plain: the first run of a new simulation also
-    # pays its allocations and first touches
-    for rnd in ("first", "second"):
-        ko, tk = timed_run(tall, fdtd_cuda.kernels)
-        po, tp = timed_run(tall, fdtd_cuda.plain)
-        close("tall uf", ko["uf"], po["uf"])
-        tsteps = ko["steps"]
-        say("6", f"tall {tall.grid.shape} ({tcells} cells, prepare "
-                 f"{prep_tall:.1f} s), {rnd} run of one {tsteps}-step chunk: "
-                 f"kernel {tk:.3f} s = {tcells * tsteps / tk / 1e6:.1f} "
-                 f"Mcell-updates/s; plain {tp:.3f} s = "
-                 f"{tcells * tsteps / tp / 1e6:.1f} Mcell-updates/s [{card}]")
+    times = {"chunk": [], "step": []}
+    for route in ("chunk", "step", "step", "chunk"):
+        impl = fdtd_cuda.kernels if route == "chunk" else fdtd_cuda.step_kernels
+        out, t = timed_run(tall, impl)
+        times[route].append(t)
+    po, tp = timed_run(tall, fdtd_cuda.plain)
+    close("tall uf", out["uf"], po["uf"])
+    tsteps = out["steps"]
+    us = {r: " / ".join(f"{t / tsteps * 1e6:.1f}" for t in ts)
+          for r, ts in times.items()}
+    say("6", f"tall {tall.grid.shape} ({tcells} cells, prepare {prep_tall:.1f} s), "
+             f"one forced-chunk {tsteps}-step chunk: chunk_steps "
+             f"{times['chunk'][0]:.3f} / {times['chunk'][1]:.3f} s ({us['chunk']} "
+             f"us/step, first run / last), per-step kernels {times['step'][0]:.3f} "
+             f"/ {times['step'][1]:.3f} s ({us['step']} us/step); plain "
+             f"{tp:.3f} s ({tp / tsteps * 1e6:.1f} us/step) [{card}]")
     per = phase_each_kernel(tall, phase="6")
+    k = k1c[("tall", "MUR", None)]
     n_samples = tsteps // tall.probe_decim
     busy = (tsteps * (per["h_update"]["ms"] + per["e_update"]["ms"]
                       + 3 * per["mur_faces"]["ms"])
             + n_samples * per["probe_gather"]["ms"]) / 1e3
-    say("6", f"tall second run: kernels busy {busy:.3f} s of {tk:.3f} s wall, "
-             f"idle share {1 - busy / tk:.2f} [{card}]")
+    new_busy = tsteps / k["steps"] * k["ms"] / 1e3
+    say("6", f"tall last runs: chunk_steps busy {new_busy:.3f} s of "
+             f"{times['chunk'][1]:.3f} s wall, idle share "
+             f"{1 - new_busy / times['chunk'][1]:.2f}; per-step kernels busy "
+             f"{busy:.3f} s of {times['step'][1]:.3f} s wall, idle share "
+             f"{1 - busy / times['step'][1]:.2f} [{card}]")
+    return step_counts
 
 
 def bound(nbytes: float, flops: float):
@@ -499,6 +689,23 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_chunk_bound(ops, n_sub, D):
+    """Bound of one ``chunk_steps`` launch: the fields (and ψ) in and out
+    once, ca/cb, the sources and the n_sub·D samples in once, each probe
+    table entry the data uses (index, weight, value) read and each sample
+    written once per interval; n_sub·D steps of H and E updates (as
+    ``k2_bound`` counts them) and 2 operations per used entry per
+    interval."""
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    rows = ops.probe_idx.shape[0]
+    used = int(torch.count_nonzero(ops.probe_w))
+    nbytes = (4 * n * (6 + 6 + n_src + 6 + 2 * psi) + 4 * n_sub * D
+              + n_sub * (12 * used + 4 * rows))
+    return bound(nbytes, n_sub * D * n * (48 + 4 * psi) + n_sub * 2 * used)
 
 
 def k1_bound(name, sim):
@@ -640,7 +847,7 @@ def phase_mixed_main_path(card):
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
     assert counts["stream_march"] == steps // T and counts["stream_tile"] == 0, counts
     assert counts["probe_gather"] == steps // decim, counts
-    for name in ("h_update", "e_update", "mur_faces"):
+    for name in ("h_update", "e_update", "mur_faces", "chunk_steps"):
         assert counts[name] == 0, counts
     assert np.isfinite(res.Dmax) and res.Dmax > 0
     s11s = res.diagnostics["s11_all_ports"]
@@ -981,7 +1188,8 @@ def phase_explicit_main_path(chunk_res, card):
     assert out["steps"] % D == 0, (out["steps"], D)
     assert counts["shard_steps"] == intervals * per_interval, counts
     assert counts["probe_gather"] == intervals, counts
-    for name in ("h_update", "e_update", "mur_faces", "stream_steps"):
+    for name in ("h_update", "e_update", "mur_faces", "stream_steps",
+                 "chunk_steps"):
         assert counts[name] == 0, counts
     assert out["steps"] == chunk_res.steps_run, (out["steps"], chunk_res.steps_run)
     ref = prep.sim.run()
@@ -1288,13 +1496,17 @@ def main() -> int:
     # 3. K1 vs plain on the card
     worst = timed_phase("3", phase_kernel_vs_plain)
     say("3", f"all chunk comparisons agree; worst max |err| {worst:.3e}")
+    k1c = timed_phase("3", phase_chunk_steps, card)
+    say("3", "all chunk_steps comparisons agree; worst max |err| "
+             f"{max(r['max_abs_err'] for r in k1c.values()):.3e}")
     canonical = one_chunk_sim(canonical_scene, "MUR")
     per_kernel = phase_each_kernel(canonical)
 
     # 4.-6. the canonical slice
     prep, res, counts = timed_phase("4", phase_main_path)
     timed_phase("5", phase_golden)
-    timed_phase("6", phase_times, prep, res, counts, per_kernel, card)
+    step_counts = timed_phase("6", phase_times, prep, res, per_kernel, k1c,
+                              card)
 
     # 7.-10. the large-grid slice
     worst, tile_launches = timed_phase("7", phase_stream_vs_plain, card)
@@ -1319,13 +1531,24 @@ def main() -> int:
     k5 = timed_phase("15", phase_roll_chain, card)
 
     keys = ("max_abs_err", "ms", "plain_ms")
+    k1 = k1c[("canonical", "MUR", None)]
+    # the per-step kernels' launches: h_update, e_update and mur_faces in
+    # phase 6's run of the canonical patch through them; probe_gather on
+    # the explicit main path of phase 12 (the stream path's in phase 8)
+    step_launches = {**step_counts,
+                     "probe_gather": explicit_counts["probe_gather"]}
     table = {"kernels": [
+        {"name": "chunk_steps", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": counts["chunk_steps"],
+         **{k: k1[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None},
+    ] + [
         {"name": name, "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": counts[name],
+         "replaces": K1_REPLACES, "launches": step_launches[name],
          **{k: per_kernel[name][k] for k in keys},
          **dict(zip(("bound_ms", "bound_by"), k1_bound(name, canonical))),
          "library_ms": None}
-        for name in fdtd_cuda.KERNELS
+        for name in ("h_update", "e_update", "mur_faces", "probe_gather")
     ] + [
         {"name": "stream_steps", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": mixed_counts["stream_march"],

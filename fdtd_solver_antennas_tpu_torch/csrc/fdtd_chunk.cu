@@ -1,11 +1,54 @@
-// Yee-grid leapfrog kernels for Hopper (sm_90a), bound to Python with ctypes.
+// The chunk stepper for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces: fdtd_solver_antennas_tpu/ops/fdtd_pallas.py::build_pallas_chunk_stepper
-// (the TPU chunk kernel, K1). K1 advances n_sub probe intervals of D
-// leapfrog steps in one pallas_call with every array resident in VMEM, and
-// extracts the port V/I and Huygens-face samples in the kernel. Here the
-// same computation is four kernels that the host launches in order, on
-// PyTorch's current stream:
+// (the TPU chunk kernel, K1). K1 advances one termination chunk, n_sub
+// probe intervals of D leapfrog steps, in one pallas_call with every array
+// resident in VMEM, and extracts the port V/I and Huygens-face samples in
+// the kernel. Here the same chunk is one cooperative launch
+// (cudaLaunchCooperativeKernel) of chunk_steps_kernel:
+//
+//   load      each block's operands on chip (resident form only)
+//   for j in 0 .. n_sub-1:
+//     for s in 0 .. D-1:
+//       H pass                                          -- grid barrier --
+//       E pass, src * wf[n0 + j*D + s], MUR walls x -> y -> z fused in
+//                                                       -- grid barrier --
+//       p ^= 1
+//     probe gather of every row into out[j, :], grid-stride over all threads
+//                                   -- grid barrier (not after the last) --
+//
+// The H and E passes, the two storage forms (operands resident in shared
+// memory, or streamed from memory for grids that do not fit), the boundary
+// flavours (PEC, MUR, CPML with its twelve psi) and the plan that picks a
+// form from the shape are the device code of K3 and K4
+// (csrc/yee_persist.cuh). The gather reads e[p] after the flip, the new E,
+// and H as the last H pass left it, half a step earlier (what the DFT
+// flush, ops/fdtd.py::ProbeDFT, assumes). The barrier after it keeps the
+// next H pass from overwriting H while another block still samples it. A
+// row sums its k terms m = 0 .. k-1, one rounding each, as probe_gather
+// does, so the samples are bit-equal to the per-step route. The source
+// samples are one float32 array on the device per run, read at offset n0;
+// a chunk that runs past n_steps_max reads the zeros padded there. The
+// energy check and the DFT flush stay outside, once per chunk in PyTorch,
+// as the JAX package keeps them outside its kernel.
+//
+// A launch is long: at the canonical patch 445 steps (about 3 ms), on a
+// 4.2M-cell grid run in chunk mode about 500 steps of ~200 us (0.1 s).
+// That is fine on a card that drives no display (no watchdog).
+//
+// What bounds it on the card: at the canonical patch (56 x 55 x 50 =
+// 154,000 cells, 0.62 MB per array) a launch must move the fields in and
+// out once, ca/cb and the source once (about 12 MB, 3.5 us over HBM) and
+// do 445 steps x 48 float32 operations per cell, about 49 us at the
+// float32 peak: operations bound it. The live fields sit in the 50 MB L2
+// for the whole launch, and in the resident form the coefficients never
+// leave the SM. What it pays on top is K4's: two grid barriers a step and
+// each pass's rounds of dependent L2 loads, plus one barrier and one
+// gather per probe interval. On grids that spill L2 (the streamed form)
+// every pass reads its operands from memory, and bytes bound it.
+//
+// The first design of K1, four kernels the host launched step by step
+// (five launches a step under MUR), stays in this library:
 //
 //   h_update      one thread per cell: H -= dt/mu0 * curl E (+ 6 CPML psi_h)
 //   e_update      one thread per cell: E' = ca*E + cb*curl H (+ 6 CPML psi_e)
@@ -15,39 +58,29 @@
 //   probe_gather  one thread per probe row: a weighted gather over the six
 //                 field arrays, written to row j of the staging buffer
 //
+// h_update, e_update and mur_faces step the per-step route
+// (ops/fdtd_cuda.py::step_kernels), kept to time beside chunk_steps and as
+// a second holder in the card tests; probe_gather samples the stream
+// stepper's (K2) and the explicit path's (K3) runs between their launches.
+// Each of these kernels runs for 3-5 us at the canonical patch, so that
+// route is bound by launch latency and the host that issues the launches;
+// on the tall grid (3.05M cells) h_update and e_update reach 67% and 82%
+// of the HBM peak.
+//
 // Layout: the plain contiguous (Px, Py, Pz) float32 arrays, z fastest, the
 // layout of the port's plain PyTorch twins (ops/fdtd_cuda.py). None of
 // K1's TPU layout (lane packing, rolls, one-hot selection matmuls, SMEM
-// probe buffers) is carried over.
-//
-// Edge semantics follow the XLA path (ops/fdtd.py::_fdiff/_bdiff): a
-// neighbour outside the array reads as 0. Nothing wraps.
-//
-// E is double-buffered: e_update reads e[p] and writes e[1-p], so the MUR
-// update still sees the old E on the wall and neighbour planes; the host
-// flips p after each step.
-//
-// What bounds it on the card: at the canonical patch (56x55x50 = 145,530
-// cells) the fields, psi and coefficients are about 10 MB and sit in the
-// 50 MB L2, and each kernel runs for 3-5 us. The step is then bound by
-// launch latency (five launches per step under MUR) and by the host that
-// issues them, not by bytes or FLOPs (on an H100 the device idles about
-// two thirds of the canonical run). This first design does nothing about
-// that: it is the simple, exact version. Fusing the step into fewer
-// launches, capturing a chunk in a CUDA graph, and temporal blocking in
-// shared memory are the next steps. On grids that spill L2 (millions of
-// cells) the kernels are bound by device memory bandwidth: per cell
-// h_update moves 9 float arrays and e_update 16, each 12 more with CPML
-// (six psi read and written). On an H100 at 3.05M cells they reach 67%
-// (h_update) and 82% (e_update) of the HBM peak.
+// probe buffers) is carried over. A neighbour outside the array reads as
+// 0, as on the XLA path (ops/fdtd.py::_fdiff/_bdiff); nothing wraps. E is
+// double-buffered: a step reads e[p] and writes e[1-p], so the MUR walls
+// still see the old E.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py). No
 // fused multiply-add, so each cell's arithmetic rounds like the plain
 // PyTorch twin, one operation at a time.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "yee_persist.cuh"
 
 namespace {
 
@@ -237,6 +270,88 @@ __global__ void probe_gather_kernel(const YeeArgs a, const int p,
   out[r] = acc;
 }
 
+namespace cg = cooperative_groups;
+
+// Mirrored field for field by ops/fdtd_cuda.py::_ChunkArgs (ctypes).
+struct ChunkArgs {
+  persist::Ops o;
+  const int* probe_idx;    // (rows, k) flat index into [Ex Ey Ez Hx Hy Hz]
+  const float* probe_w;    // (rows, k) weights
+  int probe_rows, probe_k;
+};
+
+// Every probe row of the fields (E, H) into out, rows spread over all
+// threads of the launch; a row sums its terms m = 0 .. k-1 as
+// probe_gather_kernel does. Not inlined, and the kernel's steps one flat
+// loop: the one-cell resident form runs at 48 registers, where every value
+// the step loop keeps live counts; on an H100 this layout stepped the
+// canonical patch fastest under MUR and CPML of the four tried (gather
+// inlined or not, loop nested by interval or flat), slowest under PEC.
+__device__ __noinline__ void gather_rows(
+    const float* ex, const float* ey, const float* ez, const float* hx,
+    const float* hy, const float* hz, const int* __restrict__ idx,
+    const float* __restrict__ w, const int rows, const int k, const int64_t n,
+    float* __restrict__ out) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride) {
+    float acc = 0.f;
+    for (int m = 0; m < k; ++m) {
+      const int64_t at = (int64_t)r * k + m;
+      const int64_t g = idx[at];
+      const int comp = (int)(g / n);
+      const float* f = comp < 3 ? (comp == 0 ? ex : (comp == 1 ? ey : ez))
+                                : (comp == 3 ? hx : (comp == 4 ? hy : hz));
+      acc = acc + f[g % n] * w[at];
+    }
+    out[r] = acc;
+  }
+}
+
+// One termination chunk: n_sub intervals of d_steps steps from e[p], the
+// source sample of step t at wf[t], interval j's samples into
+// out[j * probe_rows ...].
+template <int kCells, int kFlav>
+__global__ void __launch_bounds__(persist::threads(kCells),
+                                  persist::min_blocks(kCells))
+chunk_steps_kernel(const ChunkArgs a, int p, const float* __restrict__ wf,
+                   const int n_sub, const int d_steps, float* __restrict__ out) {
+  cg::grid_group grid = cg::this_grid();
+  const persist::Range r = persist::block_range(a.o);
+  persist::load_operands<kCells>(a.o, r);
+  const int steps = n_sub * d_steps;
+  for (int t = 0; t < steps; ++t) {
+    persist::h_pass<kCells, kFlav>(a.o, p, r);
+    grid.sync();
+    persist::e_pass<kCells, kFlav>(a.o, p, r, wf[t]);
+    grid.sync();
+    p ^= 1;
+    if ((t + 1) % d_steps == 0) {
+      gather_rows(a.o.e[p][0], a.o.e[p][1], a.o.e[p][2], a.o.h[0], a.o.h[1],
+                  a.o.h[2], a.probe_idx, a.probe_w, a.probe_rows, a.probe_k,
+                  (int64_t)a.o.nx * a.o.ny * a.o.nz,
+                  out + (int64_t)(t / d_steps) * a.probe_rows);
+      if (t + 1 < steps) grid.sync();  // the next H pass overwrites what it read
+    }
+  }
+}
+
+namespace {
+
+// by boundary (row: PEC, MUR, CPML) and form (column)
+#define PERSIST_FORMS(F)                                                \
+  {(const void*)chunk_steps_kernel<0, F>,                               \
+   (const void*)chunk_steps_kernel<1, F>,                               \
+   (const void*)chunk_steps_kernel<2, F>,                               \
+   (const void*)chunk_steps_kernel<3, F>,                               \
+   (const void*)chunk_steps_kernel<4, F>}
+const void* const kKernels[persist::kFlavours][persist::kMaxCells + 1] = {
+    PERSIST_FORMS(persist::kPec), PERSIST_FORMS(persist::kMur),
+    PERSIST_FORMS(persist::kCpml)};
+#undef PERSIST_FORMS
+static_assert(persist::kMaxCells == 4, "one kernel per resident form");
+
+}  // namespace
+
 static unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -245,8 +360,50 @@ extern "C" {
 
 int fdtd_args_size() { return (int)sizeof(YeeArgs); }
 
-const char* fdtd_error_string(int code) {
+int fdtd_chunk_args_size() { return (int)sizeof(ChunkArgs); }
+
+const char* fdtd_chunk_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Blocks the card keeps resident at once for the streamed form of
+// chunk_steps (the most any form launches).
+int fdtd_chunk_grid_blocks(int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kKernels[0][0], persist::threads(0), 0);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  *blocks = per_sm * sms;
+  return (int)err;
+}
+
+// The launch plan of chunk_steps for a, out = {cells a thread (0:
+// streamed), blocks, shared bytes, threads a block}; request -1 either
+// form, 0 streamed, 1 resident.
+int fdtd_chunk_plan(const ChunkArgs* a, int request, int* out) {
+  return (int)persist::plan(a->o, kKernels[persist::flavour(a->o)], request,
+                            out);
+}
+
+// One chunk, n_sub intervals of d steps from e[p], by the planned form:
+// the source sample of step s of interval j at wf[n0 + j*d + s] (device
+// memory), interval j's probe samples into out[j * probe_rows ...].
+int fdtd_chunk_steps(const ChunkArgs* a, int p, const float* wf, int n0,
+                     int n_sub, int d, float* out, int cells, int blocks,
+                     void* stream) {
+  if (n_sub < 1 || d < 1 || n0 < 0 || wf == nullptr ||
+      (a->probe_rows > 0 && (out == nullptr || a->probe_k < 1)))
+    return (int)cudaErrorInvalidValue;
+  ChunkArgs args = *a;
+  const float* w = wf + n0;
+  void* params[] = {(void*)&args, (void*)&p,     (void*)&w,
+                    (void*)&n_sub, (void*)&d, (void*)&out};
+  return (int)persist::launch(args.o, kKernels[persist::flavour(args.o)], cells,
+                              blocks, params, stream);
 }
 
 int fdtd_h_update(const YeeArgs* a, int p, void* stream) {

@@ -1,7 +1,9 @@
-// Device code shared by the two persistent steppers for Hopper (sm_90a):
-// K3, csrc/fdtd_shard.cu (K steps of one rank's x-slab per launch), and
-// K4, csrc/fdtd_steps.cu (the D steps of one probe interval of a whole
-// grid per launch). Both kernels are one cooperative launch that runs
+// Device code shared by the persistent steppers for Hopper (sm_90a): K1,
+// csrc/fdtd_chunk.cu's chunk_steps (a termination chunk of a whole grid
+// per launch, with the probe gather after each interval), K3,
+// csrc/fdtd_shard.cu (K steps of one rank's x-slab per launch), and K4,
+// csrc/fdtd_steps.cu (the D steps of one probe interval of a whole grid
+// per launch). Each kernel is one cooperative launch that runs
 //
 //   load      each block's operands on chip (resident form only)
 //   for each step:

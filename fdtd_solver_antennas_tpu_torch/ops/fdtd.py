@@ -12,10 +12,11 @@ Counterpart of ``fdtd_solver_antennas_tpu/ops/fdtd.py`` (its XLA path):
   matmuls;
 - an energy-decay early exit checked once per chunk.
 
-The step itself is the four kernels of ``ops/fdtd_cuda.py`` ("chunk"
-mode, K1) or, for grids whose working set exceeds the L2, the T-step
-kernel of ``ops/fdtd_stream.py`` ("stream" mode, K2), with K1's
-``probe_gather`` between launches; :func:`resolve_pallas_mode` picks one.
+The steps are K1's ``chunk_steps`` (``ops/fdtd_cuda.py``, "chunk" mode):
+one launch per termination chunk, the probe samples taken in the kernel;
+or, for grids whose working set exceeds the L2, the T-step kernel of
+``ops/fdtd_stream.py`` ("stream" mode, K2), with K1's ``probe_gather``
+between launches; :func:`resolve_pallas_mode` picks one.
 On a CUDA device the run launches the kernels, on the CPU it runs their
 plain PyTorch twins. There is no other switch. The accumulators and the resumable state
 keep the JAX package's layouts (stacked real/imaginary float32, fields in
@@ -88,9 +89,9 @@ class FDTDConfig:
     # Probe/DFT sampling stride. None → the largest D keeping the sampling
     # interval D·dt below 1/(2.5·(f0+fc)); 1 samples every step.
     probe_decimation: int | None = None
-    # Stepping kernels, under the JAX package's names: "chunk" (K1's
-    # kernels, one launch per half-step) or "stream" (K2's, T steps per
-    # launch). None → auto: stream when the working set exceeds the L2.
+    # Stepping kernels, under the JAX package's names: "chunk" (K1, one
+    # launch per termination chunk) or "stream" (K2, T steps per launch).
+    # None → auto: stream when the working set exceeds the L2.
     pallas_mode: str | None = None
     # Leapfrog steps per stream launch. None → the deepest the kernel's
     # shared-memory tile allows, at most the probe decimation.
@@ -955,13 +956,16 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     ``impl`` — :data:`fdtd_stream.kernels` (kernels on CUDA, plain twins
     on CPU) or :data:`fdtd_stream.plain` (plain twins everywhere, to
     compare with the kernels on the card). A chunk-mode run also takes
-    :data:`fdtd_cuda.kernels` or :data:`fdtd_cuda.plain`.
+    :data:`fdtd_cuda.kernels`, :data:`fdtd_cuda.plain` or
+    :data:`fdtd_cuda.step_kernels` (the per-step kernels).
 
-    A chunk is ``n_sub`` probe intervals of ``D`` steps: D leapfrog steps
-    in chunk mode, D / T stream launches of T steps in stream mode. After
-    each interval every probe is sampled into a staging buffer; after each
-    chunk the samples fold into the DFT accumulators as matmuls, and the
-    energy check decides whether to stop (one host sync per chunk).
+    A chunk is ``n_sub`` probe intervals of ``D`` steps, every probe
+    sampled into a staging buffer after each interval: one
+    ``impl.chunk_steps`` call in chunk mode (the source samples uploaded
+    once per run), D / T stream launches of T steps and a
+    ``probe_gather`` per interval in stream mode. After each chunk the
+    samples fold into the DFT accumulators as matmuls, and the energy
+    check decides whether to stop (one host sync per chunk).
     """
     cfg = sim.cfg
     dev = sim.device
@@ -971,6 +975,8 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     if T_stream and not hasattr(impl, "stream_steps"):
         raise ValueError("a stream-mode run needs an impl with stream_steps "
                          "(fdtd_stream.kernels or fdtd_stream.plain)")
+    if not T_stream and not hasattr(impl, "chunk_steps"):
+        raise ValueError("a chunk-mode run needs an impl with chunk_steps")
     if T_stream and decim % T_stream:
         raise ValueError(f"probe decimation {decim} is not a multiple of "
                          f"stream_T={T_stream}")
@@ -999,22 +1005,23 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
         ratio = rs["e_ratio"]
 
     wf = padded_waveform(sim)
+    if not T_stream:  # chunk_steps reads the samples on the device
+        wf = torch.tensor(wf, dtype=torch.float32, device=dev)
     bufs = probes.bufs
     end = np.float32(cfg.end_criteria)
 
     aborted = False
     while n < cfg.n_steps_max:
         n0 = n
-        for j in range(n_sub):
-            if T_stream:
+        if T_stream:
+            for j in range(n_sub):
                 for _ in range(decim // T_stream):
                     impl.stream_steps(ops, st, wf[n:n + T_stream])
                     n += T_stream
-            else:
-                for _ in range(decim):
-                    fdtd_cuda.leapfrog_step(impl, ops, st, wf[n])
-                    n += 1
-            impl.probe_gather(ops, st, bufs[j])
+                impl.probe_gather(ops, st, bufs[j])
+        else:
+            impl.chunk_steps(ops, st, wf, n0, n_sub, decim, bufs)
+            n += n_sub * decim
         probes.flush(n0)
 
         # energy-decay check over the current E

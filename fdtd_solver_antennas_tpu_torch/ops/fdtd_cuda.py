@@ -1,23 +1,39 @@
 """The chunk stepper's kernels: CUDA launches and their plain PyTorch twins.
 
 Counterpart of ``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py``. The TPU
-kernel ``build_pallas_chunk_stepper`` runs a whole termination chunk
+kernel ``build_pallas_chunk_stepper`` (K1) runs a whole termination chunk
 (n_sub probe intervals × D leapfrog steps) in one call and extracts the
-probe samples in the kernel. The port computes the same thing with four
-kernels from ``csrc/fdtd_chunk.cu``, launched by the engine's chunk loop
-(``ops/fdtd.py``):
+probe samples in the kernel. So does the port:
+
+- :func:`chunk_steps`: one chunk in one cooperative launch of
+  ``csrc/fdtd_chunk.cu``'s ``chunk_steps_kernel`` (an H pass and an E
+  pass a step, with ca/cb, the port-source FMA ``src·wf[n0 + j·D + s]``
+  and the MUR walls fused in, or the twelve ψ recursions under CPML; 2
+  grid barriers a step; the probe gather after each interval), in the
+  storage form :func:`chunk_launch_plan` picks from the shape
+  (``ops/persist.py``). The engine's chunk loop (``ops/fdtd.py``) calls
+  it once per chunk.
+
+The first design's per-step kernels stay, each one launch:
 
 - :func:`h_update`: H half-step, with the six ψ_h recursions under CPML;
 - :func:`e_update`: E half-step into the other E buffer, with ca/cb, the
   six ψ_e recursions and the port-source FMA ``src·s(t)``;
 - :func:`mur_faces`: the first-order MUR walls of one axis;
 - :func:`probe_gather`: port V/I and Huygens-face samples as one weighted
-  gather, written to one row of the staging buffer.
+  gather, written to one row of the staging buffer (the stream and the
+  explicit paths sample with it between their launches).
+
+:data:`step_kernels` is the engine's entry points with a ``chunk_steps``
+that runs a chunk through those, step by step (five launches a step under
+MUR): the first design's route, kept to time beside :func:`chunk_steps`.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch twin
 beside it (``*_plain``) for CPU tensors; any other device raises. A
-kernel error raises; nothing falls back. ``launches`` counts the kernel
-launches of each wrapper, so a run can show it went through the kernels.
+failed plan, build or launch raises; nothing falls back. ``launches``
+counts the kernel launches of each wrapper, so a run can show it went
+through the kernels, and ``launches_by_form`` the ``chunk_steps``
+launches by storage form.
 """
 
 from __future__ import annotations
@@ -25,20 +41,26 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from types import SimpleNamespace
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from . import persist
+
 PSI_KEYS = ("xy", "xz", "yz", "yx", "zx", "zy")
-KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather")
+KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather", "chunk_steps")
 
 # kernel launches per wrapper; only the wrappers' CUDA branches add to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the chunk_steps launches by storage form (``persist.FORMS``)
+launches_by_form: Dict[str, int] = dict.fromkeys(persist.FORMS, 0)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
+    for k in persist.FORMS:
+        launches_by_form[k] = 0
 
 
 @dataclasses.dataclass
@@ -91,6 +113,7 @@ class YeeState:
     _stream: object = None  # the stream stepper's second field set
     _shard: object = None  # the shard stepper's packed arguments
     _steps: object = None  # the interval stepper's packed arguments
+    _chunk: object = None  # chunk_steps' packed arguments
 
     @property
     def fields(self) -> Tuple[torch.Tensor, ...]:
@@ -206,8 +229,49 @@ def mur_faces_plain(ops: YeeOperands, st: YeeState, axis: int) -> None:
 
 
 def probe_gather_plain(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
+    """Each row's k terms summed m = 0 .. k−1, one rounding each, in the
+    kernels' order."""
     flat = torch.cat([f.reshape(-1) for f in st.fields])
-    out.copy_((flat[ops.probe_idx.long()] * ops.probe_w).sum(-1))
+    terms = flat[ops.probe_idx.long()] * ops.probe_w
+    acc = torch.zeros_like(out)
+    for m in range(terms.shape[1]):
+        acc = acc + terms[:, m]
+    out.copy_(acc)
+
+
+def _check_window(n_wf: int, n0: int, n_sub: int, D: int) -> None:
+    """A chunk reads the samples [n0, n0 + n_sub·D) of ``n_wf``."""
+    if n_sub < 1 or D < 1 or n0 < 0:
+        raise ValueError(f"chunk_steps: n_sub={n_sub}, D={D}, n0={n0}")
+    if n0 + n_sub * D > n_wf:
+        raise ValueError(f"chunk_steps: samples [{n0}, {n0 + n_sub * D}) "
+                         f"past the waveform's {n_wf}")
+
+
+def _chunk_samples(wf, n0: int, n_sub: int, D: int) -> list:
+    """The source samples of one chunk, ``wf[n0 : n0 + n_sub·D]``."""
+    _check_window(len(wf), n0, n_sub, D)
+    part = wf[n0:n0 + n_sub * D]
+    return part.tolist() if torch.is_tensor(part) else [float(x) for x in part]
+
+
+def _steps_then_gathers(impl, ops: YeeOperands, st: YeeState, wf, n0: int,
+                        n_sub: int, D: int, bufs: torch.Tensor) -> None:
+    """A chunk step by step: per interval, D :func:`leapfrog_step` calls
+    with ``impl``, then ``impl.probe_gather`` into ``bufs[j]``."""
+    samples = _chunk_samples(wf, n0, n_sub, D)
+    for j in range(n_sub):
+        for s in samples[j * D:(j + 1) * D]:
+            leapfrog_step(impl, ops, st, s)
+        impl.probe_gather(ops, st, bufs[j])
+
+
+def chunk_steps_plain(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
+                      D: int, bufs: torch.Tensor) -> None:
+    """One chunk with the plain twins: per interval j, D leapfrog steps
+    with the source sample ``wf[n0 + j·D + s]`` at step s, then the probe
+    gather into ``bufs[j]``."""
+    _steps_then_gathers(plain, ops, st, wf, n0, n_sub, D, bufs)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +298,18 @@ class _YeeArgs(ctypes.Structure):
     ]
 
 
+class _ChunkArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct ChunkArgs`` in csrc/fdtd_chunk.cu."""
+
+    _fields_ = [
+        ("o", persist.PersistOps),
+        ("probe_idx", _P), ("probe_w", _P),
+        ("probe_rows", ctypes.c_int), ("probe_k", ctypes.c_int),
+    ]
+
+
 _lib = None
+_PREFIX = "fdtd_chunk"
 
 
 def _library():
@@ -243,11 +318,13 @@ def _library():
     if _lib is None:
         from . import _build
 
+        _i = ctypes.c_int
         lib = _build.load("fdtd_chunk")
+        persist.bind(lib, _PREFIX)
         lib.fdtd_args_size.argtypes = []
         lib.fdtd_args_size.restype = ctypes.c_int
-        lib.fdtd_error_string.argtypes = [ctypes.c_int]
-        lib.fdtd_error_string.restype = ctypes.c_char_p
+        lib.fdtd_chunk_steps.argtypes = [_P, _i, _P, _i, _i, _i, _P, _i, _i, _P]
+        lib.fdtd_chunk_steps.restype = _i
         lib.fdtd_h_update.argtypes = [_P, ctypes.c_int, _P]
         lib.fdtd_e_update.argtypes = [_P, ctypes.c_int, ctypes.c_float, _P]
         lib.fdtd_mur_faces.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
@@ -255,18 +332,18 @@ def _library():
         for fn in (lib.fdtd_h_update, lib.fdtd_e_update,
                    lib.fdtd_mur_faces, lib.fdtd_probe_gather):
             fn.restype = ctypes.c_int
-        if lib.fdtd_args_size() != ctypes.sizeof(_YeeArgs):
-            raise RuntimeError(
-                f"YeeArgs layout mismatch: C {lib.fdtd_args_size()} bytes, "
-                f"ctypes {ctypes.sizeof(_YeeArgs)}")
+        for name, c_size, py in (
+                ("YeeArgs", lib.fdtd_args_size(), _YeeArgs),
+                ("ChunkArgs", lib.fdtd_chunk_args_size(), _ChunkArgs)):
+            if c_size != ctypes.sizeof(py):
+                raise RuntimeError(f"{name} layout mismatch: C {c_size} bytes, "
+                                   f"ctypes {ctypes.sizeof(py)}")
         _lib = lib
     return _lib
 
 
 def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.fdtd_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel {what} failed: {msg} ({code})")
+    persist.check(lib, _PREFIX, code, what)
 
 
 def _ptr(t: Optional[torch.Tensor], shape, dtype=torch.float32, dev=None) -> int:
@@ -387,20 +464,96 @@ def probe_gather(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
     launches["probe_gather"] += 1
 
 
-# the same four entry points, always on the plain path (for comparing the
-# kernels against their twins on the card)
+def _chunk_args(ops: YeeOperands, st: YeeState) -> _ChunkArgs:
+    """The packed ``chunk_steps`` arguments of (ops, st), built once per
+    pair and kept on the state; the kernel updates the state's tensors in
+    place, so the pointers stay valid across launches."""
+    cached = st._chunk
+    if cached is not None and cached[0] is ops:
+        return cached[1]
+    a = _ChunkArgs()
+    a.o = persist.pack(ops, st, (0, ops.grid_shape[0] - 1))
+    rows, k = ops.probe_idx.shape
+    a.probe_idx = _ptr(ops.probe_idx, (rows, k), torch.int32, ops.device)
+    a.probe_w = _ptr(ops.probe_w, (rows, k), dev=ops.device)
+    a.probe_rows, a.probe_k = rows, k
+    st._chunk = (ops, a)
+    return a
+
+
+def chunk_launch_plan(ops: YeeOperands, st: YeeState,
+                      form: Optional[str] = None) -> persist.Plan:
+    """The storage form, blocks × threads and shared bytes ``chunk_steps``
+    launches with for (ops, st): ``form`` None lets the shape pick (the
+    resident form where the operands fit on chip), else "resident" or
+    "streamed" (the resident form raises where it does not fit)."""
+    a = _chunk_args(ops, st)
+    return persist.plan(_library(), _PREFIX, ops, ctypes.addressof(a), form,
+                        "chunk_steps")
+
+
+def chunk_steps(ops: YeeOperands, st: YeeState,
+                wf: Union[torch.Tensor, Sequence[float]], n0: int, n_sub: int,
+                D: int, bufs: torch.Tensor, *, form: Optional[str] = None) -> None:
+    """One termination chunk: ``n_sub`` probe intervals of ``D`` leapfrog
+    steps from ``e[parity]``, the source sample of step s of interval j at
+    ``wf[n0 + j·D + s]``, interval j's probe samples into ``bufs[j]``
+    (``bufs``: ``(n_sub, probe rows)``). On a CUDA tensor one launch of
+    ``chunk_steps_kernel``, ``wf`` a float32 tensor on the device (the
+    whole run's samples, read in place); on a CPU tensor
+    :func:`chunk_steps_plain`. Updates the state's tensors in place and
+    sets ``st.parity`` to the E buffer that holds the result. ``form``
+    forces a storage form (:func:`chunk_launch_plan`); the CPU runs the
+    plain twin whatever it says."""
+    rows = ops.probe_idx.shape[0]
+    if tuple(bufs.shape) != (n_sub, rows):
+        raise ValueError(f"chunk_steps: bufs {tuple(bufs.shape)} != "
+                         f"(n_sub, probe rows) = {(n_sub, rows)}")
+    if not _on_cuda(st.h[0]):
+        return chunk_steps_plain(ops, st, wf, n0, n_sub, D, bufs)
+    _check_window(len(wf), n0, n_sub, D)
+    lib = _library()
+    a = _chunk_args(ops, st)
+    plan = chunk_launch_plan(ops, st, form)
+    wf = torch.as_tensor(wf, dtype=torch.float32, device=ops.device)
+    code = lib.fdtd_chunk_steps(
+        ctypes.addressof(a), st.parity, _ptr(wf, (len(wf),), dev=ops.device),
+        n0, n_sub, D, _ptr(bufs, (n_sub, rows), dev=ops.device),
+        plan.cells_per_thread, plan.blocks, _stream(ops.device))
+    _check(lib, code, "chunk_steps")
+    launches["chunk_steps"] += 1
+    launches_by_form[plan.form] += 1
+    st.parity ^= (n_sub * D) & 1
+
+
+def chunk_by_steps(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
+                   D: int, bufs: torch.Tensor) -> None:
+    """:func:`chunk_steps` through the per-step kernels: per interval, D
+    launches each of ``h_update``, ``e_update`` and (MUR) three of
+    ``mur_faces``, then one ``probe_gather`` (the plain twins on the
+    CPU). The first design's route, for timing beside the chunk kernel."""
+    _steps_then_gathers(kernels, ops, st, wf, n0, n_sub, D, bufs)
+
+
+# The engine's entry points: always on the plain path (for comparing the
+# kernels against their twins on the card), through the kernels (CUDA
+# tensors; the plain twins on the CPU), and through the kernels with a
+# chunk run step by step.
 plain = SimpleNamespace(
     h_update=h_update_plain,
     e_update=e_update_plain,
     mur_faces=mur_faces_plain,
     probe_gather=probe_gather_plain,
+    chunk_steps=chunk_steps_plain,
 )
 kernels = SimpleNamespace(
     h_update=h_update,
     e_update=e_update,
     mur_faces=mur_faces,
     probe_gather=probe_gather,
+    chunk_steps=chunk_steps,
 )
+step_kernels = SimpleNamespace(**{**vars(kernels), "chunk_steps": chunk_by_steps})
 
 
 def leapfrog_step(impl, ops: YeeOperands, st: YeeState, s: float) -> None:

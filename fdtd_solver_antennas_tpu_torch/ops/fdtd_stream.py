@@ -26,8 +26,9 @@ The engine samples probes between launches with K1's ``probe_gather``.
 ``launches`` counts ``stream_steps`` launches, as ``fdtd_cuda.launches``
 does for K1, and ``launches_by_kernel`` counts them per kernel
 (``stream_march``, ``stream_tile``). :data:`kernels` and :data:`plain`
-are the engine's full sets of entry points (K1's four and
-``stream_steps``) that ``ops/fdtd.py::run_simulation`` steps with.
+are the engine's full sets of entry points (K1's ``chunk_steps`` and
+per-step kernels, and ``stream_steps``) that
+``ops/fdtd.py::run_simulation`` steps with.
 """
 
 from __future__ import annotations
@@ -388,10 +389,10 @@ def _stream_launch(ops, st, wf_t, kernel: str) -> None:
     if ops.pml is not None:
         st.psi_e = nxt[6:12]
         st.psi_h = nxt[12:18]
-    st._cargs = None  # K1's packed pointers named the other set
+    st._cargs = st._chunk = None  # K1's packed pointers named the other set
 
 
-# the engine's entry points: K1's four and the stream stepper, through the
+# the engine's entry points: K1's and the stream stepper, through the
 # kernels (CUDA tensors) or always through the plain twins
 kernels = SimpleNamespace(**vars(fdtd_cuda.kernels), stream_steps=stream_steps)
 plain = SimpleNamespace(**vars(fdtd_cuda.plain), stream_steps=stream_steps_plain)

@@ -1,7 +1,7 @@
-"""What the two persistent steppers share on the host: K3 (``fdtd_shard``)
-and K4 (``fdtd_steps``).
+"""What the persistent steppers share on the host: K1's ``chunk_steps``
+(``fdtd_cuda``), K3 (``fdtd_shard``) and K4 (``fdtd_steps``).
 
-Both kernels are built from ``csrc/yee_persist.cuh``: one cooperative
+All three kernels are built from ``csrc/yee_persist.cuh``: one cooperative
 launch runs whole leapfrog steps, an H pass and an E pass with the MUR
 walls fused in, 2 grid barriers a step. Each comes in two storage forms
 of one kernel, which the wrapper picks from the shape (:func:`plan`):
@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
-from .fdtd_cuda import YeeOperands, YeeState, _ptr
+if TYPE_CHECKING:  # fdtd_cuda imports this module
+    from .fdtd_cuda import YeeOperands, YeeState
 
 FORMS = ("streamed", "resident")
 BARRIERS_PER_STEP = 2  # grid.sync() after the H pass and after the E pass
@@ -67,6 +68,8 @@ def pack(ops: YeeOperands, st: YeeState,
     """The pointers and scalars of (ops, st); the MUR x walls at array rows
     ``x_walls`` (a slab's may lie outside it), the y and z walls at the
     grid planes 0 and q − 1. MUR and CPML exclude each other."""
+    from .fdtd_cuda import _ptr
+
     if ops.mur is not None and ops.pml is not None:
         raise ValueError("MUR walls and CPML exclude each other")
     if ops.mur is not None and min(ops.grid_shape) < 3:

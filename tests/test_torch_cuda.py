@@ -69,9 +69,8 @@ def test_chunk_through_kernels_matches_plain(cuda, boundary):
     sim = _sim(boundary)
     fdtd_cuda.reset_launch_counts()
     k = run_simulation(sim, fdtd_cuda.kernels)
-    n_mur = 3 * 120 if boundary == "MUR" else 0
-    assert fdtd_cuda.launches == {"h_update": 120, "e_update": 120,
-                                  "mur_faces": n_mur, "probe_gather": 30}
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+                                  "probe_gather": 0, "chunk_steps": 1}
     p = run_simulation(sim, fdtd_cuda.plain)
     assert k["steps"] == p["steps"] == 120
     for fa, fb in zip(k["fields"], p["fields"], strict=True):
@@ -364,8 +363,8 @@ def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
     fdtd_shard.reset_launch_counts()
     out = run()
     assert fdtd_shard.launches == {"shard_steps": 120 // 12}
-    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0,
-                                  "mur_faces": 0, "probe_gather": 120 // 12}
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+                                  "probe_gather": 120 // 12, "chunk_steps": 0}
     assert out["fields"][0].device.type == "cuda"
     ref = sim.run()
     assert out["steps"] == ref["steps"] == 120
@@ -397,6 +396,95 @@ def _canonical_sim(boundary):
     return build_simulation(scene, grid, f0=f0, fc=fc, cfg=cfg, device="cuda",
                             port_freqs_hz=np.linspace(2e9, 3e9, 11),
                             nf_freqs_hz=np.array([2.45e9]))
+
+
+def _chunk_inputs(sim, device, seed, n0=7, n_sub=2):
+    """A random state at parity 1, a random waveform on the device and
+    staging buffers for ``n_sub`` intervals from step ``n0``."""
+    st = _random_state(sim, device, seed)
+    st.parity = 1
+    rng = np.random.default_rng(seed + 1)
+    wf = torch.from_numpy(rng.uniform(
+        -1.0, 1.0, n0 + n_sub * sim.probe_decim + 3).astype(np.float32)).to(device)
+    bufs = torch.zeros((n_sub, sim.operands.probe_idx.shape[0]), device=device)
+    return st, wf, bufs
+
+
+def _assert_same_chunk(a, bufs_a, b, bufs_b):
+    assert a.parity == b.parity
+    for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                    (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
+        assert torch.equal(x, y)
+    assert torch.equal(bufs_a, bufs_b)
+
+
+@pytest.mark.parametrize("boundary,form", [
+    ("MUR", None), ("PEC", None), ("PML_8", None), ("MUR", "streamed")])
+def test_chunk_steps_equals_its_twin(cuda, boundary, form):
+    """One launch of two intervals of D = 89 steps at the canonical patch,
+    from parity 1 and step 7, against the plain twin, bit for bit: fields,
+    ψ and every probe sample."""
+    sim = _canonical_sim(boundary)
+    D = sim.probe_decim
+    a, wf, bufs_a = _chunk_inputs(sim, cuda, seed=73)
+    b, bufs_b = _clone(a), bufs_a.clone()
+    b.parity = a.parity
+    plan = fdtd_cuda.chunk_launch_plan(sim.operands, a, form)
+    assert plan.form == (form or "resident")
+    fdtd_cuda.reset_launch_counts()
+    fdtd_cuda.chunk_steps(sim.operands, a, wf, 7, 2, D, bufs_a, form=form)
+    assert fdtd_cuda.launches["chunk_steps"] == 1
+    assert fdtd_cuda.launches_by_form[plan.form] == 1
+    fdtd_cuda.chunk_steps_plain(sim.operands, b, wf, 7, 2, D, bufs_b)
+    torch.cuda.synchronize()
+    assert a.parity == 1 ^ (2 * D) & 1
+    _assert_same_chunk(a, bufs_a, b, bufs_b)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_8"])
+def test_chunk_steps_equals_the_per_step_kernels(cuda, boundary):
+    """The chunk kernel against the first design's route on the same
+    state: the per-step kernels and ``probe_gather``, bit for bit."""
+    sim = _canonical_sim(boundary)
+    D = sim.probe_decim
+    a, wf, bufs_a = _chunk_inputs(sim, cuda, seed=79)
+    b, bufs_b = _clone(a), bufs_a.clone()
+    b.parity = a.parity
+    fdtd_cuda.reset_launch_counts()
+    fdtd_cuda.chunk_steps(sim.operands, a, wf, 7, 2, D, bufs_a)
+    fdtd_cuda.step_kernels.chunk_steps(sim.operands, b, wf, 7, 2, D, bufs_b)
+    torch.cuda.synchronize()
+    mur = 3 * 2 * D if boundary == "MUR" else 0
+    assert fdtd_cuda.launches == {"h_update": 2 * D, "e_update": 2 * D,
+                                  "mur_faces": mur, "probe_gather": 2,
+                                  "chunk_steps": 1}
+    _assert_same_chunk(a, bufs_a, b, bufs_b)
+
+
+def test_canonical_run_makes_one_chunk_launch_per_chunk(cuda):
+    """``PreparedSimulation.run`` on the canonical patch: 25 chunks of 5 ×
+    89 steps, one ``chunk_steps`` launch each in the resident form, no
+    per-step launch."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import prepare_patch_fixed
+
+    prep = prepare_patch_fixed(PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02), device="cuda")
+    assert prep.ok and prep.sim.pallas_mode == "chunk"
+    fdtd_cuda.reset_launch_counts()
+    out = prep.sim.run()
+    assert out["steps"] == 11_125
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+                                  "probe_gather": 0, "chunk_steps": 25}
+    assert fdtd_cuda.launches_by_form == {"streamed": 0, "resident": 25}
+
+
+def test_chunk_plan_refuses_the_resident_form_where_it_does_not_fit(cuda):
+    tall = _synthetic_ops((161, 121, 160), "MUR", cuda)
+    st = fdtd_cuda.new_state(tall.shape, cuda, pml=False)
+    assert fdtd_cuda.chunk_launch_plan(tall, st).form == "streamed"
+    with pytest.raises(ValueError, match="resident form does not fit"):
+        fdtd_cuda.chunk_launch_plan(tall, st, "resident")
 
 
 @pytest.mark.parametrize("scene", ["small", "canonical"])

@@ -448,17 +448,17 @@ def test_an_edited_header_changes_the_library_tag(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    names = [p.name for p in _build.sources("fdtd_steps")]
-    assert names == ["fdtd_steps.cu", "yee_persist.cuh"]
-    assert [p.name for p in _build.sources("fdtd_shard")] == [
-        "fdtd_shard.cu", "yee_persist.cuh"]
-    before = {n: _build.tag(n) for n in ("fdtd_steps", "fdtd_shard", "fdtd_chunk")}
+    users = ("fdtd_steps", "fdtd_shard", "fdtd_chunk")
+    for name in users:
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "yee_persist.cuh"]
+    before = {n: _build.tag(n) for n in (*users, "roll_chain")}
     header = csrc / "yee_persist.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.tag(n) for n in before}
-    assert after["fdtd_steps"] != before["fdtd_steps"]
-    assert after["fdtd_shard"] != before["fdtd_shard"]
-    assert after["fdtd_chunk"] == before["fdtd_chunk"]
+    for name in users:
+        assert after[name] != before[name], name
+    assert after["roll_chain"] == before["roll_chain"]
 
 
 def test_the_tag_follows_every_source_and_the_flags(tmp_path, monkeypatch):

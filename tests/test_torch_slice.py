@@ -114,7 +114,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "pydantic", "matplotlib")
                 and sys.modules[m] is not None)
 print("RESULT", res.steps_run, float(res.Dmax), leaked,
-      sorted(fdtd_cuda.launches.values()))
+      sorted(set(fdtd_cuda.launches.values())))
 """
 
 
@@ -129,7 +129,7 @@ def test_port_runs_with_jax_pydantic_matplotlib_blocked():
     assert int(steps) == 890  # two chunks of 5 × 89 steps
     assert float(dmax) > 1.0
     assert leaked == "[]"
-    assert counts == "[0, 0, 0, 0]"  # the CPU runs the plain twins
+    assert counts == "[0]"  # the CPU runs the plain twins
 
 
 def test_cli_fdtd_writes_summary_and_files(tmp_path, capsys):
