@@ -42,7 +42,10 @@ and the script exits non-zero without printing a result:
    through ``MultiPatchScene.simulate``, which resolves to the stream
    kernel and goes through the march, with launch counts, its wall time
    and idle share (the march's device time per launch timed on the same
-   grid); then 2,000 steps kernel vs plain;
+   grid); ``probe_gather`` on the scene's grouped probe table against its
+   twin, bit for bit, its device time beside its bound, the plain twin's
+   and a cuSPARSE SpMV's over the same entries, and the table's bytes on
+   the card (at most 20 MB); then 2,000 steps kernel vs plain;
 9. horn golden: the 12 GHz pyramidal horn against Balanis's 14.06 dBi;
 10. times: forced chunk against forced stream at the tall grid and the
     mixed scene; the march's device time per launch and per step beside
@@ -72,8 +75,12 @@ and the script exits non-zero without printing a result:
     patch through ``fdtd_steps.build_stepper``'s ``step_fn`` for 125
     intervals (11,125 steps) from zero fields, held to the same steps
     through K1's field kernels;
-15. K5 (roofline slice): ``roll_chain`` against its twin at 56×7,040,
-    then the roofline entry point
+15. K5 (roofline slice): ``roll_chain`` in both designs (one block a
+    row; a cluster of two) against its twin at 56×7,040, 200 iterations,
+    bit for bit, timed in turns, each with its CTAs a row, SMs used, the
+    SM clock and its shared-memory and FLOP bounds; each part of the
+    one-block design alone (``roll_chain_part``), bit for bit and timed
+    in turns with both together; then the roofline entry point
     ``fdtd_solver_antennas_tpu_torch.examples.chunk_roofline.main()`` on
     the card, which prints its JSON line.
 
@@ -366,7 +373,7 @@ def phase_chunk_steps(card):
         base.parity = 1
         wf = torch.from_numpy(np.random.default_rng(89).uniform(
             -1.0, 1.0, 7 + n_sub * D).astype(np.float32)).to(sim.device)
-        bufs = torch.zeros((n_sub, ops.probe_idx.shape[0]), device=sim.device)
+        bufs = torch.zeros((n_sub, ops.probes.n_rows), device=sim.device)
         sp, bp = clone_state(base), bufs.clone()
         fdtd_cuda.chunk_steps_plain(ops, sp, wf, 7, n_sub, D, bp)
         so, bo = clone_state(base), bufs.clone()
@@ -450,7 +457,7 @@ def phase_each_kernel(sim, phase="3"):
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda as fc
 
     ops = sim.operands
-    rows = ops.probe_idx.shape[0]
+    rows = ops.probes.n_rows
     base = random_state(sim, seed=7)
     calls = {
         "h_update": lambda m, st, out: m.h_update(ops, st),
@@ -478,9 +485,12 @@ def phase_each_kernel(sim, phase="3"):
         torch.cuda.synchronize()
         err = max(close(f"{name} {i}", a, b) for i, (a, b) in
                   enumerate(zip(outputs[name](sk, out_k), outputs[name](sp, out_p))))
+        # the plain gather runs a few dozen PyTorch ops a call, more than
+        # the sleep covers for 20 calls: events alone time it
+        plain_timer = events_ms if name == "probe_gather" else device_ms
         t = dict(
             ms=device_ms(lambda: call(fc.kernels, sk, out_k)),
-            plain_ms=device_ms(lambda: call(fc.plain, sp, out_p)),
+            plain_ms=plain_timer(lambda: call(fc.plain, sp, out_p)),
             host_ms=host_ms(lambda: call(fc.kernels, sk, out_k)),
             plain_host_ms=host_ms(lambda: call(fc.plain, sp, out_p)),
         )
@@ -701,8 +711,8 @@ def k1_chunk_bound(ops, n_sub, D):
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
     psi = 12 if ops.pml is not None else 0
-    rows = ops.probe_idx.shape[0]
-    used = int(torch.count_nonzero(ops.probe_w))
+    rows = ops.probes.n_rows
+    used = int(torch.count_nonzero(ops.probes.w))
     nbytes = (4 * n * (6 + 6 + n_src + 6 + 2 * psi) + 4 * n_sub * D
               + n_sub * (12 * used + 4 * rows))
     return bound(nbytes, n_sub * D * n * (48 + 4 * psi) + n_sub * 2 * used)
@@ -725,8 +735,8 @@ def k1_bound(name, sim):
         return bound(4 * 4 * wall_cells, 3 * wall_cells)
     # probe_gather: index, weight and value of each table entry this run's
     # data needs (the table's zero-weight padding is not work), rows out
-    rows = ops.probe_idx.shape[0]
-    used = int(torch.count_nonzero(ops.probe_w))
+    rows = ops.probes.n_rows
+    used = int(torch.count_nonzero(ops.probes.w))
     return bound(used * 12 + rows * 4, 2 * used)
 
 
@@ -865,13 +875,30 @@ def phase_mixed_main_path(card):
              f"Dmax {10 * np.log10(res.Dmax):.3f} dBi, |S11|min per port "
              f"{s11_db[0]:.2f} / {s11_db[1]:.2f} dB; launches {counts} [{card}]")
     k2 = stream_kernel_alone(sim, "8", card)
+    k2["probe"] = probe_gather_alone(sim, "8", card)
     busy = (counts["stream_steps"] * k2["ms"]
-            + counts["probe_gather"] * k2["probe_ms"]) / 1e3
+            + counts["probe_gather"] * k2["probe"]["ms"]) / 1e3
     wall = res.wall_time_s
     say("8", f"mixed main-path run: {wall:.3f} s wall, kernels busy {busy:.3f} s "
              f"(launches x device time per launch: march {k2['ms'] * 1e3:.1f} us, "
-             f"probe_gather {k2['probe_ms'] * 1e3:.1f} us), idle share "
+             f"probe_gather {k2['probe']['ms'] * 1e3:.2f} us), idle share "
              f"{1 - busy / wall:.3f} [{card}]")
+
+    # the same prepared scene run again, warm: the first run of a process
+    # pays one-time set-up beside the kernels
+    from fdtd_solver_antennas_tpu_torch.solvers.multi_patch_3d import (
+        run_prepared_multi_patch_3d)
+
+    f_run = max(i.params.frequency_hz for i in scene.patches + scene.horns)
+    warm = []
+    for _ in range(2):
+        again = run_prepared_multi_patch_3d(prep, frequency_hz=f_run, verbose=0)
+        assert again.ok and again.steps_run == steps, again.message
+        assert np.isclose(again.Dmax, res.Dmax, rtol=1e-6), (again.Dmax, res.Dmax)
+        warm.append(again.wall_time_s)
+    say("8", f"mixed scene run again, warm (run_prepared_multi_patch_3d on the "
+             f"same preparation): {' / '.join(f'{w:.3f}' for w in warm)} s for "
+             f"{steps} steps, same Dmax [{card}]")
 
     cut = dataclasses.replace(
         sim, cfg=dataclasses.replace(sim.cfg, n_steps_max=2000))
@@ -882,6 +909,74 @@ def phase_mixed_main_path(card):
              f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}; kernel "
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
     return sim, res, counts, k2
+
+
+def probe_csr(ops):
+    """The probe table's used entries (weight != 0) as one CSR matrix of
+    (probe rows, 6·cells) over the stack [Ex Ey Ez Hx Hy Hz], columns
+    sorted in each row: the gather as a sparse-matrix–vector product."""
+    t = ops.probes
+    n = int(np.prod(ops.shape))
+    dev = t.code.device
+    rows, cols, vals = [], [], []
+    for r0, nr, k, code, w in t.blocks():
+        rows.append((torch.arange(nr, device=dev) + r0).repeat_interleave(k))
+        cols.append(t.flat_index(code, n).T.reshape(-1))
+        vals.append(w.T.reshape(-1))
+    r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    keep = v != 0
+    r, c, v = r[keep], c[keep], v[keep]
+    order = torch.argsort(r * (6 * n) + c)
+    r, c, v = r[order], c[order], v[order]
+    crow = torch.zeros(t.n_rows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.bincount(r, minlength=t.n_rows).cumsum(0)
+    return torch.sparse_csr_tensor(crow, c, v, size=(t.n_rows, 6 * n),
+                                   check_invariants=True)
+
+
+def probe_gather_alone(sim, phase, card):
+    """``probe_gather`` at ``sim``'s table against its twin, bit for bit,
+    on a random state; its device time beside its bound, the plain twin's
+    and one cuSPARSE SpMV's over the same entries (``torch.sparse_csr_tensor
+    @ flat``, the stacking of the fields not timed), which must agree
+    within the tolerance; the table's bytes on the card."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    ops = sim.operands
+    t = ops.probes
+    assert t.nbytes <= 20e6, f"probe table {t.nbytes} B above 20 MB"
+    padded = 8 * t.n_rows * max(t.k)
+    st = random_state(sim, seed=19)
+    st.parity = 1
+    out_k = torch.full((t.n_rows,), float("nan"), device=sim.device)
+    out_p = out_k.clone()
+    fdtd_cuda.probe_gather(ops, st, out_k)
+    fdtd_cuda.probe_gather_plain(ops, st, out_p)
+    torch.cuda.synchronize()
+    same = torch.equal(out_k, out_p)
+    assert same, "probe_gather is not bit-equal to its twin"
+    ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, st, out_k))
+    plain_ms = events_ms(lambda: fdtd_cuda.probe_gather_plain(ops, st, out_p))
+    A = probe_csr(ops)
+    flat = torch.cat([f.reshape(-1) for f in st.fields])
+    lib = A @ flat
+    torch.cuda.synchronize()
+    lib_err = close("probe_gather vs SpMV", out_k, lib)
+    library_ms = device_ms(lambda: A @ flat)
+    b_ms, b_by = k1_bound("probe_gather", sim)
+    used = int(torch.count_nonzero(t.w))
+    say(phase, f"probe_gather at {sim.grid.shape}: {t.n_rows:,} rows in blocks "
+               f"(V, I, face E, face H) of {t.rows} rows x {t.k} terms, "
+               f"{used:,} used entries; table {t.nbytes:,} B on the card (one "
+               f"table padded to {max(t.k)} terms: {padded:,} B); kernel == "
+               f"plain (bit-equal {same}); device {ms * 1e3:.2f} us/launch, "
+               f"bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} of it), "
+               f"plain {plain_ms * 1e3:.1f} us, cuSPARSE SpMV (torch "
+               f"sparse CSR @ flat) {library_ms * 1e3:.2f} us, == kernel "
+               f"within rtol {RTOL} (max |err| {lib_err:.3e}) [{card}]")
+    return dict(max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, nbytes=t.nbytes)
 
 
 def phase_horn_golden():
@@ -935,7 +1030,7 @@ def stream_kernel_alone(sim, phase, card):
     # past the sleep kernel), so it is timed by events alone: its ~60
     # PyTorch ops per step each run longer than the host takes to issue
     plain_ms = events_ms(lambda: fdtd_stream.stream_steps_plain(ops, sp, wf))
-    rows = ops.probe_idx.shape[0]
+    rows = ops.probes.n_rows
     out = torch.zeros(rows, device=sim.device)
     probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
     b_ms, b_by = k2_bound(sim, T)
@@ -1398,16 +1493,32 @@ def phase_steps_main_path(k4, card):
     return launches
 
 
-def k5_bound(R, C, iters):
-    """Bound of one ``roll_chain`` launch: the array in and out once; 2
-    adds and 2 multiplies per element per iteration (the shifts move data
-    inside shared memory, neither bytes nor operations of this count)."""
-    return bound(2 * 4 * R * C, 4 * R * C * iters)
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+SMEM_BYTES_PER_CLK = 128  # shared memory per SM per clock (Hopper)
+
+
+def k5_bounds(R, C, iters, sms_used, clock_hz):
+    """Bounds of one ``roll_chain`` launch: (shared-memory ms, FLOP ms).
+    Shared memory: each element-shift stores and loads 4 B, R·C·4·iters
+    of them, at 128 B a clock on each SM the launch uses. Operations: 2
+    adds and 2 multiplies per element per iteration at the float32 peak
+    (the array in and out once over HBM is smaller than either)."""
+    smem = 2 * 4 * R * C * 4 * iters / (SMEM_BYTES_PER_CLK * clock_hz * sms_used)
+    return smem * 1e3, 4 * R * C * iters / FP32_FLOPS * 1e3
 
 
 def phase_roll_chain(card):
-    """K5 against its twin at the roofline's default shape, timed on the
-    device; then the roofline entry point on the card, its launches
+    """K5 in both designs (one block a row; a cluster of two blocks a row)
+    against its twin at the roofline's default shape, bit for bit, timed
+    on the device in turns (1, 2, 2, 1) beside both bounds; then the
+    roofline entry point on the card (its default design), its launches
     counted."""
     from fdtd_solver_antennas_tpu_torch.examples import chunk_roofline
     from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
@@ -1415,20 +1526,62 @@ def phase_roll_chain(card):
     R, C, iters = 56, 55 * 128, 200
     a = torch.from_numpy(np.random.default_rng(59).uniform(
         0.5, 1.5, (R, C)).astype(np.float32)).to("cuda")
-    out, ref = rc.roll_chain(a, iters), rc.roll_chain_plain(a, iters)
-    torch.cuda.synchronize()
-    err = close("roll_chain", out, ref)
-    same = torch.equal(out, ref)
-    assert same, "roll_chain is not bit-equal to its twin"
-    ms = device_ms(lambda: rc.roll_chain(a, iters))
-    plain_ms = events_ms(lambda: rc.roll_chain_plain(a, iters), reps=2, warmup=1)
-    b_ms, b_by = k5_bound(R, C, iters)
+    ref = rc.roll_chain_plain(a, iters)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    say("15", f"roll_chain {R}x{C}, {iters} iterations: kernel == plain "
-              f"(bit-equal {same}), max |err| {err:.3e}; device {ms * 1e3:.1f} "
-              f"us/launch, plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
-              f"us by {b_by}; {R} blocks, one per row, on {R} of {sms} SMs "
-              f"[{card}]")
+    clock = sm_clock_hz()
+    say("15", f"SM clock (nvidia-smi clocks.max.sm) {clock / 1e6:.0f} MHz, "
+              f"{sms} SMs, shared memory {SMEM_BYTES_PER_CLK} B/clock/SM [{card}]")
+    rows = {}
+    for ctas in rc.CTAS:
+        out = rc.roll_chain(a, iters, ctas)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        assert same, f"roll_chain ({ctas} block(s) a row) is not bit-equal"
+        plan = rc.plan(a.shape, ctas)
+        used = min(plan["blocks"], sms)
+        smem_ms, flop_ms = k5_bounds(R, C, iters, used, clock)
+        rows[ctas] = dict(max_abs_err=close("roll_chain", out, ref), same=same,
+                          plan=plan, sms_used=used, bound_ms=smem_ms,
+                          bound_by="bytes", flop_ms=flop_ms, times=[])
+    for ctas in (1, 2, 2, 1):
+        rows[ctas]["times"].append(
+            device_ms(lambda: rc.roll_chain(a, iters, ctas)))
+    plain_ms = events_ms(lambda: rc.roll_chain_plain(a, iters), reps=2, warmup=1)
+    shifts = rc.SHIFTS_PER_ITER * R * C * iters
+    # each part of the one-block design alone, in turns with both together
+    parts = {}
+    for part in ("first", "vec", "ghosts"):
+        out = rc.roll_chain_part(a, iters, part)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), f"roll_chain_part {part} is not bit-equal"
+    for part in ("first", "vec", "ghosts", "both", "both", "ghosts", "vec", "first"):
+        fn = ((lambda: rc.roll_chain(a, iters, 1)) if part == "both" else
+              (lambda: rc.roll_chain_part(a, iters, part)))
+        parts.setdefault(part, []).append(device_ms(fn))
+    say("15", "roll_chain's parts alone, one block a row, bit-equal, in turns: "
+              + "; ".join(f"{name} {' / '.join(f'{t * 1e3:.1f}' for t in ts)} us"
+                          for name, ts in parts.items())
+              + " (first: 32-bit accesses and a wrap test, the first design's "
+              "scheme; vec: (a) 128-bit accesses; ghosts: (b) ghost columns; "
+              f"both: roll_chain) [{card}]")
+    for ctas, row in rows.items():
+        row["ms"] = min(row["times"])
+        row["plain_ms"] = plain_ms
+        plan = row["plan"]
+        design = ("one block a row" if ctas == 1 else
+                  f"a cluster of {ctas} blocks a row")
+        times = " / ".join(f"{t * 1e3:.1f}" for t in row["times"])
+        say("15", f"roll_chain {R}x{C}, {iters} iterations, {design} "
+                  f"({ctas} CTA(s) a row, {plan['blocks']} blocks x "
+                  f"{plan['threads']} threads, {plan['per_thread']} float4 a "
+                  f"thread, {plan['smem_bytes']:,} B shared): kernel == plain "
+                  f"(bit-equal {row['same']}), max |err| "
+                  f"{row['max_abs_err']:.3e}; device {times} us/launch, "
+                  f"{shifts / row['ms'] / 1e6:.1f} G element-shifts/s on "
+                  f"{row['sms_used']} of {sms} SMs; shared-memory bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_ms'] / row['ms']:.3f} "
+                  f"of it), FLOP bound {row['flop_ms'] * 1e3:.2f} us; plain "
+                  f"{plain_ms * 1e3:.1f} us [{card}]")
     print(card, flush=True)
     rc.reset_launch_counts()
     res = chunk_roofline.main([])
@@ -1436,17 +1589,18 @@ def phase_roll_chain(card):
     assert launches > 0 and res["calibration"]["device"] == torch.cuda.get_device_name(0)
     assert np.isfinite(res["bound_gcells_per_s"]) and res["bound_gcells_per_s"] > 0
     cal = res["calibration"]
-    say("15", f"roofline: shift rate {res['roll_rate_gelems_per_s']:.1f} Gelem/s "
-              f"on {cal['blocks']} of {cal['sm_count']} SMs ({cal['iters']} "
+    assert cal["ctas_per_row"] == rc.DEFAULT_CTAS
+    say("15", f"roofline ({cal['ctas_per_row']} CTA(s) a row): shift rate "
+              f"{res['roll_rate_gelems_per_s']:.1f} Gelem/s on {cal['sms_used']} "
+              f"of {cal['sm_count']} SMs ({cal['blocks']} blocks, {cal['iters']} "
               f"iterations, {cal['wall_s'] * 1e6:.1f} us, empty launch "
               f"{cal['floor_s'] * 1e6:.1f} us); bound for a kernel taking "
               f"{res['rolls_per_padded_elem']} neighbour reads per cell-step "
               f"from shared memory: {res['bound_gcells_per_s']:.2f} Gcell/s "
-              f"on those SMs, {res['bound_gcells_per_s'] * sms / cal['blocks']:.2f} "
+              f"on those SMs, {res['bound_gcells_per_s'] * sms / cal['sms_used']:.2f} "
               f"Gcell/s scaled to all {sms}; {launches} roll_chain launches "
               f"[{card}]")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, launches=launches)
+    return dict(rows[rc.DEFAULT_CTAS], launches=launches)
 
 
 def timed_phase(tag, fn, *args):
@@ -1533,10 +1687,11 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
-    # phase 6's run of the canonical patch through them; probe_gather on
-    # the explicit main path of phase 12 (the stream path's in phase 8)
-    step_launches = {**step_counts,
-                     "probe_gather": explicit_counts["probe_gather"]}
+    # phase 6's run of the canonical patch through them (their times at
+    # the canonical patch, phase 3); probe_gather's launches and times on
+    # the mixed scene's main path (phase 8), where it costs the most (its
+    # canonical time: phase 3's line)
+    probe = k2["probe"]
     table = {"kernels": [
         {"name": "chunk_steps", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": counts["chunk_steps"],
@@ -1544,11 +1699,15 @@ def main() -> int:
          "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": step_launches[name],
+         "replaces": K1_REPLACES, "launches": step_counts[name],
          **{k: per_kernel[name][k] for k in keys},
          **dict(zip(("bound_ms", "bound_by"), k1_bound(name, canonical))),
          "library_ms": None}
-        for name in ("h_update", "e_update", "mur_faces", "probe_gather")
+        for name in ("h_update", "e_update", "mur_faces")
+    ] + [
+        {"name": "probe_gather", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": mixed_counts["probe_gather"],
+         **{k: probe[k] for k in (*keys, "bound_ms", "bound_by", "library_ms")}},
     ] + [
         {"name": "stream_steps", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": mixed_counts["stream_march"],

@@ -26,7 +26,8 @@
 // flush, ops/fdtd.py::ProbeDFT, assumes). The barrier after it keeps the
 // next H pass from overwriting H while another block still samples it. A
 // row sums its k terms m = 0 .. k-1, one rounding each, as probe_gather
-// does, so the samples are bit-equal to the per-step route. The source
+// does (probe_row below, the same code), so the samples are bit-equal to
+// the per-step route. The source
 // samples are one float32 array on the device per run, read at offset n0;
 // a chunk that runs past n_steps_max reads the zeros padded there. The
 // energy check and the DFT flush stay outside, once per chunk in PyTorch,
@@ -57,6 +58,7 @@
 //                 on the two wall planes of that axis
 //   probe_gather  one thread per probe row: a weighted gather over the six
 //                 field arrays, written to row j of the staging buffer
+//                 (redesigned for Hopper; see "The probe table" below)
 //
 // h_update, e_update and mur_faces step the per-step route
 // (ops/fdtd_cuda.py::step_kernels), kept to time beside chunk_steps and as
@@ -75,6 +77,24 @@
 // double-buffered: a step reads e[p] and writes e[1-p], so the MUR walls
 // still see the old E.
 //
+// The probe table (ops/fdtd_cuda.py::ProbeTable). The rows come in four
+// blocks, each of its own width k: port V (one row a port; rows of
+// different lengths pad with weight 0 to the longest, 70 terms at the
+// horn of the 4.2M-cell mixed scene), port I (4), face E (2) and face H
+// (4), the four gathers of the JAX package's sample_probes. Each block is
+// stored term-major, (k, rows): the m-th terms of neighbouring rows, which
+// neighbouring threads read, lie side by side, so a warp's 32 loads of a
+// term are one or two cache lines. An entry's code holds the cell and the
+// component, cell << 3 | comp, decided on the host: no divide a term.
+// What bounds the gather: the bytes of the entries it uses (code, weight
+// and the field value, 12 B) and of the samples it writes, 6.85 us over
+// HBM at the mixed scene's 1.72M entries; the field values are gathers,
+// coalesced only where a face row's neighbours are neighbouring cells.
+// A row's terms are summed m = 0 .. k-1, one rounding each (no warp
+// reduction, which would change the order); its loads go out ahead of
+// the dependent adds, kGatherUnroll terms at a time, so the two 70-term
+// rows take about 70 / kGatherUnroll rounds of memory latency, not 70.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py). No
 // fused multiply-add, so each cell's arithmetic rounds like the plain
@@ -85,8 +105,29 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kProbeBlocks = 4;  // port V, port I, face E, face H
+// terms loaded ahead of their adds: the standalone gather (whose mixed
+// scene has 70-term rows) and the chunk kernel's (canonical rows <= 8,
+// inside a kernel held to 48 registers)
+constexpr int kGatherUnroll = 8;
+constexpr int kChunkGatherUnroll = 4;
 
 }  // namespace
+
+// Mirrored field for field by ops/fdtd_cuda.py::_ProbeTable (ctypes).
+struct ProbeTable {
+  const int* code;   // cell << 3 | component (0..5: Ex..Hz)
+  const float* w;    // weights, laid out as code
+  const int* meta;   // on the device: row0[kProbeBlocks + 1], k[kProbeBlocks],
+                     // off[kProbeBlocks] (kMeta* below)
+  int rows;          // all blocks' rows
+};
+
+// meta: block b's rows are [row0[b], row0[b + 1]), k[b] terms each, its
+// first entry off[b]; term m of its row r at off[b] + m * rows_b + r
+constexpr int kMetaRow0 = 0;
+constexpr int kMetaK = kProbeBlocks + 1;
+constexpr int kMetaOff = 2 * kProbeBlocks + 1;
 
 // Mirrored field for field by ops/fdtd_cuda.py::_YeeArgs (ctypes).
 struct YeeArgs {
@@ -103,12 +144,10 @@ struct YeeArgs {
   const float* ch[3];
   const float* be[3];      // CPML b, c at node positions (E side)
   const float* ce[3];
-  const int* probe_idx;    // (rows, k) flat index into [Ex Ey Ez Hx Hy Hz]
-  const float* probe_w;    // (rows, k) weights
+  ProbeTable probes;
   int nx, ny, nz;          // array shape
   int qx, qy, qz;          // grid shape that places the MUR wall planes
   int has_pml;
-  int probe_rows, probe_k;
   float dtmu;              // dt / mu0
   float mur_c[3][2];       // MUR coefficient per axis and side
 };
@@ -254,20 +293,55 @@ __global__ void mur_faces_kernel(const YeeArgs a, const int p, const int b) {
   En[cw] = Eo[cn] + cm * (En[cn] - Eo[cw]);
 }
 
+// Probe row r (of all blocks) of the fields ex .. hz: its terms summed
+// m = 0 .. k-1, one rounding each, kU terms' code and weight loaded, then
+// their field values, then added in order.
+template <int kU>
+__device__ __forceinline__ float probe_row(
+    const int* __restrict__ code, const float* __restrict__ w,
+    const int* __restrict__ meta, const int r, const float* ex,
+    const float* ey, const float* ez, const float* hx, const float* hy,
+    const float* hz) {
+  int b = 0;
+#pragma unroll
+  for (int q = 1; q < kProbeBlocks; ++q) b += r >= __ldg(meta + kMetaRow0 + q);
+  const int r0 = __ldg(meta + kMetaRow0 + b);
+  const int rows = __ldg(meta + kMetaRow0 + b + 1) - r0;
+  const int k = __ldg(meta + kMetaK + b);
+  const int at = __ldg(meta + kMetaOff + b) + (r - r0);
+  code += at;
+  w += at;
+  float acc = 0.f;
+  for (int m0 = 0; m0 < k; m0 += kU) {
+    int c[kU];
+    float wt[kU], v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const bool on = m0 + u < k;
+      c[u] = on ? __ldg(code + (m0 + u) * rows) : 0;
+      wt[u] = on ? __ldg(w + (m0 + u) * rows) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int comp = c[u] & 7;
+      const float* f = comp < 3 ? (comp == 0 ? ex : (comp == 1 ? ey : ez))
+                                : (comp == 3 ? hx : (comp == 4 ? hy : hz));
+      v[u] = m0 + u < k ? f[c[u] >> 3] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (m0 + u < k) acc = acc + v[u] * wt[u];
+  }
+  return acc;
+}
+
 __global__ void probe_gather_kernel(const YeeArgs a, const int p,
                                     float* __restrict__ out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.probe_rows) return;
-  const int64_t n = (int64_t)a.nx * a.ny * a.nz;
-  const float* f[6] = {a.e[p][0], a.e[p][1], a.e[p][2],
-                       a.h[0], a.h[1], a.h[2]};
-  float acc = 0.f;
-  for (int m = 0; m < a.probe_k; ++m) {
-    const int64_t g = a.probe_idx[(int64_t)r * a.probe_k + m];
-    const int comp = (int)(g / n);
-    acc = acc + f[comp][g % n] * a.probe_w[(int64_t)r * a.probe_k + m];
-  }
-  out[r] = acc;
+  if (r >= a.probes.rows) return;
+  out[r] = probe_row<kGatherUnroll>(a.probes.code, a.probes.w, a.probes.meta,
+                                    r, a.e[p][0], a.e[p][1], a.e[p][2],
+                                    a.h[0], a.h[1], a.h[2]);
 }
 
 namespace cg = cooperative_groups;
@@ -275,41 +349,36 @@ namespace cg = cooperative_groups;
 // Mirrored field for field by ops/fdtd_cuda.py::_ChunkArgs (ctypes).
 struct ChunkArgs {
   persist::Ops o;
-  const int* probe_idx;    // (rows, k) flat index into [Ex Ey Ez Hx Hy Hz]
-  const float* probe_w;    // (rows, k) weights
-  int probe_rows, probe_k;
+  ProbeTable probes;
 };
 
 // Every probe row of the fields (E, H) into out, rows spread over all
-// threads of the launch; a row sums its terms m = 0 .. k-1 as
-// probe_gather_kernel does. Not inlined, and the kernel's steps one flat
+// threads of the launch; a row is probe_gather_kernel's probe_row, with
+// fewer terms loaded ahead. Not inlined, and the kernel's steps one flat
 // loop: the one-cell resident form runs at 48 registers, where every value
 // the step loop keeps live counts; on an H100 this layout stepped the
 // canonical patch fastest under MUR and CPML of the four tried (gather
-// inlined or not, loop nested by interval or flat), slowest under PEC.
+// inlined or not, loop nested by interval or flat), slowest under PEC. The
+// table's block layout comes as a device array (meta), so the call passes
+// pointers only: of the three calls timed on an H100 (the table by value,
+// the kernel's arguments by address as a __grid_constant__, pointers
+// only), only this one left the canonical MUR launch no slower than with
+// the padded table's gather.
 __device__ __noinline__ void gather_rows(
     const float* ex, const float* ey, const float* ez, const float* hx,
-    const float* hy, const float* hz, const int* __restrict__ idx,
-    const float* __restrict__ w, const int rows, const int k, const int64_t n,
+    const float* hy, const float* hz, const int* __restrict__ code,
+    const float* __restrict__ w, const int* __restrict__ meta,
     float* __restrict__ out) {
   const int stride = gridDim.x * blockDim.x;
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride) {
-    float acc = 0.f;
-    for (int m = 0; m < k; ++m) {
-      const int64_t at = (int64_t)r * k + m;
-      const int64_t g = idx[at];
-      const int comp = (int)(g / n);
-      const float* f = comp < 3 ? (comp == 0 ? ex : (comp == 1 ? ey : ez))
-                                : (comp == 3 ? hx : (comp == 4 ? hy : hz));
-      acc = acc + f[g % n] * w[at];
-    }
-    out[r] = acc;
-  }
+  const int rows = __ldg(meta + kMetaRow0 + kProbeBlocks);
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride)
+    out[r] = probe_row<kChunkGatherUnroll>(code, w, meta, r, ex, ey, ez, hx,
+                                           hy, hz);
 }
 
 // One termination chunk: n_sub intervals of d_steps steps from e[p], the
 // source sample of step t at wf[t], interval j's samples into
-// out[j * probe_rows ...].
+// out[j * probe rows ...].
 template <int kCells, int kFlav>
 __global__ void __launch_bounds__(persist::threads(kCells),
                                   persist::min_blocks(kCells))
@@ -327,9 +396,8 @@ chunk_steps_kernel(const ChunkArgs a, int p, const float* __restrict__ wf,
     p ^= 1;
     if ((t + 1) % d_steps == 0) {
       gather_rows(a.o.e[p][0], a.o.e[p][1], a.o.e[p][2], a.o.h[0], a.o.h[1],
-                  a.o.h[2], a.probe_idx, a.probe_w, a.probe_rows, a.probe_k,
-                  (int64_t)a.o.nx * a.o.ny * a.o.nz,
-                  out + (int64_t)(t / d_steps) * a.probe_rows);
+                  a.o.h[2], a.probes.code, a.probes.w, a.probes.meta,
+                  out + (int64_t)(t / d_steps) * a.probes.rows);
       if (t + 1 < steps) grid.sync();  // the next H pass overwrites what it read
     }
   }
@@ -362,6 +430,8 @@ int fdtd_args_size() { return (int)sizeof(YeeArgs); }
 
 int fdtd_chunk_args_size() { return (int)sizeof(ChunkArgs); }
 
+int fdtd_probe_table_size() { return (int)sizeof(ProbeTable); }
+
 const char* fdtd_chunk_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -391,12 +461,12 @@ int fdtd_chunk_plan(const ChunkArgs* a, int request, int* out) {
 
 // One chunk, n_sub intervals of d steps from e[p], by the planned form:
 // the source sample of step s of interval j at wf[n0 + j*d + s] (device
-// memory), interval j's probe samples into out[j * probe_rows ...].
+// memory), interval j's probe samples into out[j * probe rows ...].
 int fdtd_chunk_steps(const ChunkArgs* a, int p, const float* wf, int n0,
                      int n_sub, int d, float* out, int cells, int blocks,
                      void* stream) {
   if (n_sub < 1 || d < 1 || n0 < 0 || wf == nullptr ||
-      (a->probe_rows > 0 && (out == nullptr || a->probe_k < 1)))
+      (a->probes.rows > 0 && out == nullptr))
     return (int)cudaErrorInvalidValue;
   ChunkArgs args = *a;
   const float* w = wf + n0;
@@ -427,7 +497,9 @@ int fdtd_mur_faces(const YeeArgs* a, int p, int axis, void* stream) {
 }
 
 int fdtd_probe_gather(const YeeArgs* a, int p, float* out, void* stream) {
-  probe_gather_kernel<<<blocks_for(a->probe_rows), kThreads, 0,
+  const int rows = a->probes.rows;
+  if (rows == 0) return (int)cudaSuccess;
+  probe_gather_kernel<<<blocks_for(rows), kThreads, 0,
                         (cudaStream_t)stream>>>(*a, p, out);
   return (int)cudaGetLastError();
 }

@@ -27,8 +27,11 @@ tenth of the time. Where it does not, ``iters`` doubles, up to
 ``MAX_RAISE`` times the asked count, and the result says which count
 was timed.
 
-One block per row: at the default 56 × 7,040 the kernel uses 56 of the
-card's SMs, and the result says so (``blocks``, ``sm_count``).
+The kernel runs ``ops.roll_chain.DEFAULT_CTAS`` blocks a row (one, the
+faster of its two designs on an H100), one block an SM: at the default
+56 × 7,040 that is 56 of the card's 132 SMs, and the result says so
+(``ctas_per_row``, ``blocks``, ``sms_used``, ``sm_count``); the rate is
+that of the SMs used.
 
 Usage:  python -m fdtd_solver_antennas_tpu_torch.examples.chunk_roofline
 Prints one JSON line with the JAX script's keys.
@@ -110,6 +113,8 @@ def calibrate_rolls(R: int = 56, C: int = 55 * 128, iters: int = 200,
             return time.perf_counter() - t0
 
     n, wall, floor = guarded_wall(time_iters, iters, best_of)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else None)
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("the roll chain produced non-finite values")
     return {
@@ -119,9 +124,10 @@ def calibrate_rolls(R: int = 56, C: int = 55 * 128, iters: int = 200,
         "iters": n,
         "floor_s": floor,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "blocks": R,
-        "sm_count": (torch.cuda.get_device_properties(dev).multi_processor_count
-                     if dev.type == "cuda" else None),
+        "ctas_per_row": rc.DEFAULT_CTAS,
+        "blocks": R * rc.DEFAULT_CTAS,
+        "sms_used": min(R * rc.DEFAULT_CTAS, sms) if sms else None,
+        "sm_count": sms,
     }
 
 

@@ -36,7 +36,7 @@ import torch
 from ..models.scene import LumpedPortSpec, Scene
 from ..physics import C0, EPS0, ETA0, MU0
 from . import fdtd_cuda, fdtd_stream
-from .fdtd_cuda import PSI_KEYS, YeeOperands
+from .fdtd_cuda import PSI_KEYS, ProbeTable, YeeOperands
 from .mesh import YeeGrid
 from .source import gaussian_excitation, source_active_steps
 from .voxelize import cell_to_edge_average, voxelize
@@ -579,22 +579,16 @@ def build_probe_gathers(sim: "PreparedSimulation"):
             pv_idx, pv_w, pi_idx, pi_w)
 
 
-def _probe_table(gathers, n_cells: int):
-    """One (rows, k) table over the stack [Ex Ey Ez Hx Hy Hz]: rows are
-    port V, port I, face E, face H; short rows pad with weight 0."""
+def probe_blocks(gathers, n_cells: int):
+    """The four gathers of :func:`build_probe_gathers` as the probe
+    table's blocks over the stack [Ex Ey Ez Hx Hy Hz]: port V, port I
+    (+3·n_cells, into the H stack), face E, face H (+3·n_cells), each an
+    ``(idx, w)`` pair of (rows, k) arrays at its own width k."""
     (pg_e_idx, pg_e_w, pg_h_idx, pg_h_w, _layout, _T,
      pv_idx, pv_w, pi_idx, pi_w) = gathers
-    if 6 * n_cells >= 2**31:
-        raise ValueError(f"{n_cells} cells: too many for int32 probe indices")
     h_off = 3 * n_cells
-    blocks = [(pv_idx, pv_w), (pi_idx + h_off, pi_w),
-              (pg_e_idx, pg_e_w), (pg_h_idx + h_off, pg_h_w)]
-    k = max(b[0].shape[1] for b in blocks)
-    idx = np.concatenate([
-        np.pad(i, ((0, 0), (0, k - i.shape[1]))) for i, _ in blocks])
-    w = np.concatenate([
-        np.pad(x, ((0, 0), (0, k - x.shape[1]))) for _, x in blocks])
-    return idx.astype(np.int32), w.astype(np.float32)
+    return [(pv_idx, pv_w), (pi_idx + h_off, pi_w),
+            (pg_e_idx, pg_e_w), (pg_h_idx + h_off, pg_h_w)]
 
 
 def build_simulation(
@@ -781,7 +775,8 @@ def build_simulation(
     )
     gathers = build_probe_gathers(sim)
     sim.face_layout, sim.n_face_slots = gathers[4], gathers[5]
-    probe_idx, probe_w = _probe_table(gathers, int(np.prod(padded_shape)))
+    n_cells = int(np.prod(padded_shape))
+    probes = ProbeTable.from_blocks(probe_blocks(gathers, n_cells), n_cells, dev)
     src = build_src_mats(sim, *padded_shape)
     sim.operands = YeeOperands(
         shape=padded_shape,
@@ -799,8 +794,7 @@ def build_simulation(
             "be": tuple(to_dev(pml[a]["node"][0]) for a in range(3)),
             "ce": tuple(to_dev(pml[a]["node"][1]) for a in range(3)),
         },
-        probe_idx=to_dev(probe_idx),
-        probe_w=to_dev(probe_w),
+        probes=probes,
     )
     return sim
 

@@ -20,9 +20,10 @@ The first design's per-step kernels stay, each one launch:
 - :func:`e_update`: E half-step into the other E buffer, with ca/cb, the
   six ψ_e recursions and the port-source FMA ``src·s(t)``;
 - :func:`mur_faces`: the first-order MUR walls of one axis;
-- :func:`probe_gather`: port V/I and Huygens-face samples as one weighted
-  gather, written to one row of the staging buffer (the stream and the
-  explicit paths sample with it between their launches).
+- :func:`probe_gather`: port V/I and Huygens-face samples, a weighted
+  gather over the :class:`ProbeTable` (one thread a row, the table read
+  term-major), written to one row of the staging buffer (the stream and
+  the explicit paths sample with it between their launches).
 
 :data:`step_kernels` is the engine's entry points with a ``chunk_steps``
 that runs a chunk through those, step by step (five launches a step under
@@ -43,6 +44,7 @@ import dataclasses
 from types import SimpleNamespace
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import persist
@@ -63,13 +65,118 @@ def reset_launch_counts() -> None:
         launches_by_form[k] = 0
 
 
+# the probe table's blocks of rows, in the staging buffer's order
+PROBE_BLOCKS = ("port_v", "port_i", "face_e", "face_h")
+MAX_PROBE_CELLS = 2**28  # cell << 3 | component stays a non-negative int32
+
+
+@dataclasses.dataclass
+class ProbeTable:
+    """Every probe row as a weighted gather over the stack
+    ``[Ex Ey Ez Hx Hy Hz]``, in the four blocks of :data:`PROBE_BLOCKS`
+    (port V, port I, face E, face H; rows in that order, as the staging
+    buffer and ``ProbeDFT`` see them), each of its own width.
+
+    Block b has ``rows[b]`` rows of ``k[b]`` terms, stored term-major:
+    term m of row r at ``offsets[b] + m·rows[b] + r`` of ``code`` and
+    ``w``, so the m-th terms of neighbouring rows lie side by side. A code
+    is ``cell << 3 | component``: the cell's flat index into one
+    (Px, Py, Pz) array and the array's place in the stack. Rows shorter
+    than their block pad with weight 0; only port V has rows of different
+    lengths. ``meta`` holds the blocks' layout for the kernels, on the
+    same device: ``row_starts``, ``k`` and ``offsets`` as int32.
+    """
+
+    code: torch.Tensor  # (entries,) int32
+    w: torch.Tensor  # (entries,) float32
+    rows: Tuple[int, ...]
+    k: Tuple[int, ...]
+    meta: torch.Tensor = dataclasses.field(init=False)  # (3·blocks + 1,) int32
+
+    def __post_init__(self):
+        self.meta = torch.tensor(self.row_starts + tuple(self.k) + self.offsets,
+                                 dtype=torch.int32, device=self.code.device)
+
+    @classmethod
+    def from_blocks(cls, blocks, n_cells: int, device="cpu") -> "ProbeTable":
+        """The table of ``blocks``, one ``(idx, w)`` pair of (rows, k)
+        arrays per block of :data:`PROBE_BLOCKS`, ``idx`` a flat index
+        into the stack (component·n_cells + cell)."""
+        if len(blocks) != len(PROBE_BLOCKS):
+            raise ValueError(f"{len(blocks)} probe blocks, not "
+                             f"{len(PROBE_BLOCKS)}")
+        if n_cells >= MAX_PROBE_CELLS:
+            raise ValueError(f"{n_cells} cells: too many for the probe "
+                             f"table's codes (< {MAX_PROBE_CELLS})")
+        codes, ws, rows, ks = [], [], [], []
+        for idx, w in blocks:
+            idx = np.asarray(idx, np.int64)
+            w = np.asarray(w, np.float32)
+            if idx.ndim != 2 or idx.shape != w.shape:
+                raise ValueError(f"probe block {idx.shape} with weights "
+                                 f"{w.shape}: want two equal (rows, k)")
+            if idx.size and (idx.min() < 0 or idx.max() >= 6 * n_cells):
+                raise ValueError("probe index outside the six-field stack")
+            comp, cell = np.divmod(idx, n_cells)
+            codes.append(((cell << 3) | comp).T.ravel())
+            ws.append(w.T.ravel())
+            rows.append(idx.shape[0])
+            ks.append(idx.shape[1])
+        code = np.concatenate(codes).astype(np.int32)
+        if code.size >= 2**31:
+            raise ValueError(f"{code.size} probe table entries: too many")
+        return cls(code=torch.from_numpy(code).to(device),
+                   w=torch.from_numpy(np.concatenate(ws)).to(device),
+                   rows=tuple(rows), k=tuple(ks))
+
+    @classmethod
+    def empty(cls, device="cpu") -> "ProbeTable":
+        """No probe rows."""
+        none = np.zeros((0, 0), np.int64)
+        return cls.from_blocks([(none, none)] * len(PROBE_BLOCKS), 1, device)
+
+    @property
+    def n_rows(self) -> int:
+        return sum(self.rows)
+
+    @property
+    def row_starts(self) -> Tuple[int, ...]:
+        """Block b's rows are ``[row_starts[b], row_starts[b + 1])``."""
+        return tuple(int(x) for x in np.cumsum((0,) + self.rows))
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        """Block b's first entry in ``code`` and ``w``."""
+        return tuple(int(x) for x in np.cumsum(
+            (0,) + tuple(r * k for r, k in zip(self.rows, self.k)))[:-1])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the entries: codes and weights."""
+        return (self.code.numel() * self.code.element_size()
+                + self.w.numel() * self.w.element_size())
+
+    def blocks(self):
+        """``(first row, rows, k, code, w)`` per block, ``code`` and
+        ``w`` as (k, rows) views."""
+        for r0, off, rows, k in zip(self.row_starts, self.offsets, self.rows,
+                                    self.k):
+            yield (r0, rows, k, self.code[off:off + k * rows].view(k, rows),
+                   self.w[off:off + k * rows].view(k, rows))
+
+    @staticmethod
+    def flat_index(code: torch.Tensor, n_cells: int) -> torch.Tensor:
+        """``code`` as int64 flat indices into the stack."""
+        return (code & 7).long() * n_cells + (code >> 3).long()
+
+
 @dataclasses.dataclass
 class YeeOperands:
     """What a leapfrog step reads and never writes, on one device.
 
     1-D tensors are per-axis profiles (length of that axis); 3-D tensors
-    have ``shape``. ``grid_shape`` places the MUR wall planes. The probe
-    table holds flat indices into the stack ``[Ex Ey Ez Hx Hy Hz]``.
+    have ``shape``. ``grid_shape`` places the MUR wall planes. ``probes``
+    is the probe table over the stack ``[Ex Ey Ez Hx Hy Hz]``.
     """
 
     shape: Tuple[int, int, int]
@@ -82,8 +189,7 @@ class YeeOperands:
     src: Tuple[Optional[torch.Tensor], ...]
     mur: Optional[Tuple[Tuple[float, float], ...]]
     pml: Optional[Dict[str, Tuple[torch.Tensor, ...]]]  # bh ch be ce
-    probe_idx: torch.Tensor  # (rows, k) int32
-    probe_w: torch.Tensor  # (rows, k) float32
+    probes: ProbeTable
     # A rank's x-slab (``ops/fdtd_shard.py``): the slab rows of the MUR x
     # walls, global rows 0 and Qx−1, which may lie outside the slab. None
     # for a whole grid, whose x walls sit at rows 0 and grid_shape[0]−1.
@@ -229,14 +335,16 @@ def mur_faces_plain(ops: YeeOperands, st: YeeState, axis: int) -> None:
 
 
 def probe_gather_plain(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
-    """Each row's k terms summed m = 0 .. k−1, one rounding each, in the
-    kernels' order."""
+    """Block by block, each row's k terms summed m = 0 .. k−1, one
+    rounding each, in the kernels' order."""
+    t = ops.probes
     flat = torch.cat([f.reshape(-1) for f in st.fields])
-    terms = flat[ops.probe_idx.long()] * ops.probe_w
-    acc = torch.zeros_like(out)
-    for m in range(terms.shape[1]):
-        acc = acc + terms[:, m]
-    out.copy_(acc)
+    terms = flat[t.flat_index(t.code, flat.numel() // 6)] * t.w
+    for r0, off, rows, k in zip(t.row_starts, t.offsets, t.rows, t.k):
+        acc = torch.zeros(rows, dtype=out.dtype, device=out.device)
+        for m in range(k):
+            acc = acc + terms[off + m * rows:off + (m + 1) * rows]
+        out[r0:r0 + rows].copy_(acc)
 
 
 def _check_window(n_wf: int, n0: int, n_sub: int, D: int) -> None:
@@ -281,6 +389,15 @@ def chunk_steps_plain(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
 _P = ctypes.c_void_p
 
 
+_NB = len(PROBE_BLOCKS)
+
+
+class _ProbeTable(ctypes.Structure):
+    """Field-for-field mirror of ``struct ProbeTable`` in csrc/fdtd_chunk.cu."""
+
+    _fields_ = [("code", _P), ("w", _P), ("meta", _P), ("rows", ctypes.c_int)]
+
+
 class _YeeArgs(ctypes.Structure):
     """Field-for-field mirror of ``struct YeeArgs`` in csrc/fdtd_chunk.cu."""
 
@@ -289,11 +406,10 @@ class _YeeArgs(ctypes.Structure):
         ("ca", _P * 3), ("cb", _P * 3), ("src", _P * 3),
         ("inv_p", _P * 3), ("inv_d", _P * 3),
         ("bh", _P * 3), ("ch", _P * 3), ("be", _P * 3), ("ce", _P * 3),
-        ("probe_idx", _P), ("probe_w", _P),
+        ("probes", _ProbeTable),
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
         ("qx", ctypes.c_int), ("qy", ctypes.c_int), ("qz", ctypes.c_int),
         ("has_pml", ctypes.c_int),
-        ("probe_rows", ctypes.c_int), ("probe_k", ctypes.c_int),
         ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
     ]
 
@@ -301,11 +417,7 @@ class _YeeArgs(ctypes.Structure):
 class _ChunkArgs(ctypes.Structure):
     """Field-for-field mirror of ``struct ChunkArgs`` in csrc/fdtd_chunk.cu."""
 
-    _fields_ = [
-        ("o", persist.PersistOps),
-        ("probe_idx", _P), ("probe_w", _P),
-        ("probe_rows", ctypes.c_int), ("probe_k", ctypes.c_int),
-    ]
+    _fields_ = [("o", persist.PersistOps), ("probes", _ProbeTable)]
 
 
 _lib = None
@@ -321,8 +433,10 @@ def _library():
         _i = ctypes.c_int
         lib = _build.load("fdtd_chunk")
         persist.bind(lib, _PREFIX)
-        lib.fdtd_args_size.argtypes = []
-        lib.fdtd_args_size.restype = ctypes.c_int
+        for fn in (lib.fdtd_args_size, lib.fdtd_chunk_args_size,
+                   lib.fdtd_probe_table_size):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.fdtd_chunk_steps.argtypes = [_P, _i, _P, _i, _i, _i, _P, _i, _i, _P]
         lib.fdtd_chunk_steps.restype = _i
         lib.fdtd_h_update.argtypes = [_P, ctypes.c_int, _P]
@@ -334,7 +448,8 @@ def _library():
             fn.restype = ctypes.c_int
         for name, c_size, py in (
                 ("YeeArgs", lib.fdtd_args_size(), _YeeArgs),
-                ("ChunkArgs", lib.fdtd_chunk_args_size(), _ChunkArgs)):
+                ("ChunkArgs", lib.fdtd_chunk_args_size(), _ChunkArgs),
+                ("ProbeTable", lib.fdtd_probe_table_size(), _ProbeTable)):
             if c_size != ctypes.sizeof(py):
                 raise RuntimeError(f"{name} layout mismatch: C {c_size} bytes, "
                                    f"ctypes {ctypes.sizeof(py)}")
@@ -357,6 +472,17 @@ def _ptr(t: Optional[torch.Tensor], shape, dtype=torch.float32, dev=None) -> int
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"kernel operand shape {tuple(t.shape)} != {shape}")
     return t.data_ptr()
+
+
+def _probe_args(t: ProbeTable, dev) -> _ProbeTable:
+    """The packed probe table: its entries, weights and block layout
+    (device arrays) and its rows."""
+    p = _ProbeTable()
+    p.code = _ptr(t.code, (t.code.numel(),), torch.int32, dev)
+    p.w = _ptr(t.w, (t.code.numel(),), dev=dev)
+    p.meta = _ptr(t.meta, (3 * _NB + 1,), torch.int32, dev)
+    p.rows = t.n_rows
+    return p
 
 
 def _cuda_args(ops: YeeOperands, st: YeeState) -> int:
@@ -387,13 +513,10 @@ def _cuda_args(ops: YeeOperands, st: YeeState) -> int:
         for m in range(6):
             a.psi_e[m] = _ptr(st.psi_e[m], shp, dev=dev)
             a.psi_h[m] = _ptr(st.psi_h[m], shp, dev=dev)
-    rows, k = ops.probe_idx.shape
-    a.probe_idx = _ptr(ops.probe_idx, (rows, k), torch.int32, dev)
-    a.probe_w = _ptr(ops.probe_w, (rows, k), dev=dev)
+    a.probes = _probe_args(ops.probes, dev)
     a.nx, a.ny, a.nz = shp
     a.qx, a.qy, a.qz = ops.grid_shape
     a.has_pml = int(ops.pml is not None)
-    a.probe_rows, a.probe_k = rows, k
     a.dtmu = ops.dtmu
     for b in range(3):
         for side in range(2):
@@ -453,12 +576,14 @@ def mur_faces(ops: YeeOperands, st: YeeState, axis: int) -> None:
 
 def probe_gather(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
     """Every probe row of the current fields into ``out`` (one row of the
-    staging buffer, length ``probe_idx.shape[0]``)."""
+    staging buffer, length ``probes.n_rows``)."""
     if not _on_cuda(st.h[0]):
         return probe_gather_plain(ops, st, out)
+    ptr = _ptr(out, (ops.probes.n_rows,), dev=ops.device)
+    if ops.probes.n_rows == 0:
+        return None  # nothing to launch
     lib = _library()
     args = _cuda_args(ops, st)
-    ptr = _ptr(out, (ops.probe_idx.shape[0],), dev=ops.device)
     _check(lib, lib.fdtd_probe_gather(args, st.parity, ptr,
                                       _stream(ops.device)), "probe_gather")
     launches["probe_gather"] += 1
@@ -473,10 +598,7 @@ def _chunk_args(ops: YeeOperands, st: YeeState) -> _ChunkArgs:
         return cached[1]
     a = _ChunkArgs()
     a.o = persist.pack(ops, st, (0, ops.grid_shape[0] - 1))
-    rows, k = ops.probe_idx.shape
-    a.probe_idx = _ptr(ops.probe_idx, (rows, k), torch.int32, ops.device)
-    a.probe_w = _ptr(ops.probe_w, (rows, k), dev=ops.device)
-    a.probe_rows, a.probe_k = rows, k
+    a.probes = _probe_args(ops.probes, ops.device)
     st._chunk = (ops, a)
     return a
 
@@ -505,7 +627,7 @@ def chunk_steps(ops: YeeOperands, st: YeeState,
     sets ``st.parity`` to the E buffer that holds the result. ``form``
     forces a storage form (:func:`chunk_launch_plan`); the CPU runs the
     plain twin whatever it says."""
-    rows = ops.probe_idx.shape[0]
+    rows = ops.probes.n_rows
     if tuple(bufs.shape) != (n_sub, rows):
         raise ValueError(f"chunk_steps: bufs {tuple(bufs.shape)} != "
                          f"(n_sub, probe rows) = {(n_sub, rows)}")

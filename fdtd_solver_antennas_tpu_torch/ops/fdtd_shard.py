@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from . import fdtd_cuda, persist
-from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _stream
+from .fdtd_cuda import ProbeTable, YeeOperands, YeeState, _on_cuda, _stream
 
 KERNELS = ("shard_steps",)
 
@@ -134,22 +134,22 @@ def _slab_rows(ga: np.ndarray, rank: int, n: int, W: int, m: int) -> np.ndarray:
     return out
 
 
-def _slab_probe_table(idx: np.ndarray, w: np.ndarray, shape, rank: int,
-                      n: int, W: int, m: int):
-    """The global probe table (flat indices into the (Px, Py, Pz) stack
-    [Ex Ey Ez Hx Hy Hz]) → indices into this rank's (m, Py, Pz) slab stack.
-    Entries on rows the rank does not own get index 0 and weight 0, so the
-    rank's samples are partial sums (the JAX package's
-    ``_localize_gathers``)."""
+def _slab_probe_blocks(blocks, shape, rank: int, n: int, W: int, m: int):
+    """The global probe blocks (flat indices into the (Px, Py, Pz) stack
+    [Ex Ey Ez Hx Hy Hz]) → indices into this rank's (m, Py, Pz) slab stack,
+    block by block at the same widths. Entries on rows the rank does not
+    own get index 0 and weight 0, so the rank's samples are partial sums
+    (the JAX package's ``_localize_gathers``)."""
     Px, Py, Pz = shape
     plane = Py * Pz
-    idx = idx.astype(np.int64)
-    comp, rest = np.divmod(idx, Px * plane)
-    i, jk = np.divmod(rest, plane)
-    own = (i >= rank * n) & (i < (rank + 1) * n)
-    local = (comp * m + W + i - rank * n) * plane + jk
-    return (np.where(own, local, 0).astype(np.int32),
-            np.where(own, w, 0.0).astype(np.float32))
+    out = []
+    for idx, w in blocks:
+        comp, rest = np.divmod(np.asarray(idx, np.int64), Px * plane)
+        i, jk = np.divmod(rest, plane)
+        own = (i >= rank * n) & (i < (rank + 1) * n)
+        local = (comp * m + W + i - rank * n) * plane + jk
+        out.append((np.where(own, local, 0), np.where(own, w, 0.0)))
+    return out
 
 
 def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
@@ -158,7 +158,7 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
     operands on ``device`` (default ``sim.device``). Everything is cut on
     the host from ``sim._coeffs_np`` and ``sim._aux``; only the slab goes
     to the device."""
-    from .fdtd import _probe_table, build_probe_gathers, build_src_mats
+    from .fdtd import build_probe_gathers, build_src_mats, probe_blocks
 
     Px, Py, Pz = sim.padded_shape
     if Pz > MAX_PZ:
@@ -183,9 +183,9 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
 
     coeffs = {k: to_dev(rows(v)) for k, v in sim._coeffs_np.items()}
     src = build_src_mats(sim, Px, Py, Pz)
-    probe_idx, probe_w = _probe_table(build_probe_gathers(sim), Px * Py * Pz)
-    probe_idx, probe_w = _slab_probe_table(probe_idx, probe_w, (Px, Py, Pz),
-                                           rank, n, W, m)
+    blocks = _slab_probe_blocks(
+        probe_blocks(build_probe_gathers(sim), Px * Py * Pz), (Px, Py, Pz),
+        rank, n, W, m)
     g0 = rank * n - W  # global row of slab row 0
     ops = YeeOperands(
         shape=(m, Py, Pz),
@@ -202,8 +202,7 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
             for key, kind, j in (("bh", "half", 0), ("ch", "half", 1),
                                  ("be", "node", 0), ("ce", "node", 1))
         },
-        probe_idx=to_dev(probe_idx),
-        probe_w=to_dev(probe_w),
+        probes=ProbeTable.from_blocks(blocks, m * Py * Pz, dev),
         mur_x_rows=(0 - g0, Qx - 1 - g0),
     )
     return ShardStepper(n_dev=n_dev, rank=rank, n=n, K=K, W=W, m=m, rem=rem,

@@ -36,7 +36,8 @@ import torch
 
 from . import fdtd_cuda, persist
 from .fdtd import resolve_device
-from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+from .fdtd_cuda import (ProbeTable, YeeOperands, YeeState, _on_cuda, _ptr,
+                        _stream)
 
 KERNELS = ("interval_steps",)
 
@@ -79,7 +80,6 @@ def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    no_probes = torch.zeros((0, 1), dtype=torch.int32, device=dev)
     ops = YeeOperands(
         shape=shape,
         grid_shape=tuple(sim.grid.shape),
@@ -92,8 +92,7 @@ def build_stepper(sim, inv_p, inv_d, mur_coef, device=None):
         mur=tuple(tuple(float(c) for c in pair) for pair in mur_coef)
         if mur else None,
         pml=None,
-        probe_idx=no_probes,
-        probe_w=no_probes.float(),
+        probes=ProbeTable.empty(dev),
     )
 
     def step_fn(fields, wf_chunk):

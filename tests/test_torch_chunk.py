@@ -62,14 +62,18 @@ def _few_threads():
 # ---------------------------------------------------------------------------
 
 def _gather(ops, E, H):
-    """``gather_rows``: each row's terms m = 0 .. k−1 summed in order."""
-    flat = np.concatenate([a.ravel() for a in (*E, *H)])
-    idx = ops.probe_idx.numpy().astype(np.int64)
-    w = ops.probe_w.numpy()
-    acc = np.zeros(idx.shape[0], f32)
-    for m in range(idx.shape[1]):
-        acc = acc + flat[idx[:, m]] * w[:, m]
-    return acc
+    """``gather_rows``: block by block, each row's terms m = 0 .. k−1
+    summed in order, the cell and component decoded from each code."""
+    fields = [a.ravel() for a in (*E, *H)]
+    out = np.zeros(ops.probes.n_rows, f32)
+    for r0, rows, k, code, w in ops.probes.blocks():
+        code, w = code.numpy(), w.numpy()
+        acc = np.zeros(rows, f32)
+        for m in range(k):
+            vals = np.array([fields[c & 7][c >> 3] for c in code[m]], f32)
+            acc = acc + vals * w[m]
+        out[r0:r0 + rows] = acc
+    return out
 
 
 def emulate_chunk(ops, st, wf, n0, n_sub, D, layout=None):
@@ -80,7 +84,7 @@ def emulate_chunk(ops, st, wf, n0, n_sub, D, layout=None):
     H = [_np(h) for h in st.h]
     psi_e = [_np(p) for p in st.psi_e]
     psi_h = [_np(p) for p in st.psi_h]
-    out = np.full((n_sub, ops.probe_idx.shape[0]), np.nan, f32)
+    out = np.full((n_sub, ops.probes.n_rows), np.nan, f32)
     for j in range(n_sub):
         for s in range(D):
             kern.h_pass(E, H, psi_h)
@@ -99,10 +103,11 @@ def _assert_chunk_equals(st, bufs, got):
     np.testing.assert_array_equal(out, bufs.numpy())
 
 
-def _with_probes(ops, seed, k=3):
-    """``ops`` with a random probe table: a row on each corner of every
-    component's array, a row on a cell of each face, random rows, and
-    zero-weight padding on the last rows."""
+def _with_probes(ops, seed, widths=(3, 1, 5, 2)):
+    """``ops`` with a random probe table of four blocks of the given
+    widths: rows on each corner of every component's array and on a cell
+    of each face (the first block), random rows, and zero-weight padding
+    on the last rows of each block."""
     rng = np.random.default_rng(seed)
     shape = ops.shape
     n = int(np.prod(shape))
@@ -115,14 +120,17 @@ def _with_probes(ops, seed, k=3):
             x[axis] = side
             cells.append(np.ravel_multi_index(tuple(x), shape))
     fixed = [c * n + cell for c in range(6) for cell in cells]
-    rows = len(fixed) + 9
-    idx = rng.integers(0, 6 * n, (rows, k))
-    idx[:len(fixed), 0] = fixed
-    w = rng.uniform(-1.0, 1.0, (rows, k)).astype(f32)
-    w[-3:, -1] = 0.0
+    blocks = []
+    for b, k in enumerate(widths):
+        rows = (len(fixed) if b == 0 else 0) + 9 + 4 * b
+        idx = rng.integers(0, 6 * n, (rows, k))
+        if b == 0:
+            idx[:len(fixed), 0] = fixed
+        w = rng.uniform(-1.0, 1.0, (rows, k)).astype(f32)
+        w[-3:, -1] = 0.0
+        blocks.append((idx, w))
     return dataclasses.replace(
-        ops, probe_idx=torch.from_numpy(idx.astype(np.int32)),
-        probe_w=torch.from_numpy(w))
+        ops, probes=fdtd_cuda.ProbeTable.from_blocks(blocks, n))
 
 
 def _waveform(n0, n_sub, D, seed, tail_zeros):
@@ -151,7 +159,7 @@ def test_chunk_schedule_equals_the_twin(boundary, shape, grid_shape, layout,
     st.parity = parity
     wf = _waveform(n0, n_sub, D, seed=D, tail_zeros=2 * parity)
     got = emulate_chunk(ops, st, wf, n0, n_sub, D, layout)
-    bufs = torch.full((n_sub, ops.probe_idx.shape[0]), float("nan"))
+    bufs = torch.full((n_sub, ops.probes.n_rows), float("nan"))
     fdtd_cuda.chunk_steps_plain(ops, st, torch.from_numpy(wf), n0, n_sub, D,
                                 bufs)
     assert st.parity == parity ^ (n_sub * D) & 1
@@ -170,7 +178,7 @@ def test_chunk_schedule_on_a_scene(kind, boundary):
     wf = torch.tensor(padded_waveform(sim), dtype=torch.float32)
     n0, n_sub, D = 40, 2, 3
     got = emulate_chunk(ops, st, wf.numpy(), n0, n_sub, D, (7, 640))
-    bufs = torch.zeros((n_sub, ops.probe_idx.shape[0]))
+    bufs = torch.zeros((n_sub, ops.probes.n_rows))
     fdtd_cuda.chunk_steps(ops, st, wf, n0, n_sub, D, bufs)
     assert st.parity == 1 ^ 6 & 1
     _assert_chunk_equals(st, bufs, got)
@@ -182,9 +190,9 @@ def test_gather_sums_terms_in_the_kernels_order():
     ops = _operands((4, 3, 3), (4, 3, 3), "PEC", seed=1)
     st = fdtd_cuda.new_state((4, 3, 3), "cpu", pml=False)
     st.e[0][0].view(-1)[:3] = torch.tensor([1e8, 1.0, -1e8])
-    ops = dataclasses.replace(
-        ops, probe_idx=torch.tensor([[0, 1, 2]], dtype=torch.int32),
-        probe_w=torch.ones((1, 3)))
+    one = [(np.zeros((0, 0)), np.zeros((0, 0)))] * 3
+    ops = dataclasses.replace(ops, probes=fdtd_cuda.ProbeTable.from_blocks(
+        [(np.array([[0, 1, 2]]), np.ones((1, 3)))] + one, 36))
     out = torch.zeros(1)
     fdtd_cuda.probe_gather_plain(ops, st, out)
     assert out.item() == 0.0  # (1e8 + 1) − 1e8 in float32
@@ -202,7 +210,7 @@ def test_wrapper_runs_the_twin_on_cpu_and_counts_no_launch():
     sim = port_sim("small", "PML_4", 1, decim=3)
     ops = sim.operands
     wf = torch.tensor(padded_waveform(sim), dtype=torch.float32)
-    rows = ops.probe_idx.shape[0]
+    rows = ops.probes.n_rows
     outs = []
     fdtd_cuda.reset_launch_counts()
     for fn in (fdtd_cuda.chunk_steps, fdtd_cuda.chunk_steps_plain,
@@ -223,7 +231,7 @@ def test_wrapper_checks_its_window_and_buffers():
     sim = port_sim("straddle", "MUR", 1, decim=3)
     ops = sim.operands
     st = fdtd_cuda.new_state(sim.padded_shape, "cpu", pml=False)
-    rows = ops.probe_idx.shape[0]
+    rows = ops.probes.n_rows
     wf = torch.zeros(20)
     with pytest.raises(ValueError, match="past the waveform"):
         fdtd_cuda.chunk_steps(ops, st, wf, 15, 2, 3, torch.zeros((2, rows)))

@@ -308,7 +308,7 @@ def test_stream_shared_memory_formula_matches_the_kernel(cuda):
 def test_wrappers_reject_bad_operands(cuda):
     sim = _sim("MUR")
     st = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=False)
-    out = torch.zeros(sim.operands.probe_idx.shape[0] + 1, device=cuda)
+    out = torch.zeros(sim.operands.probes.n_rows + 1, device=cuda)
     with pytest.raises(ValueError, match="shape"):
         fdtd_cuda.probe_gather(sim.operands, st, out)
     bad = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=False)
@@ -406,7 +406,7 @@ def _chunk_inputs(sim, device, seed, n0=7, n_sub=2):
     rng = np.random.default_rng(seed + 1)
     wf = torch.from_numpy(rng.uniform(
         -1.0, 1.0, n0 + n_sub * sim.probe_decim + 3).astype(np.float32)).to(device)
-    bufs = torch.zeros((n_sub, sim.operands.probe_idx.shape[0]), device=device)
+    bufs = torch.zeros((n_sub, sim.operands.probes.n_rows), device=device)
     return st, wf, bufs
 
 
@@ -537,6 +537,90 @@ def test_step_fn_runs_on_the_card_by_default(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the grouped probe table and its gather
+# ---------------------------------------------------------------------------
+
+def _two_port_sim():
+    """A patch and a small horn whose port V rows differ in length, at
+    mesh quality 1 (``tests/test_torch_probe.py``'s scene), on the card."""
+    from fdtd_solver_antennas_tpu_torch.models.params import (
+        HornAntennaParams, PatchAntennaParams)
+    from fdtd_solver_antennas_tpu_torch.solvers import multi_patch_3d as multi
+
+    horn = HornAntennaParams.from_user_units(
+        frequency_ghz=2.45, throat_a_mm=70.0, throat_b_mm=35.0,
+        aperture_A_mm=80.0, aperture_B_mm=50.0, length_mm=20.0)
+    patch = PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02)
+    p = multi.prepare_multi_patch_3d(
+        [multi.PatchLike("p", patch)],
+        horns=[multi.HornLike("h", horn, center_x_m=0.12, rot_z_deg=30.0)],
+        device="cuda", mesh_quality=1, phi_step_deg=30.0, theta_step_deg=15.0,
+        auto_margin_mm=(20.0, 20.0, 20.0))
+    assert p.ok, p.message
+    return p.sim
+
+
+def _gather_both(ops, st, device):
+    out_k = torch.full((ops.probes.n_rows,), float("nan"), device=device)
+    out_p = out_k.clone()
+    fdtd_cuda.reset_launch_counts()
+    fdtd_cuda.probe_gather(ops, st, out_k)
+    assert fdtd_cuda.launches["probe_gather"] == 1
+    fdtd_cuda.probe_gather_plain(ops, st, out_p)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+def test_probe_gather_equals_its_twin_on_the_two_port_scene(cuda):
+    sim = _two_port_sim()
+    t = sim.operands.probes
+    assert t.k[0] > max(t.k[1:])  # the two V rows differ in length
+    for parity in (0, 1):
+        st = _random_state(sim, cuda, seed=97 + parity)
+        st.parity = parity
+        out_k, out_p = _gather_both(sim.operands, st, cuda)
+        assert torch.equal(out_k, out_p)
+
+
+def test_probe_gather_equals_its_twin_at_the_mixed_scenes_shape(cuda):
+    """A random state of the mixed scene's shape and a random table of its
+    blocks' rows and widths (port V 2 × 70, port I 2 × 4, face E and H
+    286,704 × 2 and × 4), bit for bit."""
+    shape = (141, 201, 152)
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(101)
+    blocks = []
+    for rows, k in ((2, 70), (2, 4), (286_704, 2), (286_704, 4)):
+        w = rng.uniform(-1.0, 1.0, (rows, k)).astype(np.float32)
+        if k == 70:
+            w[0, 8:] = 0.0  # the patch's V row: 8 terms, padded
+        blocks.append((rng.integers(0, 6 * n, (rows, k)), w))
+    ops = dataclasses.replace(
+        _synthetic_ops(shape, "MUR", cuda),
+        probes=fdtd_cuda.ProbeTable.from_blocks(blocks, n, cuda))
+    st = fdtd_cuda.new_state(shape, cuda, pml=False)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for f in (*st.e[0], *st.h):
+        f.normal_(generator=g)
+    out_k, out_p = _gather_both(ops, st, cuda)
+    assert torch.equal(out_k, out_p)
+
+
+def test_device_holds_no_padded_probe_table(cuda):
+    """The operands carry the grouped table alone: 8 bytes a term of each
+    block's own width, no (rows, k) table padded to the longest row."""
+    sim = _two_port_sim()
+    t = sim.operands.probes
+    assert t.code.is_cuda and t.w.is_cuda and t.code.dim() == t.w.dim() == 1
+    assert t.nbytes == 8 * sum(r * k for r, k in zip(t.rows, t.k))
+    assert t.nbytes < 8 * t.n_rows * max(t.k)
+    tensors = [v for f in dataclasses.fields(sim.operands)
+               for v in [getattr(sim.operands, f.name)] if torch.is_tensor(v)]
+    assert not tensors  # every table lives in the ProbeTable
+
+
+# ---------------------------------------------------------------------------
 # the persistent steppers K3 and K4: both storage forms, every boundary
 # ---------------------------------------------------------------------------
 
@@ -557,8 +641,7 @@ def _synthetic_ops(shape, boundary, device, seed=43):
         src=(None, None, arr(*shape)),
         mur=((0.3, -0.2), (0.1, 0.4), (-0.5, 0.2)) if boundary == "MUR" else None,
         pml=None,
-        probe_idx=torch.zeros((0, 1), dtype=torch.int32, device=device),
-        probe_w=torch.zeros((0, 1), device=device))
+        probes=fdtd_cuda.ProbeTable.empty(device))
 
 
 @pytest.mark.parametrize("form", ["resident", "streamed"])
@@ -670,7 +753,40 @@ def test_roll_chain_equals_its_twin_bit_for_bit(cuda, R, C, iters):
     assert rc.launches == {"roll_chain": 1}
     assert torch.equal(out, rc.roll_chain_plain(a, iters))
     with pytest.raises(ValueError, match="C <="):
-        rc.roll_chain(torch.zeros(1, 16385, device=cuda), 1)
+        rc.roll_chain(torch.zeros(1, 16388, device=cuda), 1)
+
+
+@pytest.mark.parametrize("ctas", [1, 2])
+@pytest.mark.parametrize("R,C,iters", [(56, 55 * 128, 200), (8, 512, 5),
+                                       (3, 304, 9)])
+def test_roll_chain_designs_equal_the_twin(cuda, ctas, R, C, iters):
+    """One block a row and a cluster of two, bit for bit, at the roofline's
+    shape and at small ones (304: 152 columns a block)."""
+    from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
+
+    rng = np.random.default_rng(43)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, (R, C)).astype(np.float32)).to(cuda)
+    plan = rc.plan(a.shape, ctas)
+    assert plan["blocks"] == R * ctas and plan["threads"] % 32 == 0
+    assert plan["threads"] * plan["per_thread"] * 4 * ctas >= C
+    rc.reset_launch_counts()
+    out = rc.roll_chain(a, iters, ctas=ctas)
+    assert rc.launches == {"roll_chain": 1}
+    assert torch.equal(out, rc.roll_chain_plain(a, iters))
+
+
+@pytest.mark.parametrize("part", ["first", "vec", "ghosts"])
+@pytest.mark.parametrize("R,C,iters", [(56, 55 * 128, 200), (3, 304, 9)])
+def test_roll_chain_parts_equal_the_twin(cuda, part, R, C, iters):
+    """The timing variants, one part of the design alone, bit for bit."""
+    from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
+
+    rng = np.random.default_rng(47)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, (R, C)).astype(np.float32)).to(cuda)
+    rc.reset_launch_counts()
+    out = rc.roll_chain_part(a, iters, part)
+    assert rc.part_launches[part] == 1 and rc.launches == {"roll_chain": 0}
+    assert torch.equal(out, rc.roll_chain_plain(a, iters))
 
 
 def test_roofline_entry_point_runs_on_the_card(cuda):

@@ -169,19 +169,26 @@ def test_face_geometry_equal(sims):
 
 
 def test_probe_table_rows_address_the_six_field_stack(sims):
-    """The kernels' single table is the four JAX gathers stacked: port V,
-    port I (+3N into the H stack), face E, face H (+3N)."""
+    """The kernels' table is the four JAX gathers as blocks, each at its
+    own width: port V, port I (into the H stack), face E, face H; each
+    code a cell of one array and its component."""
     _, ts = sims
     n = int(np.prod(ts.padded_shape))
-    idx = ts.operands.probe_idx.numpy()
-    w = ts.operands.probe_w.numpy()
+    t = ts.operands.probes
     T = ts.n_face_slots
-    assert idx.shape == (2 + 2 * T, 4)
-    assert idx.min() >= 0 and idx.max() < 6 * n
-    assert (idx[0][w[0] != 0] < 3 * n).all()  # V reads E
-    assert (idx[1] >= 3 * n).all()  # I reads H
-    assert (idx[2:2 + T][w[2:2 + T] != 0] < 3 * n).all()
-    assert (idx[2 + T:] >= 3 * n).all()
+    pv_idx = tfdtd.build_probe_gathers(ts)[6]
+    assert t.rows == (1, 1, T, T)
+    assert t.k == (pv_idx.shape[1], 4, 2, 4)
+    comps = []
+    for _r0, _rows, _k, code, w in t.blocks():
+        code, w = code.numpy(), w.numpy()
+        assert code.min() >= 0 and (code >> 3).max() < n
+        comps.append((code & 7, w))
+    (cv, wv), (ci, _), (ce, we), (ch, _) = comps
+    assert (cv[wv != 0] < 3).all()  # V reads E
+    assert ((ci >= 3) & (ci < 6)).all()  # I reads H
+    assert (ce[we != 0] < 3).all()
+    assert ((ch >= 3) & (ch < 6)).all()
 
 
 def test_params_round_trip_from_jax_model_dump():

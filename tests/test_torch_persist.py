@@ -322,8 +322,7 @@ def _operands(shape, grid_shape, boundary, seed, x_rows=None):
         cb=tuple(arr(*shape) for _ in range(3)),
         src=(arr(*shape), None, arr(*shape)),
         mur=mur, pml=pml,
-        probe_idx=torch.zeros((0, 1), dtype=torch.int32),
-        probe_w=torch.zeros((0, 1)),
+        probes=fdtd_cuda.ProbeTable.empty(),
         mur_x_rows=x_rows,
     )
 

@@ -195,7 +195,7 @@ def test_slab_probe_tables_sum_to_the_global_samples():
     whole = fdtd_cuda.new_state(psim.padded_shape, "cpu", pml=False)
     for t, a in zip(whole.fields, fields):
         t.copy_(torch.from_numpy(a))
-    ref = torch.zeros(psim.operands.probe_idx.shape[0])
+    ref = torch.zeros(psim.operands.probes.n_rows)
     fdtd_cuda.probe_gather_plain(psim.operands, whole, ref)
     total = torch.zeros_like(ref)
     for rank in range(4):
