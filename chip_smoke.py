@@ -75,12 +75,12 @@ and the script exits non-zero without printing a result:
     patch through ``fdtd_steps.build_stepper``'s ``step_fn`` for 125
     intervals (11,125 steps) from zero fields, held to the same steps
     through K1's field kernels;
-15. K5 (roofline slice): ``roll_chain`` in both designs (one block a
-    row; a cluster of two) against its twin at 56×7,040, 200 iterations,
-    bit for bit, timed in turns, each with its CTAs a row, SMs used, the
-    SM clock and its shared-memory and FLOP bounds; each part of the
-    one-block design alone (``roll_chain_part``), bit for bit and timed
-    in turns with both together; then the roofline entry point
+15. K5 (roofline slice): ``roll_chain`` (one block a row) against its
+    twin at 56×7,040, 200 iterations, bit for bit, timed in turns, with
+    its blocks, SMs used, the SM clock, its shared-memory bound over all
+    the card's SMs (the table's ``bound_ms``), the same bound over the SMs
+    the design holds (its own ceiling) and its FLOP bound; then the
+    roofline entry point
     ``fdtd_solver_antennas_tpu_torch.examples.chunk_roofline.main()`` on
     the card, which prints its JSON line.
 
@@ -1504,22 +1504,23 @@ def sm_clock_hz() -> float:
 SMEM_BYTES_PER_CLK = 128  # shared memory per SM per clock (Hopper)
 
 
-def k5_bounds(R, C, iters, sms_used, clock_hz):
+def k5_bounds(R, C, iters, sms, clock_hz):
     """Bounds of one ``roll_chain`` launch: (shared-memory ms, FLOP ms).
     Shared memory: each element-shift stores and loads 4 B, R·C·4·iters
-    of them, at 128 B a clock on each SM the launch uses. Operations: 2
-    adds and 2 multiplies per element per iteration at the float32 peak
-    (the array in and out once over HBM is smaller than either)."""
-    smem = 2 * 4 * R * C * 4 * iters / (SMEM_BYTES_PER_CLK * clock_hz * sms_used)
+    of them, at 128 B a clock on each of ``sms`` SMs. Operations: 2 adds
+    and 2 multiplies per element per iteration at the float32 peak (the
+    array in and out once over HBM is smaller than either)."""
+    smem = 2 * 4 * R * C * 4 * iters / (SMEM_BYTES_PER_CLK * clock_hz * sms)
     return smem * 1e3, 4 * R * C * iters / FP32_FLOPS * 1e3
 
 
 def phase_roll_chain(card):
-    """K5 in both designs (one block a row; a cluster of two blocks a row)
-    against its twin at the roofline's default shape, bit for bit, timed
-    on the device in turns (1, 2, 2, 1) beside both bounds; then the
-    roofline entry point on the card (its default design), its launches
-    counted."""
+    """K5 against its twin at the roofline's default shape, bit for bit,
+    timed on the device in turns beside its bounds; then the roofline
+    entry point on the card, its launches counted. ``bound_ms`` is the
+    shared-memory bound over all the card's SMs; the same bound over the
+    SMs that one block a row holds is printed beside it as the design's
+    own ceiling."""
     from fdtd_solver_antennas_tpu_torch.examples import chunk_roofline
     from fdtd_solver_antennas_tpu_torch.ops import roll_chain as rc
 
@@ -1531,57 +1532,31 @@ def phase_roll_chain(card):
     clock = sm_clock_hz()
     say("15", f"SM clock (nvidia-smi clocks.max.sm) {clock / 1e6:.0f} MHz, "
               f"{sms} SMs, shared memory {SMEM_BYTES_PER_CLK} B/clock/SM [{card}]")
-    rows = {}
-    for ctas in rc.CTAS:
-        out = rc.roll_chain(a, iters, ctas)
-        torch.cuda.synchronize()
-        same = torch.equal(out, ref)
-        assert same, f"roll_chain ({ctas} block(s) a row) is not bit-equal"
-        plan = rc.plan(a.shape, ctas)
-        used = min(plan["blocks"], sms)
-        smem_ms, flop_ms = k5_bounds(R, C, iters, used, clock)
-        rows[ctas] = dict(max_abs_err=close("roll_chain", out, ref), same=same,
-                          plan=plan, sms_used=used, bound_ms=smem_ms,
-                          bound_by="bytes", flop_ms=flop_ms, times=[])
-    for ctas in (1, 2, 2, 1):
-        rows[ctas]["times"].append(
-            device_ms(lambda: rc.roll_chain(a, iters, ctas)))
+    out = rc.roll_chain(a, iters)
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    assert same, "roll_chain is not bit-equal to its twin"
+    plan = rc.plan(a.shape)
+    used = min(plan["blocks"], sms)
+    smem_ms, flop_ms = k5_bounds(R, C, iters, sms, clock)
+    design_ms = k5_bounds(R, C, iters, used, clock)[0]
+    times = [device_ms(lambda: rc.roll_chain(a, iters)) for _ in range(3)]
     plain_ms = events_ms(lambda: rc.roll_chain_plain(a, iters), reps=2, warmup=1)
+    row = dict(max_abs_err=close("roll_chain", out, ref), ms=min(times),
+               plain_ms=plain_ms, bound_ms=smem_ms, bound_by="bytes")
     shifts = rc.SHIFTS_PER_ITER * R * C * iters
-    # each part of the one-block design alone, in turns with both together
-    parts = {}
-    for part in ("first", "vec", "ghosts"):
-        out = rc.roll_chain_part(a, iters, part)
-        torch.cuda.synchronize()
-        assert torch.equal(out, ref), f"roll_chain_part {part} is not bit-equal"
-    for part in ("first", "vec", "ghosts", "both", "both", "ghosts", "vec", "first"):
-        fn = ((lambda: rc.roll_chain(a, iters, 1)) if part == "both" else
-              (lambda: rc.roll_chain_part(a, iters, part)))
-        parts.setdefault(part, []).append(device_ms(fn))
-    say("15", "roll_chain's parts alone, one block a row, bit-equal, in turns: "
-              + "; ".join(f"{name} {' / '.join(f'{t * 1e3:.1f}' for t in ts)} us"
-                          for name, ts in parts.items())
-              + " (first: 32-bit accesses and a wrap test, the first design's "
-              "scheme; vec: (a) 128-bit accesses; ghosts: (b) ghost columns; "
-              f"both: roll_chain) [{card}]")
-    for ctas, row in rows.items():
-        row["ms"] = min(row["times"])
-        row["plain_ms"] = plain_ms
-        plan = row["plan"]
-        design = ("one block a row" if ctas == 1 else
-                  f"a cluster of {ctas} blocks a row")
-        times = " / ".join(f"{t * 1e3:.1f}" for t in row["times"])
-        say("15", f"roll_chain {R}x{C}, {iters} iterations, {design} "
-                  f"({ctas} CTA(s) a row, {plan['blocks']} blocks x "
-                  f"{plan['threads']} threads, {plan['per_thread']} float4 a "
-                  f"thread, {plan['smem_bytes']:,} B shared): kernel == plain "
-                  f"(bit-equal {row['same']}), max |err| "
-                  f"{row['max_abs_err']:.3e}; device {times} us/launch, "
-                  f"{shifts / row['ms'] / 1e6:.1f} G element-shifts/s on "
-                  f"{row['sms_used']} of {sms} SMs; shared-memory bound "
-                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_ms'] / row['ms']:.3f} "
-                  f"of it), FLOP bound {row['flop_ms'] * 1e3:.2f} us; plain "
-                  f"{plain_ms * 1e3:.1f} us [{card}]")
+    say("15", f"roll_chain {R}x{C}, {iters} iterations, one block a row "
+              f"({plan['blocks']} blocks x {plan['threads']} threads, "
+              f"{plan['per_thread']} float4 a thread, {plan['smem_bytes']:,} B "
+              f"shared): kernel == plain (bit-equal {same}), max |err| "
+              f"{row['max_abs_err']:.3e}; device "
+              f"{' / '.join(f'{t * 1e3:.1f}' for t in times)} us/launch, "
+              f"{shifts / row['ms'] / 1e6:.1f} G element-shifts/s on {used} of "
+              f"{sms} SMs; shared-memory bound {smem_ms * 1e3:.1f} us on all "
+              f"{sms} SMs ({smem_ms / row['ms']:.3f} of it), "
+              f"{design_ms * 1e3:.1f} us on the {used} SMs the design holds "
+              f"({design_ms / row['ms']:.3f} of it); FLOP bound "
+              f"{flop_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.1f} us [{card}]")
     print(card, flush=True)
     rc.reset_launch_counts()
     res = chunk_roofline.main([])
@@ -1589,8 +1564,7 @@ def phase_roll_chain(card):
     assert launches > 0 and res["calibration"]["device"] == torch.cuda.get_device_name(0)
     assert np.isfinite(res["bound_gcells_per_s"]) and res["bound_gcells_per_s"] > 0
     cal = res["calibration"]
-    assert cal["ctas_per_row"] == rc.DEFAULT_CTAS
-    say("15", f"roofline ({cal['ctas_per_row']} CTA(s) a row): shift rate "
+    say("15", f"roofline ({cal['ctas_per_row']} CTA a row): shift rate "
               f"{res['roll_rate_gelems_per_s']:.1f} Gelem/s on {cal['sms_used']} "
               f"of {cal['sm_count']} SMs ({cal['blocks']} blocks, {cal['iters']} "
               f"iterations, {cal['wall_s'] * 1e6:.1f} us, empty launch "
@@ -1600,7 +1574,7 @@ def phase_roll_chain(card):
               f"on those SMs, {res['bound_gcells_per_s'] * sms / cal['sms_used']:.2f} "
               f"Gcell/s scaled to all {sms}; {launches} roll_chain launches "
               f"[{card}]")
-    return dict(rows[rc.DEFAULT_CTAS], launches=launches)
+    return dict(row, launches=launches)
 
 
 def timed_phase(tag, fn, *args):

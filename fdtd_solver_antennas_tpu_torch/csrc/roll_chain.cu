@@ -18,16 +18,15 @@
 //
 // THE RULE this kernel keeps, so that it measures shifts: every one of the
 // four shifts of every iteration moves every element of the row through
-// on-chip memory, a store to shared memory (or to the shared memory of the
-// other block of a cluster) and a load from it, in order. A shuffle may
-// carry one neighbouring value across lanes, but no shift is a renaming of
-// which register holds which column, and the chain is not folded: the net
-// shift of an iteration is 1 + 128 + (C - 1) + (C - 128) = 2C, nothing, so
-// a kernel that only tracked the offset would compute the same output
+// shared memory, a store and a load, in order. A shuffle may carry one
+// neighbouring value across lanes, but no shift is a renaming of which
+// register holds which column, and the chain is not folded: the net shift
+// of an iteration is 1 + 128 + (C - 1) + (C - 128) = 2C, nothing, so a
+// kernel that only tracked the offset would compute the same output
 // without moving data and would measure nothing. Each shift adds or
 // multiplies once, as the plain twin does, so the output is bit-equal.
 //
-// Design (C a multiple of 4):
+// Design (C a multiple of 4), one block a row:
 //  (a) 128-bit shared accesses. A thread owns whole float4s of columns.
 //      The shifts by 128 and C - 128 load the float4 128 columns away; the
 //      shifts by 1 and C - 1 load the thread's own aligned float4 and take
@@ -39,45 +38,32 @@
 //      shift reads across the wrap also store them into the ghost (4
 //      columns for a shift by 1, 128 for a shift by 128): 264 more stores
 //      an iteration, 0.9% at C = 7,040, and every read is in range.
-//  (c) kCtas blocks a row. kCtas = 1: one block a row, a __syncthreads()
-//      a shift. kCtas = 2: a cluster of two blocks (on two SMs), each
-//      holding half the row; the ghost columns cross the half, so a block
-//      stores them into its partner's buffer through
-//      cooperative_groups::this_cluster().map_shared_rank, and the shift's
-//      barrier is the cluster's (shift_barrier, split into its arrive and
-//      its wait). At 56 rows that is 112 of the 132 SMs instead of 56.
 // The row is double-buffered (a shift reads one buffer and writes the
-// other), so one barrier a shift orders both the reads before the next
-// writes and the writes before the next reads.
+// other), so one __syncthreads() a shift orders both the reads before the
+// next writes and the writes before the next reads.
 //
-// What bounds it on the card: the shared-memory bandwidth of the SMs that
-// hold the rows, 128 bytes per clock each: 2 x 4 B per element per shift,
-// R x C x 4 x iters element-shifts, over R x kCtas SMs (chip_smoke.py
-// prints this bound with the SM clock it reads). The float32 operations
-// (one per element-shift) are a far smaller bound. What it pays on top is
-// one barrier a shift and the latency of its load, shuffle and store
-// chain, which the blocks' warps do not hide across the barrier. On an
-// H100 (PERF.md, chip_smoke.py phase 15) the cluster's barrier, with the
-// cluster-scope fence behind the partner's stores, costs more a shift
-// than halving each block's row saves, so one block a row is the default
-// (ops/roll_chain.py DEFAULT_CTAS); roll_chain_part_kernel times (a) and
-// (b) alone.
+// What bounds it on the card: shared-memory bandwidth, 128 bytes per clock
+// an SM: 2 x 4 B per element per shift, R x C x 4 x iters element-shifts
+// (chip_smoke.py prints this bound over all the card's SMs, and beside it
+// over the R SMs that hold a row each). The float32 operations (one per
+// element-shift) are a far smaller bound. What it pays on top is one
+// barrier a shift and the latency of its load, shuffle and store chain,
+// which the block's warps do not hide across the barrier. PERF.md keeps
+// the times of the parts alone and of a two-block cluster a row, which
+// measured slower than this design on an H100.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxPer = 4;     // float4s a thread a shift
 constexpr int kGhost = 128;    // ghost columns at each end of a row buffer
-constexpr int kMinCols = 128;  // columns a block holds at least
+constexpr int kMinCols = 128;  // columns a row holds at least
 constexpr float kDecay = 0.9999f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -89,44 +75,19 @@ __device__ __forceinline__ void st4(float* p, const float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// The cluster's barrier (kCtas = 2) or the block's: every store of the
-// shift before it is seen by every load after it. In the cluster, a
-// thread's stores to its own block are released by a block-scope fence and
-// its stores to the partner's (the ghost columns) by a cluster-scope fence
-// right after them (remote_fence); the arrive itself is relaxed: a release
-// arrive (a cluster-scope release by every thread) timed slower on an
-// H100.
-template <int kCtas>
-__device__ __forceinline__ void shift_barrier() {
-  if constexpr (kCtas == 1) {
-    __syncthreads();
-  } else {
-    __threadfence_block();
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  }
-}
-
-// After a store to the partner's shared memory (kCtas = 2).
-template <int kCtas>
-__device__ __forceinline__ void remote_fence() {
-  if constexpr (kCtas > 1) asm volatile("fence.acq_rel.cluster;" ::: "memory");
-}
-
 // One shift of kind kKind (0: by 1, then + a; 1: by 128, then * decay;
 // 2: by C - 1, + a; 3: by C - 128, * decay) from src into dst, the
-// thread's float4 q at buffer position kGhost + 4q (w columns a block).
-// Then the ghost the next shift reads across the block's ends: its first
-// or last columns into the ghost of the block before or after it (itself
-// when kCtas = 1), whose buffer `peer` points at.
-template <int kKind, int kCtas, int kPer>
+// thread's float4 q at buffer position kGhost + 4q (C columns a row).
+// Then the ghost the next shift reads across the wrap: the row's first or
+// last columns into the ghost at its other end.
+template <int kKind, int kPer>
 __device__ __forceinline__ void shift(const float* src, float* dst,
-                                      float* peer, const float4 (&av)[kPer],
-                                      const int w, const int lane) {
+                                      const float4 (&av)[kPer], const int C,
+                                      const int lane) {
   constexpr int kNext = (kKind + 1) & 3;
   constexpr bool kNextLeft = kNext < 2;            // it reads j - 1 or j - 128
   constexpr int kNextReach = (kNext & 1) ? 128 : 4;  // columns it reads across
-  const int n4 = w >> 2;
+  const int n4 = C >> 2;
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
     const int q = threadIdx.x + p * blockDim.x;
@@ -157,45 +118,25 @@ __device__ __forceinline__ void shift(const float* src, float* dst,
     }
     st4(dst + u, d);
     if constexpr (kNextLeft) {
-      if (4 * q >= w - kNextReach) {
-        st4(peer + u - w, d);
-        remote_fence<kCtas>();
-      }
+      if (4 * q >= C - kNextReach) st4(dst + u - C, d);
     } else {
-      if (4 * q < kNextReach) {
-        st4(peer + u + w, d);
-        remote_fence<kCtas>();
-      }
+      if (4 * q < kNextReach) st4(dst + u + C, d);
     }
   }
 }
 
 }  // namespace
 
-// Block b of cluster (row) r holds columns [b * w, (b + 1) * w) of row r,
-// w = C / kCtas, in two buffers of w + 2 * kGhost floats each.
-template <int kCtas, int kPer>
+// Block r holds row r in two buffers of C + 2 * kGhost floats each.
+template <int kPer>
 __global__ void __launch_bounds__(kMaxThreads)
 roll_chain_kernel(const float* __restrict__ a, float* __restrict__ out,
                   const int C, const int iters) {
   extern __shared__ float4 smem[];
-  const int w = C / kCtas;
-  const int len = w + 2 * kGhost;
   float* buf0 = reinterpret_cast<float*>(smem);
-  float* buf1 = buf0 + len;
-  float* peer0 = buf0;
-  float* peer1 = buf1;
-  int rank = 0;
-  if constexpr (kCtas > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    rank = (int)cluster.block_rank();
-    // both neighbours of a half-row are the other half
-    peer0 = cluster.map_shared_rank(buf0, rank ^ 1);
-    peer1 = cluster.map_shared_rank(buf1, rank ^ 1);
-    cluster.sync();  // the partner has started: its shared memory exists
-  }
-  const int64_t base = (int64_t)(blockIdx.x / kCtas) * C + (int64_t)rank * w;
-  const int n4 = w >> 2;
+  float* buf1 = buf0 + C + 2 * kGhost;
+  const int64_t base = (int64_t)blockIdx.x * C;
+  const int n4 = C >> 2;
   const int lane = threadIdx.x & 31;
   float4 av[kPer];
 #pragma unroll
@@ -205,23 +146,20 @@ roll_chain_kernel(const float* __restrict__ a, float* __restrict__ out,
     if (q < n4) {
       av[p] = ld4(a + base + 4 * q);
       st4(buf0 + kGhost + 4 * q, av[p]);
-      // the first shift (by 1) reads column -1 of the block
-      if (4 * q >= w - 4) {
-        st4(peer0 + kGhost + 4 * q - w, av[p]);
-        remote_fence<kCtas>();
-      }
+      // the first shift (by 1) reads column -1
+      if (4 * q >= C - 4) st4(buf0 + kGhost + 4 * q - C, av[p]);
     }
   }
-  shift_barrier<kCtas>();
+  __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    shift<0, kCtas, kPer>(buf0, buf1, peer1, av, w, lane);
-    shift_barrier<kCtas>();
-    shift<1, kCtas, kPer>(buf1, buf0, peer0, av, w, lane);
-    shift_barrier<kCtas>();
-    shift<2, kCtas, kPer>(buf0, buf1, peer1, av, w, lane);
-    shift_barrier<kCtas>();
-    shift<3, kCtas, kPer>(buf1, buf0, peer0, av, w, lane);
-    shift_barrier<kCtas>();
+    shift<0, kPer>(buf0, buf1, av, C, lane);
+    __syncthreads();
+    shift<1, kPer>(buf1, buf0, av, C, lane);
+    __syncthreads();
+    shift<2, kPer>(buf0, buf1, av, C, lane);
+    __syncthreads();
+    shift<3, kPer>(buf1, buf0, av, C, lane);
+    __syncthreads();
   }
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
@@ -230,202 +168,58 @@ roll_chain_kernel(const float* __restrict__ a, float* __restrict__ out,
   }
 }
 
-// One block a row with one part of the design alone, to time what each
-// part moves (chip_smoke.py phase 15): kVec, 128-bit accesses (a) with a
-// wrap test; kGh, ghost columns (b) with 32-bit accesses; neither, the
-// first design's scheme (32-bit accesses and a wrap test). The same chain,
-// bit for bit; both parts together are roll_chain_kernel<1, kPer4>. The
-// threads are roll_chain_kernel's, each with the same columns: kPer4
-// float4s, or 4 * kPer4 floats at a stride of the block.
-template <bool kVec, bool kGh, int kPer4>
-__global__ void __launch_bounds__(kMaxThreads)
-roll_chain_part_kernel(const float* __restrict__ a, float* __restrict__ out,
-                       const int C, const int iters) {
-  constexpr int kPer = kVec ? kPer4 : 4 * kPer4;  // units a thread
-  constexpr int g = kGh ? kGhost : 0;
-  extern __shared__ float4 smem[];
-  float* const buf[2] = {reinterpret_cast<float*>(smem),
-                         reinterpret_cast<float*>(smem) + C + 2 * g};
-  const int64_t row = (int64_t)blockIdx.x * C;
-  const int n = kVec ? C / 4 : C;  // float4s or floats a row
-  const int lane = threadIdx.x & 31;
-  auto wrap = [C](int j) { return kGh ? j : (j < 0 ? j + C : (j >= C ? j - C : j)); };
-  float av[4 * kPer4];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int q = threadIdx.x + p * blockDim.x;
-    if (q >= n) continue;
-    if constexpr (kVec) {
-      const float4 x = ld4(a + row + 4 * q);
-      av[4 * p] = x.x; av[4 * p + 1] = x.y; av[4 * p + 2] = x.z; av[4 * p + 3] = x.w;
-      st4(buf[0] + 4 * q, x);
-    } else {
-      av[p] = a[row + q];
-      buf[0][g + q] = av[p];
-      if (kGh && q >= C - 4) buf[0][g + q - C] = av[p];
-    }
-  }
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float* src = buf[r & 1];
-      float* dst = buf[(r & 1) ^ 1];
-      const int s = r == 0 ? 1 : (r == 1 ? 128 : (r == 2 ? -1 : -128));
-      const bool next_left = ((r + 1) & 3) < 2;
-      const int reach = ((r + 1) & 1) ? 128 : 4;
-#pragma unroll
-      for (int p = 0; p < kPer; ++p) {
-        const int q = threadIdx.x + p * blockDim.x;
-        const bool on = q < n;
-        if constexpr (kVec) {
-          const int u = 4 * q;
-          float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (r & 1) {
-            if (on) d = ld4(src + wrap(u - s));
-          } else {
-            const float4 x = on ? ld4(src + u) : d;
-            if (r == 0) {
-              float left = __shfl_up_sync(kFull, x.w, 1);
-              if (lane == 0 && on) left = src[wrap(u - 1)];
-              d = make_float4(left, x.x, x.y, x.z);
-            } else {
-              float right = __shfl_down_sync(kFull, x.x, 1);
-              if ((lane == 31 || q + 1 == n) && on) right = src[wrap(u + 4)];
-              d = make_float4(x.y, x.z, x.w, right);
-            }
-          }
-          if (!on) continue;
-          if (r & 1) {
-            d.x = d.x * kDecay; d.y = d.y * kDecay;
-            d.z = d.z * kDecay; d.w = d.w * kDecay;
-          } else {
-            d.x = d.x + av[4 * p]; d.y = d.y + av[4 * p + 1];
-            d.z = d.z + av[4 * p + 2]; d.w = d.w + av[4 * p + 3];
-          }
-          st4(dst + u, d);
-        } else {
-          if (!on) continue;
-          const float v = src[g + wrap(q - s)];
-          const float d = (r & 1) ? v * kDecay : v + av[p];
-          dst[g + q] = d;
-          if (kGh && next_left && q >= C - reach) dst[g + q - C] = d;
-          if (kGh && !next_left && q < reach) dst[g + q + C] = d;
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int q = threadIdx.x + p * blockDim.x;
-    if (q >= n) continue;
-    if constexpr (kVec) st4(out + row + 4 * q, ld4(buf[0] + 4 * q));
-    else out[row + q] = buf[0][g + q];
-  }
-}
-
 namespace {
 
-// by blocks a row (row: 1, 2) and float4s a thread (column: 1 .. 4)
-#define ROLL_CHAIN_PER(C)                                                \
-  {(const void*)roll_chain_kernel<C, 1>, (const void*)roll_chain_kernel<C, 2>, \
-   (const void*)roll_chain_kernel<C, 3>, (const void*)roll_chain_kernel<C, 4>}
-const void* const kKernels[2][kMaxPer] = {ROLL_CHAIN_PER(1),
-                                          ROLL_CHAIN_PER(2)};
-#undef ROLL_CHAIN_PER
-// roll_chain_part_kernel by part (row: first, vec, ghosts) and float4s a
-// thread (column)
-#define ROLL_CHAIN_PART(V, G)                                                  \
-  {(const void*)roll_chain_part_kernel<V, G, 1>,                               \
-   (const void*)roll_chain_part_kernel<V, G, 2>,                               \
-   (const void*)roll_chain_part_kernel<V, G, 3>,                               \
-   (const void*)roll_chain_part_kernel<V, G, 4>}
-const void* const kPartKernels[3][kMaxPer] = {ROLL_CHAIN_PART(false, false),
-                                              ROLL_CHAIN_PART(true, false),
-                                              ROLL_CHAIN_PART(false, true)};
-#undef ROLL_CHAIN_PART
+// by float4s a thread (1 .. 4)
+const void* const kKernels[kMaxPer] = {
+    (const void*)roll_chain_kernel<1>, (const void*)roll_chain_kernel<2>,
+    (const void*)roll_chain_kernel<3>, (const void*)roll_chain_kernel<4>};
 static_assert(kMaxPer == 4, "one kernel per float4s a thread");
 
-int max_cols(int ctas) { return ctas * 4 * kMaxThreads * kMaxPer; }
+constexpr int kMaxCols = 4 * kMaxThreads * kMaxPer;
 
 }  // namespace
 
 extern "C" {
 
-// The widest row the design takes with `ctas` blocks a row (1 or 2).
-int roll_chain_max_cols(int ctas) {
-  return ctas == 1 || ctas == 2 ? max_cols(ctas) : 0;
-}
+// The widest row the design takes.
+int roll_chain_max_cols() { return kMaxCols; }
 
 const char* roll_chain_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The launch of a (rows, C) array with `ctas` blocks a row: out = {blocks,
-// threads a block, float4s a thread, dynamic shared bytes a block}.
-int roll_chain_plan(int rows, int C, int ctas, int* out) {
-  if (rows < 1 || (ctas != 1 && ctas != 2) || C % (4 * ctas) != 0 ||
-      C / ctas < kMinCols || C > max_cols(ctas))
+// The launch of a (rows, C) array: out = {blocks, threads a block, float4s
+// a thread, dynamic shared bytes a block}.
+int roll_chain_plan(int rows, int C, int* out) {
+  if (rows < 1 || C % 4 != 0 || C < kMinCols || C > kMaxCols)
     return (int)cudaErrorInvalidValue;
-  const int n4 = C / ctas / 4;
+  const int n4 = C / 4;
   const int per = (n4 + kMaxThreads - 1) / kMaxThreads;
   const int threads = ((n4 + per - 1) / per + 31) / 32 * 32;
-  out[0] = rows * ctas;
+  out[0] = rows;
   out[1] = threads;
   out[2] = per;
-  out[3] = 2 * (C / ctas + 2 * kGhost) * (int)sizeof(float);
+  out[3] = 2 * (C + 2 * kGhost) * (int)sizeof(float);
   return (int)cudaSuccess;
 }
 
-// out = the chain applied `iters` times to the (rows, C) array a, with
-// `ctas` blocks a row. a and out 16-byte aligned.
+// out = the chain applied `iters` times to the (rows, C) array a. a and
+// out 16-byte aligned.
 int roll_chain_launch(const float* a, float* out, int rows, int C, int iters,
-                      int ctas, void* stream) {
+                      void* stream) {
   int plan[4];
-  cudaError_t err = (cudaError_t)roll_chain_plan(rows, C, ctas, plan);
+  cudaError_t err = (cudaError_t)roll_chain_plan(rows, C, plan);
   if (err != cudaSuccess || iters < 0 || ((uintptr_t)a & 15) != 0 ||
       ((uintptr_t)out & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const void* fn = kKernels[ctas - 1][plan[2] - 1];
+  const void* fn = kKernels[plan[2] - 1];
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              plan[3]);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)plan[0]);
-  cfg.blockDim = dim3((unsigned)plan[1]);
-  cfg.dynamicSmemBytes = (size_t)plan[3];
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = ctas > 1 ? 1 : 0;  // a cluster of two blocks a row
   void* args[] = {(void*)&a, (void*)&out, (void*)&C, (void*)&iters};
-  err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// The chain on a (rows, C) array by roll_chain_part_kernel: vec (a) or
-// ghosts (b), not both; one block a row.
-int roll_chain_part_launch(int vec, int ghosts, const float* a, float* out,
-                           int rows, int C, int iters, void* stream) {
-  int plan[4];
-  cudaError_t err = (cudaError_t)roll_chain_plan(rows, C, 1, plan);
-  if (err != cudaSuccess || (vec && ghosts) || iters < 0 ||
-      ((uintptr_t)a & 15) != 0 || ((uintptr_t)out & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  const void* fn = kPartKernels[vec ? 1 : (ghosts ? 2 : 0)][plan[2] - 1];
-  const int smem = 2 * (C + (ghosts ? 2 * kGhost : 0)) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&a, (void*)&out, (void*)&C, (void*)&iters};
-  err = cudaLaunchKernel(fn, dim3((unsigned)rows), dim3((unsigned)plan[1]),
-                         args, (size_t)smem, (cudaStream_t)stream);
+  err = cudaLaunchKernel(fn, dim3((unsigned)plan[0]), dim3((unsigned)plan[1]),
+                         args, (size_t)plan[3], (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

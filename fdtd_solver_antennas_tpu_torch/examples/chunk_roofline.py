@@ -27,8 +27,7 @@ tenth of the time. Where it does not, ``iters`` doubles, up to
 ``MAX_RAISE`` times the asked count, and the result says which count
 was timed.
 
-The kernel runs ``ops.roll_chain.DEFAULT_CTAS`` blocks a row (one, the
-faster of its two designs on an H100), one block an SM: at the default
+The kernel runs one block a row, one block an SM: at the default
 56 × 7,040 that is 56 of the card's 132 SMs, and the result says so
 (``ctas_per_row``, ``blocks``, ``sms_used``, ``sm_count``); the rate is
 that of the SMs used.
@@ -124,9 +123,9 @@ def calibrate_rolls(R: int = 56, C: int = 55 * 128, iters: int = 200,
         "iters": n,
         "floor_s": floor,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "ctas_per_row": rc.DEFAULT_CTAS,
-        "blocks": R * rc.DEFAULT_CTAS,
-        "sms_used": min(R * rc.DEFAULT_CTAS, sms) if sms else None,
+        "ctas_per_row": 1,
+        "blocks": R,
+        "sms_used": min(R, sms) if sms else None,
         "sm_count": sms,
     }
 

@@ -12,14 +12,11 @@ unit. :func:`roll_chain` applies, ``iters`` times and starting from
 
 to a ``(R, C)`` float32 tensor, in one launch of ``csrc/roll_chain.cu``:
 every shift a real move of every element through shared memory, with
-128-bit accesses and ghost columns instead of a wrap test, ``ctas``
-blocks a row (1: one block; 2: a cluster of two blocks on two SMs, each
-holding half the row; :data:`DEFAULT_CTAS` the faster on an H100). The
-design takes C a multiple of 4 (of 8 with two blocks a row) and raises
-on any other C. On a CPU tensor it runs :func:`roll_chain_plain`
-(``torch.roll``), after the same checks. A CUDA tensor always goes to the
-kernel; a failed build or launch raises. ``launches`` counts kernel
-launches.
+128-bit accesses and ghost columns instead of a wrap test, one block a
+row. The design takes C a multiple of 4 and raises on any other C. On a
+CPU tensor it runs :func:`roll_chain_plain` (``torch.roll``), after the
+same checks. A CUDA tensor always goes to the kernel; a failed build or
+launch raises. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -39,22 +36,12 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 DECAY = float(np.float32(0.9999))  # the chain's float32 multiplier
 SHIFTS_PER_ITER = 4
-MIN_COLS = 128  # the chain shifts by 128 and C - 128: columns a block holds
-CTAS = (1, 2)  # blocks a row the kernel takes
-DEFAULT_CTAS = 1
-# roll_chain_part's variants: one part of the design alone
-PARTS = {"first": (False, False), "vec": (True, False), "ghosts": (False, True)}
-
-
-# launches of roll_chain_part by variant (timing only, off every path)
-part_launches: Dict[str, int] = dict.fromkeys(PARTS, 0)
+MIN_COLS = 128  # the chain shifts by 128 and C - 128
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
-    for k in PARTS:
-        part_launches[k] = 0
 
 
 def roll_chain_plain(a: torch.Tensor, iters: int) -> torch.Tensor:
@@ -81,16 +68,14 @@ def _library():
 
         _i = ctypes.c_int
         lib = _build.load("roll_chain")
-        lib.roll_chain_max_cols.argtypes = [_i]
+        lib.roll_chain_max_cols.argtypes = []
         lib.roll_chain_max_cols.restype = _i
         lib.roll_chain_error_string.argtypes = [_i]
         lib.roll_chain_error_string.restype = ctypes.c_char_p
-        lib.roll_chain_plan.argtypes = [_i, _i, _i, ctypes.POINTER(_i)]
+        lib.roll_chain_plan.argtypes = [_i, _i, ctypes.POINTER(_i)]
         lib.roll_chain_plan.restype = _i
-        lib.roll_chain_launch.argtypes = [_P, _P, _i, _i, _i, _i, _P]
+        lib.roll_chain_launch.argtypes = [_P, _P, _i, _i, _i, _P]
         lib.roll_chain_launch.restype = _i
-        lib.roll_chain_part_launch.argtypes = [_i, _i, _P, _P, _i, _i, _i, _P]
-        lib.roll_chain_part_launch.restype = _i
         _lib = lib
     return _lib
 
@@ -101,84 +86,52 @@ def _check(lib, code: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel roll_chain {what} failed: {msg} ({code})")
 
 
-def check_shape(shape, ctas: int = DEFAULT_CTAS) -> None:
-    """Raise unless the kernel's design takes an (R, C) array with
-    ``ctas`` blocks a row: C a multiple of 4·ctas, at least 128 columns a
-    block."""
-    if ctas not in CTAS:
-        raise ValueError(f"roll_chain takes ctas in {CTAS}, got {ctas}")
+def check_shape(shape) -> None:
+    """Raise unless the kernel's design takes an (R, C) array: C a
+    multiple of 4, at least 128."""
     if len(shape) != 2 or shape[0] < 1:
         raise ValueError(f"roll_chain takes (R, C), got {tuple(shape)}")
     C = shape[1]
-    if C < MIN_COLS * ctas:
-        raise ValueError(f"roll_chain with {ctas} block(s) a row takes "
-                         f"(R, C >= {MIN_COLS * ctas}), got {tuple(shape)}")
-    if C % (4 * ctas):
-        raise ValueError(
-            f"roll_chain's float4 design with {ctas} block(s) a row takes C "
-            f"a multiple of {4 * ctas}, got C = {C}")
+    if C < MIN_COLS:
+        raise ValueError(f"roll_chain takes (R, C >= {MIN_COLS}), "
+                         f"got {tuple(shape)}")
+    if C % 4:
+        raise ValueError(f"roll_chain's float4 design takes C a multiple "
+                         f"of 4, got C = {C}")
 
 
-def plan(shape, ctas: int = DEFAULT_CTAS) -> dict:
-    """The launch of an (R, C) array: blocks, threads a block, float4s a
-    thread, dynamic shared bytes a block, blocks a row."""
-    check_shape(shape, ctas)
+def plan(shape) -> dict:
+    """The launch of an (R, C) array: blocks (one a row), threads a block,
+    float4s a thread, dynamic shared bytes a block."""
+    check_shape(shape)
     lib = _library()
     R, C = shape
-    if C > lib.roll_chain_max_cols(ctas):
-        raise ValueError(f"roll_chain with {ctas} block(s) a row takes C <= "
-                         f"{lib.roll_chain_max_cols(ctas)}, got {C}")
+    if C > lib.roll_chain_max_cols():
+        raise ValueError(f"roll_chain takes C <= {lib.roll_chain_max_cols()}, "
+                         f"got {C}")
     out = (ctypes.c_int * 4)()
-    _check(lib, lib.roll_chain_plan(R, C, ctas, out), "plan")
+    _check(lib, lib.roll_chain_plan(R, C, out), "plan")
     return dict(blocks=out[0], threads=out[1], per_thread=out[2],
-                smem_bytes=out[3], ctas=ctas)
+                smem_bytes=out[3])
 
 
-def roll_chain(a: torch.Tensor, iters: int,
-               ctas: int = DEFAULT_CTAS) -> torch.Tensor:
+def roll_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     """The chain applied ``iters`` times to ``a`` (R, C), into a new
-    tensor; ``ctas`` blocks a row on the card."""
-    check_shape(tuple(a.shape), ctas)
+    tensor."""
+    check_shape(tuple(a.shape))
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     if not _on_cuda(a):
         return roll_chain_plain(a, iters)
     lib = _library()
     R, C = a.shape
-    plan(a.shape, ctas)  # raises on a C past the design's widest
+    plan(a.shape)  # raises on a C past the design's widest
     if a.data_ptr() % 16:
         a = a.clone()  # the kernel reads whole float4s
     out = torch.empty_like(a)
     code = lib.roll_chain_launch(_ptr(a, (R, C), dev=a.device),
                                  _ptr(out, (R, C), dev=a.device), R, C,
-                                 int(iters), int(ctas), _stream(a.device))
+                                 int(iters), _stream(a.device))
     _check(lib, code, "launch")
     launches["roll_chain"] += 1
-    return out
-
-
-def roll_chain_part(a: torch.Tensor, iters: int, part: str) -> torch.Tensor:
-    """The chain with one part of the design alone, to time what each part
-    moves: ``part`` "vec" (128-bit accesses, a wrap test), "ghosts" (ghost
-    columns, 32-bit accesses) or "first" (neither: the first design's
-    scheme); one block a row. On a CPU tensor the plain twin."""
-    if part not in PARTS:
-        raise ValueError(f"part must be one of {tuple(PARTS)}, got {part!r}")
-    check_shape(tuple(a.shape), 1)
-    if iters < 0:
-        raise ValueError(f"iters must be >= 0, got {iters}")
-    if not _on_cuda(a):
-        return roll_chain_plain(a, iters)
-    lib = _library()
-    R, C = a.shape
-    plan(a.shape, 1)  # raises on a C past the design's widest
-    if a.data_ptr() % 16:
-        a = a.clone()
-    out = torch.empty_like(a)
-    vec, ghosts = PARTS[part]
-    code = lib.roll_chain_part_launch(
-        int(vec), int(ghosts), _ptr(a, (R, C), dev=a.device),
-        _ptr(out, (R, C), dev=a.device), R, C, int(iters), _stream(a.device))
-    _check(lib, code, f"part {part}")
-    part_launches[part] += 1
     return out
