@@ -82,7 +82,21 @@ and the script exits non-zero without printing a result:
     the design holds (its own ceiling) and its FLOP bound; then the
     roofline entry point
     ``fdtd_solver_antennas_tpu_torch.examples.chunk_roofline.main()`` on
-    the card, which prints its JSON line.
+    the card, which prints its JSON line;
+16. K1 batched (sweep slice): ``chunk_steps_batch`` against its plain
+    twin, two chunks with one variant frozen in the second, at the small
+    scene (B = 3, MUR/PEC/PML_4) and the canonical patch (B = 2,
+    MUR/PML_8), in the form the shape picks and every other form the plan
+    allows; B = 1 bit-equal to ``chunk_steps``; then the main path:
+    ``bench.py``'s 8-variant canonical-patch sweep (2,000 steps) through
+    ``prepare_patch_geometry_sweep`` and ``run_patch_geometry_sweep``
+    (asserts one ``chunk_steps_batch`` launch per chunk and no other
+    launch, eight distinct spectra), its prepare time, wall time,
+    aggregate rate and idle share, one launch at its shapes against the
+    twin and timed on the device beside its bound; the same eight variants
+    as eight unbatched ``chunk_steps`` runs in turns; ``tests/test_sweep.py``'s
+    two patches at 6,000 steps held to the cavity model, and its two
+    12 GHz horn apertures held to their gain.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -94,6 +108,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +126,7 @@ K3_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_shard.cu"
 K3_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1953"
 K4_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_steps.cu"
 K4_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:64"
+SWEEP_STEPS = 2000  # bench.py's geometry sweep (bench_geometry_sweep)
 K5_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/roll_chain.cu"
 K5_REPLACES = "examples/chunk_roofline.py:46"
 # NVIDIA H100 SXM data sheet peaks (at the 700 W limit)
@@ -1577,6 +1593,389 @@ def phase_roll_chain(card):
     return dict(row, launches=launches)
 
 
+def sweep_variants(n=8):
+    """``bench.py``'s sweep: canonical-patch variants, W 37.26 + 0.5·i mm,
+    L 28.83 + 0.4·i mm."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+
+    return [PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02,
+        W_mm=37.26 + 0.5 * i, L_mm=28.83 + 0.4 * i) for i in range(n)]
+
+
+def k1_batch_bound(ops, batch, n_sub, D):
+    """Bound of one ``chunk_steps_batch`` launch with every variant
+    stepping: per variant its fields (and ψ) in and out once and its ca/cb
+    in once; the shared source stamps, samples and probe table (code and
+    weight) in once; each variant's field value of every used entry read
+    and each sample written once per interval; per variant the operations
+    ``k1_chunk_bound`` counts."""
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    rows = ops.probes.n_rows
+    used = int(torch.count_nonzero(ops.probes.w))
+    nbytes = (4 * n * batch * (6 + 6 + 6 + 2 * psi) + 4 * n * n_src
+              + 4 * n_sub * D
+              + n_sub * (8 * used + batch * (4 * used + 4 * rows)))
+    flops = batch * (n_sub * D * n * (48 + 4 * psi) + n_sub * 2 * used)
+    return bound(nbytes, flops)
+
+
+def batch_tensors(st):
+    return (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h)
+
+
+def batch_inputs(sim, batch, seed, n_sub, n0=7):
+    """Batched operands of ``sim`` (variant b's ca/cb scaled by a seeded
+    factor near 1, variant 0 the sim's own), a seeded random batch state at
+    parity 1, a random waveform for two chunks from ``n0`` and staging
+    buffers, on the card."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    rng = np.random.default_rng(seed)
+    ops = sim.operands
+    scale = torch.from_numpy(rng.uniform(0.9, 1.1, (batch, 1, 1, 1)).astype(
+        np.float32)).to(sim.device)
+    scale[0] = 1.0
+    bops = fdtd_cuda.batch_operands(ops, [c[None] * scale for c in ops.ca],
+                                    [c[None] * scale for c in ops.cb])
+    st = fdtd_cuda.new_batch_state(sim.padded_shape, sim.device,
+                                   ops.pml is not None, batch)
+    for t in batch_tensors(st):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    st.parity = [1] * batch
+    wf = torch.from_numpy(rng.uniform(
+        -1.0, 1.0, n0 + 2 * n_sub * sim.probe_decim).astype(np.float32)).to(sim.device)
+    bufs = torch.zeros((batch, n_sub, ops.probes.n_rows), device=sim.device)
+    return bops, st, wf, bufs
+
+
+def clone_batch(st):
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    return fdtd_cuda.YeeBatch(
+        e=[tuple(t.clone() for t in st.e[p]) for p in range(2)],
+        h=tuple(t.clone() for t in st.h),
+        psi_e=tuple(t.clone() for t in st.psi_e),
+        psi_h=tuple(t.clone() for t in st.psi_h), parity=list(st.parity))
+
+
+def batch_forms(ops, st):
+    """The forms to compare: the one the plan picks (None), then each other
+    form the plan allows (a refused resident form is not launched)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    picked = fdtd_cuda.chunk_launch_plan(ops, st).form
+    forms = [None]
+    for form in ("resident", "streamed"):
+        if form == picked:
+            continue
+        try:
+            fdtd_cuda.chunk_launch_plan(ops, st, form)
+        except ValueError:
+            continue
+        forms.append(form)
+    return forms
+
+
+def phase_batch_vs_plain(card):
+    """``chunk_steps_batch`` against ``chunk_steps_batch_plain``: two chunks
+    from parity 1 on a seeded random batch, every variant stepping in the
+    first and variant 1 frozen in the second; every field, ψ and sample
+    compared, the frozen variant untouched; in the form the plan picks and
+    each other form it allows. Then B = 1 against ``chunk_steps`` at the
+    canonical patch, bit for bit. Returns the worst max |err|."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    worst = 0.0
+    for label, make, boundary, batch, decim, n_sub in (
+            ("small", small_scene, "MUR", 3, 5, 3),
+            ("small", small_scene, "PEC", 3, 5, 3),
+            ("small", small_scene, "PML_4", 3, 5, 3),
+            ("canonical", canonical_scene, "MUR", 2, 89, 1),
+            ("canonical", canonical_scene, "PML_8", 2, 89, 1)):
+        sim = one_chunk_sim(make, boundary, n_sub * decim, mode="chunk",
+                            decim=decim)
+        D = sim.probe_decim
+        ops, base, wf, bufs = batch_inputs(sim, batch, seed=107, n_sub=n_sub)
+        for form in batch_forms(ops, base):
+            a, bufs_a = clone_batch(base), bufs.clone()
+            b, bufs_b = clone_batch(base), bufs.clone()
+            plan = fdtd_cuda.chunk_launch_plan(ops, a, form)
+            err, same = 0.0, True
+            for i, mask in enumerate(([True] * batch,
+                                      [v != 1 for v in range(batch)])):
+                if i == 1:
+                    frozen = [t[1].clone() for t in batch_tensors(a)]
+                    frozen_bufs = bufs_a[1].clone()
+                n0 = 7 + i * n_sub * D
+                fdtd_cuda.chunk_steps_batch(ops, a, wf, n0, n_sub, D, bufs_a,
+                                            mask, form=form)
+                fdtd_cuda.chunk_steps_batch_plain(ops, b, wf, n0, n_sub, D,
+                                                  bufs_b, mask)
+                torch.cuda.synchronize()
+                assert a.parity == b.parity, (a.parity, b.parity)
+                got = (*batch_tensors(a), bufs_a)
+                ref = (*batch_tensors(b), bufs_b)
+                err = max(err, *(close(f"chunk_steps_batch {label} {boundary} "
+                                       f"chunk {i}", x, y)
+                                 for x, y in zip(got, ref)))
+                same = same and all(torch.equal(x, y) for x, y in zip(got, ref))
+            untouched = (all(torch.equal(t[1], t0) for t, t0 in
+                             zip(batch_tensors(a), frozen))
+                         and torch.equal(bufs_a[1], frozen_bufs))
+            assert untouched, "chunk_steps_batch wrote a frozen variant"
+            worst = max(worst, err)
+            say("16", f"{label} {sim.grid.shape} {boundary}, B={batch}, {n_sub} "
+                      f"intervals x D={D}, {plan_text(plan)}: chunk_steps_batch "
+                      f"== plain over two chunks, variant 1 frozen in the "
+                      f"second (untouched {untouched}; bit-equal {same}), max "
+                      f"|err| {err:.3e} [{card}]")
+        if label == "canonical":
+            one, st1, wf1, bufs1 = batch_inputs(sim, 1, seed=109, n_sub=n_sub)
+            v0 = st1.variant(0)
+            ref = fdtd_cuda.YeeState(
+                e=[tuple(t.clone() for t in v0.e[p]) for p in range(2)],
+                h=tuple(t.clone() for t in v0.h),
+                psi_e=tuple(t.clone() for t in v0.psi_e),
+                psi_h=tuple(t.clone() for t in v0.psi_h), parity=1)
+            rbufs = bufs1[0].clone()
+            plan1 = fdtd_cuda.chunk_launch_plan(one, st1)
+            fdtd_cuda.chunk_steps_batch(one, st1, wf1, 7, n_sub, D, bufs1, [True])
+            fdtd_cuda.chunk_steps(sim.operands, ref, wf1, 7, n_sub, D, rbufs)
+            torch.cuda.synchronize()
+            got = st1.variant(0)
+            same = (got.parity == ref.parity and torch.equal(bufs1[0], rbufs)
+                    and all(torch.equal(x, y) for x, y in zip(
+                        (*got.fields, *got.psi_e, *got.psi_h),
+                        (*ref.fields, *ref.psi_e, *ref.psi_h))))
+            assert same, f"B = 1 differs from chunk_steps at {label} {boundary}"
+            say("16", f"{label} {boundary}, B=1, {plan_text(plan1)}: "
+                      f"chunk_steps_batch bit-equal to chunk_steps [{card}]")
+    return worst
+
+
+def phase_sweep_main_path(card):
+    """``bench.py``'s 8-variant sweep through the entry points a user
+    calls: prepare, then a run whose launches are counted (one
+    ``chunk_steps_batch`` per chunk, nothing else) and a rerun, eight
+    distinct spectra; one launch at its shapes against the twin and timed
+    on the device beside its bound; the same variants as eight unbatched
+    ``chunk_steps`` runs, in turns with the batched run."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_patch_geometry_sweep, run_patch_geometry_sweep)
+
+    variants = sweep_variants()
+    B = len(variants)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = prepare_patch_geometry_sweep(variants, n_steps_max=SWEEP_STEPS,
+                                        end_criteria=1e-4, device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    assert prep.ok, prep.message
+    sim = prep.sim
+    cells = sim.grid.num_cells
+    D, n_sub, chunk, _ = chunk_geometry(sim)
+    coeffs = prep.batched_coeffs
+    bops = fdtd_cuda.batch_operands(
+        sim.operands, [coeffs["ca_" + c] for c in ("ex", "ey", "ez")],
+        [coeffs["cb_" + c] for c in ("ex", "ey", "ez")])
+    plan = fdtd_cuda.chunk_launch_plan(
+        bops, fdtd_cuda.new_batch_state(sim.padded_shape, sim.device, False, B))
+    say("16", f"sweep prepared: {B} variants on the union grid {sim.grid.shape} "
+              f"({cells:,} cells, {B * cells:,} cell-updates a step), D={D}, "
+              f"{n_sub} intervals a chunk, in {prep_s:.2f} s; {plan_text(plan)} "
+              f"[{card}]")
+
+    fdtd_cuda.reset_launch_counts()
+    res = run_patch_geometry_sweep(prep)
+    counts = dict(fdtd_cuda.launches)
+    forms = dict(fdtd_cuda.launches_by_form)
+    assert res.ok, res.message
+    chunks = -(-res.steps_run // chunk)
+    assert counts["chunk_steps_batch"] == chunks > 0, counts
+    assert all(v == 0 for k, v in counts.items()
+               if k != "chunk_steps_batch"), counts
+    assert forms[plan.form] == chunks, forms
+    assert (res.steps == res.steps_run).all(), res.steps
+    uf = np.stack([sp.uf for sp in res.spectra]) / sim.dft_dt  # raw DFT sums
+    assert np.isfinite(uf).all(), "non-finite port DFTs"
+    for i in range(1, B):
+        assert not np.allclose(uf[0], uf[i], rtol=1e-3), (
+            f"variant {i} spectrum identical to variant 0: geometry broadcast")
+    res2 = run_patch_geometry_sweep(prep)
+    assert res2.ok, res2.message
+    np.testing.assert_array_equal(
+        np.stack([sp.uf for sp in res2.spectra]) / sim.dft_dt, uf)
+
+    # one launch at the main path's shapes against the twin, and its time
+    _ops, base, wf, bufs = batch_inputs(sim, B, seed=113, n_sub=n_sub)
+    a, bufs_a = clone_batch(base), bufs.clone()
+    fdtd_cuda.chunk_steps_batch(bops, a, wf, 7, n_sub, D, bufs_a, [True] * B)
+    b, bufs_b = clone_batch(base), bufs.clone()
+    del base
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    fdtd_cuda.chunk_steps_batch_plain(bops, b, wf, 7, n_sub, D, bufs_b,
+                                      [True] * B)
+    ev1.record()
+    ev1.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)
+    got, ref = (*batch_tensors(a), bufs_a), (*batch_tensors(b), bufs_b)
+    err = max(close(f"chunk_steps_batch sweep {i}", x, y)
+              for i, (x, y) in enumerate(zip(got, ref)))
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    del b, bufs_b, got, ref
+    times = [device_ms(lambda: fdtd_cuda.chunk_steps_batch(
+        bops, a, wf, 7, n_sub, D, bufs_a, [True] * B), reps=3, warmup=1)
+        for _ in range(2)]
+    ms = min(times)
+    b_ms, b_by = k1_batch_bound(bops, B, n_sub, D)
+    steps = n_sub * D
+    say("16", f"chunk_steps_batch at the sweep's shapes (B={B}, {n_sub} x "
+              f"D={D}), {plan_text(plan)}: == plain (bit-equal {same}), max "
+              f"|err| {err:.3e}; device "
+              f"{' / '.join(f'{t * 1e3:,.1f}' for t in times)} us/launch "
+              f"({ms * 1e3 / steps:.2f} us a step of {B} variants, "
+              f"{ms * 1e3 / steps / B:.2f} us a variant-step); plain "
+              f"{plain_ms * 1e3:,.1f} us; bound {b_ms * 1e3:.2f} us by {b_by} "
+              f"({b_ms / ms:.4f} of it) [{card}]")
+    del a, bufs_a
+
+    # the batched run against eight unbatched chunk_steps runs, in turns
+    walls = {"batched": [res.wall_time_s, res2.wall_time_s], "unbatched": []}
+    sims = [dataclasses.replace(sim, operands=fdtd_cuda.variant_operands(bops, v))
+            for v in range(B)]
+    single_counts = None
+    for turn in range(2):
+        fdtd_cuda.reset_launch_counts()
+        total = 0.0
+        for v, sim_v in enumerate(sims):
+            out, t = timed_run(sim_v, fdtd_cuda.kernels)
+            total += t
+            if turn == 0:
+                assert out["steps"] == res.steps_run, (out["steps"], res.steps_run)
+                close(f"unbatched variant {v} uf", out["uf"][0],
+                      res.spectra[v].uf / sim.dft_dt)
+        single_counts = single_counts or dict(fdtd_cuda.launches)
+        walls["unbatched"].append(total)
+        res3 = run_patch_geometry_sweep(prep)
+        assert res3.ok, res3.message
+        walls["batched"].append(res3.wall_time_s)
+    assert single_counts["chunk_steps"] == B * chunks, single_counts
+    busy = chunks * ms / 1e3
+    rate = [cells * res.steps_run * B / t / 1e6 for t in walls["batched"]]
+    say("16", f"sweep main path: {B} variants x {res.steps_run} steps "
+              f"({SWEEP_STEPS} asked) in "
+              f"{' / '.join(f'{t:.3f}' for t in walls['batched'])} s (the "
+              f"counted run, then reruns), aggregate "
+              f"{' / '.join(f'{r:.1f}' for r in rate)} Mcell-updates/s; "
+              f"launches {counts['chunk_steps_batch']} chunk_steps_batch by "
+              f"form {forms}, busy {busy:.3f} s (launches x device time), idle "
+              f"share {idle_text(walls['batched'], busy)}; eight distinct "
+              f"spectra, f_res {np.round(res.f_res_hz / 1e9, 4).tolist()} GHz, "
+              f"|S11|min {np.round(res.s11_min_db, 2).tolist()} dB [{card}]")
+    say("16", f"the same {B} variants as {B} unbatched chunk_steps runs "
+              f"({single_counts['chunk_steps']} launches, uf == the batched "
+              f"run's): {' / '.join(f'{t:.3f}' for t in walls['unbatched'])} s "
+              f"against the batched {walls['batched'][2]:.3f} / "
+              f"{walls['batched'][3]:.3f} s in the same turns "
+              f"({walls['unbatched'][0] / walls['batched'][2]:.2f}x / "
+              f"{walls['unbatched'][1] / walls['batched'][3]:.2f}x) [{card}]")
+    return dict(launches=counts["chunk_steps_batch"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def cavity_f_hz(w_mm: float) -> float:
+    """``tests/test_sweep.py``'s cavity-model fundamental of the fed W."""
+    from fdtd_solver_antennas_tpu_torch.physics import C0, delta_L, effective_eps
+
+    w = w_mm * 1e-3
+    eps_eff = effective_eps(4.3, 1.6e-3, w)
+    w_eff = w + 2 * delta_L(eps_eff, 1.6e-3, w)
+    return C0 / (2 * w_eff * np.sqrt(eps_eff))
+
+
+def phase_sweep_physics(card):
+    """``tests/test_sweep.py``'s two patches (6,000 steps) against the
+    cavity model, and its two 12 GHz horn apertures against their gain."""
+    from fdtd_solver_antennas_tpu_torch.models.params import (
+        HornAntennaParams, PatchAntennaParams)
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_horn_aperture_sweep, prepare_patch_geometry_sweep,
+        run_horn_aperture_sweep, run_patch_geometry_sweep)
+
+    geoms = [(26.0, 33.0), (32.0, 41.0)]  # (L_mm, W_mm); W is the fed x-dim
+    prep = prepare_patch_geometry_sweep(
+        [PatchAntennaParams.from_user_units(frequency_ghz=2.45, er=4.3,
+                                            h_mm=1.6, L_mm=L, W_mm=W)
+         for L, W in geoms], n_steps_max=6000, device="cuda")
+    assert prep.ok, prep.message
+    res = run_patch_geometry_sweep(prep)
+    assert res.ok, res.message
+    dips = []
+    for (_L, W), sp in zip(geoms, res.spectra):
+        f_pred = cavity_f_hz(W)
+        db = 20 * np.log10(np.abs(sp.s11) + 1e-30)
+        win = (sp.freq_hz > 0.85 * f_pred) & (sp.freq_hz < 1.15 * f_pred)
+        assert win.any(), f"prediction {f_pred / 1e9:.2f} GHz out of band"
+        i = int(np.argmin(np.where(win, db, 0.0)))
+        rel = abs(sp.freq_hz[i] - f_pred) / f_pred
+        assert db[i] < -8.0, f"W {W} mm: dip {db[i]:.2f} dB not below -8"
+        assert rel < 0.08, (f"W {W} mm: dip at {sp.freq_hz[i] / 1e9:.4f} GHz, "
+                            f"{rel:.1%} from the cavity model")
+        dips.append((W, sp.freq_hz[i], db[i], f_pred, rel))
+    assert dips[0][1] > dips[1][1], "the bigger patch does not resonate lower"
+    say("16", f"patch sweep {prep.sim.grid.shape}, steps {res.steps.tolist()}: "
+              + "; ".join(f"W {W} mm dip {f / 1e9:.4f} GHz at {d:.2f} dB, cavity "
+                          f"model {fp / 1e9:.4f} GHz ({r:.2%} off)"
+                          for W, f, d, fp, r in dips)
+              + f"; run {res.wall_time_s:.3f} s [{card}]")
+
+    base = HornAntennaParams.from_user_units(
+        frequency_ghz=12.0, throat_a_mm=19.05, throat_b_mm=9.525,
+        aperture_A_mm=48.0, aperture_B_mm=36.0, length_mm=40.0)
+    apertures = [(30.0, 24.0, 30.0), (55.0, 42.0, 45.0)]
+    hprep = prepare_horn_aperture_sweep(base, apertures, mesh_ppw=11.0,
+                                        n_steps_max=5000, device="cuda")
+    assert hprep.ok, hprep.message
+    hres = run_horn_aperture_sweep(hprep)
+    assert hres.ok, hres.message
+    d0, d1 = hres.Dmax_dbi
+    assert d1 > d0 + 2.0, f"Dmax {d0:.2f} -> {d1:.2f} dBi: not 2 dB more"
+    assert 5.0 < d0 < 20.0 and 8.0 < d1 < 22.0, (d0, d1)
+    say("16", f"horn sweep {hprep.sim.grid.shape}, apertures {apertures}: Dmax "
+              f"{d0:.3f} / {d1:.3f} dBi, steps {hres.steps.tolist()}, run "
+              f"{hres.wall_time_s:.3f} s [{card}]")
+
+
+def ptxas_kernels(log):
+    """(kernel, registers, spills) of each entry function in an nvcc
+    ``-Xptxas -v`` log; a template kernel named as name<args>."""
+    rows, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            n = re.match(r"_Z(\d+)", name)
+            fn = name[n.end():n.end() + int(n.group(1))] if n else name
+            args = re.match(r"I((?:Li-?\d+E)+)E", name[n.end() + len(fn):] if n else "")
+            if args:
+                fn += f"<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+            spill = ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and fn is not None:
+            rows.append((fn, ln.split(":", 1)[-1].strip(), spill))
+            fn = None
+    return rows
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1611,9 +2010,8 @@ def main() -> int:
     for name, (lib_path, build_s, log) in builds.items():
         say("2", f"built {lib_path.name} in {build_s:.1f} s (nvcc "
                  f"{' '.join(_build.NVCC_FLAGS[:2])})")
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                say("2", f"ptxas {name}: {ln.strip()}")
+        for fn, regs, spill in ptxas_kernels(log):
+            say("2", f"ptxas {name}: {fn}: {regs}; {spill}")
     fdtd_cuda._library()
     fdtd_stream._library()
     fdtd_shard._library()
@@ -1657,6 +2055,12 @@ def main() -> int:
     k4 = timed_phase("14", phase_steps_vs_plain, card)
     k4["launches"] = timed_phase("14", phase_steps_main_path, k4, card)
     k5 = timed_phase("15", phase_roll_chain, card)
+
+    # 16. the sweep slice (K1 batched)
+    worst = timed_phase("16", phase_batch_vs_plain, card)
+    say("16", f"all chunk_steps_batch comparisons agree; worst max |err| {worst:.3e}")
+    k1b = timed_phase("16", phase_sweep_main_path, card)
+    timed_phase("16", phase_sweep_physics, card)
 
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
@@ -1705,7 +2109,10 @@ def main() -> int:
          "library_ms": None}
         for name, source, replaces, row in (
             ("interval_steps", K4_SOURCE, K4_REPLACES, k4),
-            ("roll_chain", K5_SOURCE, K5_REPLACES, k5))
+            ("roll_chain", K5_SOURCE, K5_REPLACES, k5),
+            # K1 under jax.vmap (solvers/sweep.py:69-103); no PyTorch call
+            # computes a batched Yee chunk
+            ("chunk_steps_batch", K1_SOURCE, K1_REPLACES, k1b))
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

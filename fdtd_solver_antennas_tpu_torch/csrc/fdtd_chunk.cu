@@ -37,6 +37,29 @@
 // 4.2M-cell grid run in chunk mode about 500 steps of ~200 us (0.1 s).
 // That is fine on a card that drives no display (no watchdog).
 //
+// The batched chunk (chunk_batch_kernel; replaces the same pallas_call under
+// jax.vmap in fdtd_solver_antennas_tpu/solvers/sweep.py::_make_vmapped_run,
+// where Mosaic's batching rule makes the design variant an outer parallel
+// grid dimension). One cooperative launch steps B variants of one grid
+// through the same chunk: the fields, the psi and ca/cb of each variant are
+// (B, nx, ny, nz) arrays, its cells at vo = b * nx*ny*nz; the source stamps,
+// the profiles, the probe table and the source samples are shared (every
+// variant is driven by the same excitation, as the JAX sweep binds its
+// source operands once, in_axes=None). A device int array active[B] says
+// which variants step: a frozen one (converged, as a batched while_loop
+// leaves a member whose condition is false) is neither stepped nor sampled,
+// but its blocks still reach every grid barrier. Every active variant shares
+// the parity p (they have all stepped the same chunks). After each interval
+// each active variant gathers the same probe rows at its own offset into
+// out[b, j, :]. The passes are the shared ones with a variant offset
+// (csrc/yee_persist.cuh): the streamed form walks the flattened (variant,
+// cell) space, the resident form gives each variant an equal share of the
+// blocks, so a block's shared memory holds only its variant's coefficients.
+// At the 8-variant canonical sweep (about 4.2M cells a step) the operands
+// do not fit on chip and the plan picks the streamed form; bytes bound it
+// there, as on any grid that spills the L2. The unbatched chunk_steps_kernel
+// is compiled from the same passes with vo = 0.
+//
 // What bounds it on the card: at the canonical patch (56 x 55 x 50 =
 // 154,000 cells, 0.62 MB per array) a launch must move the fields in and
 // out once, ca/cb and the source once (about 12 MB, 3.5 us over HBM) and
@@ -403,18 +426,84 @@ chunk_steps_kernel(const ChunkArgs a, int p, const float* __restrict__ wf,
   }
 }
 
+// The probe rows of every active variant of bt into out (variant b's row r
+// at out[b * out_stride + r]), (variant, row) pairs spread over all threads;
+// variant b's fields at vo = b * cells from the pointers given.
+__device__ __noinline__ void gather_rows_batch(
+    const float* ex, const float* ey, const float* ez, const float* hx,
+    const float* hy, const float* hz, const int* __restrict__ code,
+    const float* __restrict__ w, const int* __restrict__ meta,
+    float* __restrict__ out, const int64_t out_stride, const int cells,
+    const persist::Batch bt) {
+  const int stride = gridDim.x * blockDim.x;
+  const int rows = __ldg(meta + kMetaRow0 + kProbeBlocks);
+  const int total = rows * bt.n;
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < total; g += stride) {
+    const int b = g / rows;
+    if (__ldg(bt.active + b) == 0) continue;
+    const int r = g - b * rows;
+    const int64_t vo = (int64_t)b * cells;
+    out[b * out_stride + r] = probe_row<kChunkGatherUnroll>(
+        code, w, meta, r, ex + vo, ey + vo, ez + vo, hx + vo, hy + vo, hz + vo);
+  }
+}
+
+// One termination chunk of every active variant of bt: n_sub intervals of
+// d_steps steps from e[p], the source sample of step t at wf[t], variant b's
+// interval j samples into out[(b * n_sub + j) * probe rows ...].
+template <int kCells, int kFlav>
+__global__ void __launch_bounds__(persist::threads(kCells),
+                                  persist::min_blocks(kCells))
+chunk_batch_kernel(const ChunkArgs a, int p, const float* __restrict__ wf,
+                   const int n_sub, const int d_steps, float* __restrict__ out,
+                   const persist::Batch bt) {
+  cg::grid_group grid = cg::this_grid();
+  const int cells = a.o.nx * a.o.ny * a.o.nz;
+  // the resident form: this block's variant, its offset and its cells in it
+  // (gridDim.x is a multiple of bt.n); the streamed form walks them all
+  int vo = 0;
+  bool on = true;
+  persist::Range r = {0, 0};
+  if constexpr (kCells > 0) {
+    const unsigned share = gridDim.x / (unsigned)bt.n;
+    const unsigned v = blockIdx.x / share;
+    r = persist::block_range(a.o, share, blockIdx.x - v * share);
+    vo = (int)v * cells;
+    on = __ldg(bt.active + v) != 0;
+    if (on) persist::load_operands<kCells>(a.o, r, vo);
+  }
+  const int steps = n_sub * d_steps;
+  const int rows = a.probes.rows;
+  for (int t = 0; t < steps; ++t) {
+    if (on) persist::h_pass<kCells, kFlav, true>(a.o, p, r, vo, bt);
+    grid.sync();
+    if (on) persist::e_pass<kCells, kFlav, true>(a.o, p, r, wf[t], vo, bt);
+    grid.sync();
+    p ^= 1;
+    if ((t + 1) % d_steps == 0) {
+      gather_rows_batch(a.o.e[p][0], a.o.e[p][1], a.o.e[p][2], a.o.h[0],
+                        a.o.h[1], a.o.h[2], a.probes.code, a.probes.w,
+                        a.probes.meta, out + (int64_t)(t / d_steps) * rows,
+                        (int64_t)n_sub * rows, cells, bt);
+      if (t + 1 < steps) grid.sync();  // the next H pass overwrites what it read
+    }
+  }
+}
+
 namespace {
 
 // by boundary (row: PEC, MUR, CPML) and form (column)
-#define PERSIST_FORMS(F)                                                \
-  {(const void*)chunk_steps_kernel<0, F>,                               \
-   (const void*)chunk_steps_kernel<1, F>,                               \
-   (const void*)chunk_steps_kernel<2, F>,                               \
-   (const void*)chunk_steps_kernel<3, F>,                               \
-   (const void*)chunk_steps_kernel<4, F>}
+#define PERSIST_FORMS(K, F)                                             \
+  {(const void*)K<0, F>, (const void*)K<1, F>, (const void*)K<2, F>,    \
+   (const void*)K<3, F>, (const void*)K<4, F>}
 const void* const kKernels[persist::kFlavours][persist::kMaxCells + 1] = {
-    PERSIST_FORMS(persist::kPec), PERSIST_FORMS(persist::kMur),
-    PERSIST_FORMS(persist::kCpml)};
+    PERSIST_FORMS(chunk_steps_kernel, persist::kPec),
+    PERSIST_FORMS(chunk_steps_kernel, persist::kMur),
+    PERSIST_FORMS(chunk_steps_kernel, persist::kCpml)};
+const void* const kBatchKernels[persist::kFlavours][persist::kMaxCells + 1] = {
+    PERSIST_FORMS(chunk_batch_kernel, persist::kPec),
+    PERSIST_FORMS(chunk_batch_kernel, persist::kMur),
+    PERSIST_FORMS(chunk_batch_kernel, persist::kCpml)};
 #undef PERSIST_FORMS
 static_assert(persist::kMaxCells == 4, "one kernel per resident form");
 
@@ -474,6 +563,34 @@ int fdtd_chunk_steps(const ChunkArgs* a, int p, const float* wf, int n0,
                     (void*)&n_sub, (void*)&d, (void*)&out};
   return (int)persist::launch(args.o, kKernels[persist::flavour(args.o)], cells,
                               blocks, params, stream);
+}
+
+// The launch plan of chunk_steps_batch for `batch` variants of a's grid
+// (a's per-variant pointers at variant 0), as fdtd_chunk_plan.
+int fdtd_chunk_batch_plan(const ChunkArgs* a, int request, int batch,
+                          int* out) {
+  return (int)persist::plan(a->o, kBatchKernels[persist::flavour(a->o)],
+                            request, out, batch);
+}
+
+// One chunk of every variant b with active[b] != 0 (active: `batch` ints on
+// the device), n_sub intervals of d steps from e[p], by the planned form:
+// the source sample of step s of interval j at wf[n0 + j*d + s], variant b's
+// interval j samples into out[(b * n_sub + j) * probe rows ...].
+int fdtd_chunk_batch_steps(const ChunkArgs* a, int p, const float* wf, int n0,
+                           int n_sub, int d, float* out, const int* active,
+                           int batch, int cells, int blocks, void* stream) {
+  if (n_sub < 1 || d < 1 || n0 < 0 || wf == nullptr || active == nullptr ||
+      batch < 1 || (a->probes.rows > 0 && out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ChunkArgs args = *a;
+  const float* w = wf + n0;
+  persist::Batch bt = {active, batch};
+  void* params[] = {(void*)&args, (void*)&p,     (void*)&w,  (void*)&n_sub,
+                    (void*)&d,    (void*)&out,   (void*)&bt};
+  return (int)persist::launch(args.o,
+                              kBatchKernels[persist::flavour(args.o)], cells,
+                              blocks, params, stream, batch);
 }
 
 int fdtd_h_update(const YeeArgs* a, int p, void* stream) {

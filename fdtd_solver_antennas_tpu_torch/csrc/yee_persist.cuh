@@ -1,6 +1,7 @@
 // Device code shared by the persistent steppers for Hopper (sm_90a): K1,
 // csrc/fdtd_chunk.cu's chunk_steps (a termination chunk of a whole grid
-// per launch, with the probe gather after each interval), K3,
+// per launch, with the probe gather after each interval) and its batched
+// form chunk_steps_batch (the same chunk for B design variants at once), K3,
 // csrc/fdtd_shard.cu (K steps of one rank's x-slab per launch), and K4,
 // csrc/fdtd_steps.cu (the D steps of one probe interval of a whole grid
 // per launch). Each kernel is one cooperative launch that runs
@@ -62,6 +63,17 @@
 // grows with blocks. The boundary (PEC, MUR or CPML) is a template
 // parameter too, so no kernel carries code for another boundary.
 //
+// Batched launches (K1's chunk_steps_batch). B variants of one grid: the
+// per-variant arrays (fields, psi, ca, cb) are (B, nx, ny, nz), variant b's
+// cells at vo = b * nx*ny*nz; the source stamps and the profiles are shared.
+// A cell's own index into a per-variant array is vo + c, c its index in the
+// grid, which the source stamp reads. Frozen variants (Batch::active[b] == 0)
+// are not stepped. The streamed form walks the flattened (variant, cell)
+// space; the resident form gives each variant B-th of the blocks, so a
+// block's cells lie inside one variant and its shared memory holds that
+// variant's coefficients. The unbatched kernels pass vo = 0 and take the
+// kBatch = false loops.
+//
 // Layout and edge semantics are K1's (csrc/fdtd_chunk.cu): contiguous
 // (nx, ny, nz) float32 arrays, z fastest; a neighbour outside the array
 // reads 0. Built with -fmad=false (ops/_build.py), so every cell rounds
@@ -107,6 +119,13 @@ struct Ops {
   int has_pml, has_mur;
   float dtmu;                    // dt / mu0
   float mur_c[3][2];             // MUR coefficient per axis and side
+};
+
+// The variants of a batched launch: n of them, variant b stepped where
+// active[b] != 0 (a device array). Unbatched launches pass {nullptr, 1}.
+struct Batch {
+  const int* active;
+  int n;
 };
 
 // Threads per block and blocks per SM asked of the compiler, by form
@@ -213,15 +232,18 @@ __device__ __forceinline__ int wall_side(const Ops& a, const int b,
 // The interior E update of component m at (i, j, k), without CPML (MUR and
 // CPML exclude each other), its operands read from memory: what the owner
 // of that cell computes, for the wall fix of a neighbour. Eo is the old
-// buffer of component m.
+// buffer of component m; vo the variant's offset into the per-variant
+// arrays (the source stamp is shared).
 template <bool kOnChip>
 __device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
                                       const int j, const int k, const float s,
                                       const float* Hx, const float* Hy,
-                                      const float* Hz, const float* Eo) {
+                                      const float* Hz, const float* Eo,
+                                      const int vo) {
   const int sy = a.nz;
   const int sx = a.ny * a.nz;
-  const int c = i * sx + j * sy + k;
+  const int cg = i * sx + j * sy + k;  // in the grid: the source stamp's index
+  const int c = vo + cg;
   float cu;
   if (m == 0) {
     const float hz_ym = j > 0 ? Hz[c - sy] : 0.f;
@@ -240,7 +262,7 @@ __device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
          (Hx[c] - hx_ym) * prof<kOnChip>(a, kID, 1, j);
   }
   float v = __ldg(a.ca[m] + c) * Eo[c] + __ldg(a.cb[m] + c) * cu;
-  if (a.src[m] != nullptr) v = v + __ldg(a.src[m] + c) * s;
+  if (a.src[m] != nullptr) v = v + __ldg(a.src[m] + cg) * s;
   return v;
 }
 
@@ -250,14 +272,15 @@ __device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
 // where E'[nb] is nb's interior update or, when nb sits on the earlier
 // wall axis A too, nb's A fix from the diagonal cell's interior update. v
 // is the cell's own update, returned when no wall of a tangential axis
-// holds it; Eo is the old buffer of component m.
+// holds it; Eo is the old buffer of component m; c = vo + the cell's index
+// in the grid.
 template <bool kOnChip>
 __device__ __forceinline__ float mur_fix(const Ops& a, const int m,
                                          const int i, const int j, const int k,
                                          const int c, const float v,
                                          const float s, const float* Hx,
                                          const float* Hy, const float* Hz,
-                                         const float* Eo) {
+                                         const float* Eo, const int vo) {
   const int x[3] = {i, j, k};
   int B = -1, A = -1, sB = 0, sA = 0;
 #pragma unroll
@@ -305,11 +328,11 @@ __device__ __forceinline__ float mur_fix(const Ops& a, const int m,
         eo_d = Eo[cn + dA * strA];
         en_d = e_at<kOnChip>(a, m, ni + (A == 0 ? dA : 0),
                              nj + (A == 1 ? dA : 0), nk + (A == 2 ? dA : 0), s,
-                             Hx, Hy, Hz, Eo);
+                             Hx, Hy, Hz, Eo, vo);
       }
       en_nb = eo_d + a.mur_c[A][sA] * (en_d - eo_nb);
     } else {
-      en_nb = e_at<kOnChip>(a, m, ni, nj, nk, s, Hx, Hy, Hz, Eo);
+      en_nb = e_at<kOnChip>(a, m, ni, nj, nk, s, Hx, Hy, Hz, Eo, vo);
     }
   }
   return eo_nb + a.mur_c[B][sB] * (en_nb - Eo[c]);
@@ -386,18 +409,26 @@ __device__ __forceinline__ bool on_wall(const Ops& a, const int i,
          wall_side(a, 2, k) >= 0;
 }
 
-// This block's cells [first, end).
+// This block's cells [first, end) of the grid.
 struct Range {
   int first, end;
 };
 
-__device__ __forceinline__ Range block_range(const Ops& a) {
+// Block bidx's cells when nblocks blocks share the grid. (Unsigned, as
+// gridDim.x and blockIdx.x are: signed counts cost a signed 64-bit divide.)
+__device__ __forceinline__ Range block_range(const Ops& a,
+                                             const unsigned nblocks,
+                                             const unsigned bidx) {
   const int64_t cells = (int64_t)a.nx * a.ny * a.nz;
-  const int64_t per_block = (cells + gridDim.x - 1) / gridDim.x;
-  int64_t first = (int64_t)blockIdx.x * per_block;
+  const int64_t per_block = (cells + nblocks - 1) / nblocks;
+  int64_t first = (int64_t)bidx * per_block;
   if (first > cells) first = cells;
   const int64_t end = first + per_block < cells ? first + per_block : cells;
   return {(int)first, (int)end};
+}
+
+__device__ __forceinline__ Range block_range(const Ops& a) {
+  return block_range(a, gridDim.x, blockIdx.x);
 }
 
 // Resident word w of slot r of this thread.
@@ -422,9 +453,10 @@ __device__ __forceinline__ void decode(const Ops& a, const int c, int& i,
 }
 
 // Resident form: the profiles and this thread's cells' operands into
-// shared memory, once per launch.
+// shared memory, once per launch; vo is the block's variant's offset.
 template <int kCells>
-__device__ __forceinline__ void load_operands(const Ops& a, const Range r) {
+__device__ __forceinline__ void load_operands(const Ops& a, const Range r,
+                                              const int vo = 0) {
   if constexpr (kCells > 0) {
     const int len = a.nx + a.ny + a.nz;
     for (int t = threadIdx.x; t < profiles(a) * len; t += blockDim.x) {
@@ -440,8 +472,8 @@ __device__ __forceinline__ void load_operands(const Ops& a, const Range r) {
       int i, j, k;
       decode(a, c, i, j, k);
       for (int m = 0; m < 3; ++m) {
-        word<kCells>(a, m, s) = a.ca[m][c];
-        word<kCells>(a, 3 + m, s) = a.cb[m][c];
+        word<kCells>(a, m, s) = a.ca[m][vo + c];
+        word<kCells>(a, 3 + m, s) = a.cb[m][vo + c];
         word<kCells>(a, 6 + m, s) = a.src[m] != nullptr ? a.src[m][c] : 0.f;
       }
       const unsigned u = ((unsigned)i * kPackJ + (unsigned)j) * kPackK + k;
@@ -451,17 +483,36 @@ __device__ __forceinline__ void load_operands(const Ops& a, const Range r) {
   }
 }
 
+// The streamed form's walk: element g of the flattened (variant, cell)
+// space is cell c of the variant at offset vo; false for a frozen variant.
+// Unbatched (kBatch false), g is the cell.
+template <bool kBatch>
+__device__ __forceinline__ bool batch_cell(const Batch bt, const int cells,
+                                           const int g, int& c, int& vo) {
+  c = g;
+  vo = 0;
+  if constexpr (kBatch) {
+    const int b = g / cells;
+    if (__ldg(bt.active + b) == 0) return false;
+    vo = b * cells;
+    c = g - vo;
+  }
+  return true;
+}
+
 // The passes take each field's components as restrict pointers: within a
 // pass the old E, the new E and H never alias one another. In the resident
 // form a compiler barrier stands between a thread's slots, so one slot's
 // loads are not hoisted above the previous slot's stores (that would spill
-// at 64 registers). The streamed form walks the grid with a grid stride,
-// all blocks together.
-template <int kCells, int kFlav>
+// at 64 registers); vo is the block's variant's offset. The streamed form
+// walks the grid (batched: the flattened variants) with a grid stride, all
+// blocks together.
+template <int kCells, int kFlav, bool kBatch>
 __device__ __forceinline__ void h_cells(
-    const Ops& a, const Range r, const float* __restrict__ Ex,
-    const float* __restrict__ Ey, const float* __restrict__ Ez,
-    float* __restrict__ Hx, float* __restrict__ Hy, float* __restrict__ Hz) {
+    const Ops& a, const Range r, const int vo, const Batch bt,
+    const float* __restrict__ Ex, const float* __restrict__ Ey,
+    const float* __restrict__ Ez, float* __restrict__ Hx,
+    float* __restrict__ Hy, float* __restrict__ Hz) {
   constexpr bool kPml = kFlav == kCpml;
   if constexpr (kCells > 0) {
 #pragma unroll
@@ -471,15 +522,18 @@ __device__ __forceinline__ void h_cells(
       if (c >= r.end) continue;
       int i, j, k;
       unpack(word<kCells>(a, kWordIJK, s), i, j, k);
-      h_cell<true, kPml>(a, c, i, j, k, Ex, Ey, Ez, Hx, Hy, Hz);
+      h_cell<true, kPml>(a, vo + c, i, j, k, Ex, Ey, Ez, Hx, Hy, Hz);
     }
   } else {
     const int cells = a.nx * a.ny * a.nz;
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < cells;
-         c += gridDim.x * blockDim.x) {
+    const int total = kBatch ? cells * bt.n : cells;
+    for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < total;
+         g += gridDim.x * blockDim.x) {
+      int c, v0;
+      if (!batch_cell<kBatch>(bt, cells, g, c, v0)) continue;
       int i, j, k;
       decode(a, c, i, j, k);
-      h_cell<false, kPml>(a, c, i, j, k, Ex, Ey, Ez, Hx, Hy, Hz);
+      h_cell<false, kPml>(a, v0 + c, i, j, k, Ex, Ey, Ez, Hx, Hy, Hz);
     }
   }
 }
@@ -487,16 +541,16 @@ __device__ __forceinline__ void h_cells(
 // The E update of one cell with its MUR walls: the cell's own update,
 // then the fix of each component it needs; `lane_z` leaves Ex and Ey of a
 // z wall cell to the caller (the neighbour lane's value, below). v gets
-// the values to store, eo the cell's old E. (Loading the fixes' operands
-// before the own update, to share one round of loads, spilled registers
-// and was slower on the card.)
+// the values to store, eo the cell's old E; c = vo + the cell's index in
+// the grid. (Loading the fixes' operands before the own update, to share
+// one round of loads, spilled registers and was slower on the card.)
 template <bool kOnChip, int kFlav>
 __device__ __forceinline__ void e_cell(
     const Ops& a, const int c, const int i, const int j, const int k,
     const bool lane_z, const float (&ca)[3], const float (&cb)[3],
     const float (&sr)[3], const float s, const float* Hx, const float* Hy,
     const float* Hz, const float* Ex, const float* Ey, const float* Ez,
-    float (&v)[3], float (&eo)[3]) {
+    float (&v)[3], float (&eo)[3], const int vo) {
   const float* Eo[3] = {Ex, Ey, Ez};
   if constexpr (kFlav == kMur) {
     e_own<kOnChip, false>(a, c, i, j, k, ca, cb, sr, s, Hx, Hy, Hz, Ex, Ey,
@@ -506,7 +560,7 @@ __device__ __forceinline__ void e_cell(
       for (int m = 0; m < 3; ++m)
         if (!(lane_z && m < 2))
           v[m] = mur_fix<kOnChip>(a, m, i, j, k, c, v[m], s, Hx, Hy, Hz,
-                                  Eo[m]);
+                                  Eo[m], vo);
     }
   } else {
     e_own<kOnChip, kFlav == kCpml>(a, c, i, j, k, ca, cb, sr, s, Hx, Hy, Hz,
@@ -521,10 +575,11 @@ __device__ __forceinline__ void e_cell(
 // E[nb]; both come over by warp shuffle. A z wall cell whose neighbour lies
 // in another warp or past the block's end recomputes it (mur_fix) instead;
 // either way the values are the same.
-template <int kCells, int kFlav>
+template <int kCells, int kFlav, bool kBatch>
 __device__ __forceinline__ void e_cells(
-    const Ops& a, const Range r, const float sample,
-    const float* __restrict__ Hx, const float* __restrict__ Hy,
+    const Ops& a, const Range r, const int vo, const Batch bt,
+    const float sample, const float* __restrict__ Hx,
+    const float* __restrict__ Hy,
     const float* __restrict__ Hz, const float* __restrict__ Ex,
     const float* __restrict__ Ey, const float* __restrict__ Ez,
     float* __restrict__ Nx, float* __restrict__ Ny, float* __restrict__ Nz) {
@@ -553,8 +608,8 @@ __device__ __forceinline__ void e_cells(
           cb[m] = word<kCells>(a, 3 + m, s);
           sr[m] = word<kCells>(a, 6 + m, s);
         }
-        e_cell<true, kFlav>(a, c, i, j, k, lane_z, ca, cb, sr, sample, Hx, Hy,
-                            Hz, Ex, Ey, Ez, v, eo);
+        e_cell<true, kFlav>(a, vo + c, i, j, k, lane_z, ca, cb, sr, sample, Hx,
+                            Hy, Hz, Ex, Ey, Ez, v, eo, vo);
       }
       if constexpr (kFlav == kMur) {  // every lane takes part
 #pragma unroll
@@ -571,48 +626,56 @@ __device__ __forceinline__ void e_cells(
         }
       }
       if (live) {
-        Nx[c] = v[0];
-        Ny[c] = v[1];
-        Nz[c] = v[2];
+        Nx[vo + c] = v[0];
+        Ny[vo + c] = v[1];
+        Nz[vo + c] = v[2];
       }
     }
   } else {
     const int cells = a.nx * a.ny * a.nz;
-    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < cells;
-         c += gridDim.x * blockDim.x) {
+    const int total = kBatch ? cells * bt.n : cells;
+    for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < total;
+         g += gridDim.x * blockDim.x) {
+      int c, v0;
+      if (!batch_cell<kBatch>(bt, cells, g, c, v0)) continue;
       int i, j, k;
       decode(a, c, i, j, k);
       float ca[3], cb[3], sr[3], v[3], eo[3];
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
-        ca[m] = __ldg(a.ca[m] + c);
-        cb[m] = __ldg(a.cb[m] + c);
+        ca[m] = __ldg(a.ca[m] + v0 + c);
+        cb[m] = __ldg(a.cb[m] + v0 + c);
         sr[m] = a.src[m] != nullptr ? __ldg(a.src[m] + c) : 0.f;
       }
-      e_cell<false, kFlav>(a, c, i, j, k, false, ca, cb, sr, sample, Hx, Hy,
-                           Hz, Ex, Ey, Ez, v, eo);
-      Nx[c] = v[0];
-      Ny[c] = v[1];
-      Nz[c] = v[2];
+      e_cell<false, kFlav>(a, v0 + c, i, j, k, false, ca, cb, sr, sample, Hx,
+                           Hy, Hz, Ex, Ey, Ez, v, eo, v0);
+      Nx[v0 + c] = v[0];
+      Ny[v0 + c] = v[1];
+      Nz[v0 + c] = v[2];
     }
   }
 }
 
-// H pass: every cell of the block, from e[p].
-template <int kCells, int kFlav>
+// H pass: every cell of the block, from e[p]. Batched (kBatch): the
+// resident form's cells of the variant at vo, the streamed form's of every
+// active variant of bt.
+template <int kCells, int kFlav, bool kBatch = false>
 __device__ __forceinline__ void h_pass(const Ops& a, const int p,
-                                       const Range r) {
-  h_cells<kCells, kFlav>(a, r, a.e[p][0], a.e[p][1], a.e[p][2], a.h[0],
-                         a.h[1], a.h[2]);
+                                       const Range r, const int vo = 0,
+                                       const Batch bt = Batch{nullptr, 1}) {
+  h_cells<kCells, kFlav, kBatch>(a, r, vo, bt, a.e[p][0], a.e[p][1],
+                                 a.e[p][2], a.h[0], a.h[1], a.h[2]);
 }
 
 // E pass: every cell of the block, from e[p] into e[1-p], walls fused in.
-template <int kCells, int kFlav>
+template <int kCells, int kFlav, bool kBatch = false>
 __device__ __forceinline__ void e_pass(const Ops& a, const int p,
-                                       const Range r, const float sample) {
-  e_cells<kCells, kFlav>(a, r, sample, a.h[0], a.h[1], a.h[2], a.e[p][0],
-                         a.e[p][1], a.e[p][2], a.e[1 - p][0], a.e[1 - p][1],
-                         a.e[1 - p][2]);
+                                       const Range r, const float sample,
+                                       const int vo = 0,
+                                       const Batch bt = Batch{nullptr, 1}) {
+  e_cells<kCells, kFlav, kBatch>(a, r, vo, bt, sample, a.h[0], a.h[1],
+                                 a.h[2], a.e[p][0], a.e[p][1], a.e[p][2],
+                                 a.e[1 - p][0], a.e[1 - p][1], a.e[1 - p][2]);
 }
 
 // ---------------------------------------------------------------------------
@@ -623,14 +686,17 @@ __device__ __forceinline__ void e_pass(const Ops& a, const int p,
 // cells a thread, all built for one boundary (null: not built). The plan:
 // the resident form with the fewest cells a thread that holds every cell,
 // at as many blocks as the occupancy query gives for it (never more than
-// one per threads(c) cells), else the streamed form. request: -1 either,
-// 0 streamed, 1 resident (refused when it does not fit). out: {cells a
-// thread (0 streamed), blocks, shared bytes, threads a block}.
+// one per threads(c) cells), else the streamed form. A batch of `batch`
+// variants splits the blocks the card holds evenly over them: the resident
+// form fits when each variant's share holds its cells; the streamed form
+// walks all variants' cells. request: -1 either, 0 streamed, 1 resident
+// (refused when it does not fit). out: {cells a thread (0 streamed),
+// blocks, shared bytes, threads a block}.
 inline cudaError_t plan(const Ops& a, const void* const* kernels,
-                        const int request, int out[4]) {
+                        const int request, int out[4], const int batch = 1) {
   const int64_t cells64 = (int64_t)a.nx * a.ny * a.nz;
-  if (cells64 < 1 || cells64 >= ((int64_t)1 << 31) || request < -1 ||
-      request > 1)
+  if (cells64 < 1 || batch < 1 || cells64 * batch >= ((int64_t)1 << 31) ||
+      request < -1 || request > 1)
     return cudaErrorInvalidValue;
   for (int c = 0; c <= kMaxCells; ++c)
     if (kernels[c] == nullptr) return cudaErrorInvalidValue;
@@ -658,12 +724,13 @@ inline cudaError_t plan(const Ops& a, const void* const* kernels,
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernels[c],
                                                           threads(c), bytes);
     if (err != cudaSuccess) return err;
-    if (per_sm < 1) continue;
+    const int share = per_sm * sms / batch;  // blocks a variant may take
+    if (share < 1) continue;
     const int wanted = (cells + threads(c) - 1) / threads(c);
-    const int blocks = per_sm * sms < wanted ? per_sm * sms : wanted;
+    const int blocks = share < wanted ? share : wanted;
     if ((cells + blocks - 1) / blocks <= c * threads(c)) {
       out[0] = c;
-      out[1] = blocks;
+      out[1] = blocks * batch;
       out[2] = (int)bytes;
       out[3] = threads(c);
       return cudaSuccess;
@@ -675,7 +742,7 @@ inline cudaError_t plan(const Ops& a, const void* const* kernels,
                                                       threads(0), 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int wanted = (cells + threads(0) - 1) / threads(0);
+  const int wanted = (int)((cells64 * batch + threads(0) - 1) / threads(0));
   out[0] = 0;
   out[1] = per_sm * sms < wanted ? per_sm * sms : wanted;
   out[2] = 0;
@@ -684,16 +751,19 @@ inline cudaError_t plan(const Ops& a, const void* const* kernels,
 }
 
 // One cooperative launch of the form with `cells` cells a thread on
-// `blocks` blocks; params are the kernel's arguments.
+// `blocks` blocks (of a batch of `batch` variants: the resident form gives
+// each variant blocks / batch of them); params are the kernel's arguments.
 inline cudaError_t launch(const Ops& a, const void* const* kernels,
                           const int cells, const int blocks, void** params,
-                          void* stream) {
+                          void* stream, const int batch = 1) {
   const int64_t n = (int64_t)a.nx * a.ny * a.nz;
-  if (cells < 0 || cells > kMaxCells || blocks < 1 || n < 1 ||
-      n >= ((int64_t)1 << 31) || kernels[cells] == nullptr)
+  if (cells < 0 || cells > kMaxCells || blocks < 1 || n < 1 || batch < 1 ||
+      n * batch >= ((int64_t)1 << 31) || kernels[cells] == nullptr)
     return cudaErrorInvalidValue;
+  const int64_t share = blocks / batch;  // the resident form's blocks a variant
   if (cells > 0 &&
-      ((n + blocks - 1) / blocks > (int64_t)cells * threads(cells) ||
+      (blocks % batch != 0 ||
+       (n + share - 1) / share > (int64_t)cells * threads(cells) ||
        a.nx > kPackI || a.ny > kPackJ || a.nz > kPackK))
     return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(a, cells);

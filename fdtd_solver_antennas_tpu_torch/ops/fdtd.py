@@ -16,7 +16,9 @@ The steps are K1's ``chunk_steps`` (``ops/fdtd_cuda.py``, "chunk" mode):
 one launch per termination chunk, the probe samples taken in the kernel;
 or, for grids whose working set exceeds the L2, the T-step kernel of
 ``ops/fdtd_stream.py`` ("stream" mode, K2), with K1's ``probe_gather``
-between launches; :func:`resolve_pallas_mode` picks one.
+between launches; :func:`resolve_pallas_mode` picks one. A geometry
+sweep's B design variants of one grid run through :func:`run_batched`:
+one ``chunk_steps_batch`` launch per chunk for all of them (batched K1).
 On a CUDA device the run launches the kernels, on the CPU it runs their
 plain PyTorch twins. There is no other switch. The accumulators and the resumable state
 keep the JAX package's layouts (stacked real/imaginary float32, fields in
@@ -60,13 +62,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def nf_to_complex(stacked) -> np.ndarray:
-    """Convert a stacked (re, im) float array (re/im on axis 0) to complex
-    on the host. Complex input passes through."""
+def nf_to_complex(stacked, axis: int = 0) -> np.ndarray:
+    """Convert a stacked (re, im) float array to complex on the host;
+    ``axis`` is the 2-wide re/im axis (1 for batched outputs, whose
+    variant axis leads). Complex input passes through."""
     a = _to_numpy(stacked)
     if np.iscomplexobj(a):
         return a
-    return a[0] + 1j * a[1]
+    return np.take(a, 0, axis) + 1j * np.take(a, 1, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -861,19 +864,22 @@ class ProbeDFT:
     table's row order (port V, port I, face E, face H); :meth:`flush`
     folds the chunk's samples into ``acc`` as matmuls. Shared by the
     single-device loop and the explicit multi-device run, whose ranks
-    keep partial sums.
+    keep partial sums. ``batch`` B > 0 puts a leading variant axis on the
+    staging rows and the sums (the batched loop, :func:`run_batched`).
     """
 
-    def __init__(self, sim: PreparedSimulation, n_sub: int, dev):
+    def __init__(self, sim: PreparedSimulation, n_sub: int, dev,
+                 batch: int = 0):
         f32 = dict(dtype=torch.float32, device=dev)
         n_ports, T = n_probe_rows(sim), sim.n_face_slots
         n_pf, n_nf = len(sim.port_freqs_hz), len(sim.nf_freqs_hz)
+        lead = (batch,) if batch else ()
         self.decim = int(sim.probe_decim)
         self.acc = {
-            "uf": torch.zeros((2, n_ports, n_pf), **f32),
-            "if_": torch.zeros((2, n_ports, n_pf), **f32),
-            "nf_e": torch.zeros((2, n_nf, T), **f32),
-            "nf_h": torch.zeros((2, n_nf, T), **f32),
+            "uf": torch.zeros((*lead, 2, n_ports, n_pf), **f32),
+            "if_": torch.zeros((*lead, 2, n_ports, n_pf), **f32),
+            "nf_e": torch.zeros((*lead, 2, n_nf, T), **f32),
+            "nf_h": torch.zeros((*lead, 2, n_nf, T), **f32),
         }
         self.w_port = torch.from_numpy(
             (2 * math.pi * sim.port_freqs_hz).astype(np.float32)).to(dev)
@@ -883,19 +889,20 @@ class ProbeDFT:
         # float32 scalars as Python floats: exact, and no host→device copy
         self.dt32 = float(np.float32(sim.dt))
         self.half_dt32 = float(np.float32(0.5 * sim.dt))
-        self.bufs = torch.zeros((n_sub, 2 * n_ports + 2 * T), **f32)
+        self.bufs = torch.zeros((*lead, n_sub, 2 * n_ports + 2 * T), **f32)
         b = self.bufs
-        self._v, self._i = b[:, :n_ports], b[:, n_ports:2 * n_ports]
-        self._fe, self._fh = b[:, 2 * n_ports:2 * n_ports + T], b[:, 2 * n_ports + T:]
+        self._v, self._i = b[..., :n_ports], b[..., n_ports:2 * n_ports]
+        self._fe = b[..., 2 * n_ports:2 * n_ports + T]
+        self._fh = b[..., 2 * n_ports + T:]
 
-    def flush(self, n0: int) -> None:
+    def flush(self, n0: int, active: Optional[torch.Tensor] = None) -> None:
         """Fold the chunk that started after step ``n0`` into ``acc``.
 
         Sample j sits after step n0 + (j+1)·D — E at that time, H half a
         step earlier. Angles in float32, as the JAX package forms them;
-        layout (re, −im).
+        layout (re, −im). Batched, ``active`` is a (B,) bool tensor on the
+        device: a frozen variant's sums stay exactly as they are.
         """
-        acc = self.acc
         t_e = ((self.j_idx + 1.0) * self.decim + float(n0)) * self.dt32
         t_h = t_e - self.half_dt32
 
@@ -903,15 +910,25 @@ class ProbeDFT:
             ang = w[:, None] * t[None, :]
             return torch.cos(ang), torch.sin(ang)
 
+        def fold(key, c, s, b, port):
+            d = torch.stack([c @ b, -(s @ b)], dim=-3)
+            if port:
+                d = d.transpose(-1, -2)
+            a = self.acc[key]
+            if active is None:
+                a += d
+            else:
+                a.copy_(torch.where(active.view(-1, *[1] * (a.dim() - 1)),
+                                    a + d, a))
+
         ce, se = dft(self.w_port, t_e)
         ch, sh = dft(self.w_port, t_h)
-        b_v, b_i = self._v, self._i
-        acc["uf"] += torch.stack([ce @ b_v, -(se @ b_v)]).transpose(1, 2)
-        acc["if_"] += torch.stack([ch @ b_i, -(sh @ b_i)]).transpose(1, 2)
+        fold("uf", ce, se, self._v, True)
+        fold("if_", ch, sh, self._i, True)
         ce, se = dft(self.w_nf, t_e)
         ch, sh = dft(self.w_nf, t_h)
-        acc["nf_e"] += torch.stack([ce @ self._fe, -(se @ self._fe)])
-        acc["nf_h"] += torch.stack([ch @ self._fh, -(sh @ self._fh)])
+        fold("nf_e", ce, se, self._fe, False)
+        fold("nf_h", ch, sh, self._fh, False)
 
 
 def chunk_geometry(sim: PreparedSimulation) -> Tuple[int, int, int, int]:
@@ -1068,4 +1085,113 @@ def _assemble_output(sim, st, acc, n, e_max, ratio, decim, aborted) -> dict:
         fields=fields,
         state=state,
         aborted=aborted,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the batched time loop: B design variants of one grid
+# ---------------------------------------------------------------------------
+
+def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
+                impl=None) -> dict:
+    """The chunk loop of :func:`run_simulation` for B design variants of
+    ``sim``'s grid at once, as the JAX package runs it under ``jax.vmap``
+    (``solvers/sweep.py``).
+
+    ``coeffs`` holds the variants' ``ca_ex`` … ``cb_ez`` as (B, X, Y, Z)
+    tensors on ``sim.device``; everything else is ``sim``'s and shared,
+    the excitation included (every variant is driven by ``sim``'s source
+    stamps, as the JAX sweep binds its source operands once). ``impl``
+    steps a chunk of every active variant with ``chunk_steps_batch``:
+    :data:`fdtd_cuda.kernels` (the default: one ``chunk_batch_kernel``
+    launch per chunk on CUDA, the plain twin on the CPU) or
+    :data:`fdtd_cuda.plain`. The run is always in chunk mode, whatever
+    :func:`resolve_pallas_mode` says for ``sim``: on the H100 K1 on a
+    grid that spills the L2 steps faster than the stream kernel, and a
+    batched K2 is not ported (ROADMAP B2).
+
+    Each variant stops on its own: after every chunk its energy ratio is
+    checked as in :func:`run_simulation` (one host sync for all B), and a
+    variant that is done is frozen, as a batched ``lax.while_loop`` keeps
+    a member whose condition is false: its step count, fields, DFT sums,
+    ``e_max`` and ``e_ratio`` stay as they were, and it is neither
+    stepped nor sampled again. The loop ends when every variant is done
+    or at ``n_steps_max``.
+
+    Returns the outputs of :func:`run_simulation` with a leading variant
+    axis: ``uf``/``if_`` (B, ports, Nf) complex, ``nf_e``/``nf_h`` per
+    face (B, 2, Nf, 2, nu, nv), ``steps``, ``e_ratio`` and ``e_max`` (B,)
+    arrays, ``fields`` six (B, X, Y, Z) tensors (each variant's E from its
+    own buffer), and ``state`` the :class:`fdtd_cuda.YeeBatch`.
+    """
+    impl = fdtd_cuda.kernels if impl is None else impl
+    cfg = sim.cfg
+    dev = sim.device
+    ops = fdtd_cuda.batch_operands(
+        sim.operands, [coeffs["ca_" + c] for c in ("ex", "ey", "ez")],
+        [coeffs["cb_" + c] for c in ("ex", "ey", "ez")])
+    B = ops.ca[0].shape[0]
+    decim, n_sub, chunk, _n_chunks = chunk_geometry(sim)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    st = fdtd_cuda.new_batch_state(sim.padded_shape, dev, ops.pml is not None, B)
+    probes = ProbeDFT(sim, n_sub, dev, batch=B)
+    wf = torch.tensor(padded_waveform(sim), **f32)
+    e_max = torch.zeros(B, **f32)
+    ratio = torch.ones(B, **f32)
+    active = [True] * B
+    on = torch.ones(B, dtype=torch.bool, device=dev)
+    steps = [0] * B
+    end = np.float32(cfg.end_criteria)
+    n = 0
+    while n < cfg.n_steps_max and any(active):
+        n0 = n
+        impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
+                               active)
+        n += chunk
+        probes.flush(n0, on)
+        # energy-decay check over each variant's current E: every active
+        # variant is at the same parity
+        p = st.parity[active.index(True)]
+        energy = sum((e * e).sum(dim=(1, 2, 3)) for e in st.e[p])
+        peak = torch.maximum(e_max, energy)
+        r = torch.where(peak > 0, energy / peak, torch.ones((), **f32))
+        e_max = torch.where(on, peak, e_max)
+        ratio = torch.where(on, r, ratio)
+        ratios = ratio.tolist()  # the one host sync of the chunk
+        done = [b for b in range(B) if active[b] and ratios[b] < end
+                and n > sim.n_source_steps]
+        for b in done:
+            active[b] = False
+            steps[b] = n
+        if done:
+            on = torch.tensor(active, dtype=torch.bool, device=dev)
+    for b in range(B):
+        if active[b]:
+            steps[b] = n
+    return _assemble_batch(sim, st, probes.acc, steps, e_max, ratio)
+
+
+def _assemble_batch(sim, st, acc, steps, e_max, ratio) -> dict:
+    """:func:`run_batched`'s output dict (see there)."""
+    n_nf = len(sim.nf_freqs_hz)
+
+    def split_faces(a):
+        a = _to_numpy(a)
+        return [
+            a[..., off : off + 2 * nu * nv].reshape(
+                a.shape[0], 2, n_nf, 2, nu, nv)
+            for (off, nu, nv) in sim.face_layout
+        ]
+
+    return dict(
+        uf=nf_to_complex(acc["uf"], axis=1),
+        if_=nf_to_complex(acc["if_"], axis=1),
+        nf_e=split_faces(acc["nf_e"]),
+        nf_h=split_faces(acc["nf_h"]),
+        steps=np.asarray(steps, np.int64),
+        e_ratio=_to_numpy(ratio),
+        e_max=_to_numpy(e_max),
+        fields=st.fields(),
+        state=st,
     )

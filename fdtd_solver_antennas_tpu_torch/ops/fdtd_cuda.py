@@ -13,6 +13,13 @@ probe samples in the kernel. So does the port:
   storage form :func:`chunk_launch_plan` picks from the shape
   (``ops/persist.py``). The engine's chunk loop (``ops/fdtd.py``) calls
   it once per chunk.
+- :func:`chunk_steps_batch`: the same chunk for B design variants of one
+  grid in one cooperative launch of ``chunk_batch_kernel`` (the TPU
+  kernel under ``jax.vmap``, which the JAX package's geometry sweeps run):
+  a :class:`YeeBatch` of (B, X, Y, Z) fields, ca/cb of that shape
+  (:func:`batch_operands`), everything else shared, a mask of the
+  variants that step. The engine's batched loop
+  (``ops/fdtd.py::run_batched``) calls it once per chunk.
 
 The first design's per-step kernels stay, each one launch:
 
@@ -50,11 +57,13 @@ import torch
 from . import persist
 
 PSI_KEYS = ("xy", "xz", "yz", "yx", "zx", "zy")
-KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather", "chunk_steps")
+KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather", "chunk_steps",
+           "chunk_steps_batch")
 
 # kernel launches per wrapper; only the wrappers' CUDA branches add to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-# the chunk_steps launches by storage form (``persist.FORMS``)
+# the chunk_steps and chunk_steps_batch launches by storage form
+# (``persist.FORMS``)
 launches_by_form: Dict[str, int] = dict.fromkeys(persist.FORMS, 0)
 
 
@@ -239,6 +248,73 @@ def new_state(shape, device, pml: bool) -> YeeState:
     )
 
 
+@dataclasses.dataclass
+class YeeBatch:
+    """The fields of B design variants of one grid, each tensor
+    (B, X, Y, Z) with variant b at index b (layout as :class:`YeeState`).
+    ``parity[b]`` is the E buffer that holds variant b's current E: a
+    frozen variant keeps the buffer it froze in while the others step
+    on. :meth:`variant` gives a :class:`YeeState` of views of one
+    variant."""
+
+    e: list  # [(Ex, Ey, Ez), (Ex, Ey, Ez)], each (B, X, Y, Z)
+    h: Tuple[torch.Tensor, ...]
+    psi_e: Tuple[torch.Tensor, ...] = ()
+    psi_h: Tuple[torch.Tensor, ...] = ()
+    parity: list = dataclasses.field(default_factory=list)
+    _chunk: object = None  # chunk_steps_batch's packed arguments
+    _mask: object = None  # (host mask, its int32 copy on the device)
+
+    @property
+    def batch(self) -> int:
+        return self.h[0].shape[0]
+
+    def variant(self, b: int) -> YeeState:
+        """Variant ``b`` as a state of views (its updates land here)."""
+        return YeeState(
+            e=[tuple(t[b] for t in self.e[0]), tuple(t[b] for t in self.e[1])],
+            h=tuple(t[b] for t in self.h),
+            psi_e=tuple(t[b] for t in self.psi_e),
+            psi_h=tuple(t[b] for t in self.psi_h),
+            parity=self.parity[b],
+        )
+
+    def fields(self) -> Tuple[torch.Tensor, ...]:
+        """Every variant's current (Ex, Ey, Ez, Hx, Hy, Hz), each
+        (B, X, Y, Z), E from the variant's own buffer (new tensors)."""
+        odd = torch.tensor(self.parity, dtype=torch.bool,
+                           device=self.h[0].device).view(-1, 1, 1, 1)
+        return (*(torch.where(odd, e1, e0)
+                  for e0, e1 in zip(self.e[0], self.e[1])), *self.h)
+
+
+def new_batch_state(shape, device, pml: bool, batch: int) -> YeeBatch:
+    """Zero fields (and ψ under CPML) for ``batch`` variants of ``shape``."""
+    if batch < 1:
+        raise ValueError(f"batch={batch}: want at least one variant")
+    st = new_state((batch, *shape), device, pml)
+    return YeeBatch(e=st.e, h=st.h, psi_e=st.psi_e, psi_h=st.psi_h,
+                    parity=[0] * batch)
+
+
+def batch_operands(ops: YeeOperands, ca, cb) -> YeeOperands:
+    """``ops`` with the per-variant coefficients ``ca`` and ``cb`` (three
+    (B, X, Y, Z) tensors each, one per E component); everything else, the
+    source stamps and the probe table included, is shared."""
+    ca, cb = tuple(ca), tuple(cb)
+    want = tuple(ops.shape)
+    for t in (*ca, *cb):
+        if t.dim() != 4 or tuple(t.shape[1:]) != want or t.shape[0] != ca[0].shape[0]:
+            raise ValueError(f"batched ca/cb {tuple(t.shape)}: want (B, *{want})")
+    return dataclasses.replace(ops, ca=ca, cb=cb)
+
+
+def variant_operands(ops: YeeOperands, b: int) -> YeeOperands:
+    """The operands of variant ``b`` of batched operands (views)."""
+    return dataclasses.replace(ops, ca=tuple(t[b] for t in ops.ca),
+                               cb=tuple(t[b] for t in ops.cb))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
@@ -382,6 +458,32 @@ def chunk_steps_plain(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
     _steps_then_gathers(plain, ops, st, wf, n0, n_sub, D, bufs)
 
 
+def _active_mask(active, batch: int) -> Tuple[bool, ...]:
+    """``active`` (B booleans or ints, a sequence or a tensor) as a host
+    tuple of booleans."""
+    if torch.is_tensor(active):
+        active = active.tolist()
+    act = tuple(bool(a) for a in active)
+    if len(act) != batch:
+        raise ValueError(f"active mask of {len(act)} for {batch} variants")
+    return act
+
+
+def chunk_steps_batch_plain(ops: YeeOperands, st: YeeBatch, wf, n0: int,
+                            n_sub: int, D: int, bufs: torch.Tensor,
+                            active) -> None:
+    """One chunk of every active variant with the plain twins:
+    :func:`chunk_steps_plain` on the variant's views (its own parity), its
+    samples into ``bufs[b]``. A frozen variant's tensors, samples and
+    parity stay as they are."""
+    for b, on in enumerate(_active_mask(active, st.batch)):
+        if on:
+            vs = st.variant(b)
+            chunk_steps_plain(variant_operands(ops, b), vs, wf, n0, n_sub, D,
+                              bufs[b])
+            st.parity[b] = vs.parity
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -439,6 +541,11 @@ def _library():
             fn.restype = ctypes.c_int
         lib.fdtd_chunk_steps.argtypes = [_P, _i, _P, _i, _i, _i, _P, _i, _i, _P]
         lib.fdtd_chunk_steps.restype = _i
+        lib.fdtd_chunk_batch_plan.argtypes = [_P, _i, _i, ctypes.POINTER(_i)]
+        lib.fdtd_chunk_batch_plan.restype = _i
+        lib.fdtd_chunk_batch_steps.argtypes = [_P, _i, _P, _i, _i, _i, _P, _P,
+                                               _i, _i, _i, _P]
+        lib.fdtd_chunk_batch_steps.restype = _i
         lib.fdtd_h_update.argtypes = [_P, ctypes.c_int, _P]
         lib.fdtd_e_update.argtypes = [_P, ctypes.c_int, ctypes.c_float, _P]
         lib.fdtd_mur_faces.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
@@ -589,29 +696,40 @@ def probe_gather(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
     launches["probe_gather"] += 1
 
 
-def _chunk_args(ops: YeeOperands, st: YeeState) -> _ChunkArgs:
-    """The packed ``chunk_steps`` arguments of (ops, st), built once per
-    pair and kept on the state; the kernel updates the state's tensors in
-    place, so the pointers stay valid across launches."""
+def _batch(st) -> int:
+    """B for a :class:`YeeBatch`, 0 for a :class:`YeeState`."""
+    return st.batch if isinstance(st, YeeBatch) else 0
+
+
+def _chunk_args(ops: YeeOperands, st) -> _ChunkArgs:
+    """The packed ``chunk_steps`` (or, for a :class:`YeeBatch`,
+    ``chunk_steps_batch``) arguments of (ops, st), built once per pair and
+    kept on the state; the kernel updates the state's tensors in place, so
+    the pointers stay valid across launches."""
     cached = st._chunk
     if cached is not None and cached[0] is ops:
         return cached[1]
     a = _ChunkArgs()
-    a.o = persist.pack(ops, st, (0, ops.grid_shape[0] - 1))
+    a.o = persist.pack(ops, st, (0, ops.grid_shape[0] - 1), batch=_batch(st))
     a.probes = _probe_args(ops.probes, ops.device)
     st._chunk = (ops, a)
     return a
 
 
-def chunk_launch_plan(ops: YeeOperands, st: YeeState,
+def chunk_launch_plan(ops: YeeOperands, st,
                       form: Optional[str] = None) -> persist.Plan:
     """The storage form, blocks × threads and shared bytes ``chunk_steps``
     launches with for (ops, st): ``form`` None lets the shape pick (the
     resident form where the operands fit on chip), else "resident" or
-    "streamed" (the resident form raises where it does not fit)."""
+    "streamed" (the resident form raises where it does not fit). For a
+    :class:`YeeBatch` of B variants, ``chunk_steps_batch``'s plan: the
+    resident form only where each variant's equal share of the blocks the
+    card holds keeps its cells on chip."""
     a = _chunk_args(ops, st)
+    batch = _batch(st)
     return persist.plan(_library(), _PREFIX, ops, ctypes.addressof(a), form,
-                        "chunk_steps")
+                        "chunk_steps_batch" if batch else "chunk_steps",
+                        batch=batch)
 
 
 def chunk_steps(ops: YeeOperands, st: YeeState,
@@ -648,6 +766,65 @@ def chunk_steps(ops: YeeOperands, st: YeeState,
     st.parity ^= (n_sub * D) & 1
 
 
+def _device_mask(st: YeeBatch, act: Tuple[bool, ...]) -> torch.Tensor:
+    """The mask as int32 on the state's device, copied only when it
+    changed (the copy is ordered on the stream behind earlier launches)."""
+    if st._mask is None or st._mask[0] != act:
+        dev = st.h[0].device
+        t = st._mask[1] if st._mask is not None else torch.empty(
+            len(act), dtype=torch.int32, device=dev)
+        t.copy_(torch.tensor(act, dtype=torch.int32))
+        st._mask = (act, t)
+    return st._mask[1]
+
+
+def chunk_steps_batch(ops: YeeOperands, st: YeeBatch,
+                      wf: Union[torch.Tensor, Sequence[float]], n0: int,
+                      n_sub: int, D: int, bufs: torch.Tensor, active, *,
+                      form: Optional[str] = None) -> None:
+    """One termination chunk of every variant b with ``active[b]``: as
+    :func:`chunk_steps`, for B = ``st.batch`` variants of one grid
+    (``ops`` from :func:`batch_operands`), variant b's samples into
+    ``bufs[b]`` (``bufs``: ``(B, n_sub, probe rows)``). Every variant is
+    driven by the same source samples ``wf``. A frozen variant is neither
+    stepped nor sampled, and keeps its parity. On a CUDA tensor one
+    launch of ``chunk_batch_kernel`` (every active variant must be at the
+    same parity, as they are when the variants that stop stay stopped); on
+    a CPU tensor :func:`chunk_steps_batch_plain`. ``form`` forces a
+    storage form (:func:`chunk_launch_plan`)."""
+    B, rows = st.batch, ops.probes.n_rows
+    if tuple(bufs.shape) != (B, n_sub, rows):
+        raise ValueError(f"chunk_steps_batch: bufs {tuple(bufs.shape)} != "
+                         f"(B, n_sub, probe rows) = {(B, n_sub, rows)}")
+    act = _active_mask(active, B)
+    if not _on_cuda(st.h[0]):
+        return chunk_steps_batch_plain(ops, st, wf, n0, n_sub, D, bufs, act)
+    _check_window(len(wf), n0, n_sub, D)
+    live = [b for b in range(B) if act[b]]
+    if not live:
+        return None  # nothing to step
+    parity = {st.parity[b] for b in live}
+    if len(parity) != 1:
+        raise ValueError(f"chunk_steps_batch: active variants at parities "
+                         f"{sorted(parity)}; one launch steps one parity")
+    lib = _library()
+    a = _chunk_args(ops, st)
+    plan = chunk_launch_plan(ops, st, form)
+    mask = _device_mask(st, act)
+    dev = ops.device
+    wf = torch.as_tensor(wf, dtype=torch.float32, device=dev)
+    code = lib.fdtd_chunk_batch_steps(
+        ctypes.addressof(a), parity.pop(), _ptr(wf, (len(wf),), dev=dev), n0,
+        n_sub, D, _ptr(bufs, (B, n_sub, rows), dev=dev),
+        _ptr(mask, (B,), torch.int32, dev), B, plan.cells_per_thread,
+        plan.blocks, _stream(dev))
+    _check(lib, code, "chunk_steps_batch")
+    launches["chunk_steps_batch"] += 1
+    launches_by_form[plan.form] += 1
+    for b in live:
+        st.parity[b] ^= (n_sub * D) & 1
+
+
 def chunk_by_steps(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
                    D: int, bufs: torch.Tensor) -> None:
     """:func:`chunk_steps` through the per-step kernels: per interval, D
@@ -667,6 +844,7 @@ plain = SimpleNamespace(
     mur_faces=mur_faces_plain,
     probe_gather=probe_gather_plain,
     chunk_steps=chunk_steps_plain,
+    chunk_steps_batch=chunk_steps_batch_plain,
 )
 kernels = SimpleNamespace(
     h_update=h_update,
@@ -674,6 +852,7 @@ kernels = SimpleNamespace(
     mur_faces=mur_faces,
     probe_gather=probe_gather,
     chunk_steps=chunk_steps,
+    chunk_steps_batch=chunk_steps_batch,
 )
 step_kernels = SimpleNamespace(**{**vars(kernels), "chunk_steps": chunk_by_steps})
 

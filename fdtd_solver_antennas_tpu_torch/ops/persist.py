@@ -13,7 +13,10 @@ of one kernel, which the wrapper picks from the shape (:func:`plan`):
   whose operands do not fit on chip.
 
 Either form is exact (bit-equal to the plain twins); a form that fails to
-plan, build or launch raises.
+plan, build or launch raises. K1's batched form (``chunk_steps_batch``)
+steps B variants of one grid in one launch: :func:`pack` then takes the
+per-variant arrays as (B, X, Y, Z) and :func:`plan` the batch, so the
+occupancy query decides the form for the batched shape.
 
 - :class:`PersistOps`: the ctypes mirror of ``struct persist::Ops``;
 - :func:`pack`: a state's and its operands' pointers into one;
@@ -63,11 +66,13 @@ class Plan:
     smem_bytes: int
 
 
-def pack(ops: YeeOperands, st: YeeState,
-         x_walls: Tuple[int, int]) -> PersistOps:
+def pack(ops: YeeOperands, st: YeeState, x_walls: Tuple[int, int],
+         batch: int = 0) -> PersistOps:
     """The pointers and scalars of (ops, st); the MUR x walls at array rows
     ``x_walls`` (a slab's may lie outside it), the y and z walls at the
-    grid planes 0 and q − 1. MUR and CPML exclude each other."""
+    grid planes 0 and q − 1. MUR and CPML exclude each other. ``batch`` B
+    > 0: the fields, ψ and ca/cb are (B, X, Y, Z) arrays of B variants
+    (the source stamps and profiles shared), packed at variant 0."""
     from .fdtd_cuda import _ptr
 
     if ops.mur is not None and ops.pml is not None:
@@ -75,23 +80,25 @@ def pack(ops: YeeOperands, st: YeeState,
     if ops.mur is not None and min(ops.grid_shape) < 3:
         raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
     shp = tuple(ops.shape)
-    if shp[0] * shp[1] * shp[2] >= 2 ** 31:
-        raise ValueError(f"{shp}: the persistent steppers take < 2^31 cells")
+    var = (batch,) + shp if batch else shp  # a per-variant array's shape
+    if max(batch, 1) * shp[0] * shp[1] * shp[2] >= 2 ** 31:
+        raise ValueError(f"{var}: the persistent steppers take < 2^31 cells "
+                         "(all variants together)")
     dev = ops.device
     a = PersistOps()
     for p in range(2):
         for m in range(3):
-            a.e[3 * p + m] = _ptr(st.e[p][m], shp, dev=dev)
+            a.e[3 * p + m] = _ptr(st.e[p][m], var, dev=dev)
     profiles = [ops.inv_p, ops.inv_d]
     if ops.pml is not None:
         profiles += [ops.pml[key] for key in ("bh", "ch", "be", "ce")]
         for m in range(6):
-            a.psi_e[m] = _ptr(st.psi_e[m], shp, dev=dev)
-            a.psi_h[m] = _ptr(st.psi_h[m], shp, dev=dev)
+            a.psi_e[m] = _ptr(st.psi_e[m], var, dev=dev)
+            a.psi_h[m] = _ptr(st.psi_h[m], var, dev=dev)
     for m in range(3):
-        a.h[m] = _ptr(st.h[m], shp, dev=dev)
-        a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
-        a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
+        a.h[m] = _ptr(st.h[m], var, dev=dev)
+        a.ca[m] = _ptr(ops.ca[m], var, dev=dev)
+        a.cb[m] = _ptr(ops.cb[m], var, dev=dev)
         a.src[m] = _ptr(ops.src[m], shp, dev=dev)
     for q, prof in enumerate(profiles):
         for m in range(3):
@@ -127,31 +134,36 @@ def check(lib, prefix: str, code: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed: {msg} ({code})")
 
 
-# plans by (library, device, shape, boundary, form): a plan depends on
-# nothing else (each boundary has kernels of its own, whose occupancy may
+# plans by (library, device, shape, boundary, form, batch): a plan depends
+# on nothing else (each boundary has kernels of its own, whose occupancy may
 # differ), and a query costs an occupancy call per form
 _PLANS: Dict[tuple, Plan] = {}
 
 
 def plan(lib, prefix: str, ops: YeeOperands, args_addr: int,
-         form: Optional[str], what: str) -> Plan:
+         form: Optional[str], what: str, batch: int = 0) -> Plan:
     """The library's plan for ``ops``, packed at ``args_addr``: ``form``
     None lets the shape decide, else "resident" or "streamed" (the
-    resident form raises where it does not fit)."""
+    resident form raises where it does not fit). ``batch`` B > 0 plans the
+    batched kernels for B variants (the library's ``*_batch_plan``)."""
     if form is not None and form not in FORMS:
         raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
     key = (prefix, str(ops.device), tuple(ops.shape), ops.pml is not None,
-           ops.mur is not None, form)
+           ops.mur is not None, form, batch)
     if key not in _PLANS:
-        _PLANS[key] = _query(lib, prefix, args_addr, form, what)
+        _PLANS[key] = _query(lib, prefix, args_addr, form, what, batch)
     return _PLANS[key]
 
 
 def _query(lib, prefix: str, args_addr: int, form: Optional[str],
-           what: str) -> Plan:
+           what: str, batch: int) -> Plan:
     request = -1 if form is None else FORMS.index(form)
     out = (ctypes.c_int * 4)()
-    code = getattr(lib, f"{prefix}_plan")(args_addr, request, out)
+    if batch:
+        code = getattr(lib, f"{prefix}_batch_plan")(args_addr, request, batch,
+                                                    out)
+    else:
+        code = getattr(lib, f"{prefix}_plan")(args_addr, request, out)
     if code == 1 and form == "resident":  # cudaErrorInvalidValue
         raise ValueError(f"{what}: the resident form does not fit this shape "
                          f"on this card ({code})")

@@ -283,3 +283,79 @@ def nf2ff_transform(
         P_rad=P_rad,
         directivity=directivity,
     )
+
+
+def nf2ff_transform_batch(
+    faces: Sequence,
+    nf_e_batched: Sequence,
+    nf_h_batched: Sequence,
+    dt: float,
+    freq_hz: np.ndarray,
+    theta_deg: np.ndarray,
+    phi_deg: np.ndarray,
+    centers_m: np.ndarray | None = None,
+    device=None,
+) -> List[FarField]:
+    """Batched transform for geometry sweeps: one pass over all variants ×
+    frequencies.
+
+    ``nf_e_batched[i]``/``nf_h_batched[i]``: face i's accumulators with a
+    leading variant axis, (B, 2, nf, 2, nu, nv) stacked (re, im) floats
+    (the layout ``ops.fdtd.run_batched`` and the JAX package's vmapped
+    run give) or (B, nf, 2, nu, nv) complex; ``centers_m``: (B, 3)
+    per-variant phase centres (None: the origin). The variants share the
+    face geometry, so the batch folds into the frequency rows of the
+    radiation integrals. These run on ``device``: None takes the
+    accumulators' device (the CPU for numpy arrays); asking for CUDA
+    without one raises. Returns one :class:`FarField` per variant.
+    """
+    from ..ops.fdtd import nf_to_complex, resolve_device
+
+    if device is None:
+        first = nf_e_batched[0]
+        device = first.device if torch.is_tensor(first) else "cpu"
+    device = resolve_device(device)
+    nf_e_batched = [nf_to_complex(a, axis=1) for a in nf_e_batched]
+    nf_h_batched = [nf_to_complex(a, axis=1) for a in nf_h_batched]
+    B, nf = nf_e_batched[0].shape[:2]
+    freq_hz = np.atleast_1d(np.asarray(freq_hz, float))
+    if len(freq_hz) != nf:
+        raise ValueError(
+            f"freq_hz has {len(freq_hz)} entries but the accumulators "
+            f"hold {nf} frequency rows; slice them to match "
+            "(see select_face_freqs)"
+        )
+    theta, phi, rhat, trig = _angles(theta_deg, phi_deg)
+    nth, nph = len(theta), len(phi)
+    if centers_m is None:
+        centers_m = np.zeros((B, 3))
+    centers_m = np.asarray(centers_m, float).reshape(B, 3)
+
+    geo = _face_geometry(faces)
+    # fold the variant axis into the frequency axis: rows = B·nf
+    nf_e_rows = [a.reshape((B * nf,) + a.shape[2:]) for a in nf_e_batched]
+    nf_h_rows = [a.reshape((B * nf,) + a.shape[2:]) for a in nf_h_batched]
+    J_s, M_s, P_rad = _surface_currents(geo, nf_e_rows, nf_h_rows, dt)
+    k_rows = np.tile(2.0 * np.pi * freq_hz / C0, B)
+    centers_rows = np.repeat(centers_m, nf, axis=0)
+    N, L = _run_integrals(geo[0], geo[1], J_s, M_s, k_rows, rhat, device)
+    E_theta, E_phi, E_norm, directivity, Dmax = _assemble_far_field(
+        N, L, k_rows, rhat, trig, centers_rows, P_rad, nth, nph
+    )
+    results = []
+    for b in range(B):
+        sl = slice(b * nf, (b + 1) * nf)
+        results.append(
+            FarField(
+                freq_hz=freq_hz,
+                theta=theta,
+                phi=phi,
+                E_theta=E_theta[sl],
+                E_phi=E_phi[sl],
+                E_norm=E_norm[sl],
+                Dmax=Dmax[sl],
+                P_rad=P_rad[sl],
+                directivity=directivity[sl],
+            )
+        )
+    return results

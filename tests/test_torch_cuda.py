@@ -70,7 +70,8 @@ def test_chunk_through_kernels_matches_plain(cuda, boundary):
     fdtd_cuda.reset_launch_counts()
     k = run_simulation(sim, fdtd_cuda.kernels)
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
-                                  "probe_gather": 0, "chunk_steps": 1}
+                                  "probe_gather": 0, "chunk_steps": 1,
+                                  "chunk_steps_batch": 0}
     p = run_simulation(sim, fdtd_cuda.plain)
     assert k["steps"] == p["steps"] == 120
     for fa, fb in zip(k["fields"], p["fields"], strict=True):
@@ -364,7 +365,8 @@ def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
     out = run()
     assert fdtd_shard.launches == {"shard_steps": 120 // 12}
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
-                                  "probe_gather": 120 // 12, "chunk_steps": 0}
+                                  "probe_gather": 120 // 12, "chunk_steps": 0,
+                                  "chunk_steps_batch": 0}
     assert out["fields"][0].device.type == "cuda"
     ref = sim.run()
     assert out["steps"] == ref["steps"] == 120
@@ -457,7 +459,7 @@ def test_chunk_steps_equals_the_per_step_kernels(cuda, boundary):
     mur = 3 * 2 * D if boundary == "MUR" else 0
     assert fdtd_cuda.launches == {"h_update": 2 * D, "e_update": 2 * D,
                                   "mur_faces": mur, "probe_gather": 2,
-                                  "chunk_steps": 1}
+                                  "chunk_steps": 1, "chunk_steps_batch": 0}
     _assert_same_chunk(a, bufs_a, b, bufs_b)
 
 
@@ -475,7 +477,8 @@ def test_canonical_run_makes_one_chunk_launch_per_chunk(cuda):
     out = prep.sim.run()
     assert out["steps"] == 11_125
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
-                                  "probe_gather": 0, "chunk_steps": 25}
+                                  "probe_gather": 0, "chunk_steps": 25,
+                                  "chunk_steps_batch": 0}
     assert fdtd_cuda.launches_by_form == {"streamed": 0, "resident": 25}
 
 
@@ -485,6 +488,148 @@ def test_chunk_plan_refuses_the_resident_form_where_it_does_not_fit(cuda):
     assert fdtd_cuda.chunk_launch_plan(tall, st).form == "streamed"
     with pytest.raises(ValueError, match="resident form does not fit"):
         fdtd_cuda.chunk_launch_plan(tall, st, "resident")
+
+
+def _batch_inputs(sim, device, batch, seed, n_sub=2):
+    """Batched operands (variant b's ca/cb scaled by a seeded factor near 1,
+    variant 0 the sim's own), a random batch state at parity 1, a random
+    waveform on the device and staging buffers of ``n_sub`` intervals."""
+    rng = np.random.default_rng(seed)
+    ops = sim.operands
+    scale = torch.from_numpy(rng.uniform(0.9, 1.1, (batch, 1, 1, 1)).astype(
+        np.float32)).to(device)
+    scale[0] = 1.0
+    bops = fdtd_cuda.batch_operands(ops, [c[None] * scale for c in ops.ca],
+                                    [c[None] * scale for c in ops.cb])
+    st = fdtd_cuda.new_batch_state(sim.padded_shape, device,
+                                   ops.pml is not None, batch)
+    for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    st.parity = [1] * batch
+    wf = torch.from_numpy(rng.uniform(
+        -1.0, 1.0, 7 + 2 * n_sub * sim.probe_decim).astype(np.float32)).to(device)
+    bufs = torch.zeros((batch, n_sub, ops.probes.n_rows), device=device)
+    return bops, st, wf, bufs
+
+
+def _clone_batch(st):
+    return fdtd_cuda.YeeBatch(
+        e=[tuple(t.clone() for t in st.e[p]) for p in range(2)],
+        h=tuple(t.clone() for t in st.h),
+        psi_e=tuple(t.clone() for t in st.psi_e),
+        psi_h=tuple(t.clone() for t in st.psi_h), parity=list(st.parity))
+
+
+def _batch_tensors(st):
+    return (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h)
+
+
+@pytest.mark.parametrize("form", [None, "streamed"])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_chunk_steps_batch_equals_its_twin(cuda, boundary, batch, form):
+    """Two chunks of the batched kernel against its plain twin: the first
+    with every variant stepping, the second with variant 1 frozen (B > 1)
+    midway through the batch; every field, ψ and probe sample at rtol
+    2e-4, atol 1e-5·max|plain|, and the frozen variant untouched."""
+    sim = _sim(boundary, decim=5)
+    D, n_sub = sim.probe_decim, 3  # 15 steps a chunk: each flips the parity
+    ops, a, wf, bufs_a = _batch_inputs(sim, cuda, batch, seed=97 + batch,
+                                       n_sub=n_sub)
+    b, bufs_b = _clone_batch(a), bufs_a.clone()
+    plan = fdtd_cuda.chunk_launch_plan(ops, a, form)
+    assert plan.form == form or form is None
+    masks = [[True] * batch, [b_ != 1 for b_ in range(batch)]]
+    fdtd_cuda.reset_launch_counts()
+    frozen = None
+    for i, mask in enumerate(masks):
+        n0 = 7 + i * n_sub * D
+        if i == 1:
+            frozen = [t[1].clone() for t in _batch_tensors(a)] if batch > 1 else None
+            frozen_bufs = bufs_a[1].clone() if batch > 1 else None
+        fdtd_cuda.chunk_steps_batch(ops, a, wf, n0, n_sub, D, bufs_a, mask,
+                                    form=form)
+        fdtd_cuda.chunk_steps_batch_plain(ops, b, wf, n0, n_sub, D, bufs_b, mask)
+        torch.cuda.synchronize()
+        assert a.parity == b.parity
+        for x, y in zip(_batch_tensors(a), _batch_tensors(b), strict=True):
+            _close(x, y)
+        _close(bufs_a, bufs_b)
+    assert fdtd_cuda.launches["chunk_steps_batch"] == 2
+    assert fdtd_cuda.launches_by_form[plan.form] == 2
+    if frozen is not None:
+        for t, t0 in zip(_batch_tensors(a), frozen):
+            assert torch.equal(t[1], t0)
+        assert torch.equal(bufs_a[1], frozen_bufs)
+        assert a.parity[1] == 0 and a.parity[0] == 1  # one flip, two flips
+
+
+@pytest.mark.parametrize("form", [None, "streamed"])
+@pytest.mark.parametrize("boundary", ["MUR", "PML_8"])
+def test_chunk_steps_batch_of_one_equals_chunk_steps(cuda, boundary, form):
+    """B = 1 at the canonical patch: the batched kernel is bit-equal to the
+    unbatched one on the same state, in the same storage form."""
+    sim = _canonical_sim(boundary)
+    D = sim.probe_decim
+    ops, a, wf, bufs_a = _batch_inputs(sim, cuda, 1, seed=101)
+    b = a.variant(0)
+    b = fdtd_cuda.YeeState(e=[tuple(t.clone() for t in b.e[p]) for p in range(2)],
+                           h=tuple(t.clone() for t in b.h),
+                           psi_e=tuple(t.clone() for t in b.psi_e),
+                           psi_h=tuple(t.clone() for t in b.psi_h), parity=1)
+    bufs_b = bufs_a[0].clone()
+    plan = fdtd_cuda.chunk_launch_plan(ops, a, form)
+    assert plan.form == fdtd_cuda.chunk_launch_plan(sim.operands, b, form).form
+    fdtd_cuda.chunk_steps_batch(ops, a, wf, 7, 2, D, bufs_a, [True], form=form)
+    fdtd_cuda.chunk_steps(sim.operands, b, wf, 7, 2, D, bufs_b, form=form)
+    torch.cuda.synchronize()
+    _assert_same_chunk(a.variant(0), bufs_a[0], b, bufs_b)
+
+
+def test_batch_plan_refuses_the_resident_form_at_the_sweeps_shape(cuda):
+    """Eight variants of the 8-variant sweep's union grid do not fit on
+    chip together: the plan gives the streamed form and refuses the
+    resident one (no launch is tried)."""
+    ops = _synthetic_ops((100, 109, 50), "MUR", cuda)
+    batch = 8
+    bops = fdtd_cuda.batch_operands(ops, [c[None].repeat(batch, 1, 1, 1)
+                                          for c in ops.ca],
+                                    [c[None].repeat(batch, 1, 1, 1)
+                                     for c in ops.cb])
+    st = fdtd_cuda.new_batch_state(ops.shape, cuda, False, batch)
+    assert fdtd_cuda.chunk_launch_plan(bops, st).form == "streamed"
+    with pytest.raises(ValueError, match="resident form does not fit"):
+        fdtd_cuda.chunk_launch_plan(bops, st, "resident")
+
+
+def test_sweep_run_makes_one_batch_launch_per_chunk(cuda):
+    """The patch sweep of tests/test_sweep.py's two geometries on the card:
+    one ``chunk_steps_batch`` launch per chunk and no ``chunk_steps``,
+    equal to the same run through the plain twin on the card, the two
+    variants' spectra distinct."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry, run_batched
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_patch_geometry_sweep, run_patch_geometry_sweep)
+
+    variants = [PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, L_mm=L, W_mm=W)
+        for L, W in [(26.0, 33.0), (32.0, 41.0)]]
+    prep = prepare_patch_geometry_sweep(variants, n_steps_max=1000,
+                                        end_criteria=1e-12, device="cuda")
+    assert prep.ok, prep.message
+    fdtd_cuda.reset_launch_counts()
+    res = run_patch_geometry_sweep(prep)
+    assert res.ok, res.message
+    chunk = chunk_geometry(prep.sim)[2]
+    assert fdtd_cuda.launches["chunk_steps_batch"] == -(-res.steps_run // chunk)
+    assert fdtd_cuda.launches["chunk_steps"] == 0
+    plain = run_batched(prep.sim, prep.batched_coeffs, fdtd_cuda.plain)
+    np.testing.assert_array_equal(res.steps, plain["steps"])
+    for b, sp in enumerate(res.spectra):
+        _close(sp.uf / prep.sim.dft_dt, plain["uf"][b, 0])
+    assert not np.allclose(np.abs(res.spectra[0].s11),
+                           np.abs(res.spectra[1].s11), rtol=1e-3)
 
 
 @pytest.mark.parametrize("scene", ["small", "canonical"])
