@@ -96,7 +96,25 @@ and the script exits non-zero without printing a result:
     twin and timed on the device beside its bound; the same eight variants
     as eight unbatched ``chunk_steps`` runs in turns; ``tests/test_sweep.py``'s
     two patches at 6,000 steps held to the cavity model, and its two
-    12 GHz horn apertures held to their gain.
+    12 GHz horn apertures held to their gain;
+17. K2's slab stepper (explicit slice at Pz > 128):
+    ``stream_shard_steps`` against ``fdtd_shard.shard_steps_plain`` on
+    random slab states (owned rows): a z = 131 slab at one rank (MUR T
+    and remainder windows, PEC, PML_4), PML_4 and PEC on interior ranks
+    of a 4-way split, rank 0, an interior rank, the upper wall on an x
+    segment's last plane and the last rank's straddle of a 4-way split
+    at z = 131, and the mixed scene's one-rank slab, timed beside its
+    bound and phase 8's single-card march; then the main path: phase 8's
+    prepared mixed scene through ``build_explicit_run`` on one card to
+    its stop and its post-processing (asserts only ``shard_march``
+    launches, an energy-criterion stop, phase 8's steps, resonance,
+    |S11|min and Dmax), 2,000 explicit steps against 2,000 steps of the
+    single-card stream run; the tall grid under PML_8 through
+    ``build_explicit_run`` (the slab tile kernel, held to the
+    single-card run) and one slab-tile launch timed beside its bound and
+    beside the single-card tile kernel on the same grid at the same T.
+    A slab launch's bound counts the owned rows and the halos a
+    neighbour fills: at one rank, the whole grid's.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -756,15 +774,25 @@ def k1_bound(name, sim):
     return bound(used * 12 + rows * 4, 2 * used)
 
 
-def k2_bound(sim, T):
-    """Bound of one stream launch: fields, coefficients and sources in
-    once, fields out once; T steps of H and E updates."""
-    ops = sim.operands
-    n = int(np.prod(ops.shape))
+def k2_bound(ops, T, rows=None):
+    """Bound of one stream launch on ``ops`` (a grid's, or ``rows`` x rows
+    of it): fields, coefficients and sources in once, fields out once; T
+    steps of H and E updates."""
+    n = int(np.prod(ops.shape)) if rows is None else rows * int(np.prod(ops.shape[1:]))
     n_src = sum(s is not None for s in ops.src)
     psi = 12 if ops.pml is not None else 0
     nbytes = 4 * n * (6 + 6 + n_src + 6 + 2 * psi)
     return bound(nbytes, T * n * (48 + 4 * psi))
+
+
+def k2_slab_bound(sh, T):
+    """Bound of one launch of K2's slab stepper: ``k2_bound`` over the rows
+    the function must carry, the owned rows and each halo a neighbour
+    fills. A halo with no neighbour lies outside the domain (its
+    coefficients zero, its fields zero): at one rank the work is the
+    whole grid's, and so is the bound."""
+    rows = sh.n + sh.W * ((sh.rank > 0) + (sh.rank < sh.n_dev - 1))
+    return k2_bound(sh.ops, T, rows)
 
 
 def fields_of(st):
@@ -924,6 +952,7 @@ def phase_mixed_main_path(card):
     say("8", f"mixed scene, {ko['steps']} steps: stream kernel == plain "
              f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}; kernel "
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
+    k2["prep"], k2["f_run"] = prep, f_run
     return sim, res, counts, k2
 
 
@@ -1049,7 +1078,7 @@ def stream_kernel_alone(sim, phase, card):
     rows = ops.probes.n_rows
     out = torch.zeros(rows, device=sim.device)
     probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
-    b_ms, b_by = k2_bound(sim, T)
+    b_ms, b_by = k2_bound(ops, T)
     probe_b_ms, probe_b_by = k1_bound("probe_gather", sim)
     _core, _origin, tiles = fdtd_stream.tiling(ops.shape, mur, pml)
     smem = fdtd_stream.smem_bytes(ops.shape, T, mur, pml)
@@ -1954,6 +1983,291 @@ def phase_sweep_physics(card):
               f"{hres.wall_time_s:.3f} s [{card}]")
 
 
+def tall_z_scene(nx=16):
+    """The z = 131 scene of tests/_explicit_ranks.py (Pz > 128: K2's slab
+    stepper), ``tall_z`` on 16 x lines; on 13 (``tall_straddle``) the top
+    MUR wall, row 12, is the last rank's first row at 4 ranks (Px = 16,
+    n = 4)."""
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+    mb = MeshBuilder()
+    mb.add_line("x", np.linspace(0, nx - 1, nx))
+    mb.add_line("y", np.linspace(0, 15, 16))
+    mb.add_line("z", np.linspace(0, 130, 131))
+    grid = mb.build(1.0)
+    c = (nx - 1) // 2
+    scene = Scene()
+    scene.add_material_box("sub", 4.3, 0.005, [c - 4, 4, 60], [c + 4, 11, 64], 0)
+    scene.add_metal_box("patch", [c - 3, 6, 64], [c + 3, 10, 64], priority=10)
+    scene.add_metal_box("gnd", [c - 4, 4, 60], [c + 4, 11, 60], priority=10)
+    scene.add_lumped_port(1, 50.0, [c, 8, 60], [c, 8, 64], direction="z")
+    return scene, grid, 2.45e9, 1.225e9
+
+
+def tall_straddle_scene():
+    return tall_z_scene(13)
+
+
+def slab_state(sh, seed):
+    """A state of slab ``sh`` from a seeded normal draw (numpy)."""
+    rng = np.random.default_rng(seed)
+    st = sh.new_state()
+    for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    return st
+
+
+def segment_end_blocks(sh):
+    """A count of resident blocks (``march_plan``'s ``blocks``) whose x cut
+    ends a segment on the slab's upper wall (the JAX package's
+    face-on-block-end regression)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+
+    v0, _x_lo, x_hi = fdtd_stream.march_view(sh.ops)
+    shape = (sh.ops.shape[0] - v0, *sh.ops.shape[1:])
+    assert x_hi > 0, "the slab holds no upper wall"
+    for blocks in range(1, 4096):
+        _, _, _, (seg, so, segs), _ = fdtd_stream.march_plan(
+            shape, sh.ops.grid_shape, sh.K, True, x_hi, blocks)
+        if any(max(0, b * seg - so) == x_hi + 1 for b in range(segs)):
+            return blocks
+    raise AssertionError("no cut ends a segment on the upper wall")
+
+
+def phase_slab_vs_plain(mixed, k2, card):
+    """K2's slab stepper against its twin: one launch on a seeded random
+    slab state per case, owned rows compared: z = 131 slabs at one rank
+    (MUR T and remainder windows, PEC, PML_4); rank 0, an interior rank
+    (its lower halo's first row the lower wall) and the last rank (the
+    straddle) of a 4-way split, and the upper wall on an x segment's last
+    plane; PEC and PML_4 on interior ranks; the mixed scene's one-rank
+    slab, timed beside its bound and the single-card march."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+
+    cases = (  # (label, scene, boundary, ranks, rank, decim, window, cut)
+        ("z131", tall131_scene, "MUR", 1, 0, 9, "T", None),
+        ("z131", tall131_scene, "MUR", 1, 0, 9, "rem", None),
+        ("z131", tall131_scene, "PEC", 1, 0, 9, "T", None),
+        ("tall z", tall_z_scene, "PML_4", 1, 0, 10, "T", None),
+        ("tall z", tall_z_scene, "PML_4", 1, 0, 10, "rem", None),
+        ("tall z", tall_z_scene, "PML_4", 4, 1, 10, "T", None),
+        ("tall z", tall_z_scene, "PEC", 4, 2, 10, "rem", None),
+        ("tall straddle", tall_straddle_scene, "MUR", 4, 0, 4, "T", None),
+        ("tall straddle", tall_straddle_scene, "MUR", 4, 1, 4, "T", None),
+        ("tall straddle", tall_straddle_scene, "MUR", 4, 2, 4, "T", "segment end"),
+        ("tall straddle", tall_straddle_scene, "MUR", 4, 3, 4, "T", None),
+        ("tall straddle", tall_straddle_scene, "MUR", 4, 3, 4, "rem", None),
+        ("mixed", None, "MUR", 1, 0, None, "T", None),
+    )
+    worst = {"shard_march": 0.0, "shard_tile": 0.0}
+    timed = None
+    for label, make, boundary, n_dev, rank, decim, window, cut in cases:
+        sim = mixed if make is None else shard_sim(make, boundary, n_dev, decim)
+        sh = fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank)
+        k = sh.K if window == "T" else sh.rem
+        assert k >= 1, (label, window, sh.K, sh.rem)
+        route = "shard_tile" if sh.ops.pml is not None else "shard_march"
+        base = slab_state(sh, 29 + rank)
+        wf = list(np.random.default_rng(31 + rank).uniform(-1.0, 1.0, k))
+        sp = clone_state(base)
+        fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
+        sk = clone_state(base)
+        blocks = segment_end_blocks(sh) if cut else fdtd_stream.MARCH_BLOCKS
+        fdtd_stream.reset_launch_counts()
+        fdtd_stream.stream_shard_steps(sh.ops, sk, wf, blocks)
+        torch.cuda.synchronize()
+        assert fdtd_stream.launches_by_kernel[route] == 1, dict(
+            fdtd_stream.launches_by_kernel)
+        pairs = list(zip(fields_of(sk), fields_of(sp)))
+        err = max(close(f"{label} stream_shard_steps {i}", a[sh.owned], b[sh.owned])
+                  for i, (a, b) in enumerate(pairs))
+        same = all(torch.equal(a[sh.owned], b[sh.owned]) for a, b in pairs)
+        worst[route] = max(worst[route], err)
+        view = fdtd_stream.march_view(sh.ops)
+        extra = (f", x segments cut for {blocks} blocks to end on the upper "
+                 f"wall" if cut else "")
+        if label == "mixed":
+            ms = device_ms(lambda: fdtd_stream.stream_shard_steps(sh.ops, sk, wf),
+                           reps=10)
+            spare = clone_state(sp)
+            plain_ms = events_ms(
+                lambda: fdtd_shard.shard_steps_plain(sh.ops, spare, wf),
+                reps=2, warmup=1)
+            del spare
+            b_ms, b_by = k2_slab_bound(sh, k)
+            out = torch.zeros(sh.ops.probes.n_rows, device=mixed.device)
+            probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(sh.ops, sk, out))
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         probe_ms=probe_ms)
+            extra += (f"; device {ms * 1e3:.1f} us/launch ({ms * 1e3 / k:.1f} "
+                      f"us/step), bound {b_ms * 1e3:.1f} us by {b_by} "
+                      f"({b_ms / ms:.3f} of it), plain {plain_ms * 1e3:.1f} us; "
+                      f"the single-card march on the {mixed.padded_shape} grid "
+                      f"{k2['ms'] * 1e3:.1f} us/launch (phase 8), bound "
+                      f"{k2['bound_ms'] * 1e3:.1f} us; probe_gather on the slab "
+                      f"table {probe_ms * 1e3:.2f} us")
+        say("17", f"{label} {sim.grid.shape} {boundary}, {n_dev} rank(s), rank "
+                  f"{rank}: slab {sh.ops.shape}, T={sh.K} W={sh.W} rem={sh.rem}, "
+                  f"window {k}, {route} on view (v0, x_lo, x_hi) {view}{extra}: "
+                  f"== plain on owned rows (bit-equal {same}), max |err| "
+                  f"{err:.3e} [{card}]")
+        del base, sk, sp, pairs
+    return dict(max_abs_err=worst["shard_march"], tile_err=worst["shard_tile"],
+                **timed)
+
+
+def phase_explicit_large_main_path(mixed, mixed_res, k2, k17, card):
+    """The explicit slice at Pz > 128: phase 8's prepared mixed scene
+    through ``build_explicit_run`` on one card, to its stop, and its
+    post-processing; only the slab march may launch. Then 2,000 steps of
+    it against 2,000 steps of the single-card stream run."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import run_simulation
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.multi_patch_3d import (
+        run_prepared_multi_patch_3d)
+
+    run = build_explicit_run(mixed)
+    sh = run.stepper
+    outs = []
+
+    def explicit():
+        outs.append(run())
+        return outs[-1]
+
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    res = run_prepared_multi_patch_3d(k2["prep"], frequency_hz=k2["f_run"],
+                                      verbose=0, run=explicit)
+    counts = {**fdtd_cuda.launches, **fdtd_shard.launches,
+              **fdtd_stream.launches, **fdtd_stream.launches_by_kernel}
+    assert res.ok, res.message
+    out = outs[0]
+    steps, D, T = int(out["steps"]), mixed.probe_decim, sh.K
+    intervals = steps // D
+    per_interval = D // T + (D % T > 0)
+    assert steps % D == 0, (steps, D)
+    assert counts["shard_march"] == intervals * per_interval, counts
+    assert counts["stream_shard_steps"] == counts["shard_march"], counts
+    assert counts["probe_gather"] == intervals, counts
+    for name in ("shard_tile", "stream_march", "stream_tile", "stream_steps",
+                 "shard_steps", "chunk_steps", "chunk_steps_batch", "h_update",
+                 "e_update", "mur_faces"):
+        assert counts[name] == 0, (name, counts)
+    e_ratio = res.diagnostics["energy_ratio"]
+    assert steps < mixed.cfg.n_steps_max and e_ratio < mixed.cfg.end_criteria, (
+        steps, mixed.cfg.n_steps_max, e_ratio)
+    assert steps == mixed_res.steps_run, (steps, mixed_res.steps_run)
+    df = np.abs(np.diff(res.freq)).max()
+    assert abs(res.f_res_hz - mixed_res.f_res_hz) <= df, (
+        res.f_res_hz, mixed_res.f_res_hz)
+
+    def s11_min_db(r):
+        return [float(20 * np.log10(np.abs(s).min()))
+                for s in r.diagnostics["s11_all_ports"]]
+
+    s11, s11_ref = s11_min_db(res), s11_min_db(mixed_res)
+    assert np.allclose(s11, s11_ref, atol=0.01), (s11, s11_ref)
+    dmax, dmax_ref = 10 * np.log10(res.Dmax), 10 * np.log10(mixed_res.Dmax)
+    assert abs(dmax - dmax_ref) <= 0.01, (dmax, dmax_ref)
+    assert np.all(np.isfinite(res.intensity))
+    busy = (counts["shard_march"] * k17["ms"]
+            + counts["probe_gather"] * k17["probe_ms"]) / 1e3
+    say("17", f"mixed explicit run: {res.wall_time_s:.3f} s wall, kernels busy "
+              f"{busy:.3f} s (launches x device time per launch: slab march "
+              f"{k17['ms'] * 1e3:.1f} us, probe_gather {k17['probe_ms'] * 1e3:.2f} "
+              f"us), idle share {1 - busy / res.wall_time_s:.3f} [{card}]")
+    say("17", f"mixed scene {mixed.grid.shape} through build_explicit_run on "
+              f"{mixed.device}, one rank: slab {sh.ops.shape}, T={T} W={sh.W} "
+              f"rem={sh.rem}, D={D} ({per_interval} launches an interval); "
+              f"{steps} steps (stream mode, phase 8: {mixed_res.steps_run}) in "
+              f"{res.wall_time_s:.3f} s, {res.mcells_per_s:.1f} Mcell-updates/s; "
+              f"ended on energy ratio {e_ratio:.3e} < {mixed.cfg.end_criteria:.3e}; "
+              f"f_res {res.f_res_hz / 1e9:.4f} GHz (phase 8 "
+              f"{mixed_res.f_res_hz / 1e9:.4f}), |S11|min per port "
+              f"{s11[0]:.3f} / {s11[1]:.3f} dB (phase 8 {s11_ref[0]:.3f} / "
+              f"{s11_ref[1]:.3f}), Dmax {dmax:.4f} dBi (phase 8 {dmax_ref:.4f}); "
+              f"launches {counts} [{card}]")
+
+    cut = dataclasses.replace(
+        mixed, cfg=dataclasses.replace(mixed.cfg, n_steps_max=2000))
+    eo = build_explicit_run(cut)()
+    so = run_simulation(cut, fdtd_stream.kernels)
+    err = compare_runs(eo, so, "explicit vs stream, 2000 steps")
+    same = all(torch.equal(a, b) for a, b in zip(eo["fields"], so["fields"]))
+    say("17", f"mixed scene, {eo['steps']} steps: explicit (slab march) == "
+              f"single-card stream run (uf, if_, nf_e, nf_h, fields; fields "
+              f"bit-equal {same}), max |err| {err:.3e} [{card}]")
+    return res, counts
+
+
+def phase_slab_tile(card):
+    """The CPML route of K2's slab stepper: the tall grid under PML_8
+    through ``build_explicit_run`` on one card for 480 steps (launch
+    counts; held to the single-card stream run), then one slab-tile
+    launch against its twin, timed beside its bound and beside the
+    single-card tile kernel (``stream_steps``) on the same grid at the
+    same T."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+
+    sim = shard_sim(tall_scene, "PML_8", 1, 48)
+    run = build_explicit_run(sim)
+    sh = run.stepper
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    eo = run()
+    counts = {**fdtd_shard.launches, **fdtd_stream.launches_by_kernel,
+              "probe_gather": fdtd_cuda.launches["probe_gather"]}
+    T, D = sh.K, sim.probe_decim
+    per_interval = D // T + (D % T > 0)
+    assert counts["shard_tile"] == eo["steps"] // D * per_interval, counts
+    assert counts["shard_march"] == counts["shard_steps"] == 0, counts
+    so = sim.run()
+    err = compare_runs(eo, so, "tall PML_8 explicit vs stream")
+    say("17", f"tall {sim.grid.shape} PML_8 through build_explicit_run, one "
+              f"rank: slab {sh.ops.shape}, T={T} W={sh.W}; {eo['steps']} steps "
+              f"== single-card run ({sim.pallas_mode}, T={sim.stream_T}; uf, "
+              f"if_, nf_e, nf_h, fields, psi), max |err| {err:.3e}; launches "
+              f"{counts} [{card}]")
+    del eo, so
+    base = slab_state(sh, 37)
+    wf = list(np.random.default_rng(41).uniform(-1.0, 1.0, T))
+    sp, sk = clone_state(base), clone_state(base)
+    del base
+    fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
+    fdtd_stream.stream_shard_steps(sh.ops, sk, wf)
+    torch.cuda.synchronize()
+    tile_err = max(close(f"slab tile {i}", a[sh.owned], b[sh.owned])
+                   for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
+    ms = device_ms(lambda: fdtd_stream.stream_shard_steps(sh.ops, sk, wf), reps=10)
+    plain_ms = events_ms(lambda: fdtd_shard.shard_steps_plain(sh.ops, sp, wf),
+                         reps=2, warmup=1)
+    del sk, sp
+    # the single-card tile kernel on the whole grid, same T, timed between
+    # two slab launches' timings so that both see the same clocks
+    whole = random_state(sim, seed=43)
+    one_ms = device_ms(lambda: fdtd_stream.stream_steps(sim.operands, whole, wf),
+                       reps=10)
+    del whole
+    b_ms, b_by = k2_slab_bound(sh, T)
+    one_b_ms, _ = k2_bound(sim.operands, T)
+    say("17", f"slab tile kernel, tall {sim.grid.shape} PML_8 slab "
+              f"{sh.ops.shape}, T={T}: == plain on owned rows, max |err| "
+              f"{tile_err:.3e}; device {ms * 1e3:.1f} us/launch "
+              f"({ms * 1e3 / T:.1f} us/step), bound {b_ms * 1e3:.1f} us by "
+              f"{b_by} ({b_ms / ms:.3f} of it), plain {plain_ms * 1e3:.1f} us; "
+              f"the single-card tile kernel (stream_steps) on the "
+              f"{sim.padded_shape} grid at T={T} {one_ms * 1e3:.1f} us/launch "
+              f"(bound {one_b_ms * 1e3:.1f} us, {one_b_ms / one_ms:.3f} of it) "
+              f"[{card}]")
+    return dict(max_abs_err=tile_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, launches=counts["shard_tile"], one_ms=one_ms)
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -2062,6 +2376,14 @@ def main() -> int:
     k1b = timed_phase("16", phase_sweep_main_path, card)
     timed_phase("16", phase_sweep_physics, card)
 
+    # 17. the explicit slice at Pz > 128 (K2's slab stepper)
+    k17 = timed_phase("17", phase_slab_vs_plain, mixed, k2, card)
+    say("17", f"all slab comparisons agree; worst max |err| march "
+              f"{k17['max_abs_err']:.3e}, tile {k17['tile_err']:.3e}")
+    _big_res, big_counts = timed_phase(
+        "17", phase_explicit_large_main_path, mixed, mixed_res, k2, k17, card)
+    k17t = timed_phase("17", phase_slab_tile, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -2101,6 +2423,19 @@ def main() -> int:
         {"name": "shard_steps", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": explicit_counts["shard_steps"],
          **{k: k3[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None},
+        # K2's shard= form: the slab march on the mixed scene's explicit
+        # run (phase 17), the slab tile kernel on the tall grid's PML_8
+        # explicit run
+        {"name": "stream_shard_steps", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": big_counts["shard_march"],
+         **{k: k17[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": "stream_shard_steps_tile", "route": "cuda",
+         "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": k17t["launches"],
+         "max_abs_err": max(k17["tile_err"], k17t["max_abs_err"]),
+         **{k: k17t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

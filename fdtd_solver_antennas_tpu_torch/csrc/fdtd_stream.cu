@@ -7,10 +7,15 @@
 //   - stream_kernel (CPML; fdtd_stream_steps): a 3-D tile with a halo of
 //     T cells on every side, E, H and the twelve psi in shared memory.
 //
+// Both run a whole grid (ops/fdtd_stream.py::stream_steps) or one rank's
+// halo-extended x-slab of the explicit run (stream_shard_steps): the
+// slab is an array like a grid, its out-of-domain rows zero-coupled, the
+// march given the slab's own x walls (x_lo, x_hi, below).
+//
 // Replaces: fdtd_solver_antennas_tpu/ops/fdtd_pallas.py::build_pallas_stream_stepper
-// (the TPU stream kernel, K2). K2 streams blocks of whole y-z planes
-// through 128 MB of VMEM and advances T steps per fetch with trapezoidal
-// halo recompute. On the H100 one y-z plane of the 4.2M-cell mixed scene
+// (the TPU stream kernel, K2), its single-chip form and its shard= form.
+// K2 streams blocks of whole y-z planes through 128 MB of VMEM and
+// advances T steps per fetch with trapezoidal halo recompute. On the H100 one y-z plane of the 4.2M-cell mixed scene
 // is 122 KB per field, so six fields do not fit the 227 KB of shared
 // memory a block may use: the march streams planes of a y-z tile
 // instead, the tile kernel tiles in 3-D:
@@ -109,6 +114,10 @@ struct StreamArgs {
   int m_seg;               // x segment length, origin and count, as a tile
   int m_seg_origin;
   int m_segs;
+  // the march's x walls (MUR): 1 where plane 0 is the lower wall, and the
+  // plane of the upper wall or -1 (ops/fdtd_stream.py::march_view)
+  int x_lo;
+  int x_hi;
 };
 
 struct Samples {
@@ -430,14 +439,29 @@ stream_kernel(const StreamArgs a, const int T, const Samples wf) {
 //     the other field set;
 //   - the MUR walls, per level: the y and z fixes of plane x follow its E
 //     (they read the old E of plane x, which the E phase saves in `O`).
-//     The lower x wall needs plane 1's new E, so plane 0's E phase waits
-//     for plane 1's step, which then updates plane 0 from its own H and
-//     old E (still in the ring), fixes it (x) from plane 1's new and old
-//     E and fixes its y and z walls beside plane 1's. The upper x wall
-//     needs plane q-2's new E before its y and z fixes: plane q-2's step
-//     computes the x-fixed y and z components of plane q-1 into `W`,
-//     from the old E of plane q-1 (still level t-1 in the ring), and
-//     plane q-1's step takes them from there;
+//     The lower x wall (plane 0 where x_lo is set) needs plane 1's new E,
+//     so plane 0's E phase waits for plane 1's step, which then updates
+//     plane 0 from its own H and old E (still in the ring), fixes it (x)
+//     from plane 1's new and old E and fixes its y and z walls beside
+//     plane 1's. The upper x wall, plane u = x_hi (-1: none), needs plane
+//     u-1's new E before its y and z fixes: plane u-1's step computes the
+//     x-fixed y and z components of plane u into `W`, from the old E of
+//     plane u (still level t-1 in the ring), and plane u's step takes them
+//     from there. A whole grid has x_lo = 1, x_hi = q0 - 1;
+//   - a rank's x-slab (the explicit run; K2's shard= form) has its walls
+//     anywhere, or none: the lower one at slab row W on rank 0, the upper
+//     one at global row Qx-1 on the last rank, possibly its first owned
+//     row, or in a neighbour's halo. The host passes the upper wall's
+//     plane, which may sit anywhere but on a segment's first plane (the
+//     cut shifts), and launches rank 0 on the view of its rows from the
+//     lower wall up, so that the wall is plane 0 again. That keeps the
+//     deferral above as it is: a lower wall anywhere else would need its
+//     plane and the one above in the same block at every level, a cut
+//     that depends on T. The rows below the wall are out of the domain
+//     (zero ca, cb and spacings) and nothing an owned row depends on reads
+//     them: the wall plane's x-neighbour terms feed only its Ey and Ez,
+//     which the wall's fix overwrites. The slab's own edge rows are never
+//     walls; a neighbour past them reads 0, as past a grid's;
 //   - ca, cb and the source stamps are read from device memory at every
 //     level, issued before the H phase; a plane's values stay in L2
 //     between its T levels. The per-axis spacings of y and z sit in
@@ -543,7 +567,7 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
   const int ty = bid % a.m_tiles[0];
   const int seg = bid / a.m_tiles[0];
   const int n0 = a.n[0], n1 = a.n[1], n2 = a.n[2];
-  const int q0 = a.q[0], q1 = a.q[1], q2 = a.q[2];
+  const int q1 = a.q[1], q2 = a.q[2];
   const int cy0 = max(0, ty * a.m_core[0] - a.m_origin[0]);
   const int cy1 = min(n1, (ty + 1) * a.m_core[0] - a.m_origin[0]);
   const int cz0 = max(0, tz * a.m_core[1] - a.m_origin[1]);
@@ -636,8 +660,8 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
           live && gy >= max(cy0 - T + t - 1, ry) && gy < min(cy1 + T - t, ry + Ly) &&
           gz >= max(cz0 - T + t - 1, rz) && gz < min(cz1 + T - t, rz + Lz);
       // the lower x wall's plane waits for plane 1 (see above)
-      const bool defer0 = mur && x == 0;
-      const bool with0 = mur && x == 1 && lo == 0;
+      const bool defer0 = mur && a.x_lo && x == 0;
+      const bool with0 = mur && a.x_lo && x == 1 && lo == 0;
       // this plane's coefficients, in flight during the H phase
       Coef coef;
       if (act && !defer0) coef = march_coef(a, x * plane + cell);
@@ -673,14 +697,14 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
                      cu);
         march_e_cell(a, E, Ox, P, c, coef, cu, s, v);
         E[c] = v[0];
-        if (mur && x == q0 - 1) {  // x-fixed by plane q-2's step
+        if (mur && x == a.x_hi) {  // x-fixed by plane x_hi-1's step
           E[P + c] = W[c];
           E[2 * P + c] = W[P + c];
         } else {
           E[P + c] = v[1];
           E[2 * P + c] = v[2];
         }
-        if (mur && x == q0 - 2) {  // the upper x wall from this new E
+        if (mur && x == a.x_hi - 1) {  // the upper x wall from this new E
           const float* Ew = Er + ((x + 1) % R) * 3 * P;  // still level t-1
           const float cx = a.mur_c[0][1];
           W[c] = Ox[P + c] + cx * (v[1] - Ew[P + c]);

@@ -1108,7 +1108,8 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     :data:`fdtd_cuda.plain`. The run is always in chunk mode, whatever
     :func:`resolve_pallas_mode` says for ``sim``: on the H100 K1 on a
     grid that spills the L2 steps faster than the stream kernel, and a
-    batched K2 is not ported (ROADMAP B2).
+    batched K2 (``coef_ops_from``) is not ported (ROADMAP, queue B:
+    K2 ``coef_ops_from``).
 
     Each variant stops on its own: after every chunk its energy ratio is
     checked as in :func:`run_simulation` (one host sync for all B), and a

@@ -11,11 +11,13 @@ steps the owned rows ``[W, W + n)`` are exact; the caller then restocks
 the halos from the neighbours (one exchange per K steps).
 
 - :func:`build_shard_stepper`: the geometry (n, K, W, m and the
-  remainder ``rem = D % K``) and the slab's operands, a
+  remainder ``rem = D % K``) and the slab's operands
+  (:func:`slab_operands`, which K2's slab stepper shares), a
   :class:`~.fdtd_cuda.YeeOperands` of shape ``(m, Py, Pz)``: ca/cb, x
   profiles and source stamps cut from the host copies, rows outside
   ``[0, Px)`` zero; a slab-local probe table; the slab rows of the MUR x
-  walls (the JAX package's one-hot ``m0``/``mt`` columns).
+  walls (the JAX package's one-hot ``m0``/``mt`` columns). Its route is
+  Pz ≤ :data:`MAX_PZ`.
 - :func:`shard_steps`: ``len(wf_window)`` steps (K, or the remainder) in
   one launch of ``csrc/fdtd_shard.cu`` (2 grid barriers a step, the MUR
   walls fused into the E pass; the storage form, resident or streamed,
@@ -54,8 +56,9 @@ launches_by_form: Dict[str, int] = dict.fromkeys(persist.FORMS, 0)
 # Steps per launch the kernel accepts (the source samples ride in its
 # parameters).
 MAX_K = 64
-# Largest z extent of the slab route; above it the JAX package takes its
-# sharded stream kernel, which the port does not have yet.
+# Largest z extent of this kernel's route; above it the explicit run takes
+# K2's slab stepper (``ops/fdtd_stream.py``), as the JAX package takes its
+# sharded stream kernel.
 MAX_PZ = 128
 
 
@@ -64,6 +67,18 @@ def reset_launch_counts() -> None:
         launches[k] = 0
     for k in persist.FORMS:
         launches_by_form[k] = 0
+
+
+def owned_rows(Px: int, n_dev: int) -> int:
+    """Rows each of ``n_dev`` ranks owns of ``Px``, at least 2."""
+    if Px % n_dev:
+        raise ValueError(
+            f"padded x extent {Px} not divisible by {n_dev} ranks; build the "
+            f"simulation with pad_multiple=({n_dev}, 1, 1)")
+    n = Px // n_dev
+    if n < 2:
+        raise ValueError(f"need >= 2 rows per rank (Px={Px}, {n_dev} ranks)")
+    return n
 
 
 def shard_geometry(Px: int, Qx: int, D: int, n_dev: int, mur: bool,
@@ -76,13 +91,7 @@ def shard_geometry(Px: int, Qx: int, D: int, n_dev: int, mur: bool,
     lowest halo row, which edge effects reach after K steps: then
     K ≤ n − 1 and the halo is one row wider, W = K + 1.
     """
-    if Px % n_dev:
-        raise ValueError(
-            f"padded x extent {Px} not divisible by {n_dev} ranks; build the "
-            f"simulation with pad_multiple=({n_dev}, 1, 1)")
-    n = Px // n_dev
-    if n < 2:
-        raise ValueError(f"need >= 2 rows per rank (Px={Px}, {n_dev} ranks)")
+    n = owned_rows(Px, n_dev)
     straddle = mur and (Qx - 1) % n == 0
     K = int(k_steps) if k_steps else min(n, D, 32)
     if straddle:
@@ -152,23 +161,19 @@ def _slab_probe_blocks(blocks, shape, rank: int, n: int, W: int, m: int):
     return out
 
 
-def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
-                        device=None) -> ShardStepper:
-    """The slab of ``rank`` of an x-split over ``n_dev`` ranks, with its
-    operands on ``device`` (default ``sim.device``). Everything is cut on
-    the host from ``sim._coeffs_np`` and ``sim._aux``; only the slab goes
-    to the device."""
+def slab_operands(sim, rank: int, n: int, W: int,
+                  device=None) -> YeeOperands:
+    """The operands of ``rank``'s slab of ``m = n + 2W`` rows, on
+    ``device`` (default ``sim.device``): ca/cb, x profiles and source
+    stamps cut on the host from ``sim._coeffs_np`` and ``sim._aux``, rows
+    outside ``[0, Px)`` zero; the slab probe table; the slab rows of the
+    MUR x walls. Both slab steppers (K3 here, K2's in
+    ``ops/fdtd_stream.py``) take their operands from it."""
     from .fdtd import build_probe_gathers, build_src_mats, probe_blocks
 
     Px, Py, Pz = sim.padded_shape
-    if Pz > MAX_PZ:
-        raise ValueError(f"Pz={Pz} > {MAX_PZ}: not the shard kernel's route")
-    if not 0 <= rank < n_dev:
-        raise ValueError(f"rank {rank} outside [0, {n_dev})")
+    m = n + 2 * W
     Qx = sim.grid.shape[0]
-    mur = sim.cfg.boundary.upper().startswith("MUR")
-    n, K, W, m, rem = shard_geometry(Px, Qx, int(sim.probe_decim), n_dev,
-                                     mur, k_steps)
     dev = torch.device(device) if device is not None else sim.device
     inv_p, inv_d, mur_coef, pml = sim._aux
 
@@ -187,7 +192,7 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
         probe_blocks(build_probe_gathers(sim), Px * Py * Pz), (Px, Py, Pz),
         rank, n, W, m)
     g0 = rank * n - W  # global row of slab row 0
-    ops = YeeOperands(
+    return YeeOperands(
         shape=(m, Py, Pz),
         grid_shape=tuple(sim.grid.shape),
         dtmu=sim.operands.dtmu,
@@ -205,8 +210,23 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
         probes=ProbeTable.from_blocks(blocks, m * Py * Pz, dev),
         mur_x_rows=(0 - g0, Qx - 1 - g0),
     )
+
+
+def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
+                        device=None) -> ShardStepper:
+    """The slab of ``rank`` of an x-split over ``n_dev`` ranks, with its
+    operands on ``device`` (default ``sim.device``). Everything is cut on
+    the host (:func:`slab_operands`); only the slab goes to the device."""
+    Px, Py, Pz = sim.padded_shape
+    if Pz > MAX_PZ:
+        raise ValueError(f"Pz={Pz} > {MAX_PZ}: not the shard kernel's route")
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} outside [0, {n_dev})")
+    mur = sim.cfg.boundary.upper().startswith("MUR")
+    n, K, W, m, rem = shard_geometry(Px, sim.grid.shape[0],
+                                     int(sim.probe_decim), n_dev, mur, k_steps)
     return ShardStepper(n_dev=n_dev, rank=rank, n=n, K=K, W=W, m=m, rem=rem,
-                        ops=ops)
+                        ops=slab_operands(sim, rank, n, W, device))
 
 
 # ---------------------------------------------------------------------------

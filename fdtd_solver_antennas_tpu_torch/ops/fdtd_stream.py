@@ -21,11 +21,19 @@ port computes the same T steps with one of two kernels of
   which is T calls of ``fdtd_cuda.leapfrog_step`` with the plain twins.
 - :func:`stream_steps_tile`: the tile kernel on any boundary, for timing
   it beside the march.
+- :func:`build_stream_shard_stepper` and :func:`stream_shard_steps`: the
+  same two kernels on one rank's halo-extended x-slab, the counterpart of
+  K2's ``shard=`` form, which the explicit run
+  (``parallel/explicit.py``) takes where Pz > ``fdtd_shard.MAX_PZ``.
+  A launch advances T steps; halos are W = T + 1 rows, restocked once
+  per launch. The march takes the slab's own x walls
+  (:func:`march_view`); the tile kernel runs CPML, which has none.
 
 The engine samples probes between launches with K1's ``probe_gather``.
-``launches`` counts ``stream_steps`` launches, as ``fdtd_cuda.launches``
-does for K1, and ``launches_by_kernel`` counts them per kernel
-(``stream_march``, ``stream_tile``). :data:`kernels` and :data:`plain`
+``launches`` counts ``stream_steps`` and ``stream_shard_steps``
+launches, as ``fdtd_cuda.launches`` does for K1, and
+``launches_by_kernel`` counts them per kernel (``stream_march``,
+``stream_tile``, ``shard_march``, ``shard_tile``). :data:`kernels` and :data:`plain`
 are the engine's full sets of entry points (K1's ``chunk_steps`` and
 per-step kernels, and ``stream_steps``) that
 ``ops/fdtd.py::run_simulation`` steps with.
@@ -39,15 +47,15 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from . import fdtd_cuda
+from . import fdtd_cuda, fdtd_shard
 from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
 
-KERNELS = ("stream_steps",)
+KERNELS = ("stream_steps", "stream_shard_steps")
 
 # kernel launches per wrapper; only the wrapper's CUDA branch adds to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the same launches by the kernel that ran
-ROUTES = ("stream_march", "stream_tile")
+ROUTES = ("stream_march", "stream_tile", "shard_march", "shard_tile")
 launches_by_kernel: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 # Shared memory one block may use on Hopper (H100/H200), bytes.
@@ -120,34 +128,35 @@ def tiling(shape, mur: bool, pml: bool):
     return core, origin, tiles
 
 
-def _cut(n: int, q: int, core: int, mur: bool) -> Tuple[int, int]:
+def _cut(n: int, wall: int, core: int, mur: bool) -> Tuple[int, int]:
     """``(origin, pieces)`` of one axis cut into cores of ``core`` cells:
     piece b covers [b·core − origin, (b+1)·core − origin) ∩ [0, n). Under
-    MUR no piece may be the lone wall plane q − 1 (its fix needs the
-    neighbour's new E): the cut shifts down by one cell where one would
-    start there."""
-    origin = int(bool(mur) and (q - 1) % core == 0)
+    MUR no piece may start on the upper wall plane ``wall`` (−1: none),
+    whose fix needs the plane below's new E: the cut shifts down by one
+    cell where one would start there."""
+    origin = int(bool(mur) and wall > 0 and wall % core == 0)
     return origin, -(-(n + origin) // core)
 
 
-def _march_layout(shape, grid_shape, mur: bool):
+def _march_layout(shape, grid_shape, mur: bool, x_wall=None,
+                  blocks: int = MARCH_BLOCKS):
     """The T-independent part of :func:`march_plan`. The x segments: the
     length (at least 3 planes) whose blocks finish soonest, counting
-    rounds of :data:`MARCH_BLOCKS` resident blocks times the planes a
-    block marches (its segment and the trapezoid's 2T more, taken at
-    T = 4)."""
+    rounds of ``blocks`` resident blocks times the planes a block marches
+    (its segment and the trapezoid's 2T more, taken at T = 4)."""
     n0, n1, n2 = (int(v) for v in shape)
     q0, q1, q2 = (int(v) for v in grid_shape)
+    x_wall = q0 - 1 if x_wall is None else int(x_wall)
     core = march_core(mur)
-    oy, ty = _cut(n1, q1, core[0], mur)
-    oz, tz = _cut(n2, q2, core[1], mur)
+    oy, ty = _cut(n1, q1 - 1, core[0], mur)
+    oz, tz = _cut(n2, q2 - 1, core[1], mur)
 
     def finish(seg):
-        rounds = -(-ty * tz * -(-n0 // seg) // MARCH_BLOCKS)
+        rounds = -(-ty * tz * -(-n0 // seg) // blocks)
         return rounds * (seg + 8), -seg
 
     seg = min({max(3, -(-n0 // k)) for k in range(1, n0 + 1)}, key=finish)
-    ox, segs = _cut(n0, q0, seg, mur)
+    ox, segs = _cut(n0, x_wall, seg, mur)
     return core, (oy, oz), (ty, tz), (seg, ox, segs)
 
 
@@ -162,8 +171,13 @@ def _march_cells_smem(shape, T: int, mur: bool):
     return cells, smem if fits else None
 
 
-def march_plan(shape, grid_shape, T: int, mur: bool):
+def march_plan(shape, grid_shape, T: int, mur: bool, x_wall=None,
+               blocks: int = MARCH_BLOCKS):
     """How the march cuts a grid for a T-step launch (MUR or PEC walls).
+    ``grid_shape`` places the y and z walls; ``x_wall`` is the plane of
+    the upper x wall (default ``grid_shape[0] − 1``, −1 for none): a
+    slab's, from :func:`march_view`; ``blocks`` the resident blocks the
+    x cut aims for (another count moves the segment ends).
 
     Returns ``(core_yz, origin_yz, tiles_yz, x_segments, smem_bytes)``.
     Tile (by, bz) covers y in [by·core_y − origin_y, (by+1)·core_y −
@@ -177,7 +191,8 @@ def march_plan(shape, grid_shape, T: int, mur: bool):
     the upper x wall's two fixed components. ``csrc/fdtd_stream.cu``
     computes the same from the packed arguments. Raises ``ValueError``
     where a region outgrows the threads or the shared memory."""
-    core, origin, tiles, segments = _march_layout(shape, grid_shape, mur)
+    core, origin, tiles, segments = _march_layout(shape, grid_shape, mur,
+                                                  x_wall, blocks)
     cells, smem = _march_cells_smem(shape, T, mur)
     if smem is None:
         raise ValueError(
@@ -185,6 +200,26 @@ def march_plan(shape, grid_shape, T: int, mur: bool):
             f"cells (at most {MARCH_THREADS}) or their shared memory past "
             f"{SMEM_LIMIT} B")
     return core, origin, tiles, segments, smem
+
+
+def march_view(ops: YeeOperands) -> Tuple[int, int, int]:
+    """``(v0, x_lo, x_hi)``: the march runs on rows ``[v0, m)`` of the
+    operands' ``m`` rows; ``x_lo`` is 1 where the view's plane 0 is the
+    lower MUR x wall, ``x_hi`` the view plane of the upper one (−1:
+    none). A whole grid gives ``(0, 1, q0 − 1)``. A slab (``mur_x_rows``)
+    whose lower wall lies in it starts the view at that wall: the rows
+    below it are out of the domain, their coefficients zero, and no
+    owned row reads them. An upper wall on the view's plane 0 fixes
+    nothing an owned row reads (every row above it is out of the domain)
+    and is left out. PEC and CPML have no walls: ``(0, 0, −1)``."""
+    if ops.mur is None:
+        return 0, 0, -1
+    m = ops.shape[0]
+    lo, hi = ops.mur_x_rows or (0, ops.grid_shape[0] - 1)
+    x_lo = int(0 <= lo < m)
+    v0 = lo if x_lo else 0
+    x_hi = hi - v0
+    return v0, x_lo, x_hi if 0 < x_hi < m - v0 else -1
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +256,7 @@ class _StreamArgs(ctypes.Structure):
         ("m_core", ctypes.c_int * 2), ("m_origin", ctypes.c_int * 2),
         ("m_tiles", ctypes.c_int * 2), ("m_seg", ctypes.c_int),
         ("m_seg_origin", ctypes.c_int), ("m_segs", ctypes.c_int),
+        ("x_lo", ctypes.c_int), ("x_hi", ctypes.c_int),
     ]
 
 
@@ -265,36 +301,46 @@ class _StreamBuffers:
     launch directions (set 0 → set 1, set 1 → set 0). A launch reads one
     set and writes the other; the wrapper then points the state at the
     set it wrote. Kept on the state (``YeeState._stream``); the structs
-    must outlive every launch."""
+    must outlive every launch. The march's arrays start at row ``v0``
+    (:func:`march_view`); rows below it are never written and stay as
+    the second set starts them, zero. ``blocks``: the march's x cut
+    (:func:`march_plan`)."""
 
-    def __init__(self, ops: YeeOperands, st: YeeState):
+    def __init__(self, ops: YeeOperands, st: YeeState, blocks: int):
         dev = ops.device
-        shp = tuple(ops.shape)
         first = _field_set(st)
-        self.ops = ops
-        self.sets = (first, tuple(torch.empty_like(t) for t in first))
-        self.args = tuple(self._pack(ops, self.sets[i], self.sets[1 - i], dev, shp)
+        self.ops, self.blocks = ops, blocks
+        self.v0, self.x_lo, self.x_hi = march_view(ops)
+        self.shape = (ops.shape[0] - self.v0, *ops.shape[1:])
+        self.sets = (first, tuple(torch.zeros_like(t) for t in first))
+        self.args = tuple(self._pack(ops, self.sets[i], self.sets[1 - i], dev)
                           for i in range(2))
         self.addr = tuple(ctypes.addressof(a) for a in self.args)
         self.march_T = set()  # the T whose shared memory C and Python agree on
 
-    @staticmethod
-    def _pack(ops, src, dst, dev, shp) -> _StreamArgs:
+    def _pack(self, ops, src, dst, dev) -> _StreamArgs:
         if ops.mur is not None and min(ops.grid_shape) < 3:
             raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
         pml = ops.pml is not None
+        shp, v0 = self.shape, self.v0
+
+        def rows(t):  # the view [v0, m) of a (m, Py, Pz) tensor
+            return None if t is None else t[v0:]
+
+        inv_p = (ops.inv_p[0][v0:], *ops.inv_p[1:])
+        inv_d = (ops.inv_d[0][v0:], *ops.inv_d[1:])
         a = _StreamArgs()
         for m in range(3):
-            a.e_in[m] = _ptr(src[m], shp, dev=dev)
-            a.h_in[m] = _ptr(src[3 + m], shp, dev=dev)
-            a.e_out[m] = _ptr(dst[m], shp, dev=dev)
-            a.h_out[m] = _ptr(dst[3 + m], shp, dev=dev)
-            a.ca[m] = _ptr(ops.ca[m], shp, dev=dev)
-            a.cb[m] = _ptr(ops.cb[m], shp, dev=dev)
-            a.src[m] = _ptr(ops.src[m], shp, dev=dev)
-            a.inv_p[m] = _ptr(ops.inv_p[m], (shp[m],), dev=dev)
-            a.inv_d[m] = _ptr(ops.inv_d[m], (shp[m],), dev=dev)
-        if pml:
+            a.e_in[m] = _ptr(rows(src[m]), shp, dev=dev)
+            a.h_in[m] = _ptr(rows(src[3 + m]), shp, dev=dev)
+            a.e_out[m] = _ptr(rows(dst[m]), shp, dev=dev)
+            a.h_out[m] = _ptr(rows(dst[3 + m]), shp, dev=dev)
+            a.ca[m] = _ptr(rows(ops.ca[m]), shp, dev=dev)
+            a.cb[m] = _ptr(rows(ops.cb[m]), shp, dev=dev)
+            a.src[m] = _ptr(rows(ops.src[m]), shp, dev=dev)
+            a.inv_p[m] = _ptr(inv_p[m], (shp[m],), dev=dev)
+            a.inv_d[m] = _ptr(inv_d[m], (shp[m],), dev=dev)
+        if pml:  # no walls, so v0 is 0
             for m in range(3):
                 for key in ("bh", "ch", "be", "ce"):
                     getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
@@ -317,16 +363,17 @@ class _StreamBuffers:
                 a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
         if not pml:
             core, origin, tiles, (seg, seg_origin, segs) = _march_layout(
-                shp, ops.grid_shape, ops.mur is not None)
+                shp, ops.grid_shape, ops.mur is not None, self.x_hi, self.blocks)
             a.m_core[:] = core
             a.m_origin[:] = origin
             a.m_tiles[:] = tiles
             a.m_seg, a.m_seg_origin, a.m_segs = seg, seg_origin, segs
+        a.x_lo, a.x_hi = self.x_lo, self.x_hi
         return a
 
-    def current(self, ops: YeeOperands, st: YeeState):
+    def current(self, ops: YeeOperands, st: YeeState, blocks: int):
         """Index of the set the state points at, or None if neither."""
-        if ops is not self.ops:
+        if ops is not self.ops or blocks != self.blocks:
             return None
         now = _field_set(st)
         for i, s in enumerate(self.sets):
@@ -341,33 +388,67 @@ def stream_steps(ops: YeeOperands, st: YeeState, wf_t: Sequence[float]) -> None:
     PEC) or the tile kernel (CPML); the state afterwards points at the
     other of its two field sets (its earlier tensors hold the fields from
     before the launch)."""
-    _stream_launch(ops, st, wf_t, "stream_tile" if ops.pml is not None
-                   else "stream_march")
+    _check_T(wf_t)
+    if not _on_cuda(st.h[0]):
+        return stream_steps_plain(ops, st, wf_t)
+    _stream_launch(ops, st, wf_t, ops.pml is None, "stream_steps",
+                   "stream_tile" if ops.pml is not None else "stream_march")
 
 
 def stream_steps_tile(ops: YeeOperands, st: YeeState,
                       wf_t: Sequence[float]) -> None:
     """:func:`stream_steps` through the tile kernel on any boundary (the
-    CPML route, timed beside the march under MUR and PEC)."""
-    _stream_launch(ops, st, wf_t, "stream_tile")
-
-
-def _stream_launch(ops, st, wf_t, kernel: str) -> None:
-    T = len(wf_t)
-    if not 1 <= T <= MAX_T:
-        raise ValueError(f"stream_steps takes 1..{MAX_T} samples, got {T}")
+    CPML route, timed beside the march under MUR and PEC). It places MUR
+    x walls at a whole grid's planes only."""
+    _check_T(wf_t)
+    if ops.mur is not None and ops.mur_x_rows is not None:
+        raise ValueError("the tile kernel takes no slab under MUR walls")
     if not _on_cuda(st.h[0]):
         return stream_steps_plain(ops, st, wf_t)
+    _stream_launch(ops, st, wf_t, False, "stream_steps", "stream_tile")
+
+
+def stream_shard_steps(ops: YeeOperands, st: YeeState,
+                       wf_t: Sequence[float],
+                       blocks: int = MARCH_BLOCKS) -> None:
+    """T = ``len(wf_t)`` steps of a rank's slab (``ops`` from
+    :func:`build_stream_shard_stepper`): on CUDA one launch of the march
+    on the slab's view (:func:`march_view`; its x cut aims at ``blocks``
+    resident blocks, :func:`march_plan`) under MUR and PEC, of the tile
+    kernel under CPML; on the CPU ``fdtd_shard.shard_steps_plain``, the
+    walls at ``ops.mur_x_rows``. The owned rows come out as T global
+    steps would leave them when the halos are W = T + 1 rows deep."""
+    _check_T(wf_t)
+    if ops.mur_x_rows is None:
+        raise ValueError("stream_shard_steps needs slab operands "
+                         "(build_stream_shard_stepper)")
+    if not _on_cuda(st.h[0]):
+        return fdtd_shard.shard_steps_plain(ops, st, wf_t)
+    _stream_launch(ops, st, wf_t, ops.pml is None, "stream_shard_steps",
+                   "shard_tile" if ops.pml is not None else "shard_march",
+                   blocks)
+
+
+def _check_T(wf_t) -> None:
+    if not 1 <= len(wf_t) <= MAX_T:
+        raise ValueError(f"a stream launch takes 1..{MAX_T} samples, "
+                         f"got {len(wf_t)}")
+
+
+def _stream_launch(ops, st, wf_t, march: bool, wrapper: str,
+                   route: str, blocks: int = MARCH_BLOCKS) -> None:
+    T = len(wf_t)
     lib = _library()
     buf = st._stream
-    cur = buf.current(ops, st) if buf is not None else None
+    cur = buf.current(ops, st, blocks) if buf is not None else None
     if cur is None:
-        buf = st._stream = _StreamBuffers(ops, st)
+        buf = st._stream = _StreamBuffers(ops, st, blocks)
         cur = 0
-    if kernel == "stream_march":
+    if march:
         launch = lib.fdtd_stream_march
         if T not in buf.march_T:
-            smem = march_plan(ops.shape, ops.grid_shape, T, ops.mur is not None)[4]
+            smem = march_plan(buf.shape, ops.grid_shape, T, ops.mur is not None,
+                              buf.x_hi, blocks)[4]
             got = lib.fdtd_march_smem_bytes(buf.addr[cur], T)
             if got != smem:
                 raise RuntimeError(f"march shared memory: C {got} B, "
@@ -380,9 +461,9 @@ def _stream_launch(ops, st, wf_t, kernel: str) -> None:
                   _stream(ops.device))
     if code != 0:
         msg = lib.fdtd_stream_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel {kernel} failed: {msg} ({code})")
-    launches["stream_steps"] += 1
-    launches_by_kernel[kernel] += 1
+        raise RuntimeError(f"CUDA kernel {route} failed: {msg} ({code})")
+    launches[wrapper] += 1
+    launches_by_kernel[route] += 1
     nxt = buf.sets[1 - cur]
     st.e[st.parity] = nxt[0:3]
     st.h = nxt[3:6]
@@ -390,6 +471,57 @@ def _stream_launch(ops, st, wf_t, kernel: str) -> None:
         st.psi_e = nxt[6:12]
         st.psi_h = nxt[12:18]
     st._cargs = st._chunk = None  # K1's packed pointers named the other set
+
+
+# ---------------------------------------------------------------------------
+# the slab stepper (the explicit run at Pz > fdtd_shard.MAX_PZ)
+# ---------------------------------------------------------------------------
+
+def stream_shard_geometry(Px: int, Py: int, Pz: int, D: int, n_dev: int,
+                          mur: bool, pml: bool, t_steps=None):
+    """``(n, T, W, m, rem)`` of K2's slab stepper: n = Px / n_dev owned
+    rows, T steps a launch, halos of W = T + 1 rows (the JAX package's
+    Hx: the top MUR wall may be a block's first row, its neighbour then in
+    the lower halo), m = n + 2W slab rows and the last launch of a probe
+    interval rem = D % T steps. T is ``t_steps`` or the deepest in
+    1..min(n − 1, D, MAX_T) that both kernels take at the slab's shape
+    (:func:`max_T`); the JAX package's VMEM picker does not carry over,
+    its constraints (T + 1 ≤ n, T ≤ D) do."""
+    n = fdtd_shard.owned_rows(Px, n_dev)
+    top = min(n - 1, int(D), MAX_T)
+
+    def fits(T):
+        try:
+            return T <= max_T((n + 2 * T + 2, Py, Pz), mur, pml)
+        except ValueError:
+            return False
+
+    T = int(t_steps) if t_steps else max(
+        (t for t in range(1, top + 1) if fits(t)), default=0)
+    if not (1 <= T <= top and fits(T)):
+        raise ValueError(f"no stream slab of T={T} steps: n={n}, D={D}, "
+                         f"slab y-z {Py}x{Pz}, at most T={top}")
+    return n, T, T + 1, n + 2 * T + 2, int(D) % T
+
+
+def build_stream_shard_stepper(sim, n_dev: int, rank: int, device=None,
+                               t_steps=None) -> fdtd_shard.ShardStepper:
+    """The slab of ``rank`` of an x-split over ``n_dev`` ranks for
+    :func:`stream_shard_steps` (the counterpart of K2's ``shard=``): a
+    ``fdtd_shard.ShardStepper`` with K = T and W = T + 1
+    (:func:`stream_shard_geometry`), its operands cut on the host by
+    ``fdtd_shard.slab_operands`` and put on ``device`` (default
+    ``sim.device``)."""
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} outside [0, {n_dev})")
+    Px, Py, Pz = sim.padded_shape
+    mur = sim.cfg.boundary.upper().startswith("MUR")
+    pml = sim._aux[3] is not None
+    n, T, W, m, rem = stream_shard_geometry(Px, Py, Pz, sim.probe_decim, n_dev,
+                                            mur, pml, t_steps)
+    return fdtd_shard.ShardStepper(
+        n_dev=n_dev, rank=rank, n=n, K=T, W=W, m=m, rem=rem,
+        ops=fdtd_shard.slab_operands(sim, rank, n, W, device))
 
 
 # the engine's entry points: K1's and the stream stepper, through the

@@ -1,13 +1,18 @@
 """Explicit multi-device FDTD on ``torch.distributed``: x-slabs and halos.
 
 Counterpart of ``fdtd_solver_antennas_tpu/parallel/explicit.py`` on its
-kernel route (``use_kernel=True`` with Pz ≤ 128). The JAX package's 1-D
-device mesh becomes a process group of ``n_dev`` ranks; rank r owns the
-grid rows ``[r·n, (r+1)·n)``, ``n = Px // n_dev``, and keeps them in a
-slab with W halo rows per side (``ops/fdtd_shard.py``). Per probe
-interval of D steps:
+kernel routes (``use_kernel=True``). The JAX package's 1-D device mesh
+becomes a process group of ``n_dev`` ranks; rank r owns the grid rows
+``[r·n, (r+1)·n)``, ``n = Px // n_dev``, and keeps them in a slab with W
+halo rows per side. The route is the JAX package's: at Pz ≤ 128
+(``fdtd_shard.MAX_PZ``) K3's slab stepper (``ops/fdtd_shard.py``,
+K steps a launch, W = K or K + 1), above it K2's
+(``ops/fdtd_stream.py::build_stream_shard_stepper``, the counterpart of
+its ``shard=`` stream kernel: T steps a launch, W = T + 1, the march
+under MUR and PEC, the tile kernel under CPML). Per probe interval of D
+steps:
 
-- ``D // K`` launches of the shard stepper of K steps, and one of
+- ``D // K`` launches of the slab stepper of K steps, and one of
   ``D % K`` when that is not 0; after each launch ONE halo restock: the
   W boundary rows of the six fields (and the twelve ψ under CPML),
   stacked into one buffer per neighbour, go both ways with
@@ -23,9 +28,9 @@ resumed checkpoint's totals are added once, and the owned rows of every
 rank are gathered into a canonical ``(Px, Py, Pz)`` state that resumes
 either package. ``group=None`` is one rank and no collectives.
 
-Not ported (ROADMAP A9): the per-step walk the JAX package runs with
-``use_kernel=False``, and its sharded stream kernel for Pz > 128.
-A run over several cards (NCCL) has not been tried yet.
+Not ported (ROADMAP, queue A: the per-step walk): the JAX package's
+per-step walk with ``use_kernel=False``. A run over several cards (NCCL)
+has not been tried yet.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops import fdtd_cuda, fdtd_shard
+from ..ops import fdtd_cuda, fdtd_shard, fdtd_stream
 from ..ops.fdtd import (
     ProbeDFT,
     _assemble_output,
@@ -99,30 +104,33 @@ def build_explicit_run(sim, group=None, use_kernel=None, device=None,
     ``sim`` must have ``Px`` divisible by the rank count (build it with
     ``pad_multiple=(n_dev, 1, 1)``). Only this rank's slab goes to
     ``device`` (default ``sim.device``); on a CUDA device every step is a
-    launch of the shard kernel. ``run`` returns the output surface of
+    launch of the slab stepper's kernel. ``run`` returns the output surface of
     ``PreparedSimulation.run`` (``uf``, ``if_``, ``nf_e``, ``nf_h``,
     ``steps``, ``e_ratio``, ``fields``, and a canonical ``(Px, Py, Pz)``
     ``state``) on every rank; ``run.kernel_window`` is K, the steps per
-    launch and per halo exchange.
+    launch and per halo exchange, and ``run.stepper`` the slab stepper.
 
-    ``use_kernel`` None or True takes the shard kernel; False (the JAX
-    package's per-step walk) and Pz > 128 (its sharded stream kernel)
-    raise ``NotImplementedError``. ``k_steps`` overrides K (default
-    ``min(n, D, 32)``); the result does not depend on it.
+    ``use_kernel`` None or True takes the slab kernels: K3's at
+    Pz ≤ ``fdtd_shard.MAX_PZ``, K2's above; False (the JAX package's
+    per-step walk) raises ``NotImplementedError``. ``k_steps`` overrides
+    K (K3: default ``min(n, D, 32)``; K2: the deepest T its kernels take,
+    at most n − 1 and D); the result does not depend on it.
     """
     if use_kernel is False:
         raise NotImplementedError(
             "use_kernel=False (the per-step walk of the JAX explicit path) "
-            "is not ported; see ROADMAP A9")
-    Px, Py, Pz = sim.padded_shape
-    if Pz > fdtd_shard.MAX_PZ:
-        raise NotImplementedError(
-            f"Pz={Pz} > {fdtd_shard.MAX_PZ} needs the sharded stream kernel "
-            "(K2's shard= route), not ported yet; see ROADMAP B2")
+            "is not ported; see ROADMAP, queue A: the per-step walk")
+    Pz = sim.padded_shape[2]
     n_dev = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
     dev = resolve_device(sim.device if device is None else device)
-    sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank, k_steps, dev)
+    if Pz > fdtd_shard.MAX_PZ:
+        sh = fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank, dev,
+                                                    k_steps)
+        slab_steps = fdtd_stream.stream_shard_steps
+    else:
+        sh = fdtd_shard.build_shard_stepper(sim, n_dev, rank, k_steps, dev)
+        slab_steps = fdtd_shard.shard_steps
     halo = _HaloExchange(sh, group) if n_dev > 1 else None
     decim, n_sub, _chunk, _n_chunks = chunk_geometry(sim)
     windows = [sh.K] * (decim // sh.K) + ([sh.rem] if sh.rem else [])
@@ -184,7 +192,7 @@ def build_explicit_run(sim, group=None, use_kernel=None, device=None,
             n0 = n
             for j in range(n_sub):
                 for k in windows:
-                    fdtd_shard.shard_steps(ops, st, wf[n:n + k])
+                    slab_steps(ops, st, wf[n:n + k])
                     n += k
                     if halo is not None:
                         halo.restock(st)

@@ -419,18 +419,25 @@ def run_prepared_multi_patch_3d(
     verbose: int = 1,
     progress_cb=None,
     abort_cb=None,
+    run=None,
 ) -> FDTDSolverResult:
     """Run the scene; full-sphere dBi grid at the first port's resonance.
 
     ``progress_cb(steps_done, n_steps_max, e_ratio)`` / ``abort_cb()`` are
-    forwarded to :meth:`PreparedSimulation.run`."""
+    forwarded to :meth:`PreparedSimulation.run`. ``run`` replaces
+    ``sim.run`` with another runner of the same simulation that returns
+    the same output dict, such as ``parallel.build_explicit_run(sim)``;
+    the callbacks apply to ``sim.run`` only."""
     try:
         if not prepared.ok or prepared.sim is None:
             return FDTDSolverResult(False, prepared.message)
         sim = prepared.sim
 
         t_start = time.perf_counter()
-        out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
+        if run is not None:
+            out = run()
+        else:
+            out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
         steps = int(out["steps"])
         wall = time.perf_counter() - t_start  # out["uf"] is on the host
         if out.get("aborted"):

@@ -21,20 +21,23 @@ def jax_sim(kind, boundary, n_dev, **ctl):
     return build_simulation(sc, grid, cfg=cfg, **build_kwargs(n_dev))
 
 
-def jax_explicit(kind, boundary, n_dev, resume_state=None, **ctl):
+def jax_explicit(kind, boundary, n_dev, resume_state=None, use_kernel=True,
+                 **ctl):
+    """The JAX package's explicit run; ``use_kernel=False`` is its XLA
+    per-step walk."""
     mesh = make_device_mesh((n_dev,), ("x",), devices=jax.devices()[:n_dev])
     run = build_explicit_run(jax_sim(kind, boundary, n_dev, **ctl), mesh,
-                             use_kernel=True)
+                             use_kernel=use_kernel)
     return run(resume_state=resume_state)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_refs(kind, boundary, n_dev, ctl=()):
+def jax_refs(kind, boundary, n_dev, ctl=(), use_kernel=True):
     """(single-device run, explicit run) of the JAX package; ``ctl`` as
     sorted (key, value) pairs."""
     ctl = dict(ctl)
     return (jax_sim(kind, boundary, n_dev, **ctl).run(),
-            jax_explicit(kind, boundary, n_dev, **ctl))
+            jax_explicit(kind, boundary, n_dev, use_kernel=use_kernel, **ctl))
 
 
 def numpy_state(state) -> dict:

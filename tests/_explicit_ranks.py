@@ -17,10 +17,24 @@ N_STEPS = 120
 def scene(mesh_builder, scene_cls, kind):
     """``small``: the scene of tests/test_sharding.py::_build (22×21×21);
     ``straddle``: a 13-line x axis, so that at 4 ranks (Px = 16, n = 4)
-    the top MUR wall, row 12, is the first row of the last block."""
+    the top MUR wall, row 12, is the first row of the last block;
+    ``tall_z``: the z = 131 scene of tests/test_sharding.py::_build_tall
+    on 16 x lines (16×16×131, past the 128 z lines of K3's route);
+    ``tall_straddle``: the same on 13 x lines, the straddle at z = 131."""
     mb = mesh_builder()
     sc = scene_cls()
-    if kind == "small":
+    if kind in ("tall_z", "tall_straddle"):
+        nx = 16 if kind == "tall_z" else 13
+        mb.add_line("x", np.linspace(0, nx - 1, nx))
+        mb.add_line("y", np.linspace(0, 15, 16))
+        mb.add_line("z", np.linspace(0, 130, 131))
+        grid = mb.build(1.0)
+        c = (nx - 1) // 2
+        sc.add_material_box("sub", 4.3, 0.005, [c - 4, 4, 60], [c + 4, 11, 64], 0)
+        sc.add_metal_box("patch", [c - 3, 6, 64], [c + 3, 10, 64], priority=10)
+        sc.add_metal_box("gnd", [c - 4, 4, 60], [c + 4, 11, 60], priority=10)
+        sc.add_lumped_port(1, 50.0, [c, 8, 60], [c, 8, 64], direction="z")
+    elif kind == "small":
         mb.add_line("x", [-40, 40, 0.0, -6.0])
         mb.add_line("y", [-40, 40, 0.0])
         mb.add_line("z", [-20, 30])
@@ -52,14 +66,14 @@ def build_kwargs(n_dev):
                 pad_multiple=(n_dev, 1, 1), **FREQS)
 
 
-def port_sim(kind, boundary, n_dev, **ctl):
+def port_sim(kind, boundary, n_dev, device="cpu", **ctl):
     from fdtd_solver_antennas_tpu_torch.models.scene import Scene
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
     from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
 
     sc, grid = scene(MeshBuilder, Scene, kind)
     return build_simulation(sc, grid, cfg=FDTDConfig(**controls(boundary, **ctl)),
-                            device="cpu", **build_kwargs(n_dev))
+                            device=device, **build_kwargs(n_dev))
 
 
 # ---------------------------------------------------------------------------

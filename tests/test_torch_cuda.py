@@ -166,7 +166,7 @@ def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
     before = a.h[0]
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
-    assert fdtd_stream.launches == {"stream_steps": 1}
+    assert fdtd_stream.launches == {"stream_steps": 1, "stream_shard_steps": 0}
     route = "stream_tile" if boundary.startswith("PML") else "stream_march"
     assert fdtd_stream.launches_by_kernel[route] == 1
     assert a.h[0] is not before
@@ -189,7 +189,8 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     assert fdtd_stream.launches["stream_steps"] == 120 // 4
     route = "stream_tile" if boundary.startswith("PML") else "stream_march"
     assert fdtd_stream.launches_by_kernel == {
-        "stream_march": 0, "stream_tile": 0, route: 120 // 4}
+        "stream_march": 0, "stream_tile": 0, "shard_march": 0, "shard_tile": 0,
+        route: 120 // 4}
     assert fdtd_cuda.launches["probe_gather"] == 120 // 4
     assert fdtd_cuda.launches["h_update"] == 0
     p = run_simulation(sim, fdtd_stream.plain)
@@ -255,7 +256,8 @@ def test_stream_march_equals_its_twin(cuda, boundary, scene, T):
     a, b = _clone(base), _clone(base)
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
-    assert fdtd_stream.launches_by_kernel == {"stream_march": 1, "stream_tile": 0}
+    assert fdtd_stream.launches_by_kernel == {"stream_march": 1, "stream_tile": 0,
+                                              "shard_march": 0, "shard_tile": 0}
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
     for x, y in zip((*a.e[a.parity], *a.h), (*b.e[b.parity], *b.h), strict=True):
@@ -372,6 +374,89 @@ def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
     assert out["steps"] == ref["steps"] == 120
     for a, b in zip(out["fields"], ref["fields"], strict=True):
         assert torch.equal(a, b)
+    for key in ("uf", "if_"):
+        _close(out[key], ref[key])
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(out[key], ref[key], strict=True):
+            _close(a, b)
+
+
+def _z131_sim(kind, boundary, n_dev, decim):
+    """Pz > 128, K2's slab route on the explicit path: a scene of
+    tests/_explicit_ranks.py on the card, ``tall_z`` (16×16×131) or
+    ``tall_straddle`` (13 x lines: at 4 ranks, Px = 16, n = 4, the top MUR
+    wall is the last rank's first row)."""
+    from _explicit_ranks import port_sim
+
+    return port_sim(kind, boundary, n_dev, decim=decim, check_every=120,
+                    device="cuda")
+
+
+@pytest.mark.parametrize("boundary,n_dev,rank,window,straddle", [
+    ("MUR", 1, 0, "T", False), ("MUR", 1, 0, "rem", False),
+    ("PEC", 4, 2, "T", False), ("PML_4", 4, 1, "T", False),
+    ("PML_4", 1, 0, "rem", False), ("MUR", 4, 0, "T", True),
+    ("MUR", 4, 1, "T", True), ("MUR", 4, 2, "T", True),
+    ("MUR", 4, 3, "T", True), ("MUR", 4, 3, "rem", True),
+])
+def test_stream_shard_steps_equals_its_twin(cuda, boundary, n_dev, rank,
+                                            window, straddle):
+    """One launch of K2's slab stepper (the march under MUR and PEC, the
+    tile kernel under CPML) on a random slab state against its plain
+    twin, bit for bit on the owned rows; at 4 ranks of the straddle
+    scene: rank 0 (the lower wall at slab row W), rank 1 (W = n: the
+    lower wall on slab row 0), rank 2 (the upper wall in its upper halo)
+    and rank 3 (the upper wall on its first owned row)."""
+    sim = _z131_sim("tall_straddle" if straddle else "tall_z", boundary,
+                    n_dev, decim=4 if straddle else 9)
+    sh = fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank)
+    assert sh.W == sh.K + 1 and sh.K + 1 <= sh.n
+    k = sh.K if window == "T" else sh.rem
+    assert k >= 1
+    rng = np.random.default_rng(29 + rank)
+    a = sh.new_state()
+    for t in (*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    b = _clone(a)
+    wf = list(rng.uniform(-1.0, 1.0, k))
+    route = "shard_tile" if boundary.startswith("PML") else "shard_march"
+    fdtd_stream.reset_launch_counts()
+    fdtd_stream.stream_shard_steps(sh.ops, a, wf)
+    assert fdtd_stream.launches["stream_shard_steps"] == 1
+    assert fdtd_stream.launches_by_kernel[route] == 1
+    fdtd_shard.shard_steps_plain(sh.ops, b, wf)
+    torch.cuda.synchronize()
+    for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                    (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
+        assert torch.equal(x[sh.owned], y[sh.owned])
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_explicit_run_at_z131_on_one_card_equals_the_single_card_run(
+        cuda, boundary):
+    """Pz > 128: the explicit path on one rank launches only K2's slab
+    kernels and K1's probe gather, and equals the single-card run."""
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+
+    sim = _z131_sim("tall_z", boundary, 1, decim=10)
+    run = build_explicit_run(sim)
+    T = run.kernel_window
+    per = 10 // T + (10 % T > 0)
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    out = run()
+    route = "shard_tile" if boundary.startswith("PML") else "shard_march"
+    assert fdtd_stream.launches_by_kernel[route] == 12 * per
+    assert fdtd_stream.launches["stream_shard_steps"] == 12 * per
+    assert fdtd_stream.launches["stream_steps"] == 0
+    assert fdtd_shard.launches == {"shard_steps": 0}
+    assert fdtd_cuda.launches["probe_gather"] == 12
+    assert fdtd_cuda.launches["chunk_steps"] == 0
+    ref = sim.run()
+    assert out["steps"] == ref["steps"] == 120
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        _close(a, b)
     for key in ("uf", "if_"):
         _close(out[key], ref[key])
     for key in ("nf_e", "nf_h"):

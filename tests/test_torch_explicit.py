@@ -4,10 +4,13 @@
 steps the halo-extended slab with the shard stepper's plain twin and must
 match the JAX package's ``build_explicit_run`` on a 1-device mesh with its
 shard kernel in interpret mode (rtol 2e-4, atol 1e-5·max|ref|), and equal
-the port's own chunk-mode run bit for bit. Checkpoints carry across
-between the two packages' explicit paths, the padding and NF margin of
-``build_simulation`` are the JAX package's, and the routes the port does
-not have raise. Runs over 2 and 4 ranks are in
+the port's own chunk-mode run bit for bit. At Pz > 128 (the ``tall_z``
+scene, z = 131) the run takes K2's slab stepper and must match the JAX
+package's single-device run and its explicit XLA walk
+(``use_kernel=False``) at the same tolerance under MUR_1, PEC and PML_4.
+Checkpoints carry across between the two packages' explicit paths, the
+padding and NF margin of ``build_simulation`` are the JAX package's, and
+the route the port does not have raises. Runs over 2 and 4 ranks are in
 ``tests/test_torch_explicit_2ranks.py`` and ``..._4ranks.py``.
 """
 
@@ -69,6 +72,20 @@ def test_one_rank_equals_chunk_mode(boundary):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("boundary", ["MUR_1", "PEC", "PML_4"])
+def test_one_rank_at_tall_z_matches_jax(boundary):
+    """Pz = 131 > 128: K2's slab stepper (T steps a launch, W = T + 1)
+    against the JAX package's single-device run and its explicit XLA
+    walk, which its explicit run at Pz > 128 is held to."""
+    run = build_explicit_run(port_sim("tall_z", boundary, 1))
+    sh = run.stepper
+    assert sh.ops.shape[2] == 131 > fdtd_shard.MAX_PZ
+    assert sh.W == sh.K + 1 == run.kernel_window + 1 and sh.rem == 10 % sh.K
+    out = run()
+    for ref in jax_refs("tall_z", boundary, 1, use_kernel=False):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
 @pytest.mark.parametrize("k_steps", [3, 7])
 def test_k_only_sets_the_exchange_cadence(k_steps):
     """A remainder window every interval (10 = 3·3 + 1 = 7 + 3) leaves
@@ -127,8 +144,12 @@ def test_padding_and_nf_margin_match_jax():
 
 @pytest.mark.parametrize("route", ["xla_walk", "tall_z"])
 def test_unported_routes_raise(route):
+    """The per-step walk raises. Pz = 131 once raised too; it now takes K2's
+    slab stepper and equals the single-card run, while K3's stepper still
+    refuses it (the router, not K3, picks the route)."""
     if route == "xla_walk":
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP, queue A: the per-step walk"):
             build_explicit_run(port_sim("small", "MUR", 1), use_kernel=False)
         return
     mb = MeshBuilder()
@@ -138,7 +159,11 @@ def test_unported_routes_raise(route):
     sim = build_simulation(Scene(), mb.build(1.0), f0=2.45e9, fc=1.225e9,
                            cfg=FDTDConfig(**controls("MUR")), device="cpu",
                            **FREQS)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        build_explicit_run(sim)
+    run = build_explicit_run(sim)
+    assert run.stepper.W == run.kernel_window + 1
+    out, ref = run(), sim.run()
+    assert out["steps"] == ref["steps"]
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="Pz=131"):
         fdtd_shard.build_shard_stepper(sim, 1, 0)

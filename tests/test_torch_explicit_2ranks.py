@@ -8,6 +8,12 @@ on the scene of ``tests/test_sharding.py::_build`` padded to
 run and to its explicit run on a 2-device mesh with the shard kernel in
 interpret mode, at the JAX package's own explicit-path tolerance
 (rtol 1e-3, atol 1e-4·max|ref|, ``tests/test_sharding.py:92-98``).
+MUR_1, PEC and PML_4 at z = 131 (``tall_z``: K2's slab stepper, T = 6
+under PEC, else 4, with a remainder window) are held to the JAX
+package's single-device run and its explicit XLA walk on a 2-device mesh
+at rtol 2e-4, atol 1e-5·max|ref|; PML_4 at z = 131 also to its ``shard=``
+stream kernel in interpret mode on that mesh (the ψ halos restocked each
+launch).
 """
 
 import pytest
@@ -16,6 +22,8 @@ from _explicit_jax import jax_explicit, jax_refs, numpy_state
 from _explicit_ranks import assert_close_surface, spawn_runs
 
 RTOL, ATOL_REL = 1e-3, 1e-4
+TALL_RTOL, TALL_ATOL_REL = 2e-4, 1e-5
+TALL = ("MUR_1", "PEC", "PML_4")
 WORLD = 2
 CTL = dict(n_steps=60, check_every=30)  # two chunks of 3 probe intervals
 
@@ -30,6 +38,7 @@ def outs(tmp_path_factory):
     jobs = {b: ("small", b, CTL, None) for b in ("MUR", "PEC", "PML_4")}
     half = jax_explicit("small", "MUR", WORLD, **dict(CTL, n_steps=30))
     jobs["resume"] = ("small", "MUR", CTL, numpy_state(half["state"]))
+    jobs.update({f"tall {b}": ("tall_z", b, CTL, None) for b in TALL})
     return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
 
 
@@ -44,3 +53,20 @@ def test_ranks_match_jax_single_device_and_explicit(outs, boundary):
 def test_ranks_resume_a_jax_explicit_checkpoint(outs):
     assert_close_surface(outs["resume"], _refs("small", "MUR")[1], RTOL,
                          ATOL_REL)
+
+
+@pytest.mark.parametrize("boundary", TALL)
+def test_tall_z_ranks_match_jax_single_device_and_walk(outs, boundary):
+    out = outs[f"tall {boundary}"]
+    assert out["fields"][0].shape == (16, 16, 131)
+    for ref in jax_refs("tall_z", boundary, WORLD, tuple(sorted(CTL.items())),
+                        use_kernel=False):
+        assert_close_surface(out, ref, TALL_RTOL, TALL_ATOL_REL)
+
+
+def test_tall_z_pml_ranks_match_the_jax_shard_stream_kernel(outs):
+    """The port's slab tile kernel route over 2 ranks (ψ restocked with
+    the halos) against the JAX package's ``shard=`` stream kernel, the
+    kernel it ports, on a 2-device mesh."""
+    ref = jax_explicit("tall_z", "PML_4", WORLD, **CTL)
+    assert_close_surface(outs["tall PML_4"], ref, TALL_RTOL, TALL_ATOL_REL)

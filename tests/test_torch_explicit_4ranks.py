@@ -10,6 +10,11 @@ JAX package to resume. Each run is held to the JAX package's single-device
 run and to its explicit run on a 4-device mesh with the shard kernel in
 interpret mode, at the JAX package's own explicit-path tolerance
 (rtol 1e-3, atol 1e-4·max|ref|, ``tests/test_sharding.py:92-98``).
+MUR_1, PEC and PML_4 at z = 131 (``tall_z``, n = 4: K2's slab stepper,
+T = 3) and the straddle at z = 131 (``tall_straddle``: the top wall on
+the last rank's first row, W = n = 4, so rank 1's lower halo starts on
+the bottom wall) are held to the JAX package's single-device run and its
+explicit XLA walk on a 4-device mesh at rtol 2e-4, atol 1e-5·max|ref|.
 """
 
 import pytest
@@ -21,6 +26,8 @@ RTOL, ATOL_REL = 1e-3, 1e-4
 WORLD = 4
 CTL = dict(n_steps=60, check_every=30)  # two chunks of 3 probe intervals
 STRADDLE = dict(CTL, decim=4)  # K = 3, W = 4, remainder 1
+TALL_RTOL, TALL_ATOL_REL = 2e-4, 1e-5
+TALL = ("MUR_1", "PEC", "PML_4")
 
 
 def _refs(kind, boundary, ctl=CTL):
@@ -33,6 +40,8 @@ def outs(tmp_path_factory):
     jobs = {b: ("small", b, CTL, None) for b in ("MUR", "PEC", "PML_4")}
     jobs["straddle"] = ("straddle", "MUR", STRADDLE, None)
     jobs["half"] = ("small", "PML_4", dict(CTL, n_steps=30), None)
+    jobs.update({f"tall {b}": ("tall_z", b, CTL, None) for b in TALL})
+    jobs["tall straddle"] = ("tall_straddle", "MUR_1", STRADDLE, None)
     return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
 
 
@@ -56,3 +65,23 @@ def test_jax_explicit_resumes_a_ranks_checkpoint(outs):
     assert int(half["steps"]) == 30
     out = jax_explicit("small", "PML_4", WORLD, resume_state=half["state"], **CTL)
     assert_close_surface(out, _refs("small", "PML_4")[1], RTOL, ATOL_REL)
+
+
+def _walk_refs(kind, boundary, ctl):
+    return jax_refs(kind, boundary, WORLD, tuple(sorted(ctl.items())),
+                    use_kernel=False)
+
+
+@pytest.mark.parametrize("boundary", TALL)
+def test_tall_z_ranks_match_jax_single_device_and_walk(outs, boundary):
+    out = outs[f"tall {boundary}"]
+    assert out["fields"][0].shape == (16, 16, 131)
+    for ref in _walk_refs("tall_z", boundary, CTL):
+        assert_close_surface(out, ref, TALL_RTOL, TALL_ATOL_REL)
+
+
+def test_tall_straddle(outs):
+    out = outs["tall straddle"]
+    assert out["fields"][0].shape == (16, 16, 131)
+    for ref in _walk_refs("tall_straddle", "MUR_1", STRADDLE):
+        assert_close_surface(out, ref, TALL_RTOL, TALL_ATOL_REL)

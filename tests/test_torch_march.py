@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene
-from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
 from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
 from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
 
@@ -119,25 +119,35 @@ def _np(t):
     return None if t is None else t.numpy()
 
 
-def emulate_march(ops, st, wf):
+def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
     """``march_kernel`` of ``csrc/fdtd_stream.cu`` block by block, in
-    float32 with the kernel's order of operations. Returns the new (E, H);
-    cells no block writes stay NaN."""
+    float32 with the kernel's order of operations, on the rows
+    ``[v0, m)`` the host launches it on (``fdtd_stream.march_view``: a
+    slab's walls), cut as ``march_plan`` cuts it for ``blocks`` resident
+    blocks. Returns the new (E, H); cells no block writes stay NaN."""
+    v0, x_lo, x_hi = fdtd_stream.march_view(ops)
     n0, n1, n2 = ops.shape
-    q0, q1, q2 = ops.grid_shape
+    n0 -= v0
+    q1, q2 = ops.grid_shape[1:]
     T = len(wf)
     mur = ops.mur is not None
     f32 = np.float32
     core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
-        ops.shape, ops.grid_shape, T, mur)
-    E_in = [_np(e) for e in st.e[st.parity]]
-    H_in = [_np(h) for h in st.h]
-    ca, cb, src = ([_np(a) for a in arr] for arr in (ops.ca, ops.cb, ops.src))
-    ip, idd = [_np(a) for a in ops.inv_p], [_np(a) for a in ops.inv_d]
+        (n0, n1, n2), ops.grid_shape, T, mur, x_hi, blocks)
+
+    def view(t):
+        return None if t is None else _np(t)[v0:]
+
+    E_in = [view(e) for e in st.e[st.parity]]
+    H_in = [view(h) for h in st.h]
+    ca, cb, src = ([view(a) for a in arr] for arr in (ops.ca, ops.cb, ops.src))
+    ip = [view(ops.inv_p[0]), *(_np(a) for a in ops.inv_p[1:])]
+    idd = [view(ops.inv_d[0]), *(_np(a) for a in ops.inv_d[1:])]
     dtmu = f32(ops.dtmu)
     mc = [[f32(c) for c in pair] for pair in ops.mur] if mur else None
-    E_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
-    H_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    E_all = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    H_all = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    E_out, H_out = [e[v0:] for e in E_all], [h[v0:] for h in H_all]
     R = T + 2
 
     def shift(a, axis, d):
@@ -223,8 +233,8 @@ def emulate_march(ops, st, wf):
                 Hm = Hr[(x - 1) % R] if x > 0 else None
                 act = ((gy >= max(cy0 - T + t - 1, ry)) & (gy < min(cy1 + T - t, ry + Ly))
                        & (gz >= max(cz0 - T + t - 1, rz)) & (gz < min(cz1 + T - t, rz + Lz)))
-                defer0 = mur and x == 0
-                with0 = mur and x == 1 and lo == 0
+                defer0 = mur and x_lo and x == 0
+                with0 = mur and x_lo and x == 1 and lo == 0
                 # H
                 ex, ey, ez = E
                 Ep = Er[(x + 1) % R] if x + 1 < n0 else np.zeros_like(E)
@@ -246,11 +256,11 @@ def emulate_march(ops, st, wf):
                     if mur:
                         Ox[:, act] = old[:, act]
                     E[0][act] = v[0][act]
-                    if mur and x == q0 - 1:
+                    if mur and x == x_hi:
                         E[1][act], E[2][act] = W[0][act], W[1][act]
                     else:
                         E[1][act], E[2][act] = v[1][act], v[2][act]
-                    if mur and x == q0 - 2:
+                    if mur and x == x_hi - 1:
                         Ew = Er[(x + 1) % R]
                         cx = mc[0][1]
                         W[0][act] = (Ox[1] + cx * (v[1] - Ew[1]))[act]
@@ -283,7 +293,7 @@ def emulate_march(ops, st, wf):
                         for m in range(3):
                             E_out[m][px, sy, sz][core_m] = Er[px % R, m][core_m]
                             H_out[m][px, sy, sz][core_m] = Hr[px % R, m][core_m]
-    return E_out, H_out
+    return E_all, H_all
 
 
 def _sim(boundary, tall=False):
@@ -355,13 +365,95 @@ def test_schedule_with_the_lone_plane_shift(monkeypatch):
     monkeypatch.setitem(fdtd_stream._MARCH_CORE, "mur", core)
     tiles = fdtd_stream.march_plan(ops.shape, ops.grid_shape, 3, True)[2]
     assert n0 == 19  # seven segments of 3 planes: 19 % 3 == 1
-    monkeypatch.setattr(fdtd_stream, "MARCH_BLOCKS", tiles[0] * tiles[1] * 7)
+    blocks = tiles[0] * tiles[1] * 7
     _, origin, _, (seg, so, segs), _ = fdtd_stream.march_plan(
-        ops.shape, ops.grid_shape, 3, True)
+        ops.shape, ops.grid_shape, 3, True, blocks=blocks)
     assert origin == (1, 1) and (seg, so, segs) == (3, 1, 7)
     st = _random_state(ops.shape, seed=5)
     wf = [0.2, -0.4, 0.7]
-    E, H = emulate_march(ops, st, wf)
+    E, H = emulate_march(ops, st, wf, blocks)
     fdtd_stream.stream_steps_plain(ops, st, wf)
     for got, ref in zip((*E, *H), st.fields, strict=True):
         np.testing.assert_array_equal(got, ref.numpy())
+
+
+# ---------------------------------------------------------------------------
+# a rank's x-slab (the explicit run at Pz > 128): the walls where the slab
+# has them
+# ---------------------------------------------------------------------------
+
+# (boundary, ranks, rank, T, window, march_view) on the 13-line straddle
+# scene of tests/_explicit_ranks.py (Qx = 13; at 4 ranks Px = 16, n = 4)
+SLABS = [
+    ("MUR", 1, 0, 3, 3, (4, 1, 12)),  # one rank: both walls, view from row W
+    ("MUR", 1, 0, 3, 1, (4, 1, 12)),  # a remainder window
+    ("MUR", 4, 0, 3, 3, (4, 1, -1)),  # rank 0: the lower wall at slab row W
+    ("MUR", 4, 1, 3, 3, (0, 1, -1)),  # W = n: the lower wall on slab row 0
+    ("MUR", 4, 2, 3, 3, (0, 0, 8)),  # the upper wall in the upper halo
+    ("MUR", 4, 3, 3, 3, (0, 0, 4)),  # the straddle: the first owned row
+    ("MUR", 4, 3, 2, 2, (0, 0, 3)),
+    ("PEC", 4, 3, 3, 3, (0, 0, -1)),
+    ("PEC", 1, 0, 3, 2, (0, 0, -1)),
+]
+
+
+def _slab(boundary, n_dev, rank, T):
+    from _explicit_ranks import port_sim
+
+    sim = port_sim("straddle", boundary, n_dev, decim=4)
+    return fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank, "cpu",
+                                                  t_steps=T)
+
+
+@pytest.mark.parametrize("boundary,n_dev,rank,T,window,view", SLABS)
+def test_slab_schedule_equals_the_plain_twin(monkeypatch, boundary, n_dev,
+                                             rank, T, window, view):
+    """The schedule on a slab, from the view the host launches
+    (``march_view``), against ``fdtd_shard.shard_steps_plain`` with the
+    walls at ``mur_x_rows``, bit for bit on every row of the view; cores
+    of 5×4 and segments of at most 6 planes, so that the upper wall of
+    rank 2 falls on a segment's last plane."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, boundary.lower(), (5, 4))
+    sh = _slab(boundary, n_dev, rank, T)
+    ops = sh.ops
+    assert (sh.K, sh.W, sh.m) == (T, T + 1, sh.n + 2 * T + 2)
+    assert fdtd_stream.march_view(ops) == view
+    v0, _x_lo, x_hi = view
+    n0 = ops.shape[0] - v0
+    tiles = fdtd_stream.march_plan((n0, *ops.shape[1:]), ops.grid_shape, T,
+                                   boundary == "MUR", x_hi)[2]
+    blocks = tiles[0] * tiles[1] * 4
+    _, _, _, (seg, so, segs), _ = fdtd_stream.march_plan(
+        (n0, *ops.shape[1:]), ops.grid_shape, T, boundary == "MUR", x_hi,
+        blocks)
+    assert seg <= 6 and segs >= 3
+    starts = [max(0, b * seg - so) for b in range(segs)]
+    assert x_hi not in starts
+    if (n_dev, rank) == (4, 2):
+        assert x_hi + 1 in starts  # the wall is a segment's last plane
+    st = _random_state(ops.shape, seed=23 + rank)
+    wf = [0.31, -0.52, 0.44][:window]
+    E, H = emulate_march(ops, st, wf, blocks)
+    fdtd_shard.shard_steps_plain(ops, st, wf)
+    for got, ref in zip((*E, *H), st.fields, strict=True):
+        np.testing.assert_array_equal(got[v0:], ref.numpy()[v0:])
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_slab_plan_leaves_no_segment_on_the_upper_wall(n_dev):
+    """At every rank of the tall straddle scene (z = 131) and every T the
+    slab takes, no x segment starts on the slab's upper wall."""
+    from _explicit_ranks import port_sim
+
+    sim = port_sim("tall_straddle", "MUR", n_dev, decim=4)
+    for rank in range(n_dev):
+        for T in range(1, min(4, sim.padded_shape[0] // n_dev)):
+            ops = fdtd_stream.build_stream_shard_stepper(
+                sim, n_dev, rank, "cpu", t_steps=T).ops
+            v0, _x_lo, x_hi = fdtd_stream.march_view(ops)
+            shape = (ops.shape[0] - v0, *ops.shape[1:])
+            _, _, _, (seg, so, segs), _ = fdtd_stream.march_plan(
+                shape, ops.grid_shape, T, True, x_hi)
+            pieces = _pieces(shape[0], seg, so, segs)
+            assert sum(b - a for a, b in pieces) == shape[0]
+            assert all(a != x_hi for a, _b in pieces), (rank, T, pieces)
