@@ -114,7 +114,25 @@ and the script exits non-zero without printing a result:
     single-card run) and one slab-tile launch timed beside its bound and
     beside the single-card tile kernel on the same grid at the same T.
     A slab launch's bound counts the owned rows and the halos a
-    neighbour fills: at one rank, the whole grid's.
+    neighbour fills: at one rank, the whole grid's;
+18. K2 batched (the sweep slice in stream mode, K2's ``coef_ops_from``
+    form): ``stream_steps_batch`` against ``stream_steps_batch_plain`` at
+    the 8-variant sweep's shapes, one batched march launch (MUR) and one
+    batched tile launch (the same sweep prepared with PML_8), variant 3
+    frozen and bit-unchanged, each timed beside its bound and the twin;
+    one chunk of the PML_8 sweep through ``run_patch_geometry_sweep``
+    (its tile launches counted); B = 1 bit-equal to ``stream_steps``;
+    then the main path: ``bench.py``'s 8-variant sweep through
+    ``prepare_patch_geometry_sweep(..., pallas_mode="stream")`` and
+    ``run_patch_geometry_sweep`` (asserts only ``stream_march_batch`` and
+    ``probe_gather_batch`` launches, phase 16's 2,440 steps, eight
+    distinct spectra, each variant's f_res and |S11|min phase 16's within
+    rtol 2e-3), the wall of a run and a rerun beside phase 16's, the idle
+    share; ``probe_gather_batch`` bit-equal to its twin, timed beside its
+    bound, the twin and a cuSPARSE SpMM; and the automatic route: the two
+    12 GHz horn apertures at ``mesh_ppw`` 20, whose working set exceeds
+    the L2, resolve to stream with no argument and run one chunk on the
+    batched march.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -1681,13 +1699,17 @@ def batch_inputs(sim, batch, seed, n_sub, n0=7):
 
 
 def clone_batch(st):
+    """A copy of a batch state: both E buffers, both H and ψ sets, and
+    each variant's parity and set."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
+    def c(ts):
+        return tuple(t.clone() for t in ts)
+
     return fdtd_cuda.YeeBatch(
-        e=[tuple(t.clone() for t in st.e[p]) for p in range(2)],
-        h=tuple(t.clone() for t in st.h),
-        psi_e=tuple(t.clone() for t in st.psi_e),
-        psi_h=tuple(t.clone() for t in st.psi_h), parity=list(st.parity))
+        e=[c(st.e[0]), c(st.e[1])], h=c(st.h), psi_e=c(st.psi_e),
+        psi_h=c(st.psi_h), parity=list(st.parity), h1=c(st.h1),
+        psi_e1=c(st.psi_e1), psi_h1=c(st.psi_h1), hset=list(st.hset))
 
 
 def batch_forms(ops, st):
@@ -1917,7 +1939,8 @@ def phase_sweep_main_path(card):
               f"({walls['unbatched'][0] / walls['batched'][2]:.2f}x / "
               f"{walls['unbatched'][1] / walls['batched'][3]:.2f}x) [{card}]")
     return dict(launches=counts["chunk_steps_batch"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, res=res,
+                walls=walls["batched"])
 
 
 def cavity_f_hz(w_mm: float) -> float:
@@ -2268,6 +2291,358 @@ def phase_slab_tile(card):
                 bound_by=b_by, launches=counts["shard_tile"], one_ms=one_ms)
 
 
+K2_COEF_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1320"
+
+
+def k2_batch_bound(ops, T, batch):
+    """Bound of one ``stream_steps_batch`` launch with every variant
+    stepping: per variant its fields (and ψ) in and out once and its ca/cb
+    in once, the shared source stamps in once; per variant T steps of H
+    and E updates, as ``k2_bound`` counts them (``k2_bound`` × B but for
+    the stamps, read once)."""
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    nbytes = 4 * n * (batch * (6 + 6 + 6 + 2 * psi) + n_src)
+    return bound(nbytes, batch * T * n * (48 + 4 * psi))
+
+
+def gather_batch_bound(ops, batch):
+    """Bound of one ``probe_gather_batch`` launch with every variant
+    sampled: the used entries' codes and weights in once, each variant's
+    field value of every used entry in and its rows out once; 2
+    operations per used entry per variant."""
+    rows = ops.probes.n_rows
+    used = int(torch.count_nonzero(ops.probes.w))
+    return bound(8 * used + batch * (4 * used + 4 * rows), batch * 2 * used)
+
+
+def sweep_operands(prep):
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    c = prep.batched_coeffs
+    return fdtd_cuda.batch_operands(
+        prep.sim.operands, [c["ca_" + k] for k in ("ex", "ey", "ez")],
+        [c["cb_" + k] for k in ("ex", "ey", "ez")])
+
+
+def stream_batch_state(sim, batch, seed):
+    """A seeded random batch state (fields and ψ) at E buffer 1, H set 0,
+    on the card."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    rng = np.random.default_rng(seed)
+    st = fdtd_cuda.new_batch_state(sim.padded_shape, sim.device,
+                                   sim.operands.pml is not None, batch)
+    for t in batch_tensors(st):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    st.parity = [1] * batch
+    return st
+
+
+def stream_batch_current(st):
+    """Each variant's current fields and ψ, from its own E buffer and set."""
+    out = []
+    for b in range(st.batch):
+        v = st.variant(b)
+        out += [*v.fields, *v.psi_e, *v.psi_h]
+    return out
+
+
+def phase_stream_batch_vs_plain(card):
+    """``stream_steps_batch`` against ``stream_steps_batch_plain`` at the
+    8-variant sweep's shapes: one launch of the batched march (MUR), one
+    of the batched tile kernel (the same sweep prepared with PML_8), each
+    on a seeded random state with variant 3 frozen, every variant's fields
+    and ψ compared and the frozen one bit-unchanged; each launch timed
+    with every variant stepping beside its bound and the twin. The PML_8
+    sweep then runs one chunk through ``run_patch_geometry_sweep`` (its
+    tile launches counted; not to its end). Then B = 1 against
+    ``stream_steps`` on the same state, bit for bit."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_patch_geometry_sweep, run_patch_geometry_sweep)
+
+    variants = sweep_variants()
+    B = len(variants)
+    rows = {}
+    for boundary, seed in (("MUR", 151), ("PML_8", 157)):
+        prep = prepare_patch_geometry_sweep(
+            variants, n_steps_max=SWEEP_STEPS if boundary == "MUR" else 1,
+            boundary=boundary, pallas_mode="stream", device="cuda")
+        assert prep.ok, prep.message
+        sim, ops = prep.sim, sweep_operands(prep)
+        T = sim.stream_T
+        wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
+        march = ops.pml is None
+        route = "stream_march_batch" if march else "stream_tile_batch"
+        base = stream_batch_state(sim, B, seed)
+        a, b = clone_batch(base), clone_batch(base)
+        mask = [v != 3 for v in range(B)]
+        fdtd_stream.reset_launch_counts()
+        fdtd_stream.stream_steps_batch(ops, a, wf, mask)
+        assert fdtd_stream.launches_by_kernel[route] == 1, dict(
+            fdtd_stream.launches_by_kernel)
+        fdtd_stream.stream_steps_batch_plain(ops, b, wf, mask)
+        torch.cuda.synchronize()
+        got, ref = stream_batch_current(a), stream_batch_current(b)
+        err = max(close(f"stream_steps_batch {boundary} {i}", x, y)
+                  for i, (x, y) in enumerate(zip(got, ref)))
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        untouched = (all(torch.equal(t[3], t0[3]) for t, t0 in
+                         zip(batch_tensors(a), batch_tensors(base)))
+                     and all(int(torch.count_nonzero(t[3])) == 0
+                             for t in (*a.h1, *a.psi_e1, *a.psi_h1))
+                     and (a.parity[3], a.hset[3]) == (1, 0))
+        assert untouched, "stream_steps_batch wrote a frozen variant"
+        del got, ref, a
+        on = [True] * B  # timed with every variant stepping, from base
+        ms = device_ms(lambda: fdtd_stream.stream_steps_batch(ops, base, wf, on),
+                       reps=10, warmup=2)
+        plain_ms = events_ms(
+            lambda: fdtd_stream.stream_steps_batch_plain(ops, b, wf, on),
+            reps=2, warmup=1)
+        del base, b
+        b_ms, b_by = k2_batch_bound(ops, T, B)
+        k2_ms = k2_bound(sim.operands, T)[0]
+        if march:
+            core, _o, mt, (seg, _so, segs), smem = fdtd_stream.march_plan(
+                ops.shape, ops.grid_shape, T, ops.mur is not None, batch=B)
+            plan = (f"march: {mt[0] * mt[1] * segs} blocks a variant, "
+                    f"{B * mt[0] * mt[1] * segs} a launch ({mt[0]}x{mt[1]} "
+                    f"tiles of {core[0]}x{core[1]}, {segs} x segments of "
+                    f"{seg}), {smem} B dynamic shared memory")
+        else:
+            tiles = fdtd_stream.tiling(ops.shape, False, True)[2]
+            plan = (f"tile kernel: {int(np.prod(tiles))} blocks a variant of "
+                    f"{fdtd_stream.smem_bytes(ops.shape, T, False, True)} B")
+        cells = int(np.prod(ops.shape))
+        say("18", f"stream_steps_batch {boundary} at the sweep's grid "
+                  f"{sim.grid.shape} (padded {tuple(ops.shape)}), B={B}, "
+                  f"T={T}, {plan}: == plain with variant 3 frozen (untouched "
+                  f"{untouched}; bit-equal {same}), max |err| {err:.3e}; "
+                  f"device {ms * 1e3:,.1f} us/launch ({ms * 1e3 / T:,.1f} us a "
+                  f"step of {B * cells:,} cells, "
+                  f"{ms * 1e6 / T / (B * cells) * 1e3:.2f} ns per 1,000 "
+                  f"cell-updates); bound {b_ms * 1e3:.1f} us by {b_by} "
+                  f"({b_ms / ms:.3f} of it; k2_bound x B "
+                  f"{k2_ms * B * 1e3:.1f} us); plain {plain_ms * 1e3:,.1f} us "
+                  f"[{card}]")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, T=T)
+        if march:
+            row["prep"] = prep
+        else:  # one chunk of the PML_8 sweep through the entry points
+            fdtd_cuda.reset_launch_counts()
+            fdtd_stream.reset_launch_counts()
+            res = run_patch_geometry_sweep(prep)
+            assert res.ok, res.message
+            counts = {**fdtd_cuda.launches, **fdtd_stream.launches_by_kernel}
+            assert counts[route] == res.steps_run // T > 0, counts
+            assert counts["probe_gather_batch"] == res.steps_run // sim.probe_decim
+            assert counts["chunk_steps_batch"] == counts["stream_march_batch"] == 0
+            assert np.isfinite(np.stack([sp.uf for sp in res.spectra])).all()
+            row["launches"] = counts[route]
+            say("18", f"PML_8 sweep, one chunk ({res.steps_run} steps, D="
+                      f"{sim.probe_decim}): {counts[route]} {route} and "
+                      f"{counts['probe_gather_batch']} probe_gather_batch "
+                      f"launches, no other, in {res.wall_time_s:.3f} s [{card}]")
+        rows[boundary] = row
+        del prep, sim, ops
+
+    # B = 1 against stream_steps at the sweep's shapes, bit for bit
+    prep = rows["MUR"]["prep"]
+    sim, T = prep.sim, rows["MUR"]["T"]
+    wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
+    one = sweep_operands(prep)
+    one = dataclasses.replace(one, ca=tuple(c[:1] for c in one.ca),
+                              cb=tuple(c[:1] for c in one.cb))
+    st1 = stream_batch_state(sim, 1, seed=163)
+    v = st1.variant(0)
+    ref = fdtd_cuda.YeeState(
+        e=[tuple(t.clone() for t in v.e[p]) for p in range(2)],
+        h=tuple(t.clone() for t in v.h), parity=1)
+    fdtd_stream.stream_steps_batch(one, st1, wf, [True])
+    fdtd_stream.stream_steps(fdtd_cuda.variant_operands(one, 0), ref, wf)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(st1.variant(0).fields, ref.fields))
+    assert same, "stream_steps_batch at B = 1 differs from stream_steps"
+    say("18", f"B=1 at the sweep's grid: stream_steps_batch bit-equal to "
+              f"stream_steps [{card}]")
+    return rows
+
+
+def phase_stream_sweep_main_path(k18, k1b, card):
+    """The main path: ``bench.py``'s 8-variant sweep through
+    ``prepare_patch_geometry_sweep(..., pallas_mode="stream")`` and
+    ``run_patch_geometry_sweep``, 2,000 steps asked, MUR, not cut: only
+    ``stream_march_batch`` and ``probe_gather_batch`` launches, phase 16's
+    2,440 steps, eight distinct spectra, each variant's f_res and |S11|min
+    phase 16's to the sweep's bound (rtol 2e-3); the wall of a run and a
+    rerun beside phase 16's K1-batched walls, the idle share. Then
+    ``probe_gather_batch`` at the sweep's table against its twin, bit for
+    bit, timed beside its bound, the twin and one cuSPARSE SpMM."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_patch_geometry_sweep, run_patch_geometry_sweep)
+
+    variants = sweep_variants()
+    B = len(variants)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = prepare_patch_geometry_sweep(variants, n_steps_max=SWEEP_STEPS,
+                                        end_criteria=1e-4, pallas_mode="stream",
+                                        device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    assert prep.ok, prep.message
+    sim = prep.sim
+    T, D = sim.stream_T, sim.probe_decim
+    assert sim.pallas_mode == "stream" and D % T == 0, sim.pallas_mode_reason
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    res = run_patch_geometry_sweep(prep)
+    assert res.ok, res.message
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
+              **fdtd_stream.launches_by_kernel}
+    ref = k1b["res"]
+    steps = res.steps_run
+    assert steps == ref.steps_run and (res.steps == steps).all(), (
+        res.steps, ref.steps_run)
+    assert counts["stream_march_batch"] == counts["stream_steps_batch"] == steps // T
+    assert counts["probe_gather_batch"] == steps // D, counts
+    for name, n in counts.items():
+        if name not in ("stream_march_batch", "stream_steps_batch",
+                        "probe_gather_batch"):
+            assert n == 0, (name, counts)
+    uf = np.stack([sp.uf for sp in res.spectra]) / sim.dft_dt
+    assert np.isfinite(uf).all(), "non-finite port DFTs"
+    for i in range(1, B):
+        assert not np.allclose(uf[0], uf[i], rtol=1e-3), (
+            f"variant {i} spectrum identical to variant 0: geometry broadcast")
+    np.testing.assert_allclose(res.f_res_hz, ref.f_res_hz, rtol=2e-3)
+    np.testing.assert_allclose(res.s11_min_db, ref.s11_min_db, rtol=2e-3)
+    res2 = run_patch_geometry_sweep(prep)
+    assert res2.ok, res2.message
+    np.testing.assert_array_equal(
+        np.stack([sp.uf for sp in res2.spectra]) / sim.dft_dt, uf)
+
+    # the batched gather at the sweep's table
+    ops = sweep_operands(prep)
+    st = stream_batch_state(sim, B, seed=167)
+    rows = ops.probes.n_rows
+    out_k = torch.full((B, rows), float("nan"), device=sim.device)
+    out_p = out_k.clone()
+    on = [True] * B
+    fdtd_cuda.probe_gather_batch(ops, st, out_k, on)
+    fdtd_cuda.probe_gather_batch_plain(ops, st, out_p, on)
+    torch.cuda.synchronize()
+    g_same = torch.equal(out_k, out_p)
+    assert g_same, "probe_gather_batch is not bit-equal to its twin"
+    g_err = float((out_k - out_p).abs().max())
+    g_ms = device_ms(lambda: fdtd_cuda.probe_gather_batch(ops, st, out_k, on))
+    g_plain = events_ms(lambda: fdtd_cuda.probe_gather_batch_plain(ops, st,
+                                                                   out_p, on))
+    A = probe_csr(sim.operands)
+    # the stack [Ex Ey Ez Hx Hy Hz] with one column a variant
+    X = torch.cat([f.reshape(B, -1) for f in st.fields()], dim=1).T.contiguous()
+    lib = (A @ X).T
+    torch.cuda.synchronize()
+    lib_err = close("probe_gather_batch vs SpMM", out_k, lib)
+    g_lib = device_ms(lambda: A @ X)
+    g_b_ms, g_b_by = gather_batch_bound(ops, B)
+    del st, X, A
+
+    walls = [res.wall_time_s, res2.wall_time_s]
+    ms = k18["MUR"]["ms"]
+    busy = (counts["stream_march_batch"] * ms
+            + counts["probe_gather_batch"] * g_ms) / 1e3
+    cells = sim.grid.num_cells
+    rate = [cells * steps * B / t / 1e6 for t in walls]
+    say("18", f"stream sweep prepared ({prep_s:.2f} s): {sim.pallas_mode_reason}, "
+              f"D={D} [{card}]")
+    say("18", f"stream sweep main path: {B} variants x {steps} steps "
+              f"({SWEEP_STEPS} asked, phase 16's {ref.steps_run}) in "
+              f"{' / '.join(f'{t:.3f}' for t in walls)} s (the counted run, "
+              f"then a rerun), aggregate "
+              f"{' / '.join(f'{r:.1f}' for r in rate)} Mcell-updates/s; K1 "
+              f"batched in phase 16 of this call "
+              f"{' / '.join(f'{t:.3f}' for t in k1b['walls'])} s; launches "
+              f"{counts['stream_march_batch']} stream_march_batch, "
+              f"{counts['probe_gather_batch']} probe_gather_batch, no other; "
+              f"busy {busy:.3f} s ({counts['stream_march_batch']} x "
+              f"{ms * 1e3:,.1f} us + {counts['probe_gather_batch']} x "
+              f"{g_ms * 1e3:.2f} us), idle share {idle_text(walls, busy)}; "
+              f"f_res {np.round(res.f_res_hz / 1e9, 4).tolist()} GHz, |S11|min "
+              f"{np.round(res.s11_min_db, 3).tolist()} dB, == phase 16's "
+              f"within rtol 2e-3 (max |df| "
+              f"{np.abs(res.f_res_hz - ref.f_res_hz).max() / 1e6:.3f} MHz, max "
+              f"|dS11| {np.abs(res.s11_min_db - ref.s11_min_db).max():.4f} dB) "
+              f"[{card}]")
+    used = int(torch.count_nonzero(ops.probes.w))
+    say("18", f"probe_gather_batch at the sweep's table ({rows} rows, {used:,} "
+              f"used entries, B={B}): == plain (bit-equal {g_same}); device "
+              f"{g_ms * 1e3:.2f} us/launch, bound {g_b_ms * 1e3:.3f} us by "
+              f"{g_b_by} ({g_b_ms / g_ms:.3f} of it), plain {g_plain * 1e3:,.1f} "
+              f"us, cuSPARSE SpMM (torch sparse CSR @ ({6 * cells:,}+, {B})) "
+              f"{g_lib * 1e3:.2f} us, == kernel within rtol {RTOL} (max |err| "
+              f"{lib_err:.3e}) [{card}]")
+    return dict(launches=counts["stream_march_batch"],
+                gather=dict(launches=counts["probe_gather_batch"],
+                            max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
+                            bound_ms=g_b_ms, bound_by=g_b_by, library_ms=g_lib))
+
+
+HORN_AUTO_PPW = 20.0  # the horn sweep's mesh whose union grid spills the L2
+
+
+def phase_stream_sweep_auto(card):
+    """The automatic route: the two 12 GHz horn apertures of phase 16 at
+    ``mesh_ppw`` 20, whose base working set exceeds ``L2_BYTES``: the
+    sweep resolves to stream with no argument and its first chunk runs on
+    the batched march (``n_steps_max`` 1: one chunk, not to its end)."""
+    from fdtd_solver_antennas_tpu_torch.models.params import HornAntennaParams
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
+        L2_BYTES, working_set_bytes)
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_horn_aperture_sweep, run_horn_aperture_sweep)
+
+    base = HornAntennaParams.from_user_units(
+        frequency_ghz=12.0, throat_a_mm=19.05, throat_b_mm=9.525,
+        aperture_A_mm=48.0, aperture_B_mm=36.0, length_mm=40.0)
+    apertures = [(30.0, 24.0, 30.0), (55.0, 42.0, 45.0)]
+    t0 = time.perf_counter()
+    prep = prepare_horn_aperture_sweep(base, apertures, mesh_ppw=HORN_AUTO_PPW,
+                                       n_steps_max=1, device="cuda")
+    prep_s = time.perf_counter() - t0
+    assert prep.ok, prep.message
+    sim = prep.sim
+    ops = sim.operands
+    ws = working_set_bytes(sim.padded_shape, sum(s is not None for s in ops.src),
+                           ops.pml is not None)
+    assert ws > L2_BYTES and sim.pallas_mode == "stream", sim.pallas_mode_reason
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    res = run_horn_aperture_sweep(prep)
+    assert res.ok, res.message
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches_by_kernel}
+    T, D = sim.stream_T, sim.probe_decim
+    assert counts["stream_march_batch"] == res.steps_run // T > 0, counts
+    assert counts["probe_gather_batch"] == res.steps_run // D, counts
+    assert counts["chunk_steps_batch"] == 0, counts
+    assert np.isfinite(np.stack([sp.uf for sp in res.spectra])).all()
+    say("18", f"automatic route: horn sweep at mesh_ppw {HORN_AUTO_PPW:g}, "
+              f"grid {sim.grid.shape} (padded {tuple(sim.padded_shape)}, "
+              f"{int(np.prod(sim.padded_shape)):,} cells a variant), working "
+              f"set {ws / 1e6:.1f} MB > L2 {L2_BYTES / 1e6:.1f} MB: "
+              f"{sim.pallas_mode_reason}; one chunk of {res.steps_run} steps "
+              f"(D={D}) in {res.wall_time_s:.3f} s: {counts['stream_march_batch']}"
+              f" stream_march_batch, {counts['probe_gather_batch']} "
+              f"probe_gather_batch, 0 chunk_steps_batch; prepare {prep_s:.1f} s "
+              f"[{card}]")
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -2278,9 +2653,9 @@ def ptxas_kernels(log):
             name = m.group(1)
             n = re.match(r"_Z(\d+)", name)
             fn = name[n.end():n.end() + int(n.group(1))] if n else name
-            args = re.match(r"I((?:Li-?\d+E)+)E", name[n.end() + len(fn):] if n else "")
+            args = re.match(r"I((?:L[ib]-?\d+E)+)E", name[n.end() + len(fn):] if n else "")
             if args:
-                fn += f"<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+                fn += f"<{','.join(re.findall(r'L[ib](-?\d+)E', args.group(1)))}>"
             spill = ""
         elif "spill" in ln:
             spill = ln.strip()
@@ -2384,6 +2759,14 @@ def main() -> int:
         "17", phase_explicit_large_main_path, mixed, mixed_res, k2, k17, card)
     k17t = timed_phase("17", phase_slab_tile, card)
 
+    # 18. the sweep slice in stream mode (K2 batched, its coef_ops_from form)
+    k18 = timed_phase("18", phase_stream_batch_vs_plain, card)
+    say("18", "all stream_steps_batch comparisons agree; worst max |err| "
+              f"march {k18['MUR']['max_abs_err']:.3e}, tile "
+              f"{k18['PML_8']['max_abs_err']:.3e}")
+    k18b = timed_phase("18", phase_stream_sweep_main_path, k18, k1b, card)
+    timed_phase("18", phase_stream_sweep_auto, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -2447,7 +2830,19 @@ def main() -> int:
             ("roll_chain", K5_SOURCE, K5_REPLACES, k5),
             # K1 under jax.vmap (solvers/sweep.py:69-103); no PyTorch call
             # computes a batched Yee chunk
-            ("chunk_steps_batch", K1_SOURCE, K1_REPLACES, k1b))
+            ("chunk_steps_batch", K1_SOURCE, K1_REPLACES, k1b),
+            # K2's coef_ops_from form under jax.vmap: the batched march on
+            # the stream sweep's main path (phase 18), the batched tile
+            # kernel on one chunk of the same sweep under PML_8
+            ("stream_steps_batch", K2_SOURCE, K2_COEF_REPLACES,
+             dict(k18["MUR"], launches=k18b["launches"])),
+            ("stream_steps_batch_tile", K2_SOURCE, K2_COEF_REPLACES,
+             k18["PML_8"]))
+    ] + [
+        # the stream sweep's gather, one launch an interval for all
+        # variants; library: one cuSPARSE SpMM over the same entries
+        {"name": "probe_gather_batch", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, **k18b["gather"]},
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

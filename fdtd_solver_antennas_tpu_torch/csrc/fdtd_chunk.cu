@@ -82,6 +82,11 @@
 //   probe_gather  one thread per probe row: a weighted gather over the six
 //                 field arrays, written to row j of the staging buffer
 //                 (redesigned for Hopper; see "The probe table" below)
+//   probe_gather_batch
+//                 the same rows of every active variant of a batch, one
+//                 thread a (variant, row) pair, into row j of each
+//                 variant's staging buffer: the batched stream stepper's
+//                 gather, one launch an interval for the whole sweep
 //
 // h_update, e_update and mur_faces step the per-step route
 // (ops/fdtd_cuda.py::step_kernels), kept to time beside chunk_steps and as
@@ -448,6 +453,26 @@ __device__ __noinline__ void gather_rows_batch(
   }
 }
 
+// Mirrored field for field by ops/fdtd_cuda.py::_GatherBatchArgs (ctypes).
+struct GatherBatchArgs {
+  const float* f[6];     // Ex Ey Ez Hx Hy Hz of variant 0, (B, nx, ny, nz)
+  ProbeTable probes;
+  const int* active;     // B ints on the device
+  int batch;
+  int cells;             // nx * ny * nz
+  long long out_stride;  // floats between two variants' rows in out
+  float* out;
+};
+
+// The batched gather between the launches of the batched stream stepper
+// (ops/fdtd_cuda.py::probe_gather_batch): every probe row of every active
+// variant in one launch, (variant, row) pairs one a thread.
+__global__ void probe_gather_batch_kernel(const GatherBatchArgs a) {
+  gather_rows_batch(a.f[0], a.f[1], a.f[2], a.f[3], a.f[4], a.f[5],
+                    a.probes.code, a.probes.w, a.probes.meta, a.out,
+                    a.out_stride, a.cells, persist::Batch{a.active, a.batch});
+}
+
 // One termination chunk of every active variant of bt: n_sub intervals of
 // d_steps steps from e[p], the source sample of step t at wf[t], variant b's
 // interval j samples into out[(b * n_sub + j) * probe rows ...].
@@ -591,6 +616,20 @@ int fdtd_chunk_batch_steps(const ChunkArgs* a, int p, const float* wf, int n0,
   return (int)persist::launch(args.o,
                               kBatchKernels[persist::flavour(args.o)], cells,
                               blocks, params, stream, batch);
+}
+
+int fdtd_gather_batch_args_size() { return (int)sizeof(GatherBatchArgs); }
+
+// Every probe row of every variant b with active[b] != 0 into
+// out[b * out_stride + row].
+int fdtd_probe_gather_batch(const GatherBatchArgs* a, void* stream) {
+  if (a->batch < 1 || a->active == nullptr || a->cells < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)a->probes.rows * a->batch;
+  if (n == 0) return (int)cudaSuccess;
+  probe_gather_batch_kernel<<<blocks_for(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 int fdtd_h_update(const YeeArgs* a, int p, void* stream) {

@@ -10,10 +10,22 @@
 // Both run a whole grid (ops/fdtd_stream.py::stream_steps) or one rank's
 // halo-extended x-slab of the explicit run (stream_shard_steps): the
 // slab is an array like a grid, its out-of-domain rows zero-coupled, the
-// march given the slab's own x walls (x_lo, x_hi, below).
+// march given the slab's own x walls (x_lo, x_hi, below). Both also run B
+// design variants of one grid in one launch (stream_steps_batch; the
+// kBatch instances below), as K2's coef_ops_from form runs under
+// jax.vmap in a geometry sweep: the fields, psi, ca and cb of each variant
+// are (B, n0, n1, n2) arrays, variant b's at b * vstride; the source
+// stamps, the profiles, the MUR coefficients and the samples are shared.
+// A block's variant is blockIdx.y, so the x cut of the march counts the
+// blocks of the whole batch (ops/fdtd_stream.py::march_plan). A device int
+// array active[B] says which variants step: a frozen variant's blocks
+// return before any load, and its fields stay in the set they are in. The
+// single-variant kernels are the same bodies with kBatch false: variant
+// offset 0, no mask.
 //
 // Replaces: fdtd_solver_antennas_tpu/ops/fdtd_pallas.py::build_pallas_stream_stepper
-// (the TPU stream kernel, K2), its single-chip form and its shard= form.
+// (the TPU stream kernel, K2): its single-chip form, its shard= form and
+// its coef_ops_from form (ca/cb as operands, vmapped over variants).
 // K2 streams blocks of whole y-z planes through 128 MB of VMEM and
 // advances T steps per fetch with trapezoidal halo recompute. On the H100 one y-z plane of the 4.2M-cell mixed scene
 // is 122 KB per field, so six fields do not fit the 227 KB of shared
@@ -62,7 +74,10 @@
 // 3.35 TB/s, or 26 us per step at T = 4. The tile kernel's halo reloads
 // and halo recompute (a 6144-cell region for a 1024-cell core at T = 4)
 // cost more than that floor; the march reads each value about once per
-// launch times its y-z halo ratio and recomputes no x halo.
+// launch times its y-z halo ratio and recomputes no x halo. A batched
+// launch moves each variant's fields, ca and cb and the shared stamps once:
+// at the 8-variant sweep (100 x 109 x 50 cells a variant) about 316 MB,
+// >= 94 us.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py). No
@@ -118,6 +133,10 @@ struct StreamArgs {
   // plane of the upper wall or -1 (ops/fdtd_stream.py::march_view)
   int x_lo;
   int x_hi;
+  // a batch of variants (the kBatch kernels only): active[b] != 0 steps
+  // variant b, whose fields, psi, ca and cb start at b * vstride floats
+  const int* active;
+  long long vstride;
 };
 
 struct Samples {
@@ -135,6 +154,7 @@ struct Region {
   int r0[3], L[3];
   int sx, sy, ncell;
   int e0, e1, h, pe, ph;   // float offsets into shared memory
+  int64_t vo;              // the variant's offset into fields, psi, ca, cb
 };
 
 __device__ __forceinline__ void cell_of(const Box& b, int idx, int& li,
@@ -266,7 +286,8 @@ __device__ void e_phase(const StreamArgs& a, const Region& g, const Box& b,
     const int64_t gc = global_index(a, g, li, lj, lk);
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-      float v = a.ca[m][gc] * sm[ecur + m * g.ncell + c] + a.cb[m][gc] * cu[m];
+      float v = a.ca[m][gc + g.vo] * sm[ecur + m * g.ncell + c] +
+                a.cb[m][gc + g.vo] * cu[m];
       if (a.src[m] != nullptr) v = v + a.src[m][gc] * s;
       sm[enext + m * g.ncell + c] = v;
     }
@@ -304,8 +325,10 @@ __device__ void mur_phase(const StreamArgs& a, const Region& g, const Box& b,
   }
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_kernel(const StreamArgs a, const int T, const Samples wf) {
+  if (kBatch && __ldg(a.active + blockIdx.y) == 0) return;  // frozen variant
   extern __shared__ float sm[];
   int bid = blockIdx.x;
   const int bt2 = bid % a.tiles[2];
@@ -323,6 +346,7 @@ stream_kernel(const StreamArgs a, const int T, const Samples wf) {
     g.L[d] = min(a.n[d], c1[d] + T) - g.r0[d];
   }
   if (c0[0] >= c1[0] || c0[1] >= c1[1] || c0[2] >= c1[2]) return;
+  g.vo = kBatch ? (int64_t)blockIdx.y * a.vstride : 0;
   g.sy = g.L[2];
   g.sx = g.L[1] * g.L[2];
   g.ncell = g.L[0] * g.sx;
@@ -342,7 +366,7 @@ stream_kernel(const StreamArgs a, const int T, const Samples wf) {
   for (int idx = threadIdx.x; idx < g.ncell; idx += blockDim.x) {
     int li, lj, lk;
     cell_of(all, idx, li, lj, lk);
-    const int64_t gc = global_index(a, g, li, lj, lk);
+    const int64_t gc = global_index(a, g, li, lj, lk) + g.vo;
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       sm[g.e0 + m * g.ncell + idx] = a.e_in[m][gc];
@@ -399,7 +423,7 @@ stream_kernel(const StreamArgs a, const int T, const Samples wf) {
     int li, lj, lk;
     cell_of(core, idx, li, lj, lk);
     const int c = li * g.sx + lj * g.sy + lk;
-    const int64_t gc = global_index(a, g, li, lj, lk);
+    const int64_t gc = global_index(a, g, li, lj, lk) + g.vo;
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       a.e_out[m][gc] = sm[ecur + m * g.ncell + c];
@@ -515,18 +539,20 @@ __device__ __forceinline__ void march_curl_h(const float* H, const float* Hm,
   cu[2] = dHy_x - dHx_y;
 }
 
-// ca, cb and the source stamps of one cell (device memory index g); the
-// stamp is 0 where a component has none (and then not added).
+// ca, cb and the source stamps of one cell (device memory index g, the
+// variant's ca and cb at g + vo); the stamp is 0 where a component has none
+// (and then not added).
 struct Coef {
   float ca[3], cb[3], src[3];
 };
 
-__device__ __forceinline__ Coef march_coef(const StreamArgs& a, int64_t g) {
+__device__ __forceinline__ Coef march_coef(const StreamArgs& a, int64_t g,
+                                           int64_t vo) {
   Coef k;
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
-    k.ca[m] = __ldg(a.ca[m] + g);
-    k.cb[m] = __ldg(a.cb[m] + g);
+    k.ca[m] = __ldg(a.ca[m] + g + vo);
+    k.cb[m] = __ldg(a.cb[m] + g + vo);
     k.src[m] = a.src[m] != nullptr ? __ldg(a.src[m] + g) : 0.f;
   }
   return k;
@@ -558,8 +584,10 @@ __device__ __forceinline__ void march_fix(float* E, const float* O, int P,
   E[m1 * P + c] = O[m1 * P + cn] + coef * (E[m1 * P + cn] - O[m1 * P + c]);
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kMarchThreads, 2)
 march_kernel(const StreamArgs a, const int T, const Samples wf) {
+  if (kBatch && __ldg(a.active + blockIdx.y) == 0) return;  // frozen variant
   extern __shared__ float sm[];
   int bid = blockIdx.x;
   const int tz = bid % a.m_tiles[1];
@@ -597,6 +625,9 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
   const int gy = ry + j, gz = rz + k;
   const int64_t plane = (int64_t)n1 * n2;
   const int64_t cell = (int64_t)gy * n2 + gz;
+  // the variant's offset, and this cell's index into its own arrays
+  const int64_t vo = kBatch ? (int64_t)blockIdx.y * a.vstride : 0;
+  const int64_t vcell = cell + vo;
   const bool yp = j + 1 < Ly, zp = k + 1 < Lz, ym = j > 0, zm = k > 0;
   const float ipy = live ? __ldg(a.inv_p[1] + gy) : 0.f;
   const float ipz = live ? __ldg(a.inv_p[2] + gz) : 0.f;
@@ -621,8 +652,8 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
   if (live) {
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-      pre[m] = __ldg(a.e_in[m] + xs * plane + cell);
-      pre[3 + m] = __ldg(a.h_in[m] + xs * plane + cell);
+      pre[m] = __ldg(a.e_in[m] + xs * plane + vcell);
+      pre[3 + m] = __ldg(a.h_in[m] + xs * plane + vcell);
     }
   }
   __syncthreads();  // the zeroed shared memory
@@ -637,7 +668,7 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
           Hr[(s * 3 + m) * P + c] = pre[3 + m];
         }
         if (p + 1 < xl) {
-          const int64_t g = (p + 1) * plane + cell;
+          const int64_t g = (p + 1) * plane + vcell;
 #pragma unroll
           for (int m = 0; m < 3; ++m) {
             pre[m] = __ldg(a.e_in[m] + g);
@@ -664,7 +695,7 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
       const bool with0 = mur && a.x_lo && x == 1 && lo == 0;
       // this plane's coefficients, in flight during the H phase
       Coef coef;
-      if (act && !defer0) coef = march_coef(a, x * plane + cell);
+      if (act && !defer0) coef = march_coef(a, x * plane + cell, vo);
 
       // H at level t from level t-1's E at x and x+1
       if (act) {
@@ -716,7 +747,7 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
           float cu0[3], v0[3];
           march_curl_h(Hr, nullptr, P, c, Lz, ym, zm, __ldg(a.inv_d[0]), idy,
                        idz, cu0);
-          march_e_cell(a, E0, O0, P, c, march_coef(a, cell), cu0, s, v0);
+          march_e_cell(a, E0, O0, P, c, march_coef(a, cell, vo), cu0, s, v0);
           const float cx = a.mur_c[0][0];
           E0[c] = v0[0];
           E0[P + c] = Ox[P + c] + cx * (v[1] - O0[P + c]);
@@ -746,7 +777,7 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
       // after level T the core is final: write it to the other field set
       if (t == T && core) {
         if (!defer0 && x >= x0 && x < x1) {
-          const int64_t g = x * plane + cell;
+          const int64_t g = x * plane + vcell;
 #pragma unroll
           for (int m = 0; m < 3; ++m) {
             a.e_out[m][g] = E[m * P + c];
@@ -756,8 +787,8 @@ march_kernel(const StreamArgs a, const int T, const Samples wf) {
         if (with0 && x0 == 0) {
 #pragma unroll
           for (int m = 0; m < 3; ++m) {
-            a.e_out[m][cell] = Er[m * P + c];
-            a.h_out[m][cell] = Hr[m * P + c];
+            a.e_out[m][vcell] = Er[m * P + c];
+            a.h_out[m][vcell] = Hr[m * P + c];
           }
         }
       }
@@ -781,6 +812,53 @@ static int64_t smem_bytes(const StreamArgs* a, int T) {
   return cells * arrays * (int64_t)sizeof(float);
 }
 
+// The checks of a batched launch: a device mask, a stride that holds one
+// variant's arrays, and at most 65,535 variants (the grid's y extent).
+static bool batch_ok(const StreamArgs* a, int batch) {
+  return batch >= 1 && batch <= 65535 && a->active != nullptr &&
+         a->vstride >= (long long)a->n[0] * a->n[1] * a->n[2];
+}
+
+template <bool kBatch>
+static int tile_launch(const StreamArgs* a, const float* wf, int T, int batch,
+                       void* stream) {
+  if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
+  if (kBatch && !batch_ok(a, batch)) return (int)cudaErrorInvalidValue;
+  Samples s = {};
+  for (int k = 0; k < T; ++k) s.s[k] = wf[k];
+  const int64_t bytes = smem_bytes(a, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_kernel<kBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks((unsigned)a->tiles[0] * a->tiles[1] * a->tiles[2],
+                    kBatch ? (unsigned)batch : 1u);
+  stream_kernel<kBatch><<<blocks, kThreads, (size_t)bytes,
+                          (cudaStream_t)stream>>>(*a, T, s);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBatch>
+static int march_launch(const StreamArgs* a, const float* wf, int T, int batch,
+                        void* stream) {
+  if (T < 1 || T > kMaxT || a->has_pml) return (int)cudaErrorInvalidValue;
+  if (kBatch && !batch_ok(a, batch)) return (int)cudaErrorInvalidValue;
+  const int threads = (march_cells(*a, T) + 31) / 32 * 32;
+  if (threads > kMarchThreads) return (int)cudaErrorInvalidConfiguration;
+  Samples s = {};
+  for (int k = 0; k < T; ++k) s.s[k] = wf[k];
+  const int64_t bytes = march_smem_bytes(a, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      march_kernel<kBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks((unsigned)a->m_tiles[0] * a->m_tiles[1] * a->m_segs,
+                    kBatch ? (unsigned)batch : 1u);
+  march_kernel<kBatch><<<blocks, threads, (size_t)bytes,
+                         (cudaStream_t)stream>>>(*a, T, s);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int fdtd_stream_args_size() { return (int)sizeof(StreamArgs); }
@@ -797,17 +875,14 @@ const char* fdtd_stream_error_string(int code) {
 
 int fdtd_stream_steps(const StreamArgs* a, const float* wf, int T,
                       void* stream) {
-  if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
-  Samples s = {};
-  for (int k = 0; k < T; ++k) s.s[k] = wf[k];
-  const int64_t bytes = smem_bytes(a, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)a->tiles[0] * a->tiles[1] * a->tiles[2];
-  stream_kernel<<<blocks, kThreads, (size_t)bytes, (cudaStream_t)stream>>>(
-      *a, T, s);
-  return (int)cudaGetLastError();
+  return tile_launch<false>(a, wf, T, 1, stream);
+}
+
+// T steps of every variant b with active[b] != 0 (a->active: `batch` ints
+// on the device) through the tile kernel.
+int fdtd_stream_steps_batch(const StreamArgs* a, const float* wf, int T,
+                            int batch, void* stream) {
+  return tile_launch<true>(a, wf, T, batch, stream);
 }
 
 long long fdtd_march_smem_bytes(const StreamArgs* a, int T) {
@@ -816,19 +891,13 @@ long long fdtd_march_smem_bytes(const StreamArgs* a, int T) {
 
 int fdtd_stream_march(const StreamArgs* a, const float* wf, int T,
                       void* stream) {
-  if (T < 1 || T > kMaxT || a->has_pml) return (int)cudaErrorInvalidValue;
-  const int threads = (march_cells(*a, T) + 31) / 32 * 32;
-  if (threads > kMarchThreads) return (int)cudaErrorInvalidConfiguration;
-  Samples s = {};
-  for (int k = 0; k < T; ++k) s.s[k] = wf[k];
-  const int64_t bytes = march_smem_bytes(a, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)a->m_tiles[0] * a->m_tiles[1] * a->m_segs;
-  march_kernel<<<blocks, threads, (size_t)bytes, (cudaStream_t)stream>>>(
-      *a, T, s);
-  return (int)cudaGetLastError();
+  return march_launch<false>(a, wf, T, 1, stream);
+}
+
+// T steps of every variant b with active[b] != 0 through the march.
+int fdtd_stream_march_batch(const StreamArgs* a, const float* wf, int T,
+                            int batch, void* stream) {
+  return march_launch<true>(a, wf, T, batch, stream);
 }
 
 }  // extern "C"

@@ -17,9 +17,11 @@ one launch per termination chunk, the probe samples taken in the kernel;
 or, for grids whose working set exceeds the L2, the T-step kernel of
 ``ops/fdtd_stream.py`` ("stream" mode, K2), with K1's ``probe_gather``
 between launches; :func:`resolve_pallas_mode` picks one. A geometry
-sweep's B design variants of one grid run through :func:`run_batched`:
-one ``chunk_steps_batch`` launch per chunk for all of them (batched K1).
-On a CUDA device the run launches the kernels, on the CPU it runs their
+sweep's B design variants of one grid run through :func:`run_batched`
+in the mode its base resolved: one ``chunk_steps_batch`` launch per
+chunk for all of them (batched K1), or in stream mode one
+``stream_steps_batch`` launch per T steps and one ``probe_gather_batch``
+per probe interval (batched K2). On a CUDA device the run launches the kernels, on the CPU it runs their
 plain PyTorch twins. There is no other switch. The accumulators and the resumable state
 keep the JAX package's layouts (stacked real/imaginary float32, fields in
 the 3-D grid layout), so a checkpoint carries across in both directions
@@ -1101,15 +1103,16 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     ``coeffs`` holds the variants' ``ca_ex`` … ``cb_ez`` as (B, X, Y, Z)
     tensors on ``sim.device``; everything else is ``sim``'s and shared,
     the excitation included (every variant is driven by ``sim``'s source
-    stamps, as the JAX sweep binds its source operands once). ``impl``
-    steps a chunk of every active variant with ``chunk_steps_batch``:
-    :data:`fdtd_cuda.kernels` (the default: one ``chunk_batch_kernel``
-    launch per chunk on CUDA, the plain twin on the CPU) or
-    :data:`fdtd_cuda.plain`. The run is always in chunk mode, whatever
-    :func:`resolve_pallas_mode` says for ``sim``: on the H100 K1 on a
-    grid that spills the L2 steps faster than the stream kernel, and a
-    batched K2 (``coef_ops_from``) is not ported (ROADMAP, queue B:
-    K2 ``coef_ops_from``).
+    stamps, as the JAX sweep binds its source operands once). The run
+    follows ``sim.pallas_mode``, as the JAX package's vmapped run follows
+    its base's: in chunk mode ``impl.chunk_steps_batch`` steps a chunk of
+    every active variant (one ``chunk_batch_kernel`` launch on CUDA); in
+    stream mode each probe interval is D / T ``impl.stream_steps_batch``
+    calls (one launch of the batched march, or the batched tile kernel
+    under CPML) and one ``impl.probe_gather_batch`` (K2's
+    ``coef_ops_from`` form under ``jax.vmap``). ``impl`` is
+    :data:`fdtd_stream.kernels` (the default: the kernels on CUDA, the
+    plain twins on the CPU) or :data:`fdtd_stream.plain`.
 
     Each variant stops on its own: after every chunk its energy ratio is
     checked as in :func:`run_simulation` (one host sync for all B), and a
@@ -1123,9 +1126,10 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     axis: ``uf``/``if_`` (B, ports, Nf) complex, ``nf_e``/``nf_h`` per
     face (B, 2, Nf, 2, nu, nv), ``steps``, ``e_ratio`` and ``e_max`` (B,)
     arrays, ``fields`` six (B, X, Y, Z) tensors (each variant's E from its
-    own buffer), and ``state`` the :class:`fdtd_cuda.YeeBatch`.
+    own buffer, H from its own set), and ``state`` the
+    :class:`fdtd_cuda.YeeBatch`.
     """
-    impl = fdtd_cuda.kernels if impl is None else impl
+    impl = fdtd_stream.kernels if impl is None else impl
     cfg = sim.cfg
     dev = sim.device
     ops = fdtd_cuda.batch_operands(
@@ -1133,11 +1137,21 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
         [coeffs["cb_" + c] for c in ("ex", "ey", "ez")])
     B = ops.ca[0].shape[0]
     decim, n_sub, chunk, _n_chunks = chunk_geometry(sim)
+    T_stream = int(sim.stream_T) if sim.pallas_mode == "stream" else 0
+    if T_stream and not hasattr(impl, "stream_steps_batch"):
+        raise ValueError("a stream-mode run needs an impl with "
+                         "stream_steps_batch (fdtd_stream.kernels or "
+                         "fdtd_stream.plain)")
+    if T_stream and decim % T_stream:
+        raise ValueError(f"probe decimation {decim} is not a multiple of "
+                         f"stream_T={T_stream}")
     f32 = dict(dtype=torch.float32, device=dev)
 
     st = fdtd_cuda.new_batch_state(sim.padded_shape, dev, ops.pml is not None, B)
     probes = ProbeDFT(sim, n_sub, dev, batch=B)
-    wf = torch.tensor(padded_waveform(sim), **f32)
+    wf = padded_waveform(sim)
+    if not T_stream:  # chunk_steps_batch reads the samples on the device
+        wf = torch.tensor(wf, **f32)
     e_max = torch.zeros(B, **f32)
     ratio = torch.ones(B, **f32)
     active = [True] * B
@@ -1147,9 +1161,17 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     n = 0
     while n < cfg.n_steps_max and any(active):
         n0 = n
-        impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
-                               active)
-        n += chunk
+        if T_stream:
+            for j in range(n_sub):
+                for _ in range(decim // T_stream):
+                    impl.stream_steps_batch(ops, st, wf[n:n + T_stream],
+                                            active)
+                    n += T_stream
+                impl.probe_gather_batch(ops, st, probes.bufs[:, j], active)
+        else:
+            impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
+                                   active)
+            n += chunk
         probes.flush(n0, on)
         # energy-decay check over each variant's current E: every active
         # variant is at the same parity

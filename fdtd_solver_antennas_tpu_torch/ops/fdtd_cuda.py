@@ -19,7 +19,10 @@ probe samples in the kernel. So does the port:
   a :class:`YeeBatch` of (B, X, Y, Z) fields, ca/cb of that shape
   (:func:`batch_operands`), everything else shared, a mask of the
   variants that step. The engine's batched loop
-  (``ops/fdtd.py::run_batched``) calls it once per chunk.
+  (``ops/fdtd.py::run_batched``) calls it once per chunk in chunk mode.
+- :func:`probe_gather_batch`: the probe rows of every active variant of a
+  :class:`YeeBatch` in one launch, the batched stream stepper's gather
+  (``ops/fdtd_stream.py::stream_steps_batch``), once per probe interval.
 
 The first design's per-step kernels stay, each one launch:
 
@@ -58,7 +61,7 @@ from . import persist
 
 PSI_KEYS = ("xy", "xz", "yz", "yx", "zx", "zy")
 KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather", "chunk_steps",
-           "chunk_steps_batch")
+           "chunk_steps_batch", "probe_gather_batch")
 
 # kernel launches per wrapper; only the wrappers' CUDA branches add to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -254,38 +257,60 @@ class YeeBatch:
     (B, X, Y, Z) with variant b at index b (layout as :class:`YeeState`).
     ``parity[b]`` is the E buffer that holds variant b's current E: a
     frozen variant keeps the buffer it froze in while the others step
-    on. :meth:`variant` gives a :class:`YeeState` of views of one
-    variant."""
+    on. The batched stream stepper (``ops/fdtd_stream.py``) also writes
+    H and ψ to a second set, ``h1``, ``psi_e1`` and ``psi_h1`` (empty
+    until its first launch makes them); ``hset[b]`` is the set (0 or 1)
+    that holds variant b's H and ψ. :meth:`variant` gives a
+    :class:`YeeState` of views of one variant's current tensors."""
 
     e: list  # [(Ex, Ey, Ez), (Ex, Ey, Ez)], each (B, X, Y, Z)
     h: Tuple[torch.Tensor, ...]
     psi_e: Tuple[torch.Tensor, ...] = ()
     psi_h: Tuple[torch.Tensor, ...] = ()
     parity: list = dataclasses.field(default_factory=list)
+    h1: Tuple[torch.Tensor, ...] = ()
+    psi_e1: Tuple[torch.Tensor, ...] = ()
+    psi_h1: Tuple[torch.Tensor, ...] = ()
+    hset: list = dataclasses.field(default_factory=list)
     _chunk: object = None  # chunk_steps_batch's packed arguments
     _mask: object = None  # (host mask, its int32 copy on the device)
+    _stream: object = None  # stream_steps_batch's packed arguments
+
+    def __post_init__(self):
+        if not self.hset:
+            self.hset = [0] * self.batch
 
     @property
     def batch(self) -> int:
         return self.h[0].shape[0]
 
+    def h_set(self, q: int) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+        """``(H, ψ_e, ψ_h)`` of set ``q``."""
+        return ((self.h, self.psi_e, self.psi_h) if q == 0
+                else (self.h1, self.psi_e1, self.psi_h1))
+
     def variant(self, b: int) -> YeeState:
         """Variant ``b`` as a state of views (its updates land here)."""
+        h, psi_e, psi_h = self.h_set(self.hset[b])
         return YeeState(
             e=[tuple(t[b] for t in self.e[0]), tuple(t[b] for t in self.e[1])],
-            h=tuple(t[b] for t in self.h),
-            psi_e=tuple(t[b] for t in self.psi_e),
-            psi_h=tuple(t[b] for t in self.psi_h),
+            h=tuple(t[b] for t in h),
+            psi_e=tuple(t[b] for t in psi_e),
+            psi_h=tuple(t[b] for t in psi_h),
             parity=self.parity[b],
         )
 
     def fields(self) -> Tuple[torch.Tensor, ...]:
         """Every variant's current (Ex, Ey, Ez, Hx, Hy, Hz), each
-        (B, X, Y, Z), E from the variant's own buffer (new tensors)."""
-        odd = torch.tensor(self.parity, dtype=torch.bool,
-                           device=self.h[0].device).view(-1, 1, 1, 1)
-        return (*(torch.where(odd, e1, e0)
-                  for e0, e1 in zip(self.e[0], self.e[1])), *self.h)
+        (B, X, Y, Z), E from the variant's own buffer and H from its own
+        set (new tensors)."""
+        def pick(flags, a, b):
+            on = torch.tensor(flags, dtype=torch.bool,
+                              device=self.h[0].device).view(-1, 1, 1, 1)
+            return tuple(torch.where(on, y, x) for x, y in zip(a, b))
+
+        h = pick(self.hset, self.h, self.h1) if self.h1 else self.h
+        return (*pick(self.parity, self.e[0], self.e[1]), *h)
 
 
 def new_batch_state(shape, device, pml: bool, batch: int) -> YeeBatch:
@@ -307,6 +332,16 @@ def batch_operands(ops: YeeOperands, ca, cb) -> YeeOperands:
         if t.dim() != 4 or tuple(t.shape[1:]) != want or t.shape[0] != ca[0].shape[0]:
             raise ValueError(f"batched ca/cb {tuple(t.shape)}: want (B, *{want})")
     return dataclasses.replace(ops, ca=ca, cb=cb)
+
+
+def one_set(st: YeeBatch, live, what: str) -> Tuple[int, int]:
+    """``(parity, hset)`` shared by the variants ``live``: a batched
+    launch reads one E buffer and one H set. Raises where they differ."""
+    sets = {(st.parity[b], st.hset[b]) for b in live}
+    if len(sets) != 1:
+        raise ValueError(f"{what}: active variants at (E buffer, H set) "
+                         f"{sorted(sets)}; one launch reads one")
+    return sets.pop()
 
 
 def variant_operands(ops: YeeOperands, b: int) -> YeeOperands:
@@ -423,6 +458,14 @@ def probe_gather_plain(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> Non
         out[r0:r0 + rows].copy_(acc)
 
 
+def probe_gather_batch_plain(ops: YeeOperands, st: YeeBatch, out: torch.Tensor,
+                             active) -> None:
+    """:func:`probe_gather_plain` of every active variant into ``out[b]``."""
+    for b, on in enumerate(_active_mask(active, st.batch)):
+        if on:
+            probe_gather_plain(ops, st.variant(b), out[b])
+
+
 def _check_window(n_wf: int, n0: int, n_sub: int, D: int) -> None:
     """A chunk reads the samples [n0, n0 + n_sub·D) of ``n_wf``."""
     if n_sub < 1 or D < 1 or n0 < 0:
@@ -516,6 +559,14 @@ class _YeeArgs(ctypes.Structure):
     ]
 
 
+class _GatherBatchArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct GatherBatchArgs`` in csrc/fdtd_chunk.cu."""
+
+    _fields_ = [("f", _P * 6), ("probes", _ProbeTable), ("active", _P),
+                ("batch", ctypes.c_int), ("cells", ctypes.c_int),
+                ("out_stride", ctypes.c_longlong), ("out", _P)]
+
+
 class _ChunkArgs(ctypes.Structure):
     """Field-for-field mirror of ``struct ChunkArgs`` in csrc/fdtd_chunk.cu."""
 
@@ -536,7 +587,7 @@ def _library():
         lib = _build.load("fdtd_chunk")
         persist.bind(lib, _PREFIX)
         for fn in (lib.fdtd_args_size, lib.fdtd_chunk_args_size,
-                   lib.fdtd_probe_table_size):
+                   lib.fdtd_probe_table_size, lib.fdtd_gather_batch_args_size):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         lib.fdtd_chunk_steps.argtypes = [_P, _i, _P, _i, _i, _i, _P, _i, _i, _P]
@@ -550,12 +601,16 @@ def _library():
         lib.fdtd_e_update.argtypes = [_P, ctypes.c_int, ctypes.c_float, _P]
         lib.fdtd_mur_faces.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
         lib.fdtd_probe_gather.argtypes = [_P, ctypes.c_int, _P, _P]
+        lib.fdtd_probe_gather_batch.argtypes = [_P, _P]
         for fn in (lib.fdtd_h_update, lib.fdtd_e_update,
-                   lib.fdtd_mur_faces, lib.fdtd_probe_gather):
+                   lib.fdtd_mur_faces, lib.fdtd_probe_gather,
+                   lib.fdtd_probe_gather_batch):
             fn.restype = ctypes.c_int
         for name, c_size, py in (
                 ("YeeArgs", lib.fdtd_args_size(), _YeeArgs),
                 ("ChunkArgs", lib.fdtd_chunk_args_size(), _ChunkArgs),
+                ("GatherBatchArgs", lib.fdtd_gather_batch_args_size(),
+                 _GatherBatchArgs),
                 ("ProbeTable", lib.fdtd_probe_table_size(), _ProbeTable)):
             if c_size != ctypes.sizeof(py):
                 raise RuntimeError(f"{name} layout mismatch: C {c_size} bytes, "
@@ -696,6 +751,42 @@ def probe_gather(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
     launches["probe_gather"] += 1
 
 
+def probe_gather_batch(ops: YeeOperands, st: YeeBatch, out: torch.Tensor,
+                       active) -> None:
+    """Every probe row of every variant b with ``active[b]`` into
+    ``out[b]`` (``out``: (B, probe rows), each row contiguous, as a
+    staging buffer's ``bufs[:, j]``); a frozen variant's row stays as it
+    is. On a CUDA tensor one launch of ``probe_gather_batch_kernel`` (every
+    active variant at the same E buffer and H set, :func:`one_set`); on a
+    CPU tensor :func:`probe_gather_batch_plain`."""
+    B, rows = st.batch, ops.probes.n_rows
+    if tuple(out.shape) != (B, rows) or (rows > 1 and out.stride(1) != 1):
+        raise ValueError(f"probe_gather_batch: out {tuple(out.shape)} != "
+                         f"(B, probe rows) = {(B, rows)} with contiguous rows")
+    act = _active_mask(active, B)
+    if not _on_cuda(st.h[0]):
+        return probe_gather_batch_plain(ops, st, out, act)
+    live = [b for b in range(B) if act[b]]
+    if not live or rows == 0:
+        return None  # nothing to launch
+    p, q = one_set(st, live, "probe_gather_batch")
+    dev = ops.device
+    if out.device != dev or out.dtype != torch.float32:
+        raise ValueError(f"probe_gather_batch: out must be float32 on {dev}")
+    shp = (B, *ops.shape)
+    a = _GatherBatchArgs()
+    for m, t in enumerate((*st.e[p], *st.h_set(q)[0])):
+        a.f[m] = _ptr(t, shp, dev=dev)
+    a.probes = _probe_args(ops.probes, dev)
+    a.active = _ptr(_device_mask(st, act), (B,), torch.int32, dev)
+    a.batch, a.cells = B, int(np.prod(ops.shape))
+    a.out_stride, a.out = out.stride(0), out.data_ptr()
+    lib = _library()
+    _check(lib, lib.fdtd_probe_gather_batch(ctypes.addressof(a), _stream(dev)),
+           "probe_gather_batch")
+    launches["probe_gather_batch"] += 1
+
+
 def _batch(st) -> int:
     """B for a :class:`YeeBatch`, 0 for a :class:`YeeState`."""
     return st.batch if isinstance(st, YeeBatch) else 0
@@ -807,6 +898,9 @@ def chunk_steps_batch(ops: YeeOperands, st: YeeBatch,
     if len(parity) != 1:
         raise ValueError(f"chunk_steps_batch: active variants at parities "
                          f"{sorted(parity)}; one launch steps one parity")
+    if any(st.hset[b] for b in live):
+        raise ValueError("chunk_steps_batch: an active variant's H lies in "
+                         "the stream stepper's second set")
     lib = _library()
     a = _chunk_args(ops, st)
     plan = chunk_launch_plan(ops, st, form)
@@ -845,6 +939,7 @@ plain = SimpleNamespace(
     probe_gather=probe_gather_plain,
     chunk_steps=chunk_steps_plain,
     chunk_steps_batch=chunk_steps_batch_plain,
+    probe_gather_batch=probe_gather_batch_plain,
 )
 kernels = SimpleNamespace(
     h_update=h_update,
@@ -853,6 +948,7 @@ kernels = SimpleNamespace(
     probe_gather=probe_gather,
     chunk_steps=chunk_steps,
     chunk_steps_batch=chunk_steps_batch,
+    probe_gather_batch=probe_gather_batch,
 )
 step_kernels = SimpleNamespace(**{**vars(kernels), "chunk_steps": chunk_by_steps})
 

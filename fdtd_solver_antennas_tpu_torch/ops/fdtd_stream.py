@@ -28,15 +28,26 @@ port computes the same T steps with one of two kernels of
   A launch advances T steps; halos are W = T + 1 rows, restocked once
   per launch. The march takes the slab's own x walls
   (:func:`march_view`); the tile kernel runs CPML, which has none.
+- :func:`stream_steps_batch`: the same two kernels for B design variants
+  of one grid in one launch, the counterpart of K2's ``coef_ops_from``
+  form (ca/cb as operands) under ``jax.vmap``, which a geometry sweep on
+  a union grid that spills the L2 runs (``ops/fdtd.py::run_batched`` in
+  stream mode). A ``fdtd_cuda.YeeBatch`` carries a second set of H and ψ
+  and a set index per variant, so a frozen variant's fields stay where
+  they are while the others move on; its plain twin is
+  :func:`stream_steps_batch_plain`.
 
-The engine samples probes between launches with K1's ``probe_gather``.
-``launches`` counts ``stream_steps`` and ``stream_shard_steps``
+The engine samples probes between launches with K1's ``probe_gather``
+(``probe_gather_batch`` for a batch). ``launches`` counts
+``stream_steps``, ``stream_shard_steps`` and ``stream_steps_batch``
 launches, as ``fdtd_cuda.launches`` does for K1, and
 ``launches_by_kernel`` counts them per kernel (``stream_march``,
-``stream_tile``, ``shard_march``, ``shard_tile``). :data:`kernels` and :data:`plain`
-are the engine's full sets of entry points (K1's ``chunk_steps`` and
-per-step kernels, and ``stream_steps``) that
-``ops/fdtd.py::run_simulation`` steps with.
+``stream_tile``, ``shard_march``, ``shard_tile``, ``stream_march_batch``,
+``stream_tile_batch``). :data:`kernels` and :data:`plain` are the
+engine's full sets of entry points (K1's ``chunk_steps``,
+``chunk_steps_batch`` and per-step kernels, and ``stream_steps`` and
+``stream_steps_batch``) that ``ops/fdtd.py::run_simulation`` and
+``run_batched`` step with.
 """
 
 from __future__ import annotations
@@ -45,17 +56,19 @@ import ctypes
 from types import SimpleNamespace
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import fdtd_cuda, fdtd_shard
-from .fdtd_cuda import YeeOperands, YeeState, _on_cuda, _ptr, _stream
+from .fdtd_cuda import YeeBatch, YeeOperands, YeeState, _on_cuda, _ptr, _stream
 
-KERNELS = ("stream_steps", "stream_shard_steps")
+KERNELS = ("stream_steps", "stream_shard_steps", "stream_steps_batch")
 
 # kernel launches per wrapper; only the wrapper's CUDA branch adds to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the same launches by the kernel that ran
-ROUTES = ("stream_march", "stream_tile", "shard_march", "shard_tile")
+ROUTES = ("stream_march", "stream_tile", "shard_march", "shard_tile",
+          "stream_march_batch", "stream_tile_batch")
 launches_by_kernel: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 # Shared memory one block may use on Hopper (H100/H200), bytes.
@@ -139,11 +152,12 @@ def _cut(n: int, wall: int, core: int, mur: bool) -> Tuple[int, int]:
 
 
 def _march_layout(shape, grid_shape, mur: bool, x_wall=None,
-                  blocks: int = MARCH_BLOCKS):
+                  blocks: int = MARCH_BLOCKS, batch: int = 1):
     """The T-independent part of :func:`march_plan`. The x segments: the
     length (at least 3 planes) whose blocks finish soonest, counting
-    rounds of ``blocks`` resident blocks times the planes a block marches
-    (its segment and the trapezoid's 2T more, taken at T = 4)."""
+    rounds of ``blocks`` resident blocks over the ``batch`` variants of a
+    launch times the planes a block marches (its segment and the
+    trapezoid's 2T more, taken at T = 4)."""
     n0, n1, n2 = (int(v) for v in shape)
     q0, q1, q2 = (int(v) for v in grid_shape)
     x_wall = q0 - 1 if x_wall is None else int(x_wall)
@@ -152,7 +166,7 @@ def _march_layout(shape, grid_shape, mur: bool, x_wall=None,
     oz, tz = _cut(n2, q2 - 1, core[1], mur)
 
     def finish(seg):
-        rounds = -(-ty * tz * -(-n0 // seg) // blocks)
+        rounds = -(-ty * tz * -(-n0 // seg) * batch // blocks)
         return rounds * (seg + 8), -seg
 
     seg = min({max(3, -(-n0 // k)) for k in range(1, n0 + 1)}, key=finish)
@@ -172,18 +186,20 @@ def _march_cells_smem(shape, T: int, mur: bool):
 
 
 def march_plan(shape, grid_shape, T: int, mur: bool, x_wall=None,
-               blocks: int = MARCH_BLOCKS):
+               blocks: int = MARCH_BLOCKS, batch: int = 1):
     """How the march cuts a grid for a T-step launch (MUR or PEC walls).
     ``grid_shape`` places the y and z walls; ``x_wall`` is the plane of
     the upper x wall (default ``grid_shape[0] − 1``, −1 for none): a
     slab's, from :func:`march_view`; ``blocks`` the resident blocks the
-    x cut aims for (another count moves the segment ends).
+    x cut aims for (another count moves the segment ends) over the
+    ``batch`` variants a launch steps.
 
     Returns ``(core_yz, origin_yz, tiles_yz, x_segments, smem_bytes)``.
     Tile (by, bz) covers y in [by·core_y − origin_y, (by+1)·core_y −
     origin_y) and likewise z, clipped to the array; ``x_segments`` is
     ``(length, origin, count)``, segment s covering [s·length − origin,
-    (s+1)·length − origin). There are ``tiles_y·tiles_z·count`` blocks.
+    (s+1)·length − origin). There are ``tiles_y·tiles_z·count`` blocks
+    per variant.
     A block
     holds the region core + T cells per side in y and z, one thread per
     region cell; ``smem_bytes`` is the largest block's shared memory: the
@@ -192,7 +208,7 @@ def march_plan(shape, grid_shape, T: int, mur: bool, x_wall=None,
     computes the same from the packed arguments. Raises ``ValueError``
     where a region outgrows the threads or the shared memory."""
     core, origin, tiles, segments = _march_layout(shape, grid_shape, mur,
-                                                  x_wall, blocks)
+                                                  x_wall, blocks, batch)
     cells, smem = _march_cells_smem(shape, T, mur)
     if smem is None:
         raise ValueError(
@@ -257,6 +273,7 @@ class _StreamArgs(ctypes.Structure):
         ("m_tiles", ctypes.c_int * 2), ("m_seg", ctypes.c_int),
         ("m_seg_origin", ctypes.c_int), ("m_segs", ctypes.c_int),
         ("x_lo", ctypes.c_int), ("x_hi", ctypes.c_int),
+        ("active", _P), ("vstride", ctypes.c_longlong),
     ]
 
 
@@ -281,6 +298,9 @@ def _library():
         for name in ("fdtd_stream_steps", "fdtd_stream_march"):
             getattr(lib, name).argtypes = [_P, _P, ctypes.c_int, _P]
             getattr(lib, name).restype = ctypes.c_int
+        for name in ("fdtd_stream_steps_batch", "fdtd_stream_march_batch"):
+            getattr(lib, name).argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P]
+            getattr(lib, name).restype = ctypes.c_int
         if lib.fdtd_stream_args_size() != ctypes.sizeof(_StreamArgs):
             raise RuntimeError(
                 f"StreamArgs layout mismatch: C {lib.fdtd_stream_args_size()} "
@@ -296,80 +316,92 @@ def _field_set(st: YeeState):
     return (*st.e[st.parity], *st.h, *st.psi_e, *st.psi_h)
 
 
+def _pack(ops: YeeOperands, src, dst, view, blocks: int, batch: int = 0,
+          active=None) -> _StreamArgs:
+    """The launch arguments that step the fields ``src`` (E3, H3, ψ_e6,
+    ψ_h6) into ``dst``, on the march's view ``(v0, x_lo, x_hi)``
+    (:func:`march_view`; its arrays start at row v0). ``batch`` B > 0:
+    the fields and ``ops``' ca/cb are (B, X, Y, Z), the view is a whole
+    grid's and ``active`` the device mask of the variants that step."""
+    if ops.mur is not None and min(ops.grid_shape) < 3:
+        raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+    dev = ops.device
+    pml = ops.pml is not None
+    v0, x_lo, x_hi = view
+    shp = (ops.shape[0] - v0, *ops.shape[1:])
+    own = (batch, *shp) if batch else shp  # a variant's arrays, batched
+
+    def rows(t):  # the view [v0, m) of a (m, Py, Pz) tensor
+        return None if t is None else t[v0:]
+
+    inv_p = (ops.inv_p[0][v0:], *ops.inv_p[1:])
+    inv_d = (ops.inv_d[0][v0:], *ops.inv_d[1:])
+    a = _StreamArgs()
+    for m in range(3):
+        a.e_in[m] = _ptr(rows(src[m]), own, dev=dev)
+        a.h_in[m] = _ptr(rows(src[3 + m]), own, dev=dev)
+        a.e_out[m] = _ptr(rows(dst[m]), own, dev=dev)
+        a.h_out[m] = _ptr(rows(dst[3 + m]), own, dev=dev)
+        a.ca[m] = _ptr(rows(ops.ca[m]), own, dev=dev)
+        a.cb[m] = _ptr(rows(ops.cb[m]), own, dev=dev)
+        a.src[m] = _ptr(rows(ops.src[m]), shp, dev=dev)
+        a.inv_p[m] = _ptr(inv_p[m], (shp[m],), dev=dev)
+        a.inv_d[m] = _ptr(inv_d[m], (shp[m],), dev=dev)
+    if pml:  # no walls, so v0 is 0
+        for m in range(3):
+            for key in ("bh", "ch", "be", "ce"):
+                getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
+        for m in range(6):
+            a.pe_in[m] = _ptr(src[6 + m], own, dev=dev)
+            a.ph_in[m] = _ptr(src[12 + m], own, dev=dev)
+            a.pe_out[m] = _ptr(dst[6 + m], own, dev=dev)
+            a.ph_out[m] = _ptr(dst[12 + m], own, dev=dev)
+    core, origin, tiles = tiling(shp, ops.mur is not None, pml)
+    a.n[:] = shp
+    a.q[:] = ops.grid_shape
+    a.core[:] = core
+    a.origin[:] = origin
+    a.tiles[:] = tiles
+    a.has_pml = int(pml)
+    a.has_mur = int(ops.mur is not None)
+    a.dtmu = ops.dtmu
+    for b in range(3):
+        for side in range(2):
+            a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+    if not pml:
+        core, origin, tiles, (seg, seg_origin, segs) = _march_layout(
+            shp, ops.grid_shape, ops.mur is not None, x_hi, blocks,
+            max(batch, 1))
+        a.m_core[:] = core
+        a.m_origin[:] = origin
+        a.m_tiles[:] = tiles
+        a.m_seg, a.m_seg_origin, a.m_segs = seg, seg_origin, segs
+    a.x_lo, a.x_hi = x_lo, x_hi
+    if batch:
+        a.active = _ptr(active, (batch,), torch.int32, dev)
+        a.vstride = int(np.prod(shp))
+    return a
+
+
 class _StreamBuffers:
     """The state's second set of fields and the packed arguments of both
     launch directions (set 0 → set 1, set 1 → set 0). A launch reads one
     set and writes the other; the wrapper then points the state at the
-    set it wrote. Kept on the state (``YeeState._stream``); the structs
-    must outlive every launch. The march's arrays start at row ``v0``
-    (:func:`march_view`); rows below it are never written and stay as
-    the second set starts them, zero. ``blocks``: the march's x cut
-    (:func:`march_plan`)."""
+    set it wrote. Kept on the state (``YeeState._stream``). The march's
+    arrays start at row ``v0`` (:func:`march_view`); rows below it are
+    never written and stay as the second set starts them, zero.
+    ``blocks``: the march's x cut (:func:`march_plan`)."""
 
     def __init__(self, ops: YeeOperands, st: YeeState, blocks: int):
-        dev = ops.device
         first = _field_set(st)
         self.ops, self.blocks = ops, blocks
-        self.v0, self.x_lo, self.x_hi = march_view(ops)
-        self.shape = (ops.shape[0] - self.v0, *ops.shape[1:])
+        self.view = march_view(ops)
+        self.shape = (ops.shape[0] - self.view[0], *ops.shape[1:])
         self.sets = (first, tuple(torch.zeros_like(t) for t in first))
-        self.args = tuple(self._pack(ops, self.sets[i], self.sets[1 - i], dev)
-                          for i in range(2))
+        self.args = tuple(_pack(ops, self.sets[i], self.sets[1 - i], self.view,
+                                blocks) for i in range(2))
         self.addr = tuple(ctypes.addressof(a) for a in self.args)
         self.march_T = set()  # the T whose shared memory C and Python agree on
-
-    def _pack(self, ops, src, dst, dev) -> _StreamArgs:
-        if ops.mur is not None and min(ops.grid_shape) < 3:
-            raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
-        pml = ops.pml is not None
-        shp, v0 = self.shape, self.v0
-
-        def rows(t):  # the view [v0, m) of a (m, Py, Pz) tensor
-            return None if t is None else t[v0:]
-
-        inv_p = (ops.inv_p[0][v0:], *ops.inv_p[1:])
-        inv_d = (ops.inv_d[0][v0:], *ops.inv_d[1:])
-        a = _StreamArgs()
-        for m in range(3):
-            a.e_in[m] = _ptr(rows(src[m]), shp, dev=dev)
-            a.h_in[m] = _ptr(rows(src[3 + m]), shp, dev=dev)
-            a.e_out[m] = _ptr(rows(dst[m]), shp, dev=dev)
-            a.h_out[m] = _ptr(rows(dst[3 + m]), shp, dev=dev)
-            a.ca[m] = _ptr(rows(ops.ca[m]), shp, dev=dev)
-            a.cb[m] = _ptr(rows(ops.cb[m]), shp, dev=dev)
-            a.src[m] = _ptr(rows(ops.src[m]), shp, dev=dev)
-            a.inv_p[m] = _ptr(inv_p[m], (shp[m],), dev=dev)
-            a.inv_d[m] = _ptr(inv_d[m], (shp[m],), dev=dev)
-        if pml:  # no walls, so v0 is 0
-            for m in range(3):
-                for key in ("bh", "ch", "be", "ce"):
-                    getattr(a, key)[m] = _ptr(ops.pml[key][m], (shp[m],), dev=dev)
-            for m in range(6):
-                a.pe_in[m] = _ptr(src[6 + m], shp, dev=dev)
-                a.ph_in[m] = _ptr(src[12 + m], shp, dev=dev)
-                a.pe_out[m] = _ptr(dst[6 + m], shp, dev=dev)
-                a.ph_out[m] = _ptr(dst[12 + m], shp, dev=dev)
-        core, origin, tiles = tiling(shp, ops.mur is not None, pml)
-        a.n[:] = shp
-        a.q[:] = ops.grid_shape
-        a.core[:] = core
-        a.origin[:] = origin
-        a.tiles[:] = tiles
-        a.has_pml = int(pml)
-        a.has_mur = int(ops.mur is not None)
-        a.dtmu = ops.dtmu
-        for b in range(3):
-            for side in range(2):
-                a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
-        if not pml:
-            core, origin, tiles, (seg, seg_origin, segs) = _march_layout(
-                shp, ops.grid_shape, ops.mur is not None, self.x_hi, self.blocks)
-            a.m_core[:] = core
-            a.m_origin[:] = origin
-            a.m_tiles[:] = tiles
-            a.m_seg, a.m_seg_origin, a.m_segs = seg, seg_origin, segs
-        a.x_lo, a.x_hi = self.x_lo, self.x_hi
-        return a
 
     def current(self, ops: YeeOperands, st: YeeState, blocks: int):
         """Index of the set the state points at, or None if neither."""
@@ -380,6 +412,43 @@ class _StreamBuffers:
             if len(s) == len(now) and all(x is y for x, y in zip(s, now)):
                 return i
         return None
+
+
+class _BatchBuffers:
+    """The packed arguments of a :class:`YeeBatch`'s launches, one struct
+    per (E buffer, H set) the active variants start from, made at first
+    use: a launch reads E from ``e[p]``, H and ψ from set q, and writes
+    ``e[1 − p]`` and set 1 − q. Kept on the batch (``YeeBatch._stream``)
+    while the operands, the batch's tensors and the device mask are the
+    ones it was packed with."""
+
+    def __init__(self, ops: YeeOperands, st: YeeBatch, mask: torch.Tensor):
+        self.ops, self.mask, self.key = ops, mask, self._key(st)
+        self.shape = tuple(ops.shape)
+        self.view = march_view(ops)
+        self.args = {}
+        self.march_T = set()
+
+    @staticmethod
+    def _key(st: YeeBatch):
+        return (*st.e[0], *st.e[1], *st.h, *st.h1, *st.psi_e, *st.psi_e1,
+                *st.psi_h, *st.psi_h1)
+
+    def fits(self, ops: YeeOperands, st: YeeBatch, mask) -> bool:
+        key = self._key(st)
+        return (ops is self.ops and mask is self.mask and len(key) == len(self.key)
+                and all(x is y for x, y in zip(key, self.key)))
+
+    def addr(self, st: YeeBatch, p: int, q: int) -> int:
+        if (p, q) not in self.args:
+            def fields(p, q):
+                h, pe, ph = st.h_set(q)
+                return (*st.e[p], *h, *pe, *ph)
+
+            self.args[p, q] = _pack(self.ops, fields(p, q),
+                                    fields(1 - p, 1 - q), self.view,
+                                    MARCH_BLOCKS, st.batch, self.mask)
+        return ctypes.addressof(self.args[p, q])
 
 
 def stream_steps(ops: YeeOperands, st: YeeState, wf_t: Sequence[float]) -> None:
@@ -429,15 +498,102 @@ def stream_shard_steps(ops: YeeOperands, st: YeeState,
                    blocks)
 
 
+def stream_steps_batch_plain(ops: YeeOperands, st: YeeBatch,
+                             wf_t: Sequence[float], active) -> None:
+    """:func:`stream_steps_plain` on the views of every active variant
+    (its own ca/cb, E buffer and H set); its parity flips with each of
+    the T steps, its H and ψ stay in their set. A frozen variant's
+    tensors, parity and set stay as they are."""
+    for b, on in enumerate(fdtd_cuda._active_mask(active, st.batch)):
+        if on:
+            vs = st.variant(b)
+            stream_steps_plain(fdtd_cuda.variant_operands(ops, b), vs, wf_t)
+            st.parity[b] = vs.parity
+
+
+def stream_steps_batch(ops: YeeOperands, st: YeeBatch, wf_t: Sequence[float],
+                       active) -> None:
+    """T = ``len(wf_t)`` leapfrog steps of every variant b with
+    ``active[b]`` (``ops`` from ``fdtd_cuda.batch_operands``; every variant
+    driven by the same samples), the batched form of :func:`stream_steps`
+    (K2's ``coef_ops_from`` under ``jax.vmap``). On a CUDA tensor one
+    launch of the march (MUR, PEC) or the tile kernel (CPML) for all
+    active variants, which must share their E buffer and H set
+    (``fdtd_cuda.one_set``): it writes the other E buffer and the other
+    set (made at the first launch) and flips both for each active
+    variant. A frozen variant's blocks return before any load; its
+    tensors, parity and set stay as they are. On a CPU tensor
+    :func:`stream_steps_batch_plain`."""
+    _check_T(wf_t)
+    if ops.mur_x_rows is not None:
+        raise ValueError("stream_steps_batch takes a whole grid, not a slab")
+    act = fdtd_cuda._active_mask(active, st.batch)
+    if not _on_cuda(st.h[0]):
+        return stream_steps_batch_plain(ops, st, wf_t, act)
+    live = [b for b in range(st.batch) if act[b]]
+    if not live:
+        return None  # nothing to step
+    p, q = fdtd_cuda.one_set(st, live, "stream_steps_batch")
+    if not st.h1:
+        st.h1 = tuple(torch.zeros_like(t) for t in st.h)
+        st.psi_e1 = tuple(torch.zeros_like(t) for t in st.psi_e)
+        st.psi_h1 = tuple(torch.zeros_like(t) for t in st.psi_h)
+    mask = fdtd_cuda._device_mask(st, act)
+    buf = st._stream
+    if buf is None or not buf.fits(ops, st, mask):
+        buf = st._stream = _BatchBuffers(ops, st, mask)
+    addr = buf.addr(st, p, q)
+    lib = _library()
+    if ops.pml is None:
+        _check_march_smem(lib, buf, addr, ops, len(wf_t), MARCH_BLOCKS,
+                          st.batch)
+        _launch(lib, lib.fdtd_stream_march_batch, addr, wf_t, ops.device,
+                "stream_steps_batch", "stream_march_batch", st.batch)
+    else:
+        _launch(lib, lib.fdtd_stream_steps_batch, addr, wf_t, ops.device,
+                "stream_steps_batch", "stream_tile_batch", st.batch)
+    for b in live:
+        st.parity[b] ^= 1
+        st.hset[b] ^= 1
+
+
 def _check_T(wf_t) -> None:
     if not 1 <= len(wf_t) <= MAX_T:
         raise ValueError(f"a stream launch takes 1..{MAX_T} samples, "
                          f"got {len(wf_t)}")
 
 
+def _check_march_smem(lib, buf, addr: int, ops, T: int, blocks: int,
+                      batch: int = 1) -> None:
+    """Raise unless C and :func:`march_plan` agree on the march's shared
+    memory at T (checked once per T and buffers)."""
+    if T in buf.march_T:
+        return
+    smem = march_plan(buf.shape, ops.grid_shape, T, ops.mur is not None,
+                      buf.view[2], blocks, batch)[4]
+    got = lib.fdtd_march_smem_bytes(addr, T)
+    if got != smem:
+        raise RuntimeError(f"march shared memory: C {got} B, "
+                           f"march_plan {smem} B at T={T}")
+    buf.march_T.add(T)
+
+
+def _launch(lib, fn, addr: int, wf_t, dev, wrapper: str, route: str,
+            *batch) -> None:
+    """Launch ``fn`` on the packed arguments at ``addr`` with the samples
+    ``wf_t`` (and the batch size for a batched kernel); raise on a failed
+    launch, else count it."""
+    samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
+    code = fn(addr, ctypes.addressof(samples), len(wf_t), *batch, _stream(dev))
+    if code != 0:
+        msg = lib.fdtd_stream_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {route} failed: {msg} ({code})")
+    launches[wrapper] += 1
+    launches_by_kernel[route] += 1
+
+
 def _stream_launch(ops, st, wf_t, march: bool, wrapper: str,
                    route: str, blocks: int = MARCH_BLOCKS) -> None:
-    T = len(wf_t)
     lib = _library()
     buf = st._stream
     cur = buf.current(ops, st, blocks) if buf is not None else None
@@ -445,25 +601,9 @@ def _stream_launch(ops, st, wf_t, march: bool, wrapper: str,
         buf = st._stream = _StreamBuffers(ops, st, blocks)
         cur = 0
     if march:
-        launch = lib.fdtd_stream_march
-        if T not in buf.march_T:
-            smem = march_plan(buf.shape, ops.grid_shape, T, ops.mur is not None,
-                              buf.x_hi, blocks)[4]
-            got = lib.fdtd_march_smem_bytes(buf.addr[cur], T)
-            if got != smem:
-                raise RuntimeError(f"march shared memory: C {got} B, "
-                                   f"march_plan {smem} B at T={T}")
-            buf.march_T.add(T)
-    else:
-        launch = lib.fdtd_stream_steps
-    samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
-    code = launch(buf.addr[cur], ctypes.addressof(samples), T,
-                  _stream(ops.device))
-    if code != 0:
-        msg = lib.fdtd_stream_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel {route} failed: {msg} ({code})")
-    launches[wrapper] += 1
-    launches_by_kernel[route] += 1
+        _check_march_smem(lib, buf, buf.addr[cur], ops, len(wf_t), blocks)
+    _launch(lib, lib.fdtd_stream_march if march else lib.fdtd_stream_steps,
+            buf.addr[cur], wf_t, ops.device, wrapper, route)
     nxt = buf.sets[1 - cur]
     st.e[st.parity] = nxt[0:3]
     st.h = nxt[3:6]
@@ -524,7 +664,10 @@ def build_stream_shard_stepper(sim, n_dev: int, rank: int, device=None,
         ops=fdtd_shard.slab_operands(sim, rank, n, W, device))
 
 
-# the engine's entry points: K1's and the stream stepper, through the
-# kernels (CUDA tensors) or always through the plain twins
-kernels = SimpleNamespace(**vars(fdtd_cuda.kernels), stream_steps=stream_steps)
-plain = SimpleNamespace(**vars(fdtd_cuda.plain), stream_steps=stream_steps_plain)
+# the engine's entry points: K1's and the stream stepper's, unbatched and
+# batched, through the kernels (CUDA tensors) or always through the plain
+# twins
+kernels = SimpleNamespace(**vars(fdtd_cuda.kernels), stream_steps=stream_steps,
+                          stream_steps_batch=stream_steps_batch)
+plain = SimpleNamespace(**vars(fdtd_cuda.plain), stream_steps=stream_steps_plain,
+                        stream_steps_batch=stream_steps_batch_plain)

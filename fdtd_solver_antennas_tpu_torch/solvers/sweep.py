@@ -1,4 +1,4 @@
-"""Batched geometry sweeps: many designs, one launch per chunk.
+"""Batched geometry sweeps: many designs, every launch for all of them.
 
 Counterpart of ``fdtd_solver_antennas_tpu/solvers/sweep.py``. The
 reference explores designs by serially re-preparing and re-running its
@@ -6,9 +6,19 @@ C++ engine per variant. Here every variant is voxelized onto one *shared
 grid* (the union of all variants' mesh-refinement lines), so geometry
 differences live purely in the ca/cb coefficient arrays. Those are
 stacked on a leading variant axis, and the chunked time loop runs all
-variants at once (``ops/fdtd.py::run_batched``): one ``chunk_steps_batch``
-launch per termination chunk steps every variant (K1 batched, the JAX
-package's chunk kernel under ``jax.vmap``).
+variants at once (``ops/fdtd.py::run_batched``) in the mode the base
+simulation resolves (``ops/fdtd.py::resolve_pallas_mode``), as the JAX
+package's vmapped run keeps its base's kernel:
+
+- chunk mode (the union grid's working set fits the L2, as at the
+  8-variant canonical sweep and the tests' patches and horns): one
+  ``chunk_steps_batch`` launch per termination chunk steps every variant
+  (K1 batched, the JAX package's chunk kernel under ``jax.vmap``);
+- stream mode (a union grid that spills the L2, or ``pallas_mode=
+  "stream"``): one ``stream_steps_batch`` launch per T steps and one
+  ``probe_gather_batch`` per probe interval (K2 batched, its
+  ``coef_ops_from`` form under ``jax.vmap``), the probe decimation
+  rounded down to a multiple of T as the JAX base rounds it.
 
 Early exit: each variant stops on its own. After every chunk each
 variant's energy ratio is checked; a variant that meets the criterion is
@@ -178,6 +188,7 @@ def prepare_patch_geometry_sweep(
     n_steps_max: int = 16_000,
     end_criteria: float = 1e-4,
     boundary: str = "MUR",
+    pallas_mode: Optional[str] = None,
     device="cuda",
     verbose: int = 0,
 ) -> SweepPrepared:
@@ -187,7 +198,9 @@ def prepare_patch_geometry_sweep(
     All variants must share substrate thickness (the grid's z lines).
     Variants that also share εr, loss and frequency take the delta path
     (:func:`_batched_coeffs_delta`); others are built one by one in
-    threads and stacked.
+    threads and stacked. ``pallas_mode`` ("chunk", "stream" or None, the
+    JAX package's argument) forces the batched run's kernels; None lets
+    the base simulation's working set pick them.
     """
     try:
         variants = list(variants)
@@ -220,11 +233,9 @@ def prepare_patch_geometry_sweep(
             )
         grid = mb.build(mesh_res, ratio=1.4)
 
-        # the batched run is always in chunk mode (ops/fdtd.py::run_batched),
-        # so the base sim resolves it too: no stream-mode decimation rounding
         cfg = FDTDConfig(
             n_steps_max=n_steps_max, end_criteria=end_criteria,
-            boundary=boundary, pallas_mode="chunk",
+            boundary=boundary, pallas_mode=pallas_mode,
         )
         port_freqs = np.linspace(max(1e8, f0 * 0.5), f0 * 1.5, 201)
         nf_freqs = np.array([f0])  # sweeps are S11-centric; keep NF light
@@ -387,7 +398,7 @@ def prepare_horn_aperture_sweep(
 
         cfg = FDTDConfig(
             n_steps_max=n_steps_max, end_criteria=end_criteria,
-            boundary=boundary, pallas_mode="chunk",
+            boundary=boundary,
         )
         port_freqs = np.linspace(f0 * 0.7, f0 * 1.3, 201)
         nf_freqs = np.array([f0])

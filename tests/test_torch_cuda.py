@@ -71,7 +71,8 @@ def test_chunk_through_kernels_matches_plain(cuda, boundary):
     k = run_simulation(sim, fdtd_cuda.kernels)
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
                                   "probe_gather": 0, "chunk_steps": 1,
-                                  "chunk_steps_batch": 0}
+                                  "chunk_steps_batch": 0,
+                                  "probe_gather_batch": 0}
     p = run_simulation(sim, fdtd_cuda.plain)
     assert k["steps"] == p["steps"] == 120
     for fa, fb in zip(k["fields"], p["fields"], strict=True):
@@ -166,7 +167,8 @@ def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
     before = a.h[0]
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
-    assert fdtd_stream.launches == {"stream_steps": 1, "stream_shard_steps": 0}
+    assert fdtd_stream.launches == {"stream_steps": 1, "stream_shard_steps": 0,
+                                   "stream_steps_batch": 0}
     route = "stream_tile" if boundary.startswith("PML") else "stream_march"
     assert fdtd_stream.launches_by_kernel[route] == 1
     assert a.h[0] is not before
@@ -190,7 +192,7 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     route = "stream_tile" if boundary.startswith("PML") else "stream_march"
     assert fdtd_stream.launches_by_kernel == {
         "stream_march": 0, "stream_tile": 0, "shard_march": 0, "shard_tile": 0,
-        route: 120 // 4}
+        "stream_march_batch": 0, "stream_tile_batch": 0, route: 120 // 4}
     assert fdtd_cuda.launches["probe_gather"] == 120 // 4
     assert fdtd_cuda.launches["h_update"] == 0
     p = run_simulation(sim, fdtd_stream.plain)
@@ -256,8 +258,9 @@ def test_stream_march_equals_its_twin(cuda, boundary, scene, T):
     a, b = _clone(base), _clone(base)
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
-    assert fdtd_stream.launches_by_kernel == {"stream_march": 1, "stream_tile": 0,
-                                              "shard_march": 0, "shard_tile": 0}
+    assert fdtd_stream.launches_by_kernel == {
+        "stream_march": 1, "stream_tile": 0, "shard_march": 0, "shard_tile": 0,
+        "stream_march_batch": 0, "stream_tile_batch": 0}
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
     for x, y in zip((*a.e[a.parity], *a.h), (*b.e[b.parity], *b.h), strict=True):
@@ -368,7 +371,8 @@ def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
     assert fdtd_shard.launches == {"shard_steps": 120 // 12}
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
                                   "probe_gather": 120 // 12, "chunk_steps": 0,
-                                  "chunk_steps_batch": 0}
+                                  "chunk_steps_batch": 0,
+                                  "probe_gather_batch": 0}
     assert out["fields"][0].device.type == "cuda"
     ref = sim.run()
     assert out["steps"] == ref["steps"] == 120
@@ -544,7 +548,8 @@ def test_chunk_steps_equals_the_per_step_kernels(cuda, boundary):
     mur = 3 * 2 * D if boundary == "MUR" else 0
     assert fdtd_cuda.launches == {"h_update": 2 * D, "e_update": 2 * D,
                                   "mur_faces": mur, "probe_gather": 2,
-                                  "chunk_steps": 1, "chunk_steps_batch": 0}
+                                  "chunk_steps": 1, "chunk_steps_batch": 0,
+                                  "probe_gather_batch": 0}
     _assert_same_chunk(a, bufs_a, b, bufs_b)
 
 
@@ -563,7 +568,8 @@ def test_canonical_run_makes_one_chunk_launch_per_chunk(cuda):
     assert out["steps"] == 11_125
     assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
                                   "probe_gather": 0, "chunk_steps": 25,
-                                  "chunk_steps_batch": 0}
+                                  "chunk_steps_batch": 0,
+                                  "probe_gather_batch": 0}
     assert fdtd_cuda.launches_by_form == {"streamed": 0, "resident": 25}
 
 
@@ -598,11 +604,13 @@ def _batch_inputs(sim, device, batch, seed, n_sub=2):
 
 
 def _clone_batch(st):
+    def c(ts):
+        return tuple(t.clone() for t in ts)
+
     return fdtd_cuda.YeeBatch(
-        e=[tuple(t.clone() for t in st.e[p]) for p in range(2)],
-        h=tuple(t.clone() for t in st.h),
-        psi_e=tuple(t.clone() for t in st.psi_e),
-        psi_h=tuple(t.clone() for t in st.psi_h), parity=list(st.parity))
+        e=[c(st.e[0]), c(st.e[1])], h=c(st.h), psi_e=c(st.psi_e),
+        psi_h=c(st.psi_h), parity=list(st.parity), h1=c(st.h1),
+        psi_e1=c(st.psi_e1), psi_h1=c(st.psi_h1), hset=list(st.hset))
 
 
 def _batch_tensors(st):
@@ -715,6 +723,115 @@ def test_sweep_run_makes_one_batch_launch_per_chunk(cuda):
         _close(sp.uf / prep.sim.dft_dt, plain["uf"][b, 0])
     assert not np.allclose(np.abs(res.spectra[0].s11),
                            np.abs(res.spectra[1].s11), rtol=1e-3)
+
+
+def _stream_batch(st):
+    """Every variant's current fields and ψ, by its own E buffer and set."""
+    out = []
+    for b in range(st.batch):
+        v = st.variant(b)
+        out += [*v.fields, *v.psi_e, *v.psi_h]
+    return out
+
+
+@pytest.mark.parametrize("T", [2, 4])
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_stream_steps_batch_equals_its_twin(cuda, boundary, T):
+    """Two batched stream launches of B = 3 variants (distinct ca/cb)
+    against the twin: every variant stepping in the first, variant 1
+    frozen in the second; each variant's fields and ψ at rtol 2e-4, atol
+    1e-5·max|plain|, the frozen variant's tensors, parity and set
+    untouched. The launch is the march under MUR/PEC, the tile kernel
+    under CPML."""
+    sim = _stream_sim(boundary, T=T)
+    ops, a, _wf, _bufs = _batch_inputs(sim, cuda, 3, seed=131 + T)
+    b = _clone_batch(a)
+    wf = [0.37, -0.21, 0.55, 0.13][:T]
+    route = "stream_tile_batch" if boundary.startswith("PML") else \
+        "stream_march_batch"
+    fdtd_stream.reset_launch_counts()
+    for i, mask in enumerate(([True] * 3, [True, False, True])):
+        if i == 1:
+            frozen = [t[1].clone() for t in (*_batch_tensors(a), *a.h1,
+                                              *a.psi_e1, *a.psi_h1)]
+            state1 = (a.parity[1], a.hset[1])
+        fdtd_stream.stream_steps_batch(ops, a, wf, mask)
+        fdtd_stream.stream_steps_batch_plain(ops, b, wf, mask)
+        torch.cuda.synchronize()
+        for x, y in zip(_stream_batch(a), _stream_batch(b), strict=True):
+            _close(x, y)
+    assert fdtd_stream.launches_by_kernel[route] == 2
+    assert fdtd_stream.launches["stream_steps_batch"] == 2
+    for t, t0 in zip((*_batch_tensors(a), *a.h1, *a.psi_e1, *a.psi_h1), frozen,
+                     strict=True):
+        assert torch.equal(t[1], t0)
+    assert (a.parity[1], a.hset[1]) == state1 == (0, 1)
+    assert (a.parity[0], a.hset[0]) == (1, 0)  # two launches
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_4"])
+def test_stream_steps_batch_of_one_equals_stream_steps(cuda, boundary):
+    """B = 1: the batched kernel is bit-equal to the unbatched one on the
+    same state."""
+    sim = _stream_sim(boundary, T=4)
+    ops, a, _wf, _bufs = _batch_inputs(sim, cuda, 1, seed=137)
+    ref = a.variant(0)
+    ref = fdtd_cuda.YeeState(
+        e=[tuple(t.clone() for t in ref.e[p]) for p in range(2)],
+        h=tuple(t.clone() for t in ref.h),
+        psi_e=tuple(t.clone() for t in ref.psi_e),
+        psi_h=tuple(t.clone() for t in ref.psi_h), parity=1)
+    wf = [0.37, -0.21, 0.55, 0.13]
+    fdtd_stream.stream_steps_batch(ops, a, wf, [True])
+    fdtd_stream.stream_steps(sim.operands, ref, wf)
+    torch.cuda.synchronize()
+    got = a.variant(0)
+    for x, y in zip((*got.fields, *got.psi_e, *got.psi_h),
+                    (*ref.fields, *ref.psi_e, *ref.psi_h), strict=True):
+        assert torch.equal(x, y)
+
+
+def test_probe_gather_batch_equals_its_twin(cuda):
+    sim = _stream_sim("PML_4", T=4)
+    ops, a, _wf, _bufs = _batch_inputs(sim, cuda, 3, seed=139)
+    fdtd_stream.stream_steps_batch(ops, a, [0.2, 0.1], [True] * 3)
+    rows = ops.probes.n_rows
+    got = torch.full((3, 2, rows), 7.0, device=cuda)
+    want = got.clone()
+    fdtd_cuda.reset_launch_counts()
+    fdtd_cuda.probe_gather_batch(ops, a, got[:, 1], [True, False, True])
+    fdtd_cuda.probe_gather_batch_plain(ops, a, want[:, 1], [True, False, True])
+    torch.cuda.synchronize()
+    assert fdtd_cuda.launches["probe_gather_batch"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_4"])
+def test_run_batched_in_stream_mode_matches_plain(cuda, boundary):
+    """``run_batched`` on a stream-mode sim: one batched stream launch per
+    T steps and one batched gather per interval, no chunk launch; equal to
+    the same run through the plain twins on the card."""
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import run_batched
+
+    sim = _stream_sim(boundary, T=4)
+    scale = torch.tensor([1.0, 0.97], device=cuda).view(2, 1, 1, 1)
+    coeffs = {k: v[None] * scale for k, v in sim.coeffs.items()}
+    fdtd_stream.reset_launch_counts()
+    fdtd_cuda.reset_launch_counts()
+    k = run_batched(sim, coeffs)
+    assert fdtd_stream.launches["stream_steps_batch"] == 120 // 4
+    assert fdtd_cuda.launches["probe_gather_batch"] == 120 // 4
+    assert fdtd_cuda.launches["chunk_steps_batch"] == 0
+    assert fdtd_cuda.launches["probe_gather"] == 0
+    p = run_batched(sim, coeffs, fdtd_stream.plain)
+    np.testing.assert_array_equal(k["steps"], p["steps"])
+    for fa, fb in zip(k["fields"], p["fields"], strict=True):
+        _close(fa, fb)
+    for key in ("uf", "if_"):
+        _close(k[key], p[key])
+    bad = dataclasses.replace(sim, probe_decim=5)
+    with pytest.raises(ValueError, match="multiple of stream_T"):
+        run_batched(bad, coeffs)
 
 
 @pytest.mark.parametrize("scene", ["small", "canonical"])
