@@ -35,9 +35,8 @@ and the script exits non-zero without printing a result:
    grid through both routes and the plain twins, per step;
 7. K2 vs plain: ``stream_steps`` alone and one 480-step chunk in stream
    mode against the plain twins (small scene MUR/PEC/PML_4 and its
-   z = 131 variant, T = 1..4), and stream mode against chunk mode; each
-   boundary's route asserted (the march under MUR and PEC, the tile
-   kernel under CPML);
+   z = 131 variant, T = 1..4), and stream mode against chunk mode; the
+   route asserted (the march, under MUR, PEC and CPML);
 8. main path (large-grid slice): the 4.2M-cell mixed patch+horn scene
    through ``MultiPatchScene.simulate``, which resolves to the stream
    kernel and goes through the march, with launch counts, its wall time
@@ -49,8 +48,8 @@ and the script exits non-zero without printing a result:
 9. horn golden: the 12 GHz pyramidal horn against Balanis's 14.06 dBi;
 10. times: forced chunk against forced stream at the tall grid and the
     mixed scene; the march's device time per launch and per step beside
-    its bound, the tile kernel forced on the same state, and K1's; the
-    march's time per step at each T up to the resolved one;
+    its bound, and K1's; the march's time per step at each T up to the
+    resolved one;
 11. K3 vs plain: ``shard_steps`` alone against ``shard_steps_plain`` on
     random slab states (owned rows): the canonical slab at one rank
     (m = 120) for a K = 32 and a remainder window under MUR, PEC, an
@@ -110,18 +109,20 @@ and the script exits non-zero without printing a result:
     launches, an energy-criterion stop, phase 8's steps, resonance,
     |S11|min and Dmax), 2,000 explicit steps against 2,000 steps of the
     single-card stream run; the tall grid under PML_8 through
-    ``build_explicit_run`` (the slab tile kernel, held to the
-    single-card run) and one slab-tile launch timed beside its bound and
-    beside the single-card tile kernel on the same grid at the same T.
+    ``build_explicit_run`` (the slab march under CPML, held to the
+    single-card run) and one such launch timed beside its bound, the
+    single-card march on the same grid at the same T and the tile
+    kernel's time that the route had before (PERF.md).
     A slab launch's bound counts the owned rows and the halos a
     neighbour fills: at one rank, the whole grid's;
 18. K2 batched (the sweep slice in stream mode, K2's ``coef_ops_from``
     form): ``stream_steps_batch`` against ``stream_steps_batch_plain`` at
-    the 8-variant sweep's shapes, one batched march launch (MUR) and one
-    batched tile launch (the same sweep prepared with PML_8), variant 3
-    frozen and bit-unchanged, each timed beside its bound and the twin;
-    one chunk of the PML_8 sweep through ``run_patch_geometry_sweep``
-    (its tile launches counted); B = 1 bit-equal to ``stream_steps``;
+    the 8-variant sweep's shapes, one batched march launch under MUR and
+    one under CPML (the same sweep prepared with PML_8), variant 3
+    frozen and bit-unchanged, each timed beside its bound and the twin
+    (PML_8: and the tile kernel's earlier time); one chunk of the PML_8
+    sweep through ``run_patch_geometry_sweep`` (its launches counted);
+    B = 1 bit-equal to ``stream_steps``;
     then the main path: ``bench.py``'s 8-variant sweep through
     ``prepare_patch_geometry_sweep(..., pallas_mode="stream")`` and
     ``run_patch_geometry_sweep`` (asserts only ``stream_march_batch`` and
@@ -132,7 +133,19 @@ and the script exits non-zero without printing a result:
     bound, the twin and a cuSPARSE SpMM; and the automatic route: the two
     12 GHz horn apertures at ``mesh_ppw`` 20, whose working set exceeds
     the L2, resolve to stream with no argument and run one chunk on the
-    batched march.
+    batched march;
+19. main path (the CPML slice): the mixed scene with
+    ``controls.boundary = "PML_8"`` through ``MultiPatchScene.simulate``
+    (asserts stream mode at T = 4, ``stream_march`` launches = steps ÷ T
+    and no other stepping kernel, the gathers counted, an
+    energy-criterion stop, finite Dmax, intensity and both ports' S11),
+    its prepare seconds, steps, wall, rate and idle share, and two warm
+    reruns of the same preparation; the march on that grid against its
+    twin, timed beside its bound (each ψ moved only outside its axis's
+    flat profile run, where it stays 0) and the bound moving all twelve ψ
+    everywhere; the march with that ψ skip off, both bit-equal to the
+    twin, timed in turns; its time per step at each T up to 4 with the
+    blocks an SM holds; then 2,000 steps kernel vs plain, ψ included.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -151,6 +164,10 @@ import time
 
 import numpy as np
 import torch
+
+from fdtd_solver_antennas_tpu_torch.examples.scenes import (
+    canonical_params, card_line, device_ms, mixed_designer, shard_sim,
+    sweep_operands, sweep_variants, tall_scene)
 
 RTOL = 2e-4  # the JAX package's own kernel-vs-XLA tolerance
 ATOL_REL = 1e-5  # atol = 1e-5 · max|plain|
@@ -184,15 +201,6 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def card_line() -> str:
-    """Name and power limit, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def close(name, got, ref) -> float:
     """Assert got ≈ ref at RTOL / ATOL_REL·max|ref|; return max |got−ref|."""
     got = got.detach().cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
@@ -221,35 +229,10 @@ def small_scene():
     return scene, grid, 2.45e9, 1.225e9
 
 
-def canonical_params():
-    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
-
-    return PatchAntennaParams.from_user_units(
-        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02)
-
-
 def canonical_scene():
     from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import build_patch_scene
 
     return build_patch_scene(canonical_params())
-
-
-def tall_scene():
-    """The tall patch: 161×121×160 lines, 3.05M cells."""
-    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
-    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
-
-    mb = MeshBuilder()
-    mb.add_line("x", list(np.linspace(-60, 60, 161)) + [-6.0])
-    mb.add_line("y", np.linspace(-45, 45, 121))
-    mb.add_line("z", np.linspace(-40, 56, 160))
-    grid = mb.build(4.0)
-    scene = Scene()
-    scene.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
-    scene.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
-    scene.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
-    scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
-    return scene, grid, 2.45e9, 1.225e9
 
 
 def tall131_scene():
@@ -322,30 +305,6 @@ def events_ms(fn, reps=5, warmup=2) -> float:
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, reps=20, warmup=5) -> float:
-    """Device milliseconds per call: a sleep kernel holds the stream while
-    the calls are queued behind it, so the CUDA events bracket device work
-    only, not the host's launch overhead (reps stays small enough that the
-    queue never fills)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    queued = time.perf_counter() - t0
-    b.synchronize()
-    if queued > 0.04:
-        raise RuntimeError(f"queueing took {queued * 1e3:.1f} ms, past the "
-                           "sleep: the device time would include host time")
     return a.elapsed_time(b) / reps
 
 
@@ -479,7 +438,8 @@ def phase_chunk_steps(card):
 
 def random_state(sim, seed):
     """A state of ``sim``'s shape with fields and ψ from a seeded normal
-    draw (numpy), on the card."""
+    draw (numpy), on the card; each ψ 0 outside its slab, as a run leaves
+    it (``fdtd_stream.psi_slabs``)."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
     rng = np.random.default_rng(seed)
@@ -488,7 +448,17 @@ def random_state(sim, seed):
     for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
         t.copy_(torch.from_numpy(
             rng.standard_normal(t.shape).astype(np.float32)))
+    psi_to_slabs(sim.operands, st)
     return st
+
+
+def psi_to_slabs(ops, st):
+    """Zero each ψ of ``st`` (a state or a batch) outside its slab."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+
+    if ops.pml is not None:
+        for t, keep in zip((*st.psi_e, *st.psi_h), fdtd_stream.psi_slabs(ops)):
+            t.masked_fill_(~keep, 0.0)
 
 
 def clone_state(st):
@@ -792,25 +762,49 @@ def k1_bound(name, sim):
     return bound(used * 12 + rows * 4, 2 * used)
 
 
-def k2_bound(ops, T, rows=None):
-    """Bound of one stream launch on ``ops`` (a grid's, or ``rows`` x rows
-    of it): fields, coefficients and sources in once, fields out once; T
-    steps of H and E updates."""
-    n = int(np.prod(ops.shape)) if rows is None else rows * int(np.prod(ops.shape[1:]))
+def psi_cells(ops, span, all_psi=False):
+    """ψ values a stream launch on rows ``span = (r0, r1)`` of ``ops`` must
+    move (in and out once) and update: each ψ over the cells outside its
+    axis's flat profile run, where it stays 0 and the march skips it
+    (``fdtd_stream.check_psi_flat`` holds states to that); ``all_psi``:
+    all twelve at every cell. 0 without CPML."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+
+    if ops.pml is None:
+        return 0
+    r0, r1 = span
+    plane = int(np.prod(ops.shape[1:]))
+    n = (r1 - r0) * plane
+    if all_psi:
+        return 12 * n
+    total = 0
+    for keep, ax in zip(fdtd_stream.psi_slabs(ops), 2 * fdtd_stream.PSI_AXIS):
+        k = keep.flatten()
+        total += (int(k[r0:r1].sum()) * plane if ax == 0
+                  else int(k.sum()) * n // ops.shape[ax])
+    return total
+
+
+def k2_bound(ops, T, span=None, all_psi=False):
+    """Bound of one stream launch on ``ops`` (a grid's, or rows ``span``
+    of it): fields, coefficients and sources in once, fields out once, the
+    ψ of ``psi_cells`` in and out once; T steps of H and E updates."""
+    span = span or (0, ops.shape[0])
+    n = (span[1] - span[0]) * int(np.prod(ops.shape[1:]))
     n_src = sum(s is not None for s in ops.src)
-    psi = 12 if ops.pml is not None else 0
-    nbytes = 4 * n * (6 + 6 + n_src + 6 + 2 * psi)
-    return bound(nbytes, T * n * (48 + 4 * psi))
+    psi = psi_cells(ops, span, all_psi)
+    nbytes = 4 * n * (6 + 6 + n_src + 6) + 8 * psi
+    return bound(nbytes, T * (48 * n + 4 * psi))
 
 
-def k2_slab_bound(sh, T):
+def k2_slab_bound(sh, T, all_psi=False):
     """Bound of one launch of K2's slab stepper: ``k2_bound`` over the rows
     the function must carry, the owned rows and each halo a neighbour
     fills. A halo with no neighbour lies outside the domain (its
     coefficients zero, its fields zero): at one rank the work is the
     whole grid's, and so is the bound."""
-    rows = sh.n + sh.W * ((sh.rank > 0) + (sh.rank < sh.n_dev - 1))
-    return k2_bound(sh.ops, T, rows)
+    span = (sh.W * (sh.rank == 0), sh.W + sh.n + sh.W * (sh.rank < sh.n_dev - 1))
+    return k2_bound(sh.ops, T, span, all_psi)
 
 
 def fields_of(st):
@@ -825,13 +819,12 @@ def phase_stream_vs_plain(card):
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     worst = 0.0
-    tile_launches = 0
+    route = "stream_march"  # under MUR, PEC and CPML
     for label, make, boundaries in (
         ("small", small_scene, ("MUR", "PEC", "PML_4")),
         ("z131", tall131_scene, ("MUR",)),
     ):
         for boundary in boundaries:
-            route = "stream_tile" if boundary.startswith("PML") else "stream_march"
             for T in (1, 2, 3, 4):
                 sim = one_chunk_sim(make, boundary, 480, "stream", T, decim=48)
                 assert sim.pallas_mode == "stream" and sim.stream_T == T
@@ -849,8 +842,6 @@ def phase_stream_vs_plain(card):
                 ko, tk = timed_run(sim, fdtd_stream.kernels)
                 counts = dict(fdtd_stream.launches_by_kernel)
                 assert counts[route] == 480 // T == sum(counts.values()), counts
-                if route == "stream_tile" and T == 4:
-                    tile_launches = counts[route]
                 po, tp = timed_run(sim, fdtd_stream.plain)
                 e2 = compare_runs(ko, po, f"{label} {boundary} T={T}")
                 csim = one_chunk_sim(make, boundary, 480, "chunk", decim=48)
@@ -863,25 +854,7 @@ def phase_stream_vs_plain(card):
                          f"{e2:.3e}, == chunk kernels {e3:.3e}; stream "
                          f"{tk:.3f} s, plain {tp:.3f} s, chunk {tc:.3f} s "
                          f"[{card}]")
-    return worst, tile_launches
-
-
-def mixed_designer():
-    """The mixed patch+horn scene of the JAX package's bench: the 2.45 GHz
-    FR-4 patch and the 86×43 → 150×110×60 mm horn at x = 0.18 m, rotated
-    25° about z, mesh quality 2."""
-    from fdtd_solver_antennas_tpu_torch import HornAntennaParams
-    from fdtd_solver_antennas_tpu_torch.frontends.designer import MultiPatchScene
-
-    scene = MultiPatchScene(device="cuda")
-    scene.add_patch(canonical_params())
-    scene.add_horn(
-        HornAntennaParams.from_user_units(
-            frequency_ghz=2.45, throat_a_mm=86.0, throat_b_mm=43.0,
-            aperture_A_mm=150.0, aperture_B_mm=110.0, length_mm=60.0),
-        center_x_m=0.18, rot_z_deg=25.0)
-    scene.controls.mesh_quality = 2
-    return scene
+    return worst
 
 
 def phase_mixed_main_path(card):
@@ -917,7 +890,7 @@ def phase_mixed_main_path(card):
              f"{logs[-1]}")
     assert sim.pallas_mode == "stream" and T >= 2, sim.pallas_mode_reason
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
-    assert counts["stream_march"] == steps // T and counts["stream_tile"] == 0, counts
+    assert counts["stream_march"] == steps // T, counts
     assert counts["probe_gather"] == steps // decim, counts
     for name in ("h_update", "e_update", "mur_faces", "chunk_steps"):
         assert counts[name] == 0, counts
@@ -972,6 +945,155 @@ def phase_mixed_main_path(card):
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
     k2["prep"], k2["f_run"] = prep, f_run
     return sim, res, counts, k2
+
+
+def phase_mixed_pml_main_path(card):
+    """The CPML slice: the mixed scene with ``controls.boundary = "PML_8"``
+    through ``MultiPatchScene.simulate``; it must resolve to stream mode at
+    T = 4, step only through the march (``stream_march``: steps ÷ T
+    launches, no other stepping kernel), sample through ``probe_gather``
+    and end on the energy criterion with finite Dmax, intensity and both
+    ports' S11; two warm reruns of the same preparation. Then the march
+    alone on the same grid against its twin, its device time beside its
+    bound (``k2_bound``: each ψ moved only outside its flat run) and the
+    bound moving all twelve ψ everywhere, the march with its ψ skip off,
+    and 2,000 steps of the same simulation, kernels against the plain
+    twins (ψ included)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    scene = mixed_designer()
+    scene.controls.boundary = "PML_8"
+    seen = {}
+    real_prepare = scene.prepare
+
+    def prepare(**kw):  # keep the prepared simulation and its seconds
+        t0 = time.perf_counter()
+        seen["prep"] = real_prepare(**kw)
+        seen["seconds"] = time.perf_counter() - t0
+        return seen["prep"]
+
+    scene.prepare = prepare
+    logs = []
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    res = scene.simulate(log_cb=logs.append)
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
+              **fdtd_stream.launches_by_kernel}
+    prep = seen["prep"]
+    assert prep.ok, prep.message
+    assert res.ok, res.message
+    sim = prep.sim
+    T, decim, steps = sim.stream_T, sim.probe_decim, res.steps_run
+    assert sim.operands.pml is not None and sim.operands.mur is None
+    assert sim.pallas_mode == "stream" and T == 4, sim.pallas_mode_reason
+    assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
+    assert counts["stream_march"] == steps // T, counts
+    assert counts["probe_gather"] == steps // decim > 0, counts
+    for name in ("shard_march", "stream_march_batch", "stream_shard_steps",
+                 "stream_steps_batch", "h_update", "e_update", "mur_faces",
+                 "chunk_steps", "chunk_steps_batch", "probe_gather_batch"):
+        assert counts[name] == 0, (name, counts)
+    assert np.isfinite(res.Dmax) and res.Dmax > 0
+    s11s = res.diagnostics["s11_all_ports"]
+    assert len(s11s) == 2 and all(np.all(np.isfinite(s)) for s in s11s)
+    assert np.all(np.isfinite(res.intensity))
+    e_ratio = res.diagnostics["energy_ratio"]
+    assert steps < sim.cfg.n_steps_max and e_ratio < sim.cfg.end_criteria, (
+        steps, sim.cfg.n_steps_max, e_ratio)
+    s11_db = [float(20 * np.log10(np.abs(s).min())) for s in s11s]
+    say("19", f"mixed scene under PML_8 prepared in {seen['seconds']:.1f} s on "
+              f"the host: grid {sim.grid.shape} ({sim.grid.num_cells} cells); "
+              f"{sim.pallas_mode_reason}")
+    say("19", f"mixed scene PML_8 on {sim.device}: stream T={T}, decim {decim}; "
+              f"{steps} steps in {res.wall_time_s:.3f} s, "
+              f"{res.mcells_per_s:.1f} Mcell-updates/s; ended on energy ratio "
+              f"{e_ratio:.3e} < {sim.cfg.end_criteria:.3e} before "
+              f"{sim.cfg.n_steps_max}; Dmax {10 * np.log10(res.Dmax):.3f} dBi, "
+              f"|S11|min per port {s11_db[0]:.2f} / {s11_db[1]:.2f} dB; "
+              f"launches {counts} [{card}]")
+    # the same preparation run again, warm, as phase 8 does: the first run
+    # of a process pays one-time set-up (a library not yet built is built
+    # inside its wall)
+    from fdtd_solver_antennas_tpu_torch.solvers.multi_patch_3d import (
+        run_prepared_multi_patch_3d)
+
+    f_run = max(i.params.frequency_hz for i in scene.patches + scene.horns)
+    warm = []
+    for _ in range(2):
+        again = run_prepared_multi_patch_3d(prep, frequency_hz=f_run, verbose=0)
+        assert again.ok and again.steps_run == steps, again.message
+        assert np.isclose(again.Dmax, res.Dmax, rtol=1e-6), (again.Dmax, res.Dmax)
+        warm.append(again.wall_time_s)
+    say("19", f"mixed scene PML_8 run again, warm (run_prepared_multi_patch_3d "
+              f"on the same preparation): {' / '.join(f'{w:.3f}' for w in warm)} "
+              f"s for {steps} steps, same Dmax [{card}]")
+    k = stream_kernel_alone(sim, "19", card)
+    march_skip_off(sim, card)
+    # the CPML march's time per step against T on the same grid, with the
+    # blocks an SM holds (its ψ slots grow with T)
+    base = random_state(sim, seed=17)
+    per_T = []
+    for t in range(1, T + 1):
+        wf = [0.37, -0.21, 0.55, 0.13][:t]
+        ms = device_ms(lambda: fdtd_stream.stream_steps(sim.operands, base, wf))
+        smem = fdtd_stream.march_plan(sim.operands.shape, sim.operands.grid_shape,
+                                      t, False, pml=True)[4]
+        per_T.append(f"T={t} {ms * 1e3:.1f} us ({ms * 1e3 / t:.1f} us/step, "
+                     f"{smem} B, {fdtd_stream.blocks_per_sm(base, t)} block(s) "
+                     f"an SM)")
+    del base
+    say("19", f"mixed PML_8 {sim.grid.shape}, CPML march by T: "
+              f"{', '.join(per_T)} [{card}]")
+    busy = (counts["stream_steps"] * k["ms"]
+            + counts["probe_gather"] * k["probe_ms"]) / 1e3
+    wall = res.wall_time_s
+    say("19", f"mixed PML_8 main-path run: {wall:.3f} s wall, kernels busy "
+              f"{busy:.3f} s (launches x device time per launch: march "
+              f"{k['ms'] * 1e3:.1f} us, probe_gather {k['probe_ms'] * 1e3:.2f} "
+              f"us), idle share {1 - busy / wall:.3f} [{card}]")
+    cut = dataclasses.replace(
+        sim, cfg=dataclasses.replace(sim.cfg, n_steps_max=2000))
+    ko, tk = timed_run(cut, fdtd_stream.kernels)
+    po, tp = timed_run(cut, fdtd_stream.plain)
+    err = compare_runs(ko, po, "mixed PML_8 2000 steps")
+    say("19", f"mixed scene PML_8, {ko['steps']} steps: stream kernel == plain "
+              f"(uf, if_, nf_e, nf_h, fields, psi), max |err| {err:.3e}; "
+              f"kernel {tk:.3f} s, plain {tp:.3f} s [{card}]")
+    return dict(k, launches=counts["stream_march"])
+
+
+def march_skip_off(sim, card):
+    """The CPML march with its ψ skip off (every flat run empty, so each ψ
+    is loaded, updated and stored at every cell) beside the march as it
+    runs, on one random state: both held to the twin bit for bit, timed
+    on, off, off, on."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+
+    ops, T = sim.operands, sim.stream_T
+    wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
+    base = random_state(sim, seed=19)
+    on, off, ref = clone_state(base), clone_state(base), clone_state(base)
+    del base
+    fdtd_stream.stream_steps(ops, on, wf)  # packs the flat runs
+    real = fdtd_stream.flat_runs
+    fdtd_stream.flat_runs = lambda pml: (((0, 0),) * 3,) * 2
+    try:
+        fdtd_stream.stream_steps(ops, off, wf)  # packs empty runs
+    finally:
+        fdtd_stream.flat_runs = real
+    fdtd_stream.stream_steps_plain(ops, ref, wf)
+    torch.cuda.synchronize()
+    for name, st in (("skip on", on), ("skip off", off)):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(fields_of(st), fields_of(ref))), name
+    del ref
+    us = [device_ms(lambda: fdtd_stream.stream_steps(ops, st, wf)) * 1e3
+          for st in (on, off, off, on)]
+    say("19", f"mixed PML_8 {sim.grid.shape}, the CPML march with its psi "
+              f"skip on / off / off / on: {' / '.join(f'{u:.1f}' for u in us)} "
+              f"us a launch (both bit-equal to the twin); off / on "
+              f"{(us[1] + us[2]) / (us[0] + us[3]):.3f} [{card}]")
+    return us
 
 
 def probe_csr(ops):
@@ -1068,27 +1190,23 @@ def phase_horn_golden():
 
 
 def stream_kernel_alone(sim, phase, card):
-    """``stream_steps`` (the march under MUR and PEC) and the tile kernel
-    forced on the same random state, each against the twin at ``sim``'s
-    shapes, and all three timed on the device."""
+    """``stream_steps`` (the march) on a random state against the twin at
+    ``sim``'s shapes, both timed on the device, with ``probe_gather``."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     ops, T = sim.operands, sim.stream_T
     mur, pml = ops.mur is not None, ops.pml is not None
     wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
     base = random_state(sim, seed=13)
-    sk, st, sp = clone_state(base), clone_state(base), clone_state(base)
+    sk, sp = clone_state(base), clone_state(base)
     del base
     fdtd_stream.stream_steps(ops, sk, wf)
-    fdtd_stream.stream_steps_tile(ops, st, wf)
     fdtd_stream.stream_steps_plain(ops, sp, wf)
     torch.cuda.synchronize()
     err = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
               enumerate(zip(fields_of(sk), fields_of(sp))))
-    tile_err = max(close(f"stream tile {i}", a, b) for i, (a, b) in
-                   enumerate(zip(fields_of(st), fields_of(sp))))
+    same = all(torch.equal(a, b) for a, b in zip(fields_of(sk), fields_of(sp)))
     ms = device_ms(lambda: fdtd_stream.stream_steps(ops, sk, wf))
-    tile_ms = device_ms(lambda: fdtd_stream.stream_steps_tile(ops, st, wf))
     # the plain twin's host blocks behind a held stream (it cannot queue
     # past the sleep kernel), so it is timed by events alone: its ~60
     # PyTorch ops per step each run longer than the host takes to issue
@@ -1098,34 +1216,33 @@ def stream_kernel_alone(sim, phase, card):
     probe_ms = device_ms(lambda: fdtd_cuda.probe_gather(ops, sk, out))
     b_ms, b_by = k2_bound(ops, T)
     probe_b_ms, probe_b_by = k1_bound("probe_gather", sim)
-    _core, _origin, tiles = fdtd_stream.tiling(ops.shape, mur, pml)
-    smem = fdtd_stream.smem_bytes(ops.shape, T, mur, pml)
-    route = "tile kernel"
-    if not pml:
-        core, _o, mt, (seg, _so, segs), m_smem = fdtd_stream.march_plan(
-            ops.shape, ops.grid_shape, T, mur)
-        route = (f"march: {mt[0] * mt[1] * segs} blocks ({mt[0]}x{mt[1]} tiles "
-                 f"of {core[0]}x{core[1]}, {segs} x segments of {seg}), "
-                 f"{m_smem} B dynamic shared memory")
+    core, _o, mt, (seg, _so, segs), m_smem = fdtd_stream.march_plan(
+        ops.shape, ops.grid_shape, T, mur, pml=pml)
+    route = (f"march{' (CPML)' if pml else ''}: {mt[0] * mt[1] * segs} blocks "
+             f"({mt[0]}x{mt[1]} tiles of {core[0]}x{core[1]}, {segs} x "
+             f"segments of {seg}), {m_smem} B dynamic shared memory, "
+             f"{fdtd_stream.blocks_per_sm(sk, T)} block(s) an SM")
+    all_text = ""
+    if pml:
+        a_ms, a_by = k2_bound(ops, T, all_psi=True)
+        all_text = (f"; the bound moving all twelve psi everywhere "
+                    f"{a_ms * 1e3:.1f} us by {a_by} ({a_ms / ms:.3f} of it)")
     say(phase, f"stream_steps at {sim.grid.shape}, T={T}, {route}: == plain, "
-               f"max |err| {err:.3e}; device {ms * 1e3:.1f} us/launch "
-               f"({ms * 1e3 / T:.1f} us/step), bound {b_ms * 1e3:.1f} us by "
-               f"{b_by} ({b_ms / ms:.3f} of it); tile kernel on the same state "
-               f"== plain, max |err| {tile_err:.3e}, {tile_ms * 1e3:.1f} "
-               f"us/launch ({tile_ms * 1e3 / T:.1f} us/step, "
-               f"{int(np.prod(tiles))} blocks of {smem} B); plain "
-               f"{plain_ms * 1e3:.1f} us; probe_gather {probe_ms * 1e3:.1f} us "
-               f"(bound {probe_b_ms * 1e3:.2f} us by {probe_b_by}) [{card}]")
+               f"max |err| {err:.3e} (bit-equal {same}); device "
+               f"{ms * 1e3:.1f} us/launch ({ms * 1e3 / T:.1f} us/step), bound "
+               f"{b_ms * 1e3:.1f} us by {b_by} ({b_ms / ms:.3f} of it)"
+               f"{all_text}; plain {plain_ms * 1e3:.1f} us; probe_gather "
+               f"{probe_ms * 1e3:.1f} us (bound {probe_b_ms * 1e3:.2f} us by "
+               f"{probe_b_by}) [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, probe_ms=probe_ms, tile_ms=tile_ms,
-                tile_err=tile_err)
+                bound_by=b_by, probe_ms=probe_ms)
 
 
 def phase_stream_times(k2, card):
     """Forced chunk against forced stream, warm, at the tall grid and the
-    mixed scene (chunk, stream, stream, chunk), per step; the march's and
-    the tile kernel's device time per launch at the tall grid (the mixed
-    scene's come from phase 8) beside the bound."""
+    mixed scene (chunk, stream, stream, chunk), per step; the march's
+    device time per launch at the tall grid (the mixed scene's comes from
+    phase 8) beside the bound."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
 
     tall_chunk = one_chunk_sim(tall_scene, "MUR", 480, "chunk", decim=48)
@@ -1175,11 +1292,9 @@ def phase_stream_times(k2, card):
     say("10", f"mixed {mixed.grid.shape}, march by T: {', '.join(per_T)} [{card}]")
     say("10", f"mixed {mixed.grid.shape}: march {k2['ms'] * 1e3:.1f} us/launch "
               f"({k2['ms'] * 1e3 / mixed.stream_T:.1f} us/step, {k2['bound_ms'] / k2['ms']:.3f} "
-              f"of the {k2['bound_ms'] * 1e3:.1f} us bound), tile kernel "
-              f"{k2['tile_ms'] * 1e3:.1f} us/launch; tall {tall_stream.grid.shape}: "
+              f"of the {k2['bound_ms'] * 1e3:.1f} us bound); tall {tall_stream.grid.shape}: "
               f"march {tall['ms'] * 1e3:.1f} us/launch ({tall['bound_ms'] / tall['ms']:.3f} "
-              f"of the {tall['bound_ms'] * 1e3:.1f} us bound), tile kernel "
-              f"{tall['tile_ms'] * 1e3:.1f} us/launch [{card}]")
+              f"of the {tall['bound_ms'] * 1e3:.1f} us bound) [{card}]")
     return tall
 
 
@@ -1200,19 +1315,6 @@ def straddle_scene():
     scene.add_metal_box("gnd", [3, 4, 8], [9, 11, 8], priority=10)
     scene.add_lumped_port(1, 50.0, [6, 8, 8], [6, 8, 10], direction="z")
     return scene, grid, 2.45e9, 1.225e9
-
-
-def shard_sim(make_scene, boundary, n_dev, decim):
-    """A simulation padded for an x-split over ``n_dev`` ranks."""
-    from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
-
-    scene, grid, f0, fc = make_scene()
-    cfg = FDTDConfig(n_steps_max=480, check_every=480, end_criteria=1e-30,
-                     boundary=boundary, probe_decimation=decim)
-    return build_simulation(
-        scene, grid, f0=f0, fc=fc, cfg=cfg, device="cuda",
-        port_freqs_hz=np.linspace(2e9, 3e9, 51), nf_freqs_hz=np.array([2.45e9]),
-        nf_margin_cells=2, pad_multiple=(n_dev, 1, 1))
 
 
 def k3_bound(sh, k):
@@ -1640,16 +1742,6 @@ def phase_roll_chain(card):
     return dict(row, launches=launches)
 
 
-def sweep_variants(n=8):
-    """``bench.py``'s sweep: canonical-patch variants, W 37.26 + 0.5·i mm,
-    L 28.83 + 0.4·i mm."""
-    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
-
-    return [PatchAntennaParams.from_user_units(
-        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02,
-        W_mm=37.26 + 0.5 * i, L_mm=28.83 + 0.4 * i) for i in range(n)]
-
-
 def k1_batch_bound(ops, batch, n_sub, D):
     """Bound of one ``chunk_steps_batch`` launch with every variant
     stepping: per variant its fields (and ψ) in and out once and its ca/cb
@@ -2033,11 +2125,13 @@ def tall_straddle_scene():
 
 
 def slab_state(sh, seed):
-    """A state of slab ``sh`` from a seeded normal draw (numpy)."""
+    """A state of slab ``sh`` from a seeded normal draw (numpy), each ψ 0
+    outside its slab."""
     rng = np.random.default_rng(seed)
     st = sh.new_state()
     for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    psi_to_slabs(sh.ops, st)
     return st
 
 
@@ -2083,20 +2177,21 @@ def phase_slab_vs_plain(mixed, k2, card):
         ("tall straddle", tall_straddle_scene, "MUR", 4, 3, 4, "rem", None),
         ("mixed", None, "MUR", 1, 0, None, "T", None),
     )
-    worst = {"shard_march": 0.0, "shard_tile": 0.0}
+    worst = {"MUR/PEC": 0.0, "CPML": 0.0}
     timed = None
     for label, make, boundary, n_dev, rank, decim, window, cut in cases:
         sim = mixed if make is None else shard_sim(make, boundary, n_dev, decim)
         sh = fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank)
         k = sh.K if window == "T" else sh.rem
         assert k >= 1, (label, window, sh.K, sh.rem)
-        route = "shard_tile" if sh.ops.pml is not None else "shard_march"
+        route = "shard_march"
+        kind = "CPML" if sh.ops.pml is not None else "MUR/PEC"
         base = slab_state(sh, 29 + rank)
         wf = list(np.random.default_rng(31 + rank).uniform(-1.0, 1.0, k))
         sp = clone_state(base)
         fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
         sk = clone_state(base)
-        blocks = segment_end_blocks(sh) if cut else fdtd_stream.MARCH_BLOCKS
+        blocks = segment_end_blocks(sh) if cut else None
         fdtd_stream.reset_launch_counts()
         fdtd_stream.stream_shard_steps(sh.ops, sk, wf, blocks)
         torch.cuda.synchronize()
@@ -2106,7 +2201,7 @@ def phase_slab_vs_plain(mixed, k2, card):
         err = max(close(f"{label} stream_shard_steps {i}", a[sh.owned], b[sh.owned])
                   for i, (a, b) in enumerate(pairs))
         same = all(torch.equal(a[sh.owned], b[sh.owned]) for a, b in pairs)
-        worst[route] = max(worst[route], err)
+        worst[kind] = max(worst[kind], err)
         view = fdtd_stream.march_view(sh.ops)
         extra = (f", x segments cut for {blocks} blocks to end on the upper "
                  f"wall" if cut else "")
@@ -2136,8 +2231,7 @@ def phase_slab_vs_plain(mixed, k2, card):
                   f"== plain on owned rows (bit-equal {same}), max |err| "
                   f"{err:.3e} [{card}]")
         del base, sk, sp, pairs
-    return dict(max_abs_err=worst["shard_march"], tile_err=worst["shard_tile"],
-                **timed)
+    return dict(max_abs_err=worst["MUR/PEC"], cpml_err=worst["CPML"], **timed)
 
 
 def phase_explicit_large_main_path(mixed, mixed_res, k2, k17, card):
@@ -2175,7 +2269,7 @@ def phase_explicit_large_main_path(mixed, mixed_res, k2, k17, card):
     assert counts["shard_march"] == intervals * per_interval, counts
     assert counts["stream_shard_steps"] == counts["shard_march"], counts
     assert counts["probe_gather"] == intervals, counts
-    for name in ("shard_tile", "stream_march", "stream_tile", "stream_steps",
+    for name in ("stream_march", "stream_march_batch", "stream_steps",
                  "shard_steps", "chunk_steps", "chunk_steps_batch", "h_update",
                  "e_update", "mur_faces"):
         assert counts[name] == 0, (name, counts)
@@ -2226,13 +2320,19 @@ def phase_explicit_large_main_path(mixed, mixed_res, k2, k17, card):
     return res, counts
 
 
-def phase_slab_tile(card):
+# The 3-D tile kernel that carried CPML before the march did, µs per
+# launch on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md): the tall PML_8
+# slab through the slab stepper and the batched PML_8 sweep, T = 4.
+TILE_US = {"tall slab": (2851.6, 2873.2), "sweep": (3828.4, 3832.2)}
+
+
+def phase_slab_cpml(card):
     """The CPML route of K2's slab stepper: the tall grid under PML_8
     through ``build_explicit_run`` on one card for 480 steps (launch
-    counts; held to the single-card stream run), then one slab-tile
-    launch against its twin, timed beside its bound and beside the
-    single-card tile kernel (``stream_steps``) on the same grid at the
-    same T."""
+    counts; held to the single-card stream run), then one slab-march
+    launch against its twin, timed beside its bound, the single-card march
+    (``stream_steps``) on the same grid at the same T and the tile
+    kernel's time that the route had before."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
     from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
 
@@ -2247,8 +2347,8 @@ def phase_slab_tile(card):
               "probe_gather": fdtd_cuda.launches["probe_gather"]}
     T, D = sh.K, sim.probe_decim
     per_interval = D // T + (D % T > 0)
-    assert counts["shard_tile"] == eo["steps"] // D * per_interval, counts
-    assert counts["shard_march"] == counts["shard_steps"] == 0, counts
+    assert counts["shard_march"] == eo["steps"] // D * per_interval, counts
+    assert counts["shard_steps"] == counts["stream_march"] == 0, counts
     so = sim.run()
     err = compare_runs(eo, so, "tall PML_8 explicit vs stream")
     say("17", f"tall {sim.grid.shape} PML_8 through build_explicit_run, one "
@@ -2264,47 +2364,53 @@ def phase_slab_tile(card):
     fdtd_shard.shard_steps_plain(sh.ops, sp, wf)
     fdtd_stream.stream_shard_steps(sh.ops, sk, wf)
     torch.cuda.synchronize()
-    tile_err = max(close(f"slab tile {i}", a[sh.owned], b[sh.owned])
-                   for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
+    err = max(close(f"slab march {i}", a[sh.owned], b[sh.owned])
+              for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
+    same = all(torch.equal(a[sh.owned], b[sh.owned])
+               for a, b in zip(fields_of(sk), fields_of(sp)))
     ms = device_ms(lambda: fdtd_stream.stream_shard_steps(sh.ops, sk, wf), reps=10)
     plain_ms = events_ms(lambda: fdtd_shard.shard_steps_plain(sh.ops, sp, wf),
                          reps=2, warmup=1)
     del sk, sp
-    # the single-card tile kernel on the whole grid, same T, timed between
-    # two slab launches' timings so that both see the same clocks
+    # the single-card march on the whole grid, same T
     whole = random_state(sim, seed=43)
     one_ms = device_ms(lambda: fdtd_stream.stream_steps(sim.operands, whole, wf),
                        reps=10)
     del whole
     b_ms, b_by = k2_slab_bound(sh, T)
+    a_ms = k2_slab_bound(sh, T, all_psi=True)[0]
     one_b_ms, _ = k2_bound(sim.operands, T)
-    say("17", f"slab tile kernel, tall {sim.grid.shape} PML_8 slab "
+    old = TILE_US["tall slab"]
+    say("17", f"slab march (CPML), tall {sim.grid.shape} PML_8 slab "
               f"{sh.ops.shape}, T={T}: == plain on owned rows, max |err| "
-              f"{tile_err:.3e}; device {ms * 1e3:.1f} us/launch "
+              f"{err:.3e} (bit-equal {same}); device {ms * 1e3:.1f} us/launch "
               f"({ms * 1e3 / T:.1f} us/step), bound {b_ms * 1e3:.1f} us by "
-              f"{b_by} ({b_ms / ms:.3f} of it), plain {plain_ms * 1e3:.1f} us; "
-              f"the single-card tile kernel (stream_steps) on the "
-              f"{sim.padded_shape} grid at T={T} {one_ms * 1e3:.1f} us/launch "
-              f"(bound {one_b_ms * 1e3:.1f} us, {one_b_ms / one_ms:.3f} of it) "
-              f"[{card}]")
-    return dict(max_abs_err=tile_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, launches=counts["shard_tile"], one_ms=one_ms)
+              f"{b_by} ({b_ms / ms:.3f} of it; moving all twelve psi "
+              f"everywhere {a_ms * 1e3:.1f} us, {a_ms / ms:.3f}), plain "
+              f"{plain_ms * 1e3:.1f} us; "
+              f"the tile kernel before it {old[0]:,.1f}-{old[1]:,.1f} us "
+              f"(PERF.md, not measured here); the "
+              f"single-card march (stream_steps) on the {sim.padded_shape} "
+              f"grid at T={T} {one_ms * 1e3:.1f} us/launch (bound "
+              f"{one_b_ms * 1e3:.1f} us, {one_b_ms / one_ms:.3f} of it) [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, launches=counts["shard_march"], one_ms=one_ms)
 
 
 K2_COEF_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1320"
 
 
-def k2_batch_bound(ops, T, batch):
+def k2_batch_bound(ops, T, batch, all_psi=False):
     """Bound of one ``stream_steps_batch`` launch with every variant
-    stepping: per variant its fields (and ψ) in and out once and its ca/cb
-    in once, the shared source stamps in once; per variant T steps of H
-    and E updates, as ``k2_bound`` counts them (``k2_bound`` × B but for
-    the stamps, read once)."""
+    stepping: per variant its fields in and out once, its ca/cb in once and
+    its ψ as ``psi_cells`` counts them, the shared source stamps in once;
+    per variant T steps of H and E updates, as ``k2_bound`` counts them
+    (``k2_bound`` × B but for the stamps, read once)."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
-    psi = 12 if ops.pml is not None else 0
-    nbytes = 4 * n * (batch * (6 + 6 + 6 + 2 * psi) + n_src)
-    return bound(nbytes, batch * T * n * (48 + 4 * psi))
+    psi = psi_cells(ops, (0, ops.shape[0]), all_psi)
+    nbytes = 4 * n * (batch * (6 + 6 + 6) + n_src) + batch * 8 * psi
+    return bound(nbytes, batch * T * (48 * n + 4 * psi))
 
 
 def gather_batch_bound(ops, batch):
@@ -2317,18 +2423,9 @@ def gather_batch_bound(ops, batch):
     return bound(8 * used + batch * (4 * used + 4 * rows), batch * 2 * used)
 
 
-def sweep_operands(prep):
-    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
-
-    c = prep.batched_coeffs
-    return fdtd_cuda.batch_operands(
-        prep.sim.operands, [c["ca_" + k] for k in ("ex", "ey", "ez")],
-        [c["cb_" + k] for k in ("ex", "ey", "ez")])
-
-
 def stream_batch_state(sim, batch, seed):
-    """A seeded random batch state (fields and ψ) at E buffer 1, H set 0,
-    on the card."""
+    """A seeded random batch state (fields and ψ, each ψ 0 outside its
+    slab) at E buffer 1, H set 0, on the card."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
     rng = np.random.default_rng(seed)
@@ -2336,6 +2433,7 @@ def stream_batch_state(sim, batch, seed):
                                    sim.operands.pml is not None, batch)
     for t in batch_tensors(st):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    psi_to_slabs(sim.operands, st)
     st.parity = [1] * batch
     return st
 
@@ -2351,14 +2449,15 @@ def stream_batch_current(st):
 
 def phase_stream_batch_vs_plain(card):
     """``stream_steps_batch`` against ``stream_steps_batch_plain`` at the
-    8-variant sweep's shapes: one launch of the batched march (MUR), one
-    of the batched tile kernel (the same sweep prepared with PML_8), each
-    on a seeded random state with variant 3 frozen, every variant's fields
-    and ψ compared and the frozen one bit-unchanged; each launch timed
-    with every variant stepping beside its bound and the twin. The PML_8
-    sweep then runs one chunk through ``run_patch_geometry_sweep`` (its
-    tile launches counted; not to its end). Then B = 1 against
-    ``stream_steps`` on the same state, bit for bit."""
+    8-variant sweep's shapes: one launch of the batched march under MUR
+    and one under CPML (the same sweep prepared with PML_8), each on a
+    seeded random state with variant 3 frozen, every variant's fields and
+    ψ compared and the frozen one bit-unchanged; each launch timed with
+    every variant stepping beside its bound, the twin and (PML_8) the tile
+    kernel's time that the route had before. The PML_8 sweep then runs one
+    chunk through ``run_patch_geometry_sweep`` (its launches counted; not
+    to its end). Then B = 1 against ``stream_steps`` on the same state,
+    bit for bit."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
     from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
         prepare_patch_geometry_sweep, run_patch_geometry_sweep)
@@ -2375,7 +2474,7 @@ def phase_stream_batch_vs_plain(card):
         T = sim.stream_T
         wf = [0.37, -0.21, 0.55, 0.13, 0.4, -0.3, 0.2, 0.1][:T]
         march = ops.pml is None
-        route = "stream_march_batch" if march else "stream_tile_batch"
+        route = "stream_march_batch"
         base = stream_batch_state(sim, B, seed)
         a, b = clone_batch(base), clone_batch(base)
         mask = [v != 3 for v in range(B)]
@@ -2404,18 +2503,18 @@ def phase_stream_batch_vs_plain(card):
             reps=2, warmup=1)
         del base, b
         b_ms, b_by = k2_batch_bound(ops, T, B)
+        a_ms = k2_batch_bound(ops, T, B, all_psi=True)[0]
         k2_ms = k2_bound(sim.operands, T)[0]
-        if march:
-            core, _o, mt, (seg, _so, segs), smem = fdtd_stream.march_plan(
-                ops.shape, ops.grid_shape, T, ops.mur is not None, batch=B)
-            plan = (f"march: {mt[0] * mt[1] * segs} blocks a variant, "
-                    f"{B * mt[0] * mt[1] * segs} a launch ({mt[0]}x{mt[1]} "
-                    f"tiles of {core[0]}x{core[1]}, {segs} x segments of "
-                    f"{seg}), {smem} B dynamic shared memory")
-        else:
-            tiles = fdtd_stream.tiling(ops.shape, False, True)[2]
-            plan = (f"tile kernel: {int(np.prod(tiles))} blocks a variant of "
-                    f"{fdtd_stream.smem_bytes(ops.shape, T, False, True)} B")
+        core, _o, mt, (seg, _so, segs), smem = fdtd_stream.march_plan(
+            ops.shape, ops.grid_shape, T, ops.mur is not None, batch=B,
+            pml=not march)
+        plan = (f"march{'' if march else ' (CPML)'}: {mt[0] * mt[1] * segs} "
+                f"blocks a variant, {B * mt[0] * mt[1] * segs} a launch "
+                f"({mt[0]}x{mt[1]} tiles of {core[0]}x{core[1]}, {segs} x "
+                f"segments of {seg}), {smem} B dynamic shared memory")
+        old = "" if march else (
+            f"; the tile kernel before it {TILE_US['sweep'][0]:,.1f}-"
+            f"{TILE_US['sweep'][1]:,.1f} us (PERF.md, not measured here)")
         cells = int(np.prod(ops.shape))
         say("18", f"stream_steps_batch {boundary} at the sweep's grid "
                   f"{sim.grid.shape} (padded {tuple(ops.shape)}), B={B}, "
@@ -2426,8 +2525,10 @@ def phase_stream_batch_vs_plain(card):
                   f"{ms * 1e6 / T / (B * cells) * 1e3:.2f} ns per 1,000 "
                   f"cell-updates); bound {b_ms * 1e3:.1f} us by {b_by} "
                   f"({b_ms / ms:.3f} of it; k2_bound x B "
-                  f"{k2_ms * B * 1e3:.1f} us); plain {plain_ms * 1e3:,.1f} us "
-                  f"[{card}]")
+                  f"{k2_ms * B * 1e3:.1f} us"
+                  f"{'' if march else f'; moving all twelve psi everywhere {a_ms * 1e3:.1f} us, {a_ms / ms:.3f}'}"
+                  f"); plain {plain_ms * 1e3:,.1f} us"
+                  f"{old} [{card}]")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, T=T)
         if march:
@@ -2440,7 +2541,7 @@ def phase_stream_batch_vs_plain(card):
             counts = {**fdtd_cuda.launches, **fdtd_stream.launches_by_kernel}
             assert counts[route] == res.steps_run // T > 0, counts
             assert counts["probe_gather_batch"] == res.steps_run // sim.probe_decim
-            assert counts["chunk_steps_batch"] == counts["stream_march_batch"] == 0
+            assert counts["chunk_steps_batch"] == counts["stream_march"] == 0
             assert np.isfinite(np.stack([sp.uf for sp in res.spectra])).all()
             row["launches"] = counts[route]
             say("18", f"PML_8 sweep, one chunk ({res.steps_run} steps, D="
@@ -2724,7 +2825,7 @@ def main() -> int:
                               card)
 
     # 7.-10. the large-grid slice
-    worst, tile_launches = timed_phase("7", phase_stream_vs_plain, card)
+    worst = timed_phase("7", phase_stream_vs_plain, card)
     say("7", f"all stream comparisons agree; worst max |err| {worst:.3e}")
     mixed, mixed_res, mixed_counts, k2 = timed_phase(
         "8", phase_mixed_main_path, card)
@@ -2753,19 +2854,22 @@ def main() -> int:
 
     # 17. the explicit slice at Pz > 128 (K2's slab stepper)
     k17 = timed_phase("17", phase_slab_vs_plain, mixed, k2, card)
-    say("17", f"all slab comparisons agree; worst max |err| march "
-              f"{k17['max_abs_err']:.3e}, tile {k17['tile_err']:.3e}")
+    say("17", f"all slab comparisons agree; worst max |err| MUR/PEC "
+              f"{k17['max_abs_err']:.3e}, CPML {k17['cpml_err']:.3e}")
     _big_res, big_counts = timed_phase(
         "17", phase_explicit_large_main_path, mixed, mixed_res, k2, k17, card)
-    k17t = timed_phase("17", phase_slab_tile, card)
+    k17c = timed_phase("17", phase_slab_cpml, card)
 
     # 18. the sweep slice in stream mode (K2 batched, its coef_ops_from form)
     k18 = timed_phase("18", phase_stream_batch_vs_plain, card)
     say("18", "all stream_steps_batch comparisons agree; worst max |err| "
-              f"march {k18['MUR']['max_abs_err']:.3e}, tile "
+              f"MUR {k18['MUR']['max_abs_err']:.3e}, PML_8 "
               f"{k18['PML_8']['max_abs_err']:.3e}")
     k18b = timed_phase("18", phase_stream_sweep_main_path, k18, k1b, card)
     timed_phase("18", phase_stream_sweep_auto, card)
+
+    # 19. the CPML slice: the mixed scene under PML_8 on the march
+    k19 = timed_phase("19", phase_mixed_pml_main_path, card)
 
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
@@ -2796,29 +2900,26 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": mixed_counts["stream_march"],
          **{k: k2[k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None},
-        # the CPML route: launches from phase 7's PML_4 stream run (T = 4),
-        # times on the mixed scene's state (forced), as the march's
-        {"name": "stream_steps_tile", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": tile_launches,
-         "max_abs_err": k2["tile_err"], "ms": k2["tile_ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+        # the CPML march: the mixed scene under PML_8 (phase 19)
+        {"name": "stream_steps_cpml", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": k19["launches"],
+         **{k: k19[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None},
         {"name": "shard_steps", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": explicit_counts["shard_steps"],
          **{k: k3[k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None},
         # K2's shard= form: the slab march on the mixed scene's explicit
-        # run (phase 17), the slab tile kernel on the tall grid's PML_8
-        # explicit run
+        # run (phase 17), under CPML on the tall grid's PML_8 explicit run
         {"name": "stream_shard_steps", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": big_counts["shard_march"],
          **{k: k17[k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None},
-        {"name": "stream_shard_steps_tile", "route": "cuda",
+        {"name": "stream_shard_steps_cpml", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": k17t["launches"],
-         "max_abs_err": max(k17["tile_err"], k17t["max_abs_err"]),
-         **{k: k17t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches": k17c["launches"],
+         "max_abs_err": max(k17["cpml_err"], k17c["max_abs_err"]),
+         **{k: k17c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2832,11 +2933,11 @@ def main() -> int:
             # computes a batched Yee chunk
             ("chunk_steps_batch", K1_SOURCE, K1_REPLACES, k1b),
             # K2's coef_ops_from form under jax.vmap: the batched march on
-            # the stream sweep's main path (phase 18), the batched tile
-            # kernel on one chunk of the same sweep under PML_8
+            # the stream sweep's main path (phase 18), and under CPML on one
+            # chunk of the same sweep under PML_8
             ("stream_steps_batch", K2_SOURCE, K2_COEF_REPLACES,
              dict(k18["MUR"], launches=k18b["launches"])),
-            ("stream_steps_batch_tile", K2_SOURCE, K2_COEF_REPLACES,
+            ("stream_steps_batch_cpml", K2_SOURCE, K2_COEF_REPLACES,
              k18["PML_8"]))
     ] + [
         # the stream sweep's gather, one launch an interval for all

@@ -12,6 +12,18 @@ at the canonical patch (MUR, PEC, PML_8; from parity 1 on a seeded random
 state, CUDA events behind a sleep kernel, three timings of ten launches)
 and the card's name and power limit.
 
+    python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --stream A B B A
+
+prints one JSON line per root: µs per launch of K2's CPML route at T = 4
+(whatever kernel the root launches for it) on the mixed patch+horn scene
+under PML_8 (``stream_steps``), the tall grid's one-rank PML_8 slab
+(``stream_shard_steps``) and the 8-variant sweep under PML_8
+(``stream_steps_batch``), each from a seeded random state whose ψ are 0
+where the profile is flat (as a run leaves them), three timings of ten
+launches behind a sleep kernel; the card's name and power limit. The
+scenes and the timer are this directory's ``scenes.py``, run against the
+root's package, so both roots are timed on the same scenes.
+
     python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --sass A B
 
 builds the libraries of K1, K3 and K4 (``fdtd_chunk``, ``fdtd_shard``,
@@ -23,6 +35,7 @@ only B has. Needs a CUDA card and the CUDA toolkit.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import subprocess
@@ -31,6 +44,16 @@ from pathlib import Path
 
 LIBS = ("fdtd_chunk", "fdtd_shard", "fdtd_steps")
 BOUNDARIES = ("MUR", "PEC", "PML_8")
+
+
+def _scenes():
+    """``scenes.py`` from beside this file; its imports of the package
+    resolve to the copy this process imported (the root's)."""
+    spec = importlib.util.spec_from_file_location(
+        "compare_scenes", Path(__file__).with_name("scenes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _time_root(root: str) -> dict:
@@ -47,20 +70,7 @@ def _time_root(root: str) -> dict:
 
     if not fdtd_cuda.__file__.startswith(str(Path(root).resolve())):
         raise RuntimeError(f"imported {fdtd_cuda.__file__}, not from {root}")
-
-    def device_ms(fn, reps=10, warmup=2):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # holds the stream while launches queue
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
+    sc = _scenes()
 
     scene, grid, f0, fc = build_patch_scene(PatchAntennaParams.from_user_units(
         frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02))
@@ -82,12 +92,66 @@ def _time_root(root: str) -> dict:
         wf = torch.from_numpy(np.random.default_rng(89).uniform(
             -1.0, 1.0, 7 + n_sub * D).astype(np.float32)).to(sim.device)
         bufs = torch.zeros((n_sub, ops.probes.n_rows), device=sim.device)
-        out[boundary] = [round(device_ms(lambda: fdtd_cuda.chunk_steps(
-            ops, st, wf, 7, n_sub, D, bufs)) * 1e3, 1) for _ in range(3)]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    return {"root": root, "us_per_launch": out, "card": card.splitlines()[0]}
+        out[boundary] = [round(sc.device_ms(lambda: fdtd_cuda.chunk_steps(
+            ops, st, wf, 7, n_sub, D, bufs), reps=10, warmup=2) * 1e3, 1)
+            for _ in range(3)]
+    return {"root": root, "us_per_launch": out, "card": sc.card_line()}
+
+
+def _time_stream(root: str) -> dict:
+    """Device µs per launch of K2's CPML route in the package under
+    ``root`` (this process imports it from there)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import prepare_patch_geometry_sweep
+
+    if not fdtd_stream.__file__.startswith(str(Path(root).resolve())):
+        raise RuntimeError(f"imported {fdtd_stream.__file__}, not from {root}")
+    sc = _scenes()
+
+    def fill(ops, st, seed):
+        """Normal draws; each ψ 0 where its axis's profile is flat."""
+        rng = np.random.default_rng(seed)
+        for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        for side, group in (("e", st.psi_e), ("h", st.psi_h)):
+            for t, ax in zip(group, (1, 2, 2, 0, 0, 1)):
+                b, c = ops.pml["b" + side][ax], ops.pml["c" + side][ax]
+                shape = [1, 1, 1]
+                shape[ax] = -1
+                t.mul_(((b != 1) | (c != 0)).view(shape))
+        return st
+
+    wf = [0.37, -0.21, 0.55, 0.13]
+    out = {}
+    scene = sc.mixed_designer()
+    scene.controls.boundary = "PML_8"
+    sim = scene.prepare().sim
+    assert sim.stream_T == 4, sim.pallas_mode_reason
+    st = fill(sim.operands, fdtd_cuda.new_state(sim.padded_shape, sim.device, True), 13)
+    out["mixed_pml8"] = [round(sc.device_ms(lambda: fdtd_stream.stream_steps(
+        sim.operands, st, wf), reps=10) * 1e3, 1) for _ in range(3)]
+    del sim, st, scene
+    sh = fdtd_stream.build_stream_shard_stepper(
+        sc.shard_sim(sc.tall_scene, "PML_8", 1, 48), 1, 0, t_steps=4)
+    st = fill(sh.ops, sh.new_state(), 37)
+    out["tall_slab_pml8"] = [round(sc.device_ms(lambda: fdtd_stream.stream_shard_steps(
+        sh.ops, st, wf), reps=10) * 1e3, 1) for _ in range(3)]
+    del sh, st
+    prep = prepare_patch_geometry_sweep(sc.sweep_variants(), n_steps_max=1,
+                                        boundary="PML_8", pallas_mode="stream",
+                                        device="cuda")
+    ops, B = sc.sweep_operands(prep), len(sc.sweep_variants())
+    assert prep.sim.stream_T == 4
+    st = fill(prep.sim.operands, fdtd_cuda.new_batch_state(
+        prep.sim.padded_shape, prep.sim.device, True, B), 157)
+    st.parity = [1] * B
+    out["sweep_pml8"] = [round(sc.device_ms(lambda: fdtd_stream.stream_steps_batch(
+        ops, st, wf, [True] * B), reps=10) * 1e3, 1) for _ in range(3)]
+    return {"root": root, "cpml_us_per_launch": out, "card": sc.card_line()}
 
 
 def _build_root(root: str) -> dict:
@@ -124,9 +188,14 @@ def _in_process(flag: str, root: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] in ("--one", "--build"):
-        fn = _time_root if argv[0] == "--one" else _build_root
+    if len(argv) >= 2 and argv[0] in ("--one", "--build", "--one-stream"):
+        fn = {"--one": _time_root, "--build": _build_root,
+              "--one-stream": _time_stream}[argv[0]]
         print(json.dumps(fn(str(Path(argv[1]).resolve()))))
+        return 0
+    if argv and argv[0] == "--stream":
+        for root in argv[1:]:
+            print(json.dumps(_in_process("--one-stream", root)), flush=True)
         return 0
     if argv and argv[0] == "--sass":
         if len(argv) != 3:

@@ -98,8 +98,8 @@ class FDTDConfig:
     # launch per termination chunk) or "stream" (K2, T steps per launch).
     # None → auto: stream when the working set exceeds the L2.
     pallas_mode: str | None = None
-    # Leapfrog steps per stream launch. None → the deepest the kernel's
-    # shared-memory tile allows, at most the probe decimation.
+    # Leapfrog steps per stream launch. None → the deepest the march's
+    # region allows (threads, shared memory), at most the probe decimation.
     stream_T: int | None = None
 
     def pml_cells(self) -> int:
@@ -281,7 +281,7 @@ def resolve_pallas_mode(cfg: FDTDConfig, shape, n_src: int,
     Mirrors the JAX package's ``_resolve_pallas_mode``: ``cfg.pallas_mode``
     forces "chunk" or "stream"; None picks "stream" when the working set
     exceeds :data:`L2_BYTES`, else "chunk". In stream mode T is
-    ``cfg.stream_T`` or the deepest the kernel's tile allows, at most the
+    ``cfg.stream_T`` or the deepest the march's region allows, at most the
     probe decimation, and the decimation is rounded down to a multiple of
     T. A forced ``stream_T`` that cannot be honoured raises.
     """
@@ -299,16 +299,16 @@ def resolve_pallas_mode(cfg: FDTDConfig, shape, n_src: int,
     want = cfg.stream_T
     if want is not None and not (1 <= want <= t_max and want <= probe_decim):
         raise ValueError(
-            f"stream_T={want} cannot be honored: the kernel's shared-memory "
-            f"tile allows T <= {t_max} for grid {tuple(shape)} and the probe "
+            f"stream_T={want} cannot be honored: the march's region allows "
+            f"T <= {t_max} for grid {tuple(shape)} and the probe "
             f"decimation {probe_decim} bounds it too")
     T = want or min(t_max, probe_decim)
     probe_decim = max(T, (probe_decim // T) * T)
     why = "forced" if forced else "exceeds the L2"
-    route = (f"tile kernel, core tile {fdtd_stream.tile_core(mur, pml)}" if pml
-             else f"march, y-z core {fdtd_stream.march_core(mur)}")
+    kind = "CPML" if pml else "MUR" if mur else "PEC"
     return "stream", T, probe_decim, (
-        f"stream kernel ({why}; {fits}) [T={T}, {route}]")
+        f"stream kernel ({why}; {fits}) [T={T}, march under {kind}, y-z core "
+        f"{fdtd_stream.march_core(mur, pml)}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1108,8 +1108,8 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     its base's: in chunk mode ``impl.chunk_steps_batch`` steps a chunk of
     every active variant (one ``chunk_batch_kernel`` launch on CUDA); in
     stream mode each probe interval is D / T ``impl.stream_steps_batch``
-    calls (one launch of the batched march, or the batched tile kernel
-    under CPML) and one ``impl.probe_gather_batch`` (K2's
+    calls (one launch of the batched march, MUR, PEC or CPML) and one
+    ``impl.probe_gather_batch`` (K2's
     ``coef_ops_from`` form under ``jax.vmap``). ``impl`` is
     :data:`fdtd_stream.kernels` (the default: the kernels on CUDA, the
     plain twins on the CPU) or :data:`fdtd_stream.plain`.

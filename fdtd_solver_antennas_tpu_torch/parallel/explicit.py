@@ -9,7 +9,7 @@ halo rows per side. The route is the JAX package's: at Pz ≤ 128
 K steps a launch, W = K or K + 1), above it K2's
 (``ops/fdtd_stream.py::build_stream_shard_stepper``, the counterpart of
 its ``shard=`` stream kernel: T steps a launch, W = T + 1, the march
-under MUR and PEC, the tile kernel under CPML). Per probe interval of D
+under MUR, PEC and CPML). Per probe interval of D
 steps:
 
 - ``D // K`` launches of the slab stepper of K steps, and one of

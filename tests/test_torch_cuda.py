@@ -87,12 +87,21 @@ def test_chunk_through_kernels_matches_plain(cuda, boundary):
             _close(k["state"][grp][name], v)
 
 
+def _psi_to_slabs(ops, st):
+    """Each ψ of ``st`` 0 outside its slab, as every run leaves it: the
+    march skips a ψ there (``fdtd_stream.psi_slabs``)."""
+    if ops.pml is not None:
+        for t, keep in zip((*st.psi_e, *st.psi_h), fdtd_stream.psi_slabs(ops)):
+            t.masked_fill_(~keep, 0.0)
+
+
 def _random_state(sim, device, seed):
     rng = np.random.default_rng(seed)
     st = fdtd_cuda.new_state(sim.padded_shape, device,
                              pml=sim.operands.pml is not None)
     for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    _psi_to_slabs(sim.operands, st)
     return st
 
 
@@ -169,14 +178,28 @@ def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
     fdtd_stream.stream_steps(ops, a, wf)
     assert fdtd_stream.launches == {"stream_steps": 1, "stream_shard_steps": 0,
                                    "stream_steps_batch": 0}
-    route = "stream_tile" if boundary.startswith("PML") else "stream_march"
-    assert fdtd_stream.launches_by_kernel[route] == 1
+    assert fdtd_stream.launches_by_kernel["stream_march"] == 1
     assert a.h[0] is not before
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
     for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
                     (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
         _close(x, y)
+
+
+def test_stream_steps_refuses_psi_outside_slabs(cuda):
+    """The march skips a ψ outside its slab, so a state whose ψ is not 0
+    there raises at its first launch, before any kernel runs, where the
+    twin would step it."""
+    sim = _stream_sim("PML_4", False, 4)
+    ops = sim.operands
+    st = _random_state(sim, cuda, seed=7)
+    keep = fdtd_stream.psi_slabs(ops)[7].flatten()  # psi_h[1]: its axis z
+    st.psi_h[1][3, 2, int(torch.nonzero(~keep)[0])] = 0.5
+    fdtd_stream.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"psi_h\[1\]"):
+        fdtd_stream.stream_steps(ops, st, [0.37, -0.21, 0.55, 0.13])
+    assert fdtd_stream.launches_by_kernel["stream_march"] == 0
 
 
 @pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
@@ -189,10 +212,8 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     fdtd_cuda.reset_launch_counts()
     k = run_simulation(sim, fdtd_stream.kernels)
     assert fdtd_stream.launches["stream_steps"] == 120 // 4
-    route = "stream_tile" if boundary.startswith("PML") else "stream_march"
     assert fdtd_stream.launches_by_kernel == {
-        "stream_march": 0, "stream_tile": 0, "shard_march": 0, "shard_tile": 0,
-        "stream_march_batch": 0, "stream_tile_batch": 0, route: 120 // 4}
+        "stream_march": 120 // 4, "shard_march": 0, "stream_march_batch": 0}
     assert fdtd_cuda.launches["probe_gather"] == 120 // 4
     assert fdtd_cuda.launches["h_update"] == 0
     p = run_simulation(sim, fdtd_stream.plain)
@@ -209,6 +230,47 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
         for grp in ("psi_e", "psi_h"):
             for name, v in ref["state"][grp].items():
                 _close(k["state"][grp][name], v)
+
+
+def test_stream_pml8_run_matches_chunk(cuda):
+    """The canonical patch under PML_8 forced onto the stream path (the
+    CPML march, T = 4: 120 launches, nothing else steps) equals the same
+    480 steps in chunk mode (K1): fields, ψ, port and near-field samples."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import build_patch_scene
+
+    scene, grid, f0, fc = build_patch_scene(PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02))
+
+    def sim(mode):
+        cfg = FDTDConfig(n_steps_max=480, check_every=480, end_criteria=1e-30,
+                         boundary="PML_8", probe_decimation=48,
+                         pallas_mode=mode, stream_T=4 if mode == "stream" else None)
+        return build_simulation(scene, grid, f0=f0, fc=fc, cfg=cfg,
+                                device="cuda",
+                                port_freqs_hz=np.linspace(2e9, 3e9, 11),
+                                nf_freqs_hz=np.array([2.45e9]))
+
+    stream = sim("stream")
+    assert stream.pallas_mode == "stream" and stream.stream_T == 4
+    fdtd_stream.reset_launch_counts()
+    fdtd_cuda.reset_launch_counts()
+    k = run_simulation(stream, fdtd_stream.kernels)
+    assert fdtd_stream.launches_by_kernel == {
+        "stream_march": 120, "shard_march": 0, "stream_march_batch": 0}
+    assert fdtd_cuda.launches["chunk_steps"] == 0
+    c = run_simulation(sim("chunk"), fdtd_cuda.kernels)
+    assert k["steps"] == c["steps"] == 480
+    for fa, fb in zip(k["fields"], c["fields"], strict=True):
+        _close(fa, fb)
+    for key in ("uf", "if_"):
+        _close(k[key], c[key])
+    for key in ("nf_e", "nf_h"):
+        for x, y in zip(k[key], c[key], strict=True):
+            _close(x, y)
+    for grp in ("psi_e", "psi_h"):
+        for name, v in c["state"][grp].items():
+            _close(k["state"][grp][name], v)
 
 
 def _lone_sim(boundary, T):
@@ -234,7 +296,8 @@ def _lone_sim(boundary, T):
         nf_freqs_hz=np.array([2.45e9]))
 
 
-_MARCH_CASES = [(b, sc, T) for b in ("MUR", "PEC") for sc in ("small", "z131", "lone")
+_MARCH_CASES = [(b, sc, T) for b in ("MUR", "PEC", "PML_4")
+                for sc in ("small", "z131", "lone")
                 for T in range(1, 6 if b == "PEC" else 5)]
 
 
@@ -242,13 +305,14 @@ _MARCH_CASES = [(b, sc, T) for b in ("MUR", "PEC") for sc in ("small", "z131", "
 def test_stream_march_equals_its_twin(cuda, boundary, scene, T):
     """One march launch of T steps on a random state against T plain
     steps (rtol 2e-4, atol 1e-5·max|plain|), on grids cut into several x
-    segments; the lone-plane grid shifts its cut on every axis."""
+    segments; the lone-plane grid shifts its cut on every axis. Under
+    CPML the ψ too."""
     sim = (_lone_sim(boundary, T) if scene == "lone"
            else _stream_sim(boundary, scene == "z131", T, decim=T))
     ops = sim.operands
     mur = boundary == "MUR"
     _, origin, _, (_, seg_origin, segs), smem = fdtd_stream.march_plan(
-        ops.shape, ops.grid_shape, T, mur)
+        ops.shape, ops.grid_shape, T, mur, pml=ops.pml is not None)
     assert segs >= 2 and smem <= fdtd_stream.SMEM_LIMIT
     if scene == "lone":
         assert tuple(ops.shape) == (43, 33, 49)
@@ -259,11 +323,11 @@ def test_stream_march_equals_its_twin(cuda, boundary, scene, T):
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_steps(ops, a, wf)
     assert fdtd_stream.launches_by_kernel == {
-        "stream_march": 1, "stream_tile": 0, "shard_march": 0, "shard_tile": 0,
-        "stream_march_batch": 0, "stream_tile_batch": 0}
+        "stream_march": 1, "shard_march": 0, "stream_march_batch": 0}
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
-    for x, y in zip((*a.e[a.parity], *a.h), (*b.e[b.parity], *b.h), strict=True):
+    for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                    (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True):
         _close(x, y)
 
 
@@ -301,14 +365,18 @@ def test_march_shared_memory_formula_matches_the_kernel(cuda):
 
 
 def test_stream_shared_memory_formula_matches_the_kernel(cuda):
-    sim = _stream_sim("MUR", tall=True, T=4)
-    st = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=False)
+    """The CPML march's shared memory (E and H rings, T ψ slots of twelve
+    floats a cell): C and ``march_plan`` agree at every T it takes."""
+    sim = _stream_sim("PML_4", tall=True, T=4)
+    st = fdtd_cuda.new_state(sim.padded_shape, cuda, pml=True)
     fdtd_stream.stream_steps(sim.operands, st, [0.0] * 4)
     lib = fdtd_stream._library()
-    for T in range(1, fdtd_stream.MAX_T + 1):
+    for T in range(1, fdtd_stream.max_T(sim.padded_shape, False, True) + 1):
+        plan = fdtd_stream.march_plan(sim.padded_shape, sim.grid.shape, T,
+                                      False, pml=True)
         for i in range(2):
-            assert lib.fdtd_stream_smem_bytes(st._stream.addr[i], T) == \
-                fdtd_stream.smem_bytes(sim.padded_shape, T, True, False)
+            assert lib.fdtd_march_smem_bytes(st._stream.addr[i], T) == plan[4]
+        assert fdtd_stream.blocks_per_sm(st, T) >= 1
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -405,8 +473,8 @@ def _z131_sim(kind, boundary, n_dev, decim):
 ])
 def test_stream_shard_steps_equals_its_twin(cuda, boundary, n_dev, rank,
                                             window, straddle):
-    """One launch of K2's slab stepper (the march under MUR and PEC, the
-    tile kernel under CPML) on a random slab state against its plain
+    """One launch of K2's slab stepper (the march; under CPML with the
+    ψ) on a random slab state against its plain
     twin, bit for bit on the owned rows; at 4 ranks of the straddle
     scene: rank 0 (the lower wall at slab row W), rank 1 (W = n: the
     lower wall on slab row 0), rank 2 (the upper wall in its upper halo)
@@ -421,13 +489,13 @@ def test_stream_shard_steps_equals_its_twin(cuda, boundary, n_dev, rank,
     a = sh.new_state()
     for t in (*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    _psi_to_slabs(sh.ops, a)
     b = _clone(a)
     wf = list(rng.uniform(-1.0, 1.0, k))
-    route = "shard_tile" if boundary.startswith("PML") else "shard_march"
     fdtd_stream.reset_launch_counts()
     fdtd_stream.stream_shard_steps(sh.ops, a, wf)
     assert fdtd_stream.launches["stream_shard_steps"] == 1
-    assert fdtd_stream.launches_by_kernel[route] == 1
+    assert fdtd_stream.launches_by_kernel["shard_march"] == 1
     fdtd_shard.shard_steps_plain(sh.ops, b, wf)
     torch.cuda.synchronize()
     for x, y in zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
@@ -450,8 +518,7 @@ def test_explicit_run_at_z131_on_one_card_equals_the_single_card_run(
     fdtd_shard.reset_launch_counts()
     fdtd_stream.reset_launch_counts()
     out = run()
-    route = "shard_tile" if boundary.startswith("PML") else "shard_march"
-    assert fdtd_stream.launches_by_kernel[route] == 12 * per
+    assert fdtd_stream.launches_by_kernel["shard_march"] == 12 * per
     assert fdtd_stream.launches["stream_shard_steps"] == 12 * per
     assert fdtd_stream.launches["stream_steps"] == 0
     assert fdtd_shard.launches == {"shard_steps": 0}
@@ -596,6 +663,7 @@ def _batch_inputs(sim, device, batch, seed, n_sub=2):
                                    ops.pml is not None, batch)
     for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    _psi_to_slabs(ops, st)
     st.parity = [1] * batch
     wf = torch.from_numpy(rng.uniform(
         -1.0, 1.0, 7 + 2 * n_sub * sim.probe_decim).astype(np.float32)).to(device)
@@ -741,14 +809,12 @@ def test_stream_steps_batch_equals_its_twin(cuda, boundary, T):
     against the twin: every variant stepping in the first, variant 1
     frozen in the second; each variant's fields and ψ at rtol 2e-4, atol
     1e-5·max|plain|, the frozen variant's tensors, parity and set
-    untouched. The launch is the march under MUR/PEC, the tile kernel
-    under CPML."""
+    untouched. The launch is the batched march (under CPML with the ψ)."""
     sim = _stream_sim(boundary, T=T)
     ops, a, _wf, _bufs = _batch_inputs(sim, cuda, 3, seed=131 + T)
     b = _clone_batch(a)
     wf = [0.37, -0.21, 0.55, 0.13][:T]
-    route = "stream_tile_batch" if boundary.startswith("PML") else \
-        "stream_march_batch"
+    route = "stream_march_batch"
     fdtd_stream.reset_launch_counts()
     for i, mask in enumerate(([True] * 3, [True, False, True])):
         if i == 1:

@@ -65,7 +65,7 @@ def test_tall_z_ranks_match_jax_single_device_and_walk(outs, boundary):
 
 
 def test_tall_z_pml_ranks_match_the_jax_shard_stream_kernel(outs):
-    """The port's slab tile kernel route over 2 ranks (ψ restocked with
+    """The port's slab march under CPML over 2 ranks (ψ restocked with
     the halos) against the JAX package's ``shard=`` stream kernel, the
     kernel it ports, on a 2-device mesh."""
     ref = jax_explicit("tall_z", "PML_4", WORLD, **CTL)

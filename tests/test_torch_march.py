@@ -44,24 +44,27 @@ def _pieces(n, length, origin, count):
             for b in range(count)]
 
 
-def _blocks(shape, grid_shape, T, mur):
+def _blocks(shape, grid_shape, T, mur, pml=False):
     core, origin, tiles, (seg, so, segs), smem = fdtd_stream.march_plan(
-        shape, grid_shape, T, mur)
+        shape, grid_shape, T, mur, pml=pml)
     xs = _pieces(shape[0], seg, so, segs)
     ys = _pieces(shape[1], core[0], origin[0], tiles[0])
     zs = _pieces(shape[2], core[1], origin[1], tiles[1])
     return xs, ys, zs, smem
 
 
+KINDS = [(True, False), (False, False), (False, True)]  # MUR, PEC, CPML
+
+
 def _max_Ts():
-    for shape, mur in itertools.product(SHAPES, (True, False)):
-        for T in range(1, fdtd_stream.max_T(shape, mur, False) + 1):
-            yield shape, mur, T
+    for shape, (mur, pml) in itertools.product(SHAPES, KINDS):
+        for T in range(1, fdtd_stream.max_T(shape, mur, pml) + 1):
+            yield shape, mur, pml, T
 
 
-@pytest.mark.parametrize("shape,mur,T", list(_max_Ts()))
-def test_plan_covers_every_core_cell_once(shape, mur, T):
-    xs, ys, zs, _ = _blocks(shape, shape, T, mur)
+@pytest.mark.parametrize("shape,mur,pml,T", list(_max_Ts()))
+def test_plan_covers_every_core_cell_once(shape, mur, pml, T):
+    xs, ys, zs, _ = _blocks(shape, shape, T, mur, pml)
     count = np.zeros(shape, np.int32)
     for (x0, x1), (y0, y1), (z0, z1) in itertools.product(xs, ys, zs):
         count[x0:x1, y0:y1, z0:z1] += 1
@@ -82,28 +85,38 @@ def test_plan_leaves_no_lone_wall_plane(shape, grid_pad):
             assert (a, b) != (q - 1, q) and (a, b) != (0, 1)
 
 
-def test_plan_shared_memory_fits_every_T_max_T_allows():
-    for shape, mur, T in _max_Ts():
-        *_, smem = fdtd_stream.march_plan(shape, shape, T, mur)
-        assert smem <= fdtd_stream.SMEM_LIMIT, (shape, mur, T)
-    # the depths the engine picks at the large grids: 4 under MUR, 5 PEC,
-    # both small enough for two blocks an SM (two 1 KB reserves)
-    for shape in (MIXED, TALL):
-        assert fdtd_stream.max_T(shape, True, False) == 4
-        assert fdtd_stream.max_T(shape, False, False) == 5
-        for mur, T in ((True, 4), (False, 5)):
-            smem = fdtd_stream.march_plan(shape, shape, T, mur)[4]
-            assert 2 * (smem + 1024) <= 233_472, (shape, mur, smem)
-    assert fdtd_stream.march_plan(MIXED, MIXED, 4, True)[4] == 24 * 24 * 4 * 44
+@pytest.mark.parametrize("mur,pml", KINDS)
+def test_plan_shared_memory_fits_every_T_max_T_allows(mur, pml):
+    for shape, m, p, T in _max_Ts():
+        if (m, p) == (mur, pml):
+            *_, smem = fdtd_stream.march_plan(shape, shape, T, mur, pml=pml)
+            assert smem <= fdtd_stream.SMEM_LIMIT, (shape, mur, pml, T)
+    # the depths the engine picks at the large grids: 4 under MUR and
+    # CPML, 5 under PEC; two blocks an SM under MUR and PEC (two 1 KB
+    # reserves), one under CPML, whose ψ slots take 12 T floats a cell
+    T = 5 if not (mur or pml) else 4
+    for shape in (MIXED, TALL, (100, 109, 50)):
+        assert fdtd_stream.max_T(shape, mur, pml) == T
+        smem = fdtd_stream.march_plan(shape, shape, T, mur, pml=pml)[4]
+        blocks_per_sm = 233_472 // (smem + 1024)
+        assert blocks_per_sm == (1 if pml else 2), (shape, smem)
+        assert fdtd_stream.march_blocks(pml) == blocks_per_sm * 132
+    floats = {(True, False): 44, (False, False): 42, (False, True): 84}
+    assert fdtd_stream.march_plan(MIXED, MIXED, T, mur, pml=pml)[4] == (
+        24 * 24 * 4 * floats[mur, pml])
 
 
-def test_mixed_scene_fills_the_card():
+@pytest.mark.parametrize("pml", [False, True])
+def test_mixed_scene_fills_the_card(pml):
+    """Under MUR two segments of 130 tiles fill the 264 two-a-SM slots;
+    under CPML one segment of 130 blocks takes 130 of the 132 SMs."""
     core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
-        MIXED, MIXED, 4, True)
-    assert tiles == (13, 10) and segs == 2
+        MIXED, MIXED, 4, not pml, pml=pml)
+    assert tiles == (13, 10) and segs == (1 if pml else 2)
     blocks = tiles[0] * tiles[1] * segs
-    assert 132 <= blocks <= fdtd_stream.MARCH_BLOCKS
-    assert fdtd_stream.march_plan(TALL, TALL, 4, True)[2:4] == ((8, 10), (54, 0, 3))
+    assert 0.98 * fdtd_stream.march_blocks(pml) <= blocks <= fdtd_stream.march_blocks(pml)
+    assert fdtd_stream.march_plan(TALL, TALL, 4, not pml, pml=pml)[2:4] == (
+        (8, 10), (54, 0, 3))
 
 
 def test_plan_refuses_what_does_not_fit():
@@ -119,21 +132,27 @@ def _np(t):
     return None if t is None else t.numpy()
 
 
-def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
+def emulate_march(ops, st, wf, blocks=None, batch=1):
     """``march_kernel`` of ``csrc/fdtd_stream.cu`` block by block, in
     float32 with the kernel's order of operations, on the rows
     ``[v0, m)`` the host launches it on (``fdtd_stream.march_view``: a
     slab's walls), cut as ``march_plan`` cuts it for ``blocks`` resident
-    blocks. Returns the new (E, H); cells no block writes stay NaN."""
+    blocks (default ``march_blocks``) over ``batch`` variants. Under CPML
+    each cell's ψ moves through T thread-private slots (level 1 from the
+    registers loaded the iteration before, level T to the other set), and
+    a ψ in its axis's ``flat_runs`` run is skipped. Returns the new E3, H3
+    and, under CPML, ψ_e6 and ψ_h6; cells no block writes stay NaN (a
+    skipped ψ, 0: the other set starts at 0 there)."""
     v0, x_lo, x_hi = fdtd_stream.march_view(ops)
     n0, n1, n2 = ops.shape
     n0 -= v0
     q1, q2 = ops.grid_shape[1:]
     T = len(wf)
     mur = ops.mur is not None
+    pml = ops.pml is not None
     f32 = np.float32
     core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
-        (n0, n1, n2), ops.grid_shape, T, mur, x_hi, blocks)
+        (n0, n1, n2), ops.grid_shape, T, mur, x_hi, blocks, batch, pml)
 
     def view(t):
         return None if t is None else _np(t)[v0:]
@@ -149,6 +168,13 @@ def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
     H_all = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
     E_out, H_out = [e[v0:] for e in E_all], [h[v0:] for h in H_all]
     R = T + 2
+    if pml:  # no walls: v0 is 0
+        psi_in = [_np(p) for p in (*st.psi_e, *st.psi_h)]  # ψ_e 0..5, ψ_h 6..11
+        keep = [k.numpy() for k in fdtd_stream.psi_slabs(ops)]
+        psi_out = [np.where(k, np.nan, 0).astype(f32) * np.ones(ops.shape, f32)
+                   for k in keep]
+        runs = fdtd_stream.flat_runs(ops.pml)
+        prof = {key: [_np(a) for a in ops.pml[key]] for key in ("bh", "ch", "be", "ce")}
 
     def shift(a, axis, d):
         """a[i + d] along ``axis`` (d = ±1), 0 past the region."""
@@ -180,18 +206,57 @@ def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
         ipy, ipz = ip[1][sy][:, None], ip[2][sz][None, :]
         idy, idz = idd[1][sy][:, None], idd[2][sz][None, :]
         core_m = (gy >= cy0) & (gy < cy1) & (gz >= cz0) & (gz < cz1)
+        if pml:
+            Ps = np.zeros((T, 12, Ly, Lz), f32)  # each cell's T slots
+            pin = np.zeros((12, Ly, Lz), f32)  # level 1's ψ, loaded ahead
 
-        def curl_h(H, Hm, idx_):
+            def on(side, ax, x):
+                """Whether side's ψ of derivative axis ``ax`` can change."""
+                lo, hi = runs[side][ax]
+                i = (x, gy, gz)[ax]
+                return (i < lo) | (i >= hi)
+
+            def bc(side, ax, x):
+                b, c = (prof["bh"], prof["ch"]) if side == 0 else (prof["be"], prof["ce"])
+                if ax == 0:
+                    return b[0][x], c[0][x]
+                sl = sy if ax == 1 else sz
+                shp = (-1, 1) if ax == 1 else (1, -1)
+                return b[ax][sl].reshape(shp), c[ax][sl].reshape(shp)
+
+            def psi_level(side, x, t, d, act, write):
+                """One side's ψ at level t of plane x (side 0: H, slots
+                6..11; 1: E, slots 0..5), stored as the kernel stores it;
+                returns the six ψ, 0 where skipped."""
+                off = 6 if side == 0 else 0
+                out = []
+                for m, ax in enumerate(fdtd_stream.PSI_AXIS):
+                    o = on(side, ax, x) & act
+                    b, c = bc(side, ax, x)
+                    old = pin[off + m] if t == 1 else Ps[x % T, off + m]
+                    new = np.where(o, b * old + c * d[m], f32(0)).astype(f32)
+                    if t < T:
+                        Ps[x % T, off + m][o] = new[o]
+                    else:
+                        w = o & write
+                        psi_out[off + m][x, sy, sz][w] = new[w]
+                    out.append(new)
+                return out
+
+        def dh(H, Hm, idx_):
+            """Backward differences of H in ψ order."""
             hx, hy, hz = H
             hz_xm = Hm[2] if Hm is not None else np.zeros_like(hz)
             hy_xm = Hm[1] if Hm is not None else np.zeros_like(hy)
-            dHz_y = (hz - shift(hz, 0, -1)) * idy
-            dHy_z = (hy - shift(hy, 1, -1)) * idz
-            dHx_z = (hx - shift(hx, 1, -1)) * idz
-            dHz_x = (hz - hz_xm) * idx_
-            dHy_x = (hy - hy_xm) * idx_
-            dHx_y = (hx - shift(hx, 0, -1)) * idy
-            return dHz_y - dHy_z, dHx_z - dHz_x, dHy_x - dHx_y
+            return ((hz - shift(hz, 0, -1)) * idy, (hy - shift(hy, 1, -1)) * idz,
+                    (hx - shift(hx, 1, -1)) * idz, (hz - hz_xm) * idx_,
+                    (hy - hy_xm) * idx_, (hx - shift(hx, 0, -1)) * idy)
+
+        def curl(d, p=None):
+            if p is None:
+                return d[0] - d[1], d[2] - d[3], d[4] - d[5]
+            return ((d[0] + p[0]) - (d[1] + p[1]), (d[2] + p[2]) - (d[3] + p[3]),
+                    (d[4] + p[4]) - (d[5] + p[5]))
 
         def e_cell(E, x, cu, s):
             g = (x, sy, sz)
@@ -239,18 +304,18 @@ def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
                 ex, ey, ez = E
                 Ep = Er[(x + 1) % R] if x + 1 < n0 else np.zeros_like(E)
                 ipx = ip[0][x]
-                dEz_y = (shift(ez, 0, 1) - ez) * ipy
-                dEy_z = (shift(ey, 1, 1) - ey) * ipz
-                dEx_z = (shift(ex, 1, 1) - ex) * ipz
-                dEz_x = (Ep[2] - ez) * ipx
-                dEy_x = (Ep[1] - ey) * ipx
-                dEx_y = (shift(ex, 0, 1) - ex) * ipy
-                for m, d in enumerate((dEz_y - dEy_z, dEx_z - dEz_x, dEy_x - dEx_y)):
-                    H[m][act] = (H[m] - dtmu * d)[act]
+                d = ((shift(ez, 0, 1) - ez) * ipy, (shift(ey, 1, 1) - ey) * ipz,
+                     (shift(ex, 1, 1) - ex) * ipz, (Ep[2] - ez) * ipx,
+                     (Ep[1] - ey) * ipx, (shift(ex, 0, 1) - ex) * ipy)
+                write = core_m & (x0 <= x < x1)
+                ps = psi_level(0, x, t, d, act, write) if pml else None
+                for m, cu in enumerate(curl(d, ps)):
+                    H[m][act] = (H[m] - dtmu * cu)[act]
                 # E
                 if not defer0:
                     Ox = O[x & 1]
-                    cu = curl_h(H, Hm, idd[0][x])
+                    d = dh(H, Hm, idd[0][x])
+                    cu = curl(d, psi_level(1, x, t, d, act, write) if pml else None)
                     old = E.copy()
                     v = e_cell(old, x, cu, s)
                     if mur:
@@ -267,7 +332,7 @@ def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
                         W[1][act] = (Ox[2] + cx * (v[2] - Ew[2]))[act]
                     if with0:
                         E0 = Er[0]
-                        cu0 = curl_h(Hr[0], None, idd[0][0])
+                        cu0 = curl(dh(Hr[0], None, idd[0][0]))
                         old0 = E0.copy()
                         v0 = e_cell(old0, 0, cu0, s)
                         O[0][:, act] = old0[:, act]
@@ -293,20 +358,28 @@ def emulate_march(ops, st, wf, blocks=fdtd_stream.MARCH_BLOCKS):
                         for m in range(3):
                             E_out[m][px, sy, sz][core_m] = Er[px % R, m][core_m]
                             H_out[m][px, sy, sz][core_m] = Hr[px % R, m][core_m]
-    return E_all, H_all
+            if pml and p < xl:  # plane p's ψ, for its level 1 next iteration
+                for m, ax in enumerate(fdtd_stream.PSI_AXIS):
+                    for side, off in ((0, 6), (1, 0)):
+                        pin[off + m] = np.where(on(side, ax, p),
+                                                psi_in[off + m][p, sy, sz], f32(0))
+    return (*E_all, *H_all, *(psi_out if pml else ()))
 
 
 def _sim(boundary, tall=False):
-    """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines)."""
+    """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines;
+    under CPML the wider footprint and finer mesh of its PML cases)."""
+    pml = boundary.startswith("PML")
+    span = 52 if pml else 40
     mb = MeshBuilder()
-    mb.add_line("x", [-40, 40, 0.0, -6.0])
-    mb.add_line("y", [-30, 30, 0.0])
+    mb.add_line("x", [-span, span, 0.0, -6.0])
+    mb.add_line("y", [-span * 0.75, span * 0.75, 0.0])
     if tall:
         mb.add_line("z", np.linspace(-20, 30, 131))
     else:
         mb.add_line("z", [-20, 30])
         mb.add_line("z", np.linspace(0, 1.6, 3))
-    grid = mb.build(5.0)
+    grid = mb.build(4.0 if pml else 5.0)
     scene = Scene()
     scene.add_material_box("sub", 4.3, 0.005, [-20, -20, 0], [20, 20, 1.6], 0)
     scene.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
@@ -319,12 +392,35 @@ def _sim(boundary, tall=False):
                             nf_freqs_hz=np.array([2.45e9]))
 
 
-def _random_state(shape, seed):
+def _random_state(shape, seed, ops=None):
+    """Random E and H; with CPML ``ops`` random ψ too, each 0 outside its
+    slab (``fdtd_stream.psi_slabs``), as a run leaves it."""
     rng = np.random.default_rng(seed)
-    st = fdtd_cuda.new_state(shape, "cpu", pml=False)
-    for t in (*st.e[0], *st.e[1], *st.h):
+    pml = ops is not None and ops.pml is not None
+    st = fdtd_cuda.new_state(shape, "cpu", pml=pml)
+    for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
         t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    if pml:
+        for t, keep in zip((*st.psi_e, *st.psi_h), fdtd_stream.psi_slabs(ops)):
+            t.masked_fill_(~keep, 0.0)
     return st
+
+
+def _core_key(boundary):
+    return "pml" if boundary.startswith("PML") else boundary.lower()
+
+
+def _assert_equal(got, st):
+    """The emulated arrays against the state's E, H (and ψ), bit for bit."""
+    for a, ref in zip(got, (*st.fields, *st.psi_e, *st.psi_h), strict=True):
+        np.testing.assert_array_equal(a, ref.numpy())
+
+
+def _straddles(n, core, origin, tiles, run):
+    """Whether a core of the cut [b·core − origin, …) holds cells on both
+    sides of an edge of a flat run (``run``: the runs' edges)."""
+    return any(a < e < b for a, b in _pieces(n, core, origin, tiles)
+               for e in run if 0 < e < n)
 
 
 @pytest.mark.parametrize("boundary,tall,T,core", [
@@ -332,25 +428,74 @@ def _random_state(shape, seed):
     ("MUR", False, 3, (4, 6)), ("MUR", False, 4, (5, 4)),
     ("PEC", False, 2, (5, 4)), ("PEC", False, 5, (6, 5)),
     ("MUR", True, 4, (16, 16)), ("PEC", True, 3, (14, 14)),
+    ("PML_4", False, 1, (5, 4)), ("PML_4", False, 2, (6, 5)),
+    ("PML_4", False, 3, (4, 6)), ("PML_4", False, 4, (5, 4)),
+    ("PML_4", True, 4, (16, 16)),
 ])
 def test_schedule_equals_the_plain_twin(monkeypatch, boundary, tall, T, core):
     """The kernel's schedule against T plain leapfrog steps on a random
     state, bit for bit, with small cores so that the grid is cut into
     several tiles per axis and several x segments (lone-plane shifts
-    included where the shapes give them)."""
-    monkeypatch.setitem(fdtd_stream._MARCH_CORE, boundary.lower(), core)
+    included where the shapes give them). Under CPML the ψ too, with
+    slabs that straddle a tile's edge in y and z."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, _core_key(boundary), core)
     sim = _sim(boundary, tall)
     ops = sim.operands
+    pml = ops.pml is not None
     shape = tuple(ops.shape)
     _, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
-        shape, ops.grid_shape, T, boundary == "MUR")
+        shape, ops.grid_shape, T, boundary == "MUR", pml=pml)
     assert segs >= 2 and tiles[1] >= 2 and (tall or tiles[0] >= 2)
-    st = _random_state(shape, seed=17 + T)
+    if pml and not tall:
+        runs = fdtd_stream.flat_runs(ops.pml)
+        for ax in (1, 2):
+            assert _straddles(shape[ax], core[ax - 1], origin[ax - 1],
+                              tiles[ax - 1], runs[0][ax] + runs[1][ax])
+    st = _random_state(shape, 17 + T, ops)
     wf = [0.37, -0.21, 0.55, 0.13, 0.4][:T]
-    E, H = emulate_march(ops, st, wf)
+    got = emulate_march(ops, st, wf)
     fdtd_stream.stream_steps_plain(ops, st, wf)
-    for got, ref in zip((*E, *H), st.fields, strict=True):
-        np.testing.assert_array_equal(got, ref.numpy())
+    _assert_equal(got, st)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_4"])
+def test_batch_schedule_equals_the_plain_twin(monkeypatch, boundary):
+    """Three design variants of one grid in one batched launch (the
+    ``kBatch`` instances): each variant's own ca/cb, fields and ψ, the x
+    cut counting the blocks of the whole batch, variant 1 frozen. Each
+    active variant's schedule equals ``stream_steps_batch_plain`` bit for
+    bit; the frozen one is left as it was."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, _core_key(boundary), (5, 4))
+    sim = _sim(boundary)
+    ops = sim.operands
+    pml = ops.pml is not None
+    shape = tuple(ops.shape)
+    B, act = 3, (True, False, True)
+    ca = tuple(torch.stack([c * (1 + 0.01 * (b + 1) * (m + 1)) for b in range(B)])
+               for m, c in enumerate(ops.ca))
+    cb = tuple(torch.stack([c * (1 - 0.02 * b) for b in range(B)]) for c in ops.cb)
+    bops = fdtd_cuda.batch_operands(ops, ca, cb)
+    rng = np.random.default_rng(41)
+    st = fdtd_cuda.new_batch_state(shape, "cpu", pml, B)
+    for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    if pml:
+        for t, keep in zip((*st.psi_e, *st.psi_h), fdtd_stream.psi_slabs(ops)):
+            t.masked_fill_(~keep, 0.0)
+    before = [st.variant(b) for b in range(B)]
+    got = [emulate_march(fdtd_cuda.variant_operands(bops, b), before[b],
+                         [0.2, -0.4, 0.7, 0.1], batch=B) if act[b] else None
+           for b in range(B)]
+    frozen = [t.clone() for t in (*before[1].fields, *before[1].psi_e,
+                                  *before[1].psi_h)]
+    fdtd_stream.stream_steps_batch_plain(bops, st, [0.2, -0.4, 0.7, 0.1], act)
+    for b in range(B):
+        v = st.variant(b)
+        if act[b]:
+            _assert_equal(got[b], v)
+        else:
+            for x, y in zip((*v.fields, *v.psi_e, *v.psi_h), frozen, strict=True):
+                assert torch.equal(x, y)
 
 
 def test_schedule_with_the_lone_plane_shift(monkeypatch):
@@ -371,10 +516,9 @@ def test_schedule_with_the_lone_plane_shift(monkeypatch):
     assert origin == (1, 1) and (seg, so, segs) == (3, 1, 7)
     st = _random_state(ops.shape, seed=5)
     wf = [0.2, -0.4, 0.7]
-    E, H = emulate_march(ops, st, wf, blocks)
+    got = emulate_march(ops, st, wf, blocks)
     fdtd_stream.stream_steps_plain(ops, st, wf)
-    for got, ref in zip((*E, *H), st.fields, strict=True):
-        np.testing.assert_array_equal(got, ref.numpy())
+    _assert_equal(got, st)
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +527,9 @@ def test_schedule_with_the_lone_plane_shift(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # (boundary, ranks, rank, T, window, march_view) on the 13-line straddle
-# scene of tests/_explicit_ranks.py (Qx = 13; at 4 ranks Px = 16, n = 4)
+# scene of tests/_explicit_ranks.py (Qx = 13; at 4 ranks Px = 16, n = 4);
+# under CPML on its 16-line tall_z scene (z = 131), whose slabs hold the
+# x slab's rows, the out-of-domain halo rows (b = c = 0) or neither
 SLABS = [
     ("MUR", 1, 0, 3, 3, (4, 1, 12)),  # one rank: both walls, view from row W
     ("MUR", 1, 0, 3, 1, (4, 1, 12)),  # a remainder window
@@ -394,13 +540,21 @@ SLABS = [
     ("MUR", 4, 3, 2, 2, (0, 0, 3)),
     ("PEC", 4, 3, 3, 3, (0, 0, -1)),
     ("PEC", 1, 0, 3, 2, (0, 0, -1)),
+    ("PML_4", 1, 0, 3, 3, (0, 0, -1)),
+    ("PML_4", 1, 0, 3, 2, (0, 0, -1)),  # a remainder window
+    ("PML_4", 2, 1, 3, 3, (0, 0, -1)),
+    ("PML_4", 4, 0, 3, 3, (0, 0, -1)),  # halo rows out of the domain
+    ("PML_4", 4, 1, 3, 3, (0, 0, -1)),  # the x slab's edge in the slab
+    ("PML_4", 4, 2, 2, 2, (0, 0, -1)),
+    ("PML_4", 4, 3, 3, 3, (0, 0, -1)),
 ]
 
 
 def _slab(boundary, n_dev, rank, T):
     from _explicit_ranks import port_sim
 
-    sim = port_sim("straddle", boundary, n_dev, decim=4)
+    kind = "tall_z" if boundary.startswith("PML") else "straddle"
+    sim = port_sim(kind, boundary, n_dev, decim=4)
     return fdtd_stream.build_stream_shard_stepper(sim, n_dev, rank, "cpu",
                                                   t_steps=T)
 
@@ -412,31 +566,32 @@ def test_slab_schedule_equals_the_plain_twin(monkeypatch, boundary, n_dev,
     (``march_view``), against ``fdtd_shard.shard_steps_plain`` with the
     walls at ``mur_x_rows``, bit for bit on every row of the view; cores
     of 5×4 and segments of at most 6 planes, so that the upper wall of
-    rank 2 falls on a segment's last plane."""
-    monkeypatch.setitem(fdtd_stream._MARCH_CORE, boundary.lower(), (5, 4))
+    rank 2 falls on a segment's last plane. Under CPML the ψ too, their x
+    flat run cut by the slab (``flat_runs`` of its profiles)."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, _core_key(boundary), (5, 4))
     sh = _slab(boundary, n_dev, rank, T)
     ops = sh.ops
+    mur, pml = boundary == "MUR", ops.pml is not None
     assert (sh.K, sh.W, sh.m) == (T, T + 1, sh.n + 2 * T + 2)
     assert fdtd_stream.march_view(ops) == view
     v0, _x_lo, x_hi = view
     n0 = ops.shape[0] - v0
     tiles = fdtd_stream.march_plan((n0, *ops.shape[1:]), ops.grid_shape, T,
-                                   boundary == "MUR", x_hi)[2]
+                                   mur, x_hi, pml=pml)[2]
     blocks = tiles[0] * tiles[1] * 4
     _, _, _, (seg, so, segs), _ = fdtd_stream.march_plan(
-        (n0, *ops.shape[1:]), ops.grid_shape, T, boundary == "MUR", x_hi,
-        blocks)
+        (n0, *ops.shape[1:]), ops.grid_shape, T, mur, x_hi, blocks, pml=pml)
     assert seg <= 6 and segs >= 3
     starts = [max(0, b * seg - so) for b in range(segs)]
     assert x_hi not in starts
-    if (n_dev, rank) == (4, 2):
+    if (n_dev, rank, mur) == (4, 2, True):
         assert x_hi + 1 in starts  # the wall is a segment's last plane
-    st = _random_state(ops.shape, seed=23 + rank)
+    st = _random_state(ops.shape, 23 + rank, ops)
     wf = [0.31, -0.52, 0.44][:window]
-    E, H = emulate_march(ops, st, wf, blocks)
+    got = emulate_march(ops, st, wf, blocks)
     fdtd_shard.shard_steps_plain(ops, st, wf)
-    for got, ref in zip((*E, *H), st.fields, strict=True):
-        np.testing.assert_array_equal(got[v0:], ref.numpy()[v0:])
+    for a, ref in zip(got, (*st.fields, *st.psi_e, *st.psi_h), strict=True):
+        np.testing.assert_array_equal(a[v0:], ref.numpy()[v0:])
 
 
 @pytest.mark.parametrize("n_dev", [1, 2, 4])

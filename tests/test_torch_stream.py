@@ -23,6 +23,11 @@ from fdtd_solver_antennas_tpu.ops.mesh import MeshBuilder as JMeshBuilder
 
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene
 from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+from fdtd_solver_antennas_tpu_torch.ops.fdtd_cuda import (
+    PSI_KEYS,
+    new_batch_state,
+    new_state,
+)
 from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
     L2_BYTES,
     FDTDConfig,
@@ -185,9 +190,12 @@ def test_resolver_canonical_patch_stays_chunk():
     ((161, 121, 160), "MUR", 4),       # the tall patch
     ((141, 201, 152), "MUR", 4),       # the 4.2M-cell mixed scene
     ((161, 121, 160), "PML_8", 4),
+    ((141, 201, 152), "PML_8", 4),     # the mixed scene under PML_8
     ((161, 121, 160), "PEC", 5),
 ])
 def test_resolver_large_grids_go_stream(shape, boundary, t_max):
+    """The deepest T is the march's: its region (core + 2T per axis) fits
+    the threads and shared memory at T and not at T + 1."""
     cfg = FDTDConfig(boundary=boundary)
     assert working_set_bytes(shape, 2, cfg.pml_cells() > 0) > L2_BYTES
     mode, T, decim, why = resolve_pallas_mode(cfg, shape, 2, 316)
@@ -195,9 +203,12 @@ def test_resolver_large_grids_go_stream(shape, boundary, t_max):
     assert decim == (316 // T) * T
     mur = boundary == "MUR"
     pml = cfg.pml_cells() > 0
-    assert fdtd_stream.smem_bytes(shape, T, mur, pml) <= fdtd_stream.SMEM_LIMIT
-    assert fdtd_stream.smem_bytes(shape, T + 1, mur, pml) > fdtd_stream.SMEM_LIMIT
-    # a decimation below the deepest tile bounds T, as in the JAX package
+    assert "march under" in why
+    smem = fdtd_stream.march_plan(shape, shape, T, mur, pml=pml)[4]
+    assert smem <= fdtd_stream.SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"march takes no T={T + 1}"):
+        fdtd_stream.march_plan(shape, shape, T + 1, mur, pml=pml)
+    # a decimation below the deepest T bounds T, as in the JAX package
     assert resolve_pallas_mode(cfg, shape, 2, 3)[1:3] == (3, 3)
 
 
@@ -241,3 +252,62 @@ def test_jax_checkpoint_resumes_on_stream_path(boundary):
     out = _port_sim(boundary, T=4).run(resume_state=state)
     assert int(out["steps"]) == N_STEPS
     _assert_same_surface(out, ref)
+
+
+def _psi_outside_slabs(sim, state):
+    """max |ψ| over the cells outside each ψ's slab
+    (``fdtd_stream.psi_slabs``: its axis's flat profile run)."""
+    keep = fdtd_stream.psi_slabs(sim.operands)
+    arrays = [state[grp][k] for grp in ("psi_e", "psi_h") for k in PSI_KEYS]
+    assert len(arrays) == len(keep) == 12
+    return max(float(torch.as_tensor(np.asarray(a))[~k.expand(a.shape)].abs().max())
+               for a, k in zip(arrays, keep))
+
+
+@pytest.mark.parametrize("start", ["new_state", "jax_checkpoint"])
+def test_twin_keeps_psi_zero_outside_slabs(start):
+    """The invariant the march's ψ skipping rests on: the plain twin keeps
+    every ψ at exactly 0 outside its slab, over 200 steps from
+    ``new_state``, and from a JAX checkpoint (60 steps, itself 0 there)
+    resumed on the stream path to step 120; the ψ inside the slabs move."""
+    if start == "new_state":
+        sim = _port_sim("PML_4", n_steps=200, T=4)
+        out = sim.run()
+        assert int(out["steps"]) == 200
+    else:
+        first = _jax_sim("PML_4", n_steps=60).run()
+        state = {k: (tuple(np.asarray(f) for f in v) if k == "fields" else
+                     {kk: np.asarray(vv) for kk, vv in v.items()}
+                     if isinstance(v, dict) else np.asarray(v))
+                 for k, v in first["state"].items()}
+        sim = _port_sim("PML_4", T=4)
+        assert _psi_outside_slabs(sim, state) == 0.0
+        out = sim.run(resume_state=state)
+        assert int(out["steps"]) == N_STEPS
+    assert _psi_outside_slabs(sim, out["state"]) == 0.0
+    assert min(float(v.abs().max()) for v in out["state"]["psi_h"].values()) > 0
+
+
+@pytest.mark.parametrize("batch", [0, 3])
+@pytest.mark.parametrize("where", ["nowhere", "slab", "flat"])
+def test_check_psi_flat_refuses_psi_outside_slabs(where, batch):
+    """``fdtd_stream.check_psi_flat``, which the card's march runs on every
+    state it is first given, passes a state whose ψ are 0 outside their
+    slabs (non-zero inside one or not) and names the ψ that is not: the
+    march skips a ψ there, so such a state would step differently from
+    the twin."""
+    sim = _port_sim("PML_4", T=4)
+    ops = sim.operands
+    st = (new_batch_state(sim.padded_shape, "cpu", True, batch) if batch
+          else new_state(sim.padded_shape, "cpu", True))
+    keep = fdtd_stream.psi_slabs(ops)[7].flatten()  # psi_h[1]: its axis z
+    assert fdtd_stream.PSI_AXIS[1] == 2 and keep.any() and not keep.all()
+    if where != "nowhere":
+        z = int(torch.nonzero(keep if where == "slab" else ~keep)[0])
+        st.psi_h[1][..., 3, 2, z] = 0.5
+    psi = (*st.psi_e, *st.psi_h)
+    if where == "flat":
+        with pytest.raises(ValueError, match=r"psi_h\[1\]"):
+            fdtd_stream.check_psi_flat(ops, psi)
+    else:
+        fdtd_stream.check_psi_flat(ops, psi)

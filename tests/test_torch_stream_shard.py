@@ -137,33 +137,33 @@ def test_wrapper_runs_the_twin_on_cpu_and_checks_its_window():
         fdtd_stream.stream_shard_steps(
             sim.operands, fdtd_cuda.new_state(sim.padded_shape, "cpu", False),
             [0.1])
-    with pytest.raises(ValueError, match="no slab under MUR"):
-        fdtd_stream.stream_steps_tile(sh.ops, a, [0.1])
 
 
 def test_one_rank_matches_the_jax_shard_stream_kernel():
     """The port's explicit run at Pz = 131 on one rank against the JAX
     package's explicit run on a 1-device mesh, whose route at Pz > 128 is
     its ``shard=`` stream kernel, here in interpret mode (about 10 s): two
-    probe intervals of D = 10 (T = 4: 4 + 4 + 2) under MUR."""
+    probe intervals of D = 10 under MUR. The slab is 16 rows wide in y, so
+    the march's region takes T = 8 (8 + 2 steps an interval)."""
     ctl = dict(n_steps=20, check_every=20)
     ref = jax_explicit("tall_z", "MUR_1", 1, **ctl)
     run = build_explicit_run(port_sim("tall_z", "MUR_1", 1, **ctl))
-    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (4, 5, 2)
+    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (8, 9, 2)
     assert_close_surface(run(), ref, RTOL, ATOL_REL)
 
 
 def test_one_rank_matches_the_jax_shard_stream_kernel_under_cpml():
-    """As above under PML_4 (the slab tile kernel's route; ψ compared),
+    """As above under PML_4 (the slab march's CPML route; ψ compared),
     four probe intervals of D = 10, about 45 s. At 40 steps every near
     field face carries signal: at 20 the first H face holds 8e-9 against
     9e-5 on the next, and float32 rounding of the terms it sums (the
     port's single-card run differs there from the JAX package by as much
-    as its explicit run does) exceeds 1e-5 of that."""
+    as its explicit run does) exceeds 1e-5 of that. The ψ slots bound the
+    CPML march's T at 6 here (6 + 4 steps an interval)."""
     ctl = dict(n_steps=40, check_every=40)
     ref = jax_explicit("tall_z", "PML_4", 1, **ctl)
     run = build_explicit_run(port_sim("tall_z", "PML_4", 1, **ctl))
-    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (4, 5, 2)
+    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (6, 7, 4)
     out = run()
     assert set(out["state"]["psi_e"]) and set(out["state"]["psi_h"])
     assert_close_surface(out, ref, RTOL, ATOL_REL)
