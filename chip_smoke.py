@@ -10,7 +10,8 @@ and the script exits non-zero without printing a result:
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_stream.cu``,
    ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu`` and ``csrc/roll_chain.cu``
-   with nvcc for sm_90a, all at once; print ptxas registers and memory;
+   with nvcc for sm_90a and the voxelizer's core ``native/voxelize.cpp``
+   with g++, all at once; print ptxas registers and memory;
 3. K1 vs plain: one 500-step chunk of the small test scene and of the
    canonical patch under MUR, PEC and CPML, through the chunk kernel and
    through the plain PyTorch twins on the same card; then
@@ -41,7 +42,10 @@ and the script exits non-zero without printing a result:
    through ``MultiPatchScene.simulate``, which resolves to the stream
    kernel and goes through the march, with launch counts, its wall time
    and idle share (the march's device time per launch timed on the same
-   grid); ``probe_gather`` on the scene's grouped probe table against its
+   grid); the prepare's seconds and its ``voxelize`` seconds (the native
+   core), the NumPy twin's ``voxelize`` on the same scene and grid, timed,
+   and the two bit-equal (eps_r, sigma, the three PEC masks);
+   ``probe_gather`` on the scene's grouped probe table against its
    twin, bit for bit, its device time beside its bound, the plain twin's
    and a cuSPARSE SpMV's over the same entries, and the table's bytes on
    the card (at most 20 MB); then 2,000 steps kernel vs plain;
@@ -145,7 +149,32 @@ and the script exits non-zero without printing a result:
     flat profile run, where it stays 0) and the bound moving all twelve ψ
     everywhere; the march with that ψ skip off, both bit-equal to the
     twin, timed in turns; its time per step at each T up to 4 with the
-    blocks an SM holds; then 2,000 steps kernel vs plain, ψ included.
+    blocks an SM holds; then 2,000 steps kernel vs plain, ψ included;
+20. main path (the microstrip slice): the canonical FR-4 patch fed by its
+    microstrip at the solver's own mesh (λ/20), with an MSL port and with
+    a lumped port, both under PML_8, through ``prepare_microstrip_patch``
+    and ``run_prepared_microstrip`` to the solver's stop (its energy
+    criterion, or its 30,000-step cap, which the MSL run reaches), then the CLI's
+    ``s11`` (``--solver microstrip`` by default, MUR, the default
+    ``--steps-max``) through ``__main__.main``, which writes ``s11.npz``
+    and ``s11.s1p`` under ``outputs/smoke_s11``: each run resolves to chunk
+    mode and launches ``chunk_steps`` alone (asserted); one launch at each
+    scene's operands and own chunk, on a seeded state, against the plain
+    twin (fields, ψ and every probe sample, the three MSL rows included),
+    timed beside its bound; the physics of tests/test_msl_port.py on the
+    runs that test makes (5,000 steps asked: both S11 finite, the MSL dip
+    in 1.6–2.3 GHz within 2% of the lumped one and below −10 dB, the
+    deembedded Re Z_L within 10% of 50 Ω over 2.0–2.9 GHz, Re β > 0
+    there), the same figures of the full runs printed beside; steps, wall,
+    rate, launches, idle share, f_res and |S11|min of each run;
+21. the other solvers of the slice: ``microstrip_3d`` at mesh quality 5
+    under PML_8 (stream mode, asserted: the CPML march and
+    ``probe_gather`` alone; one march launch on its state against the
+    twin, timed beside its bound), the legacy solver and the quasi-2D
+    slice (chunk mode under CPML: ``chunk_steps`` alone, one launch
+    against the twin), each to its energy stop, held to the bounds of
+    tests/test_solvers.py (full sphere for the first two), with phase
+    20's figures.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -397,6 +426,7 @@ def phase_chunk_steps(card):
         step_ms, gather_ms = step_route_ms(ops, clone_state(so), bo[0].clone())
         old_ms = steps * step_ms + n_sub * gather_ms
         b_ms, b_by = k1_chunk_bound(ops, n_sub, D)
+        a_ms = k1_chunk_bound(ops, n_sub, D, all_psi=True)[0]
         for form in forms:
             sk, bk = clone_state(base), bufs.clone()
             plan = fdtd_cuda.chunk_launch_plan(ops, sk, form)
@@ -431,7 +461,9 @@ def phase_chunk_steps(card):
                      f"{old_ms * 1e3:,.1f} us for the same chunk "
                      f"({old_ms * 1e3 / steps:.2f} us/step); bound "
                      f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.4f} of it)"
-                     f"{extra} [{card}]")
+                     + (f", {a_ms * 1e3:.2f} us moving all twelve psi "
+                        f"everywhere" if ops.pml is not None else "")
+                     + f"{extra} [{card}]")
         del base, sk, sp, so
     return rows
 
@@ -723,21 +755,21 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_chunk_bound(ops, n_sub, D):
-    """Bound of one ``chunk_steps`` launch: the fields (and ψ) in and out
-    once, ca/cb, the sources and the n_sub·D samples in once, each probe
-    table entry the data uses (index, weight, value) read and each sample
-    written once per interval; n_sub·D steps of H and E updates (as
-    ``k2_bound`` counts them) and 2 operations per used entry per
-    interval."""
+def k1_chunk_bound(ops, n_sub, D, all_psi=False):
+    """Bound of one ``chunk_steps`` launch: the fields in and out once, the
+    ψ of ``psi_cells`` in and out once, ca/cb, the sources and the n_sub·D
+    samples in once, each probe table entry the data uses (index, weight,
+    value) read and each sample written once per interval; n_sub·D steps
+    of H and E updates (as ``k2_bound`` counts them) and 2 operations per
+    used entry per interval."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
-    psi = 12 if ops.pml is not None else 0
+    psi = psi_cells(ops, (0, ops.shape[0]), all_psi)
     rows = ops.probes.n_rows
     used = int(torch.count_nonzero(ops.probes.w))
-    nbytes = (4 * n * (6 + 6 + n_src + 6 + 2 * psi) + 4 * n_sub * D
+    nbytes = (4 * n * (6 + 6 + n_src + 6) + 8 * psi + 4 * n_sub * D
               + n_sub * (12 * used + 4 * rows))
-    return bound(nbytes, n_sub * D * n * (48 + 4 * psi) + n_sub * 2 * used)
+    return bound(nbytes, n_sub * D * (48 * n + 4 * psi) + n_sub * 2 * used)
 
 
 def k1_bound(name, sim):
@@ -875,11 +907,12 @@ def phase_mixed_main_path(card):
 
     scene.prepare = prepare
     logs = []
-    fdtd_cuda.reset_launch_counts()
-    fdtd_stream.reset_launch_counts()
-    res = scene.simulate(log_cb=logs.append)
-    counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
-              **fdtd_stream.launches_by_kernel}
+    with voxelize_recorded() as vox:
+        fdtd_cuda.reset_launch_counts()
+        fdtd_stream.reset_launch_counts()
+        res = scene.simulate(log_cb=logs.append)
+        counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
+                  **fdtd_stream.launches_by_kernel}
     prep = seen["prep"]
     assert prep.ok, prep.message
     assert res.ok, res.message
@@ -888,6 +921,7 @@ def phase_mixed_main_path(card):
     say("8", f"mixed scene prepared in {seen['seconds']:.1f} s on the host: "
              f"grid {sim.grid.shape} ({sim.grid.num_cells} cells); "
              f"{logs[-1]}")
+    voxelize_twin_check(vox, "8", seen["seconds"])
     assert sim.pallas_mode == "stream" and T >= 2, sim.pallas_mode_reason
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
     assert counts["stream_march"] == steps // T, counts
@@ -945,6 +979,343 @@ def phase_mixed_main_path(card):
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
     k2["prep"], k2["f_run"] = prep, f_run
     return sim, res, counts, k2
+
+
+class voxelize_recorded:
+    """Within the block, ``build_simulation``'s voxelize calls (the native
+    core) are timed on the host and their inputs and output kept."""
+
+    def __enter__(self):
+        from fdtd_solver_antennas_tpu_torch.ops import fdtd as engine
+
+        self.engine, self.real, self.calls = engine, engine.voxelize, []
+
+        def timed(scene, grid, *a, **kw):
+            t0 = time.perf_counter()
+            out = self.real(scene, grid, *a, **kw)
+            self.calls.append((scene, grid, out, time.perf_counter() - t0))
+            return out
+
+        engine.voxelize = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.voxelize = self.real
+        return False
+
+
+def voxelize_twin_check(vox, phase, prepare_s):
+    """The recorded voxelization against the NumPy twin on the same scene
+    and grid, bit for bit; both timed on the host."""
+    from fdtd_solver_antennas_tpu_torch.ops.voxelize import voxelize
+
+    assert vox.calls, "the prepare voxelized nothing"
+    scene, grid, native, native_s = vox.calls[-1]
+    t0 = time.perf_counter()
+    twin = voxelize(scene, grid, native=False)
+    twin_s = time.perf_counter() - t0
+    for name in ("eps_r", "sigma", "pec_ex", "pec_ey", "pec_ez"):
+        assert np.array_equal(getattr(native, name), getattr(twin, name)), name
+    say(phase, f"voxelize on the card host: native core {native_s:.3f} s of "
+               f"the {prepare_s:.1f} s prepare, NumPy twin {twin_s:.3f} s on "
+               f"the same scene and grid {grid.shape}; eps_r, sigma, pec_ex, "
+               f"pec_ey, pec_ez bit-equal")
+    return native_s, twin_s
+
+
+def k1_launch_alone(sim, phase, card, label):
+    """One ``chunk_steps`` launch at ``sim``'s operands and own chunk
+    (n_sub intervals of its D) on a seeded random state, against the plain
+    twin: fields, ψ and every probe sample (port V/I rows, MSL rows
+    included, and the faces' E/H), timed on the device beside its bound."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+
+    ops = sim.operands
+    D, n_sub, _chunk, _ = chunk_geometry(sim)
+    base = random_state(sim, seed=97)
+    wf = torch.from_numpy(np.random.default_rng(101).uniform(
+        -1.0, 1.0, 7 + n_sub * D).astype(np.float32)).to(sim.device)
+    bufs = torch.zeros((n_sub, ops.probes.n_rows), device=sim.device)
+    sk, bk = clone_state(base), bufs.clone()
+    sp, bp = clone_state(base), bufs.clone()
+    del base
+    plan = fdtd_cuda.chunk_launch_plan(ops, sk)
+    fdtd_cuda.chunk_steps(ops, sk, wf, 7, n_sub, D, bk)
+    fdtd_cuda.chunk_steps_plain(ops, sp, wf, 7, n_sub, D, bp)
+    torch.cuda.synchronize()
+    got, ref = (*fields_of(sk), bk), (*fields_of(sp), bp)
+    err = max(close(f"{label} chunk_steps {i}", a, b)
+              for i, (a, b) in enumerate(zip(got, ref)))
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    ms = device_ms(lambda: fdtd_cuda.chunk_steps(ops, sk, wf, 7, n_sub, D, bk),
+                   reps=10, warmup=2)
+    plain_ms = events_ms(lambda: fdtd_cuda.chunk_steps_plain(
+        ops, sp, wf, 7, n_sub, D, bp), reps=1, warmup=1)
+    b_ms, b_by = k1_chunk_bound(ops, n_sub, D)
+    all_psi = ""
+    if ops.pml is not None:
+        a_ms, a_by = k1_chunk_bound(ops, n_sub, D, all_psi=True)
+        all_psi = (f" (moving all twelve psi everywhere: {a_ms * 1e3:.2f} us "
+                   f"by {a_by}, {a_ms / ms:.4f})")
+    rows = ops.probes.rows
+    say(phase, f"{label} {sim.grid.shape}: one chunk_steps launch of {n_sub} x "
+               f"D={D} steps, {plan_text(plan)}, probe rows (V, I, face E, face "
+               f"H) {rows} x terms {ops.probes.k}: == plain (fields, psi, "
+               f"probe samples; bit-equal {same}), max |err| {err:.3e}; device "
+               f"{ms * 1e3:,.1f} us/launch ({ms * 1e3 / (n_sub * D):.2f} "
+               f"us/step), bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.4f} "
+               f"of it){all_psi}, plain {plain_ms * 1e3:,.1f} us [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def counted(fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    (result, the counts read just after)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    out = fn()
+    return out, {**fdtd_cuda.launches, **fdtd_stream.launches,
+                 **fdtd_stream.launches_by_kernel}
+
+
+def assert_only(counts, allowed, what):
+    """Every kernel outside ``allowed`` launched no time, every one in it
+    at least once."""
+    for name, n in counts.items():
+        assert (n > 0) == (name in allowed), (what, name, counts)
+
+
+def run_text(res, counts, busy, card) -> str:
+    s11_db = 20 * np.log10(np.maximum(np.abs(res.s11), 1e-12))
+    return (f"{res.steps_run} steps in {res.wall_time_s:.3f} s, "
+            f"{res.mcells_per_s:.1f} Mcell-updates/s, energy ratio "
+            f"{res.diagnostics['energy_ratio']:.3e}; f_res "
+            f"{res.f_res_hz / 1e9:.4f} GHz, |S11|min {s11_db.min():.2f} dB, "
+            f"Dmax {10 * np.log10(res.Dmax):.3f} dBi; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; kernels busy "
+            f"{busy:.3f} s, idle share {1 - busy / res.wall_time_s:.3f} [{card}]")
+
+
+def band_dip(freq, s11):
+    """(f, dB) of the deepest S11 in 1.6-2.3 GHz (tests/test_msl_port.py)."""
+    db = 20 * np.log10(np.abs(s11) + 1e-12)
+    win = (freq > 1.6e9) & (freq < 2.3e9)
+    i = int(np.argmin(np.where(win, db, 0.0)))
+    return float(freq[i]), float(db[i])
+
+
+MSL_TEST_STEPS = 5000  # tests/test_msl_port.py's N_STEPS (truncated ring-down)
+
+
+def phase_microstrip_main_path(card):
+    """The microstrip slice at full width: the canonical FR-4 patch fed by
+    its microstrip at the solver's own mesh, with an MSL port and with a
+    lumped port, both under PML_8, through ``prepare_microstrip_patch`` and
+    ``run_prepared_microstrip`` to the solver's stop (the energy criterion,
+    or its 30,000-step cap: the MSL feed's open end keeps the energy up);
+    then the CLI's own ``s11`` (``--solver microstrip`` by default, MUR,
+    its default ``--steps-max``) through ``__main__.main``. Each run
+    resolves to chunk mode and launches ``chunk_steps`` alone; one launch
+    at each scene's operands is held to the plain twin. Physics: the
+    contract of tests/test_msl_port.py on the runs that test makes (its
+    5,000-step ring-down), the full runs' dip and line impedance beside."""
+    import contextlib
+    import io
+
+    from fdtd_solver_antennas_tpu_torch import __main__ as cli
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+    from fdtd_solver_antennas_tpu_torch.post.ports import MSLPortSpectra
+    from fdtd_solver_antennas_tpu_torch.solvers.microstrip import (
+        prepare_microstrip_patch, run_prepared_microstrip)
+
+    params = canonical_params()
+    f0 = params.frequency_hz
+    runs, rows = {}, {}
+    for mode in ("msl", "lumped"):
+        t0 = time.perf_counter()
+        prep = prepare_microstrip_patch(params, device="cuda", port_mode=mode,
+                                        boundary="PML_8")
+        prep_s = time.perf_counter() - t0
+        assert prep.ok, prep.message
+        sim = prep.sim
+        assert sim.pallas_mode == "chunk", sim.pallas_mode_reason
+        assert sim.operands.pml is not None and len(sim.msl_ports) == (
+            mode == "msl")
+        res, counts = counted(lambda: run_prepared_microstrip(
+            prep, frequency_hz=f0, verbose=0))
+        assert res.ok, res.message
+        steps = res.steps_run
+        energy_stop = res.diagnostics["energy_ratio"] < sim.cfg.end_criteria
+        assert energy_stop or steps >= sim.cfg.n_steps_max, steps
+        assert counts["chunk_steps"] == steps // chunk_geometry(sim)[2], counts
+        assert_only(counts, {"chunk_steps"}, f"microstrip {mode}")
+        row = k1_launch_alone(sim, "20", card, f"microstrip {mode}")
+        busy = counts["chunk_steps"] * row["ms"] / 1e3
+        stop = ("energy stop" if energy_stop else
+                f"the {sim.cfg.n_steps_max}-step cap")
+        say("20", f"microstrip {mode} port, PML_8, grid {sim.grid.shape} "
+                  f"({sim.grid.num_cells} cells), prepared in {prep_s:.2f} s "
+                  f"on the host; {sim.pallas_mode_reason}; ended at {stop}; "
+                  f"{run_text(res, counts, busy, card)}")
+        runs[mode], rows[mode] = res, dict(row, launches=counts["chunk_steps"])
+
+    def msl_vs_lumped(runs):
+        for res in runs.values():
+            assert np.isfinite(np.abs(res.s11)).all()
+        f_l, _ = band_dip(runs["lumped"].freq, runs["lumped"].s11)
+        f_m, db_m = band_dip(runs["msl"].freq, runs["msl"].s11)
+        sp = runs["msl"].diagnostics["port_spectra"]
+        assert isinstance(sp, MSLPortSpectra)
+        sel = (sp.freq_hz > 2.0e9) & (sp.freq_hz < 2.9e9)
+        z_mean = float(np.mean(np.real(sp.z_line[sel])))
+        beta_ok = bool(np.all(np.real(sp.beta[sel]) > 0))
+        return f_l, f_m, db_m, z_mean, beta_ok
+
+    short = {}
+    for mode in ("msl", "lumped"):
+        prep = prepare_microstrip_patch(params, device="cuda", port_mode=mode,
+                                        boundary="PML_8",
+                                        n_steps_max=MSL_TEST_STEPS)
+        assert prep.ok, prep.message
+        res, counts = counted(lambda: run_prepared_microstrip(
+            prep, frequency_hz=f0, verbose=0))
+        assert res.ok, res.message
+        assert_only(counts, {"chunk_steps"}, f"microstrip {mode} short")
+        short[mode] = res
+    f_l, f_m, db_m, z_mean, beta_ok = msl_vs_lumped(short)
+    assert abs(f_m - f_l) <= 0.02 * f_l, (f_m, f_l)
+    assert db_m < -10.0, db_m
+    assert abs(z_mean - 50.0) <= 5.0, z_mean
+    assert beta_ok
+    say("20", f"MSL vs lumped, tests/test_msl_port.py's runs (PML_8, "
+              f"{MSL_TEST_STEPS} steps asked, {short['msl'].steps_run} / "
+              f"{short['lumped'].steps_run} run): dip in 1.6-2.3 GHz "
+              f"{f_m / 1e9:.4f} vs {f_l / 1e9:.4f} GHz ({abs(f_m - f_l) / f_l:.2%} "
+              f"apart, within 2%), MSL dip {db_m:.2f} dB (< -10); deembedded "
+              f"Re Z_L mean over 2.0-2.9 GHz {z_mean:.2f} ohm (within 10% of "
+              f"50), Re beta > 0 there")
+    f_l, f_m, db_m, z_mean, beta_ok = msl_vs_lumped(runs)
+    say("20", f"MSL vs lumped, the full runs above ({runs['msl'].steps_run} / "
+              f"{runs['lumped'].steps_run} steps): dip in 1.6-2.3 GHz "
+              f"{f_m / 1e9:.4f} vs {f_l / 1e9:.4f} GHz "
+              f"({abs(f_m - f_l) / f_l:.2%} apart), MSL dip {db_m:.2f} dB; "
+              f"Re Z_L mean over 2.0-2.9 GHz {z_mean:.2f} ohm; Re beta > 0 "
+              f"there: {beta_ok}")
+
+    outdir = "outputs/smoke_s11"
+    argv = ["s11", "--frequency-ghz", "2.45", "--er", "4.3", "--h-mm", "1.6",
+            "--loss-tangent", "0.02", "--outdir", outdir]
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        _none, counts = counted(lambda: cli.main(argv))
+    cli_s = time.perf_counter() - t0
+    text = text.getvalue()
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    path = next(ln for ln in text.splitlines() if ln.startswith("engine path:"))
+    assert path.startswith("engine path: chunk kernels"), path
+    assert summary["device"].startswith("cuda"), summary
+    assert_only(counts, {"chunk_steps"}, "cli s11")
+    with np.load(f"{outdir}/s11.npz") as z:
+        assert set(z.files) == {"freq_hz", "s11", "z_in"}
+        assert np.isfinite(z["s11"]).all()
+    with open(f"{outdir}/s11.s1p") as fh:
+        assert "microstrip patch" in fh.read()
+    cli_prep = prepare_microstrip_patch(params, device="cuda")
+    row = k1_launch_alone(cli_prep.sim, "20", card, "CLI s11 (lumped, MUR)")
+    busy = counts["chunk_steps"] * row["ms"] / 1e3
+    wall = summary["wall_time_s"]
+    say("20", f"CLI {' '.join(argv)}: {path}; {summary['steps']} steps in "
+              f"{wall:.3f} s, {summary['mcells_per_s']:.1f} Mcell-updates/s; "
+              f"f_res {summary['f_res_ghz']:.4f} GHz, |S11|min "
+              f"{summary['s11_min_db']:.2f} dB, Dmax {summary['Dmax_dbi']:.3f} "
+              f"dBi; launches { {k: v for k, v in counts.items() if v} }; "
+              f"kernels busy {busy:.3f} s, idle share {1 - busy / wall:.3f}; "
+              f"the whole command {cli_s:.1f} s; wrote s11.npz and s11.s1p "
+              f"[{card}]")
+    return rows["msl"]
+
+
+def check_result(res, full_sphere=False):
+    """The bounds of tests/test_solvers.py::_check_result."""
+    assert res.ok, res.message
+    assert res.is_dBi and res.intensity is not None
+    assert res.intensity.shape == (len(res.theta), len(res.phi))
+    assert np.isfinite(res.intensity).all()
+    assert res.s11 is not None and np.isfinite(res.s11).all()
+    assert np.all(np.abs(res.s11) < 3.0)
+    assert res.f_res_hz is not None
+    assert isinstance(res.diagnostics["rad_eff_converged"], bool)
+    if full_sphere:
+        assert len(res.phi) > 10
+
+
+def phase_solvers_main_path(card):
+    """The other solvers of the slice on the card: microstrip_3d at mesh
+    quality 5 under PML_8 (stream mode: the CPML march and
+    ``probe_gather`` alone; one march launch on its state held to the
+    twin), the legacy solver and the quasi-2D slice (chunk mode under
+    CPML: ``chunk_steps`` alone; one launch held to the twin), each to its
+    energy stop and held to tests/test_solvers.py's bounds."""
+    from fdtd_solver_antennas_tpu_torch.solvers.microstrip_3d import (
+        prepare_microstrip_patch_3d, run_prepared_microstrip_3d)
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_2d import (
+        prepare_patch_2d, run_prepared_2d)
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_legacy import (
+        prepare_patch_legacy, run_prepared_legacy)
+
+    params = canonical_params()
+    f0 = params.frequency_hz
+    cases = (
+        ("microstrip_3d q5 PML_8", lambda: prepare_microstrip_patch_3d(
+            params, device="cuda", mesh_quality=5, boundary="PML_8"),
+         run_prepared_microstrip_3d, True),
+        ("legacy PML_8", lambda: prepare_patch_legacy(params, device="cuda"),
+         run_prepared_legacy, True),
+        ("quasi-2D PML_8", lambda: prepare_patch_2d(params, device="cuda"),
+         run_prepared_2d, False),
+    )
+    out = {}
+    for label, prepare, run, sphere in cases:
+        t0 = time.perf_counter()
+        prep = prepare()
+        prep_s = time.perf_counter() - t0
+        assert prep.ok, prep.message
+        sim = prep.sim
+        assert sim.operands.pml is not None
+        res, counts = counted(lambda: run(prep, frequency_hz=f0, verbose=0))
+        check_result(res, sphere)
+        steps = res.steps_run
+        assert res.diagnostics["energy_ratio"] < sim.cfg.end_criteria
+        assert steps < sim.cfg.n_steps_max, steps
+        if label.startswith("microstrip_3d"):
+            T = sim.stream_T
+            assert sim.pallas_mode == "stream", sim.pallas_mode_reason
+            assert res.intensity.shape == (91, 73)
+            assert counts["stream_march"] == steps // T, counts
+            assert counts["probe_gather"] == steps // sim.probe_decim, counts
+            assert_only(counts, {"stream_steps", "stream_march",
+                                 "probe_gather"}, label)
+            row = stream_kernel_alone(sim, "21", card)
+            busy = (counts["stream_march"] * row["ms"]
+                    + counts["probe_gather"] * row["probe_ms"]) / 1e3
+            row = dict(row, launches=counts["stream_march"])
+        else:
+            assert sim.pallas_mode == "chunk", sim.pallas_mode_reason
+            assert_only(counts, {"chunk_steps"}, label)
+            row = k1_launch_alone(sim, "21", card, label)
+            busy = counts["chunk_steps"] * row["ms"] / 1e3
+            row = dict(row, launches=counts["chunk_steps"])
+        say("21", f"{label}, grid {sim.grid.shape} ({sim.grid.num_cells} "
+                  f"cells), prepared in {prep_s:.2f} s on the host; "
+                  f"{sim.pallas_mode_reason}; pattern {res.intensity.shape}; "
+                  f"{run_text(res, counts, busy, card)}")
+        out[label] = row
+    return out
 
 
 def phase_mixed_pml_main_path(card):
@@ -1744,20 +2115,21 @@ def phase_roll_chain(card):
 
 def k1_batch_bound(ops, batch, n_sub, D):
     """Bound of one ``chunk_steps_batch`` launch with every variant
-    stepping: per variant its fields (and ψ) in and out once and its ca/cb
-    in once; the shared source stamps, samples and probe table (code and
-    weight) in once; each variant's field value of every used entry read
-    and each sample written once per interval; per variant the operations
+    stepping: per variant its fields in and out once, its ψ as
+    ``psi_cells`` counts them in and out once and its ca/cb in once; the
+    shared source stamps, samples and probe table (code and weight) in
+    once; each variant's field value of every used entry read and each
+    sample written once per interval; per variant the operations
     ``k1_chunk_bound`` counts."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
-    psi = 12 if ops.pml is not None else 0
+    psi = psi_cells(ops, (0, ops.shape[0]))
     rows = ops.probes.n_rows
     used = int(torch.count_nonzero(ops.probes.w))
-    nbytes = (4 * n * batch * (6 + 6 + 6 + 2 * psi) + 4 * n * n_src
+    nbytes = (batch * (4 * n * (6 + 6 + 6) + 8 * psi) + 4 * n * n_src
               + 4 * n_sub * D
               + n_sub * (8 * used + batch * (4 * used + 4 * rows)))
-    flops = batch * (n_sub * D * n * (48 + 4 * psi) + n_sub * 2 * used)
+    flops = batch * (n_sub * D * (48 * n + 4 * psi) + n_sub * 2 * used)
     return bound(nbytes, flops)
 
 
@@ -2791,12 +3163,23 @@ def main() -> int:
     from fdtd_solver_antennas_tpu_torch.ops import (
         _build, fdtd_cuda, fdtd_shard, fdtd_steps, fdtd_stream, roll_chain)
 
+    from fdtd_solver_antennas_tpu_torch.native import build as native_build
+
+    def build_native():
+        t = time.perf_counter()
+        path = native_build.build()
+        return path, time.perf_counter() - t
+
     t0 = time.perf_counter()
     libs = ("fdtd_chunk", "fdtd_stream", "fdtd_shard", "fdtd_steps",
             "roll_chain")
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
+        native = pool.submit(build_native)
         builds = {name: pool.submit(_build.build, name) for name in libs}
         builds = {name: f.result() for name, f in builds.items()}
+        native_path, native_s = native.result()
+    say("2", f"built {native_path.name} in {native_s:.1f} s (g++ "
+             f"{' '.join(native_build.GXX_FLAGS)}; the voxelizer's core)")
     for name, (lib_path, build_s, log) in builds.items():
         say("2", f"built {lib_path.name} in {build_s:.1f} s (nvcc "
                  f"{' '.join(_build.NVCC_FLAGS[:2])})")
@@ -2871,6 +3254,11 @@ def main() -> int:
     # 19. the CPML slice: the mixed scene under PML_8 on the march
     k19 = timed_phase("19", phase_mixed_pml_main_path, card)
 
+    # 20. the microstrip slice (MSL and lumped ports, the CLI's s11);
+    # 21. microstrip_3d, legacy and quasi-2D
+    k20 = timed_phase("20", phase_microstrip_main_path, card)
+    k21 = timed_phase("21", phase_solvers_main_path, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -2944,6 +3332,18 @@ def main() -> int:
         # variants; library: one cuSPARSE SpMM over the same entries
         {"name": "probe_gather_batch", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, **k18b["gather"]},
+    ] + [
+        # K1 on the microstrip slice's main path: the MSL-fed patch under
+        # PML_8 (phase 20); K2's CPML march on microstrip_3d at quality 5
+        # (phase 21)
+        {"name": name, "route": "cuda", "source": source, "replaces": K,
+         "launches": row["launches"],
+         **{k: row[k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None}
+        for name, source, K, row in (
+            ("chunk_steps_msl", K1_SOURCE, K1_REPLACES, k20),
+            ("stream_steps_cpml_microstrip_3d", K2_SOURCE, K2_REPLACES,
+             k21["microstrip_3d q5 PML_8"]))
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -14,12 +14,36 @@ from .models.params import (
     PatchAntennaParams,
     metal_defaults,
 )
+from .solvers.analytical import AnalyticalPatchSolver, SolverResult
 from .solvers.base import FDTDSolverResult, SolverPrepared, SolverProbe
-from .solvers.microstrip import FeedDirection
+from .solvers.microstrip import (
+    FeedDirection,
+    calculate_microstrip_width,
+    prepare_microstrip_patch,
+    run_prepared_microstrip,
+)
+from .solvers.microstrip_3d import (
+    prepare_microstrip_patch_3d,
+    run_prepared_microstrip_3d,
+)
+from .solvers.patch_2d import Prepared2D, prepare_patch_2d, run_prepared_2d
 from .solvers.patch_fixed import prepare_patch_fixed, probe_fdtd, run_prepared_fixed
+from .solvers.patch_legacy import prepare_patch_legacy, run_prepared_legacy
 
 __all__ = [
+    "AnalyticalPatchSolver",
+    "SolverResult",
     "FeedDirection",
+    "calculate_microstrip_width",
+    "prepare_microstrip_patch",
+    "run_prepared_microstrip",
+    "prepare_microstrip_patch_3d",
+    "run_prepared_microstrip_3d",
+    "Prepared2D",
+    "prepare_patch_2d",
+    "run_prepared_2d",
+    "prepare_patch_legacy",
+    "run_prepared_legacy",
     "HornAntennaParams",
     "Metal",
     "MetalProperties",

@@ -1,9 +1,13 @@
-"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|horn ...``.
+"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn ...``.
 
-Counterpart of the ``fdtd --solver fixed`` and ``horn`` subcommands of
+Counterpart of the ``fdtd``, ``s11`` and ``horn`` subcommands of
 ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
-canonical patch (JSON summary, ``s11.npz`` and a Touchstone file) or of
-a pyramidal horn (JSON summary and ``s11.npz``). It draws no plots.
+canonical patch (``--solver fixed``) or of the microstrip-fed patch
+(``--solver microstrip``, the ``s11`` default), each printing its engine
+path and a JSON summary and writing ``s11.npz`` and a Touchstone file; or
+of a pyramidal horn (JSON summary and ``s11.npz``). Every subcommand runs
+on ``--device cuda`` unless ``--device cpu`` is asked for. It draws no
+plots.
 """
 
 from __future__ import annotations
@@ -15,14 +19,7 @@ from pathlib import Path
 import numpy as np
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(
-        description="Patch antenna FDTD simulator (PyTorch / CUDA)"
-    )
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser(
-        "fdtd", help="Full 3D FDTD run: S11 sweep, far-field, dBi grid"
-    )
+def _add_common_antenna_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--frequency-ghz", type=float, required=True)
     p.add_argument("--er", type=float, required=True)
     p.add_argument("--h-mm", type=float, required=True)
@@ -31,13 +28,29 @@ def main(argv=None) -> None:
     p.add_argument("--metal", type=str, default="copper")
     p.add_argument("--loss-tangent", type=float, default=0.0)
     p.add_argument("--outdir", type=str, default="outputs")
-    p.add_argument("--solver", choices=["fixed"], default="fixed")
-    p.add_argument("--boundary", type=str, default="MUR")
-    p.add_argument("--steps-max", type=int, default=30_000)
+    _add_device_arg(p)
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--device", type=str, default="cuda",
         help="'cuda' runs the CUDA kernels, 'cpu' their plain PyTorch twins",
     )
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="Patch antenna FDTD simulator (PyTorch / CUDA)"
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser(
+        "fdtd", help="Full 3D FDTD run: S11 sweep, far-field, dBi grid"
+    )
+    _add_common_antenna_args(p)
+    p.add_argument("--solver", choices=["fixed", "microstrip"], default="fixed")
+    p.add_argument("--feed-direction", type=str, default="-X")
+    p.add_argument("--boundary", type=str, default="MUR")
+    p.add_argument("--steps-max", type=int, default=30_000)
     h = sub.add_parser("horn", help="Pyramidal horn FDTD: gain pattern + S11")
     h.add_argument("--frequency-ghz", type=float, required=True)
     h.add_argument("--throat-a-mm", type=float, required=True)
@@ -46,10 +59,13 @@ def main(argv=None) -> None:
     h.add_argument("--aperture-B-mm", type=float, required=True)
     h.add_argument("--length-mm", type=float, required=True)
     h.add_argument("--outdir", type=str, default="outputs")
-    h.add_argument(
-        "--device", type=str, default="cuda",
-        help="'cuda' runs the CUDA kernels, 'cpu' their plain PyTorch twins",
-    )
+    _add_device_arg(h)
+    s = sub.add_parser("s11", help="FDTD S11 frequency sweep only")
+    _add_common_antenna_args(s)
+    s.add_argument("--solver", choices=["fixed", "microstrip"],
+                   default="microstrip")
+    s.add_argument("--feed-direction", type=str, default="-X")
+    s.add_argument("--steps-max", type=int, default=30_000)
     args = parser.parse_args(argv)
     if args.cmd == "horn":
         _horn(args)
@@ -57,7 +73,6 @@ def main(argv=None) -> None:
 
     from .models.params import PatchAntennaParams
     from .post.touchstone import write_touchstone
-    from .solvers.patch_fixed import prepare_patch_fixed, run_prepared_fixed
 
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -70,14 +85,31 @@ def main(argv=None) -> None:
         metal=args.metal,
         loss_tangent=args.loss_tangent,
     )
-    prepared = prepare_patch_fixed(
-        params, device=args.device, n_steps_max=args.steps_max,
-        boundary=args.boundary, verbose=1,
-    )
+    if args.solver == "fixed":
+        from .solvers.patch_fixed import prepare_patch_fixed, run_prepared_fixed
+
+        prepared = prepare_patch_fixed(
+            params, device=args.device, n_steps_max=args.steps_max,
+            boundary=getattr(args, "boundary", "MUR"), verbose=1,
+        )
+        runner = run_prepared_fixed
+    else:
+        from .solvers.microstrip import (
+            FeedDirection,
+            prepare_microstrip_patch,
+            run_prepared_microstrip,
+        )
+
+        prepared = prepare_microstrip_patch(
+            params, device=args.device,
+            feed_direction=FeedDirection(args.feed_direction),
+            n_steps_max=args.steps_max, verbose=1,
+        )
+        runner = run_prepared_microstrip
     if not prepared.ok:
         raise SystemExit(f"prepare failed: {prepared.message}")
-    result = run_prepared_fixed(
-        prepared, frequency_hz=params.frequency_hz, verbose=1)
+    print(f"engine path: {prepared.sim.pallas_mode_reason}")
+    result = runner(prepared, frequency_hz=params.frequency_hz, verbose=1)
     if not result.ok:
         raise SystemExit(f"run failed: {result.message}")
 

@@ -6,7 +6,9 @@ Counterpart of ``fdtd_solver_antennas_tpu/ops/fdtd.py`` (its XLA path):
   inverse-spacing vectors;
 - first-order MUR walls, PEC walls, or an N-cell CPML (``PML_N``);
 - lumped resistive ports folded into the E-update as an edge conductivity
-  plus a soft source, with V/I probes;
+  plus a soft source, with V/I probes; microstrip-line (MSL) ports as a
+  soft Ez source plane under the strip, with three V and two I probes
+  for the 3-probe deembedding (``post/ports.py::msl_port_spectra``);
 - decimated probe sampling: port V/I and Huygens-box tangential fields
   every D steps, staged per chunk and folded into the DFT accumulators as
   matmuls;
@@ -125,6 +127,37 @@ class PortRuntime:
     # current probe: 4 gather tuples + 2 dual lengths
     i_gather: List[Tuple]
     i_lengths: Tuple[float, float]
+    # excite=1 basis of src_col, the column a re-excitation rescales
+    src_col_unit: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class MSLRuntime:
+    """MSL-port geometry resolved onto the grid.
+
+    ``sl`` selects the excited block of Ez edges at the excitation plane.
+    ``v_probes`` / ``i_probes`` are probe source lists
+    [((comp, i, j, k), weight)] over the E / H field stacks: three V
+    probes on node planes m−1, m, m+1 and two Ampère-loop I probes on
+    dual planes m−½, m+½ around the measurement plane (openEMS-style
+    3-probe deembedding). ``v_pos_m`` / ``i_pos_m`` are the probe-plane
+    coordinates along the propagation axis, in meters.
+    """
+
+    spec: object  # models.scene.MSLPortSpec
+    sl: Tuple
+    src_col: np.ndarray  # filled once cb is known
+    v_probes: list  # 3 probe source lists
+    i_probes: list  # 2 probe source lists
+    v_pos_m: np.ndarray
+    i_pos_m: np.ndarray
+    z_ref: float
+    # excite=1 basis of src_col, the plane a re-excitation rescales
+    src_col_unit: Optional[np.ndarray] = None
+
+    # each MSL port occupies this many probe rows in the uf/if_
+    # accumulators: (V@m−1, I@m−½), (V@m, I@m+½), (V@m+1, —)
+    N_ROWS = 3
 
 
 @dataclasses.dataclass
@@ -146,9 +179,10 @@ class FaceRuntime:
 
 
 def port_probe_sources(sim: "PreparedSimulation"):
-    """Per-port probe source lists: for each port a list of
-    ((comp, i, j, k), weight) terms — V over the E stack, I over the H
-    stack."""
+    """Per-port probe source lists, lumped ports first, then MSL: for
+    each row a list of ((comp, i, j, k), weight) terms — V over the E
+    stack, I over the H stack. An MSL port gives three rows; its third I
+    row has no terms (``build_probe_gathers`` pads it with weight 0)."""
     Px, Py, Pz = sim.padded_shape
     v_lists, i_lists = [], []
     for prt in sim.ports:
@@ -172,12 +206,16 @@ def port_probe_sources(sim: "PreparedSimulation"):
             ((hv, *g[0]), float(dv)), ((hv, *g[1]), -float(dv)),
             ((hu, *g[2]), -float(du)), ((hu, *g[3]), float(du)),
         ])
+    for msl in sim.msl_ports:
+        v_lists += msl.v_probes
+        i_lists += [msl.i_probes[0], msl.i_probes[1], []]
     return v_lists, i_lists
 
 
 def n_probe_rows(sim: "PreparedSimulation") -> int:
-    """Rows in the uf/if_ port-DFT accumulators: one per lumped port."""
-    return len(sim.ports)
+    """Rows in the uf/if_ port-DFT accumulators: one per lumped port,
+    :attr:`MSLRuntime.N_ROWS` per MSL port."""
+    return len(sim.ports) + MSLRuntime.N_ROWS * len(sim.msl_ports)
 
 
 @dataclasses.dataclass
@@ -192,6 +230,7 @@ class PreparedSimulation:
     coeffs: Dict[str, torch.Tensor]
     waveform: np.ndarray
     ports: List[PortRuntime]
+    msl_ports: List[MSLRuntime]
     faces: List[FaceRuntime]
     port_freqs_hz: np.ndarray
     nf_freqs_hz: np.ndarray
@@ -458,6 +497,108 @@ def _build_port_runtime(
     )
 
 
+def _build_msl_runtime(spec, grid: YeeGrid) -> MSLRuntime:
+    """Resolve an MSL port spec onto the grid.
+
+    Excitation: a uniform vertical-E (quasi-TEM) soft source on the plane
+    of Ez edges under the strip at ``exc_pos``. Probes: the openEMS-style
+    3-probe deembedding layout around ``meas_pos`` — three V probes
+    (−∫E·dl at the strip center) on the node planes m−1, m, m+1 and two
+    Ampère-loop I probes on the dual planes m−½, m+½.
+    """
+    axis = _AXIS_OF[spec.prop_axis]
+    if axis == 2:
+        raise ValueError("MSL propagation axis must be x or y")
+    t_axis = 1 - axis  # the other horizontal axis
+    lines = [grid.x, grid.y, grid.z]
+
+    def nearest(ax, val):
+        return int(np.argmin(np.abs(lines[ax] - val)))
+
+    exc_i = nearest(axis, spec.exc_pos_mm)
+    meas_i = nearest(axis, spec.meas_pos_mm)
+    k0 = nearest(2, 0.0)
+    kh = nearest(2, spec.height_mm)
+    t_lo = spec.strip_center_mm - spec.strip_width_mm / 2
+    t_hi = spec.strip_center_mm + spec.strip_width_mm / 2
+    t_nodes = np.where(
+        (lines[t_axis] >= t_lo - 1e-9) & (lines[t_axis] <= t_hi + 1e-9)
+    )[0]
+    if len(t_nodes) == 0:
+        t_nodes = np.array([nearest(t_axis, spec.strip_center_mm)])
+    j_lo, j_hi = int(t_nodes[0]), int(t_nodes[-1])
+    jc = nearest(t_axis, spec.strip_center_mm)
+
+    sl = [None, None, None]
+    sl[axis] = exc_i
+    sl[t_axis] = slice(j_lo, j_hi + 1)
+    sl[2] = slice(k0, kh)
+    sl = tuple(sl)
+
+    dz = grid.deltas_m("z")
+    dd = [grid.dual_deltas_m(n) for n in "xyz"]
+
+    def idx3(a_i, t_j, k):
+        out = [0, 0, 0]
+        out[axis] = a_i
+        out[t_axis] = t_j
+        out[2] = k
+        return tuple(out)
+
+    def v_probe_at(p):
+        """−∫Ez·dl at the strip center on node plane ``p``."""
+        return [((2, *idx3(p, jc, k)), -float(dz[k])) for k in range(k0, kh)]
+
+    # propagation direction sign: I measured along exc → meas travel
+    direction = 1.0 if spec.meas_pos_mm >= spec.exc_pos_mm else -1.0
+
+    def i_probe_at(p):
+        """Ampère loop around the strip sheet using H on dual plane p+½:
+        curl_x = ∂Hz/∂y − ∂Hy/∂z (axis x), curl_y = ∂Hx/∂z − ∂Hz/∂x
+        (axis y)."""
+        srcs = []
+        for j in range(max(j_lo - 1, 1), min(j_hi + 2, len(lines[t_axis]) - 1)):
+            base = idx3(p, j, kh)
+            jm = idx3(p, j - 1, kh)
+            km = idx3(p, j, kh - 1)
+            if axis == 0:
+                w_t = float(dd[2][kh]) * direction
+                w_z = float(dd[t_axis][j]) * direction
+                srcs += [
+                    ((2, *base), w_t), ((2, *jm), -w_t),   # ΔHz·dzd
+                    ((1, *base), -w_z), ((1, *km), w_z),   # −ΔHy·dyd
+                ]
+            else:
+                w_x = float(dd[t_axis][j]) * direction
+                w_z = float(dd[2][kh]) * direction
+                srcs += [
+                    ((0, *base), w_x), ((0, *km), -w_x),   # ΔHx·dxd
+                    ((2, *base), -w_z), ((2, *jm), w_z),   # −ΔHz·dzd
+                ]
+        return srcs
+
+    if not (1 <= meas_i - 1 and meas_i + 1 < len(lines[axis])):
+        raise ValueError(
+            "MSL measurement plane too close to the grid edge for the "
+            "3-probe deembedding layout"
+        )
+    ax_mm = np.asarray(lines[axis], np.float64)
+    v_planes = [meas_i - 1, meas_i, meas_i + 1]
+    i_planes = [meas_i - 1, meas_i]
+    return MSLRuntime(
+        spec=spec,
+        sl=sl,
+        src_col=np.zeros((j_hi + 1 - j_lo, kh - k0), np.float32),
+        v_probes=[v_probe_at(p) for p in v_planes],
+        i_probes=[i_probe_at(p) for p in i_planes],
+        v_pos_m=ax_mm[v_planes] * 1e-3,
+        i_pos_m=np.array(
+            [0.5 * (ax_mm[p] + ax_mm[p + 1]) for p in i_planes]
+        ) * 1e-3,
+        z_ref=float(spec.z0_ohm),
+    )
+
+
 def _build_faces(
     grid: YeeGrid, box_idx: Tuple[int, int, int, int, int, int]
 ) -> List[FaceRuntime]:
@@ -503,11 +644,15 @@ def _build_faces(
 
 def build_src_mats(sim, Px, Py, Pz) -> Dict[int, np.ndarray]:
     """Per-component dense source stamps: every lumped-port column of one
-    E component folded into one (Px, Py, Pz) array, keyed by component."""
+    E component, and every MSL port's Ez plane, folded into one
+    (Px, Py, Pz) array, keyed by component."""
     src_mats = {}
     for prt in sim.ports:
         mat = src_mats.setdefault(prt.axis, np.zeros((Px, Py, Pz), np.float32))
         mat[prt.sl] += prt.src_col
+    for msl in sim.msl_ports:
+        mat = src_mats.setdefault(2, np.zeros((Px, Py, Pz), np.float32))
+        mat[msl.sl] += msl.src_col
     return src_mats
 
 
@@ -620,9 +765,6 @@ def build_simulation(
     (``parallel/explicit.py``) needs ``Px`` divisible by its rank count.
     """
     dev = resolve_device(device)
-    if scene.msl_ports:
-        raise NotImplementedError(
-            "MSL ports are not ported to fdtd_solver_antennas_tpu_torch yet")
     Qx, Qy, Qz = grid.shape
     dt = grid.courant_dt(cfg.courant)
 
@@ -646,6 +788,7 @@ def build_simulation(
 
     # --- ports fold their resistance into sigma ---------------------------
     ports = [_build_port_runtime(p, grid, sigma_edges) for p in scene.ports]
+    msl_ports = [_build_msl_runtime(m, grid) for m in scene.msl_ports]
 
     # --- Ca/Cb per component ----------------------------------------------
     pec = {"ex": vox.pec_ex, "ey": vox.pec_ey, "ez": vox.pec_ez}
@@ -675,6 +818,11 @@ def build_simulation(
         coeffs_np["ca_" + comp] = ca.astype(np.float32, copy=False)
         coeffs_np["cb_" + comp] = cb.astype(np.float32, copy=False)
 
+    # --- MSL excitation planes (need cb): uniform quasi-TEM profile -------
+    for msl in msl_ports:
+        msl.src_col_unit = coeffs_np["cb_ez"][msl.sl].astype(np.float32)
+        msl.src_col = (msl.src_col_unit * msl.spec.excite).astype(np.float32)
+
     # --- port source columns (need cb) ------------------------------------
     dd = [grid.dual_deltas_m("xyz"[a]) for a in range(3)]
     for prt in ports:
@@ -682,8 +830,9 @@ def build_simulation(
         t_axes = [a for a in range(3) if a != prt.axis]
         idx_probe = prt.i_gather[0]
         area = dd[t_axes[0]][idx_probe[t_axes[0]]] * dd[t_axes[1]][idx_probe[t_axes[1]]]
-        unit = (cb_col / (prt.spec.resistance * area)).astype(np.float32)
-        prt.src_col = (unit * prt.spec.excite).astype(np.float32)
+        prt.src_col_unit = (cb_col / (prt.spec.resistance * area)).astype(
+            np.float32)
+        prt.src_col = (prt.src_col_unit * prt.spec.excite).astype(np.float32)
 
     # --- zero padding for shard divisibility ----------------------------
     padded_shape = tuple(
@@ -746,8 +895,9 @@ def build_simulation(
         # 10^-3 in amplitude.
         probe_decim = max(1, int(1.0 / (2.5 * (f0 + fc) * dt)))
     probe_decim = min(probe_decim, max(1, int(cfg.check_every)))
+    n_stamps = len({prt.axis for prt in ports} | ({2} if msl_ports else set()))
     mode, stream_T, probe_decim, mode_reason = resolve_pallas_mode(
-        cfg, padded_shape, len({prt.axis for prt in ports}), probe_decim)
+        cfg, padded_shape, n_stamps, probe_decim)
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -761,6 +911,7 @@ def build_simulation(
         coeffs=coeffs,
         waveform=waveform,
         ports=ports,
+        msl_ports=msl_ports,
         faces=faces,
         port_freqs_hz=port_freqs_hz,
         nf_freqs_hz=nf_freqs_hz,

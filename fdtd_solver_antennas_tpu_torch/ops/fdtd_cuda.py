@@ -94,8 +94,9 @@ class ProbeTable:
     ``w``, so the m-th terms of neighbouring rows lie side by side. A code
     is ``cell << 3 | component``: the cell's flat index into one
     (Px, Py, Pz) array and the array's place in the stack. Rows shorter
-    than their block pad with weight 0; only port V has rows of different
-    lengths. ``meta`` holds the blocks' layout for the kernels, on the
+    than their block pad with weight 0: port V's rows differ in length,
+    and so do port I's where an MSL port's third I row has no terms (all
+    its k terms pad). ``meta`` holds the blocks' layout for the kernels, on the
     same device: ``row_starts``, ``k`` and ``offsets`` as int32.
     """
 

@@ -1,8 +1,11 @@
 """Voxelizer: declarative scene → material arrays on the staggered Yee grid.
 
-Counterpart of ``fdtd_solver_antennas_tpu/ops/voxelize.py``, NumPy path
-only (the JAX package's native C++ containment core is a host-side helper
-that its tests hold bit-equal to this path). Produces:
+Counterpart of ``fdtd_solver_antennas_tpu/ops/voxelize.py``. The box
+containment and the cell→edge average run in the native C++ core
+(``native/voxelize.cpp``, built with g++ at first use); polyhedra stay
+NumPy, as in the JAX package. ``native=False`` runs the NumPy twin of the
+core instead, which gives the same arrays bit for bit; nothing else
+selects it, and a core that fails to build raises. Produces:
 
 - ``eps_r`` / ``sigma`` on primary cells (paint-by-priority, cell centers),
 - boolean PEC masks on Ex/Ey/Ez edge locations (edge-midpoint containment,
@@ -16,6 +19,7 @@ the coefficient builder in ``ops.fdtd``.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,7 +32,11 @@ from ..models.scene import (
     PEC,
     Scene,
 )
+from ..native import get_voxelize_lib
 from .mesh import YeeGrid
+
+_DP = ctypes.POINTER(ctypes.c_double)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 # Inflation (mm) applied to degenerate box axes so edges lying exactly in a
 # zero-thickness sheet's plane test as contained despite float rounding.
@@ -71,6 +79,53 @@ def _inflated_contains(box: Box, pts: np.ndarray) -> np.ndarray:
     local = box.to_local(pts)
     lo, hi = _inflated_bounds(box)
     return np.all((local >= lo) & (local <= hi), axis=-1)
+
+
+def _pack_box(box: Box) -> np.ndarray:
+    """A Box as the native core's 22-double record (native/voxelize.cpp):
+    inflated local bounds, the world→local rotation (identity and
+    ``has_rot`` 0 when unrotated), rotation origin, translation."""
+    lo, hi = _inflated_bounds(box)
+    rec = np.zeros(22, np.float64)
+    rec[0:3] = lo
+    rec[3:6] = hi
+    if box.rotation is not None:
+        rec[6:15] = np.asarray(box.rotation, float).ravel()
+        rec[21] = 1.0
+    else:
+        rec[6:15] = np.eye(3).ravel()
+    rec[15:18] = box.rotation_origin
+    rec[18:21] = box.translation
+    return rec
+
+
+def _grid_fingerprint(grid: YeeGrid):
+    """Content key of the point caches: changing a grid's lines in place
+    (or swapping them) must invalidate the cached points."""
+    return tuple(
+        (len(v), float(v[0]), float(v[-1]), float(np.sum(v)))
+        for v in (grid.x, grid.y, grid.z)
+    )
+
+
+def _grid_cache(grid: YeeGrid) -> dict:
+    """Per-grid memo dict, invalidated when the line content changes."""
+    key = _grid_fingerprint(grid)
+    entry = getattr(grid, "_vox_cache", None)
+    if entry is None or entry[0] != key:
+        entry = (key, {})
+        object.__setattr__(grid, "_vox_cache", entry)
+    return entry[1]
+
+
+def _edge_midpoints(grid: YeeGrid, component: str) -> np.ndarray:
+    """World-frame midpoints (mm) of all E-edge slots, (Px, Py, Pz, 3),
+    cached per grid content (a sweep voxelizes many variants onto one
+    grid)."""
+    cache = _grid_cache(grid)
+    if component not in cache:
+        cache[component] = _axes_to_points(*_edge_axes(grid, component))
+    return cache[component]
 
 
 def _edge_axes(grid: YeeGrid, component: str):
@@ -133,14 +188,24 @@ def _poly_contains_windowed(poly, xs, ys, zs, out_or: np.ndarray) -> None:
     out_or[sl] |= poly.contains(sub)
 
 
-def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0) -> VoxelizedScene:
+def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0,
+             *, native: bool = True) -> VoxelizedScene:
     """Rasterize the scene. Boxes are painted in ascending priority order
     (stable), so the highest priority (and latest insertion among equals)
-    wins — matching CSXCAD overlap resolution."""
+    wins — matching CSXCAD overlap resolution.
+
+    ``native`` paints the material boxes and ORs the PEC boxes through the
+    C++ core, as the JAX package does with its core loaded; False runs the
+    NumPy twin (the same arrays bit for bit)."""
+    lib = get_voxelize_lib() if native else None
     Px, Py, Pz = grid.shape
-    cell_pts = _axes_to_points(
-        grid.centers("x"), grid.centers("y"), grid.centers("z")
-    )
+    cache = _grid_cache(grid)
+    cell_pts = cache.get("cells")
+    if cell_pts is None:
+        cell_pts = _axes_to_points(
+            grid.centers("x"), grid.centers("y"), grid.centers("z")
+        )
+        cache["cells"] = cell_pts
 
     eps = np.full((Px - 1, Py - 1, Pz - 1), background_eps, dtype=np.float64)
     sigma = np.zeros_like(eps)
@@ -159,18 +224,37 @@ def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0) -> Voxeli
                 "axis); use a Box — axis-aligned or rotated"
             )
 
-    ccx, ccy, ccz = (grid.centers(n) for n in "xyz")
-    for box in mat_boxes:
-        sl = _poly_window(box, ccx, ccy, ccz, pad=_SHEET_TOL_MM)
-        if sl is None:
-            continue
-        sub = cell_pts[sl]
-        if isinstance(box, ConvexPolyhedron):
-            mask = box.contains(sub)
-        else:
-            mask = _inflated_contains(box, sub)
-        eps[sl][mask] = box.prop.epsilon
-        sigma[sl][mask] = box.prop.kappa
+    # the core understands boxes only: a polyhedron among the materials
+    # keeps the ordered NumPy painting (priority interleaving)
+    has_mat_poly = any(isinstance(b, ConvexPolyhedron) for b in mat_boxes)
+    if lib is not None and mat_boxes and not has_mat_poly:
+        pts_flat = np.ascontiguousarray(cell_pts.reshape(-1, 3), np.float64)
+        recs = np.ascontiguousarray(
+            np.stack([_pack_box(b) for b in mat_boxes]), np.float64)
+        vals = np.ascontiguousarray(
+            [[b.prop.epsilon, b.prop.kappa] for b in mat_boxes], np.float64)
+        eps_flat = np.ascontiguousarray(eps.reshape(-1))
+        sig_flat = np.ascontiguousarray(sigma.reshape(-1))
+        lib.paint_materials(
+            pts_flat.ctypes.data_as(_DP), pts_flat.shape[0],
+            recs.ctypes.data_as(_DP), vals.ctypes.data_as(_DP),
+            len(mat_boxes), eps_flat.ctypes.data_as(_DP),
+            sig_flat.ctypes.data_as(_DP))
+        eps = eps_flat.reshape(eps.shape)
+        sigma = sig_flat.reshape(sigma.shape)
+    else:
+        ccx, ccy, ccz = (grid.centers(n) for n in "xyz")
+        for box in mat_boxes:
+            sl = _poly_window(box, ccx, ccy, ccz, pad=_SHEET_TOL_MM)
+            if sl is None:
+                continue
+            sub = cell_pts[sl]
+            if isinstance(box, ConvexPolyhedron):
+                mask = box.contains(sub)
+            else:
+                mask = _inflated_contains(box, sub)
+            eps[sl][mask] = box.prop.epsilon
+            sigma[sl][mask] = box.prop.kappa
 
     pec = {}
     pec_plain = [b for b in pec_boxes if not isinstance(b, ConvexPolyhedron)]
@@ -186,7 +270,7 @@ def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0) -> Voxeli
     )
     for comp in ("ex", "ey", "ez"):
         axes = _edge_axes(grid, comp)
-        pts = _axes_to_points(*axes)
+        pts = _edge_midpoints(grid, comp)
         if carve:
             # per-edge priority resolution: paint in ascending priority
             # (assignment == max), PEC wins ties (insertion convention)
@@ -220,9 +304,19 @@ def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0) -> Voxeli
                     mat_prio[sl][mm], box.priority)
             pec[comp] = (pec_prio > NEG) & (pec_prio >= mat_prio)
             continue
-        m = np.zeros(pts.shape[:-1], dtype=bool)
-        for box in pec_plain:
-            m |= _inflated_contains(box, pts)
+        if lib is not None and pec_plain:
+            pts_flat = np.ascontiguousarray(pts.reshape(-1, 3), np.float64)
+            mask8 = np.zeros(pts_flat.shape[0], np.uint8)
+            for box in pec_plain:
+                rec = np.ascontiguousarray(_pack_box(box))
+                lib.box_contains_or(
+                    pts_flat.ctypes.data_as(_DP), pts_flat.shape[0],
+                    rec.ctypes.data_as(_DP), mask8.ctypes.data_as(_U8P))
+            m = mask8.reshape(pts.shape[:-1]).astype(bool)
+        else:
+            m = np.zeros(pts.shape[:-1], dtype=bool)
+            for box in pec_plain:
+                m |= _inflated_contains(box, pts)
         for poly in pec_polys:
             _poly_contains_windowed(poly, *axes, out_or=m)
         pec[comp] = m
@@ -289,17 +383,32 @@ def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0) -> Voxeli
     )
 
 
-def cell_to_edge_average(cell: np.ndarray, component: str) -> np.ndarray:
+def cell_to_edge_average(cell: np.ndarray, component: str, *,
+                         native: bool = True) -> np.ndarray:
     """Average a cell-centered quantity onto E-edge locations.
 
     An Ex edge at (x_{i+1/2}, y_j, z_k) is shared by the up-to-4 cells
     (i, j−1..j, k−1..k); the standard material average for the staggered
     grid. Output has the grid shape (Px, Py, Pz) with trailing invalid
     slots filled by replication (masked out later). The dtype follows the
-    input.
+    input. ``native`` runs the fused C++ pass (``cell_edge_avg_f32/_f64``,
+    one read and one write an element); False the NumPy twin below, whose
+    rounding order the core reproduces bit for bit.
     """
     dtype = np.float32 if cell.dtype == np.float32 else np.float64
     cell = np.ascontiguousarray(cell, dtype)
+    if native:
+        if component not in ("ex", "ey", "ez"):
+            raise ValueError(component)
+        nx, ny, nz = cell.shape
+        out = np.empty((nx + 1, ny + 1, nz + 1), dtype)
+        f32 = dtype == np.float32
+        ptr = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
+        lib = get_voxelize_lib()
+        fn = lib.cell_edge_avg_f32 if f32 else lib.cell_edge_avg_f64
+        fn(cell.ctypes.data_as(ptr), nx, ny, nz, "xyz".index(component[1]),
+           out.ctypes.data_as(ptr))
+        return out
 
     def avg_along(a: np.ndarray, axis: int) -> np.ndarray:
         # node values = mean of adjacent cells; ends replicate.

@@ -1,5 +1,14 @@
 """Solvers in the probe → prepare → run protocol."""
 
+from .analytical import AnalyticalPatchSolver, SolverResult
+from .base import (
+    FDTDSolverResult,
+    OpenEMSPrepared,
+    OpenEMSProbe,
+    OpenEMSResult,
+    SolverPrepared,
+    SolverProbe,
+)
 from .sweep import (
     SweepPrepared,
     SweepResult,
@@ -10,6 +19,14 @@ from .sweep import (
 )
 
 __all__ = [
+    "AnalyticalPatchSolver",
+    "SolverResult",
+    "SolverProbe",
+    "SolverPrepared",
+    "FDTDSolverResult",
+    "OpenEMSProbe",
+    "OpenEMSPrepared",
+    "OpenEMSResult",
     "SweepPrepared",
     "SweepResult",
     "prepare_horn_aperture_sweep",

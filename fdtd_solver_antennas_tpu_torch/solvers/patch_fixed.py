@@ -160,6 +160,118 @@ def prepare_patch_fixed(
         return SolverPrepared(False, f"Fixed solver prepare failed: {e}")
 
 
+def lumped_port_spectra(sim, out):
+    """Port 0's spectra of a run's output against its resistance."""
+    return port_spectra(sim.port_freqs_hz, out["uf"][0], out["if_"][0],
+                        sim.dft_dt, z_ref=sim.ports[0].spec.resistance)
+
+
+def run_single_port(
+    prepared: SolverPrepared,
+    *,
+    frequency_hz: float,
+    message: str,
+    spectra_of=lumped_port_spectra,
+    angles_in_radians: bool = False,
+    verbose: int = 0,
+    progress_cb=None,
+    abort_cb=None,
+    run=None,
+) -> FDTDSolverResult:
+    """Run ``prepared.sim``, take the port spectra from the output with
+    ``spectra_of(sim, out)``, find the resonance and transform the far
+    field there (dBi via 20·log10(E/Emax) + 10·log10(Dmax)): the run the
+    single-port patch solvers share. ``angles_in_radians``:
+    ``prepared.theta``/``phi`` are radians (the legacy and quasi-2D
+    solvers), else degrees; the result's are radians.
+
+    ``run`` replaces ``sim.run`` with another runner of the same
+    simulation that returns the same output dict, such as
+    ``parallel.build_explicit_run(prepared.sim)``; the callbacks apply to
+    ``sim.run`` only."""
+    sim = prepared.sim
+    t_start = time.perf_counter()
+    if run is not None:
+        out = run()
+    else:
+        out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
+    steps = int(out["steps"])
+    wall = time.perf_counter() - t_start  # out["uf"] is on the host
+    if out.get("aborted"):
+        return FDTDSolverResult(
+            False,
+            f"Run aborted by user at step {steps}/"
+            f"{sim.cfg.n_steps_max} ({wall:.1f}s elapsed)",
+            diagnostics={"aborted": True, "steps_done": steps},
+        )
+    mcells = sim.grid.num_cells * steps / wall / 1e6
+    if verbose:
+        print(
+            f"FDTD done: {steps} steps, {wall:.2f}s, {mcells:.1f} Mcells/s, "
+            f"energy ratio {float(out['e_ratio']):.2e}"
+        )
+
+    spectra = spectra_of(sim, out)
+    f_res, s11_db = find_resonance(spectra, frequency_hz)
+    if verbose:
+        if s11_db is not None:
+            print(f"Found resonance at {f_res / 1e9:.3f} GHz "
+                  f"(S11 = {s11_db:.1f} dB)")
+        else:
+            print(f"No clear resonance found, using target {f_res / 1e9:.3f} GHz")
+
+    # NF2FF at the accumulated frequency nearest the resonance
+    fi = int(np.argmin(np.abs(sim.nf_freqs_hz - f_res)))
+    theta = np.asarray(prepared.theta)
+    phi = np.asarray(prepared.phi)
+    if angles_in_radians:
+        theta_deg, phi_deg = np.rad2deg(theta), np.rad2deg(phi)
+        theta_rad, phi_rad = theta, phi
+    else:
+        theta_deg, phi_deg = theta, phi
+        theta_rad, phi_rad = np.deg2rad(theta), np.deg2rad(phi)
+    ff = nf2ff_transform(
+        sim.faces,
+        select_face_freqs(out["nf_e"], fi),
+        select_face_freqs(out["nf_h"], fi),
+        sim.dft_dt,
+        sim.nf_freqs_hz[fi : fi + 1],
+        theta_deg,
+        phi_deg,
+        center_m=prepared.nf_center,
+        device=sim.device,
+    )
+    rad_eff, rad_eff_conv = radiation_efficiency(
+        ff, spectra, float(out["e_ratio"])
+    )
+    return FDTDSolverResult(
+        True,
+        message,
+        theta=theta_rad,
+        phi=phi_rad,
+        intensity=ff.intensity_dbi(0),
+        is_dBi=True,
+        freq=spectra.freq_hz,
+        s11=spectra.s11,
+        z_in=spectra.z_in,
+        f_res_hz=f_res,
+        Dmax=float(ff.Dmax[0]),
+        radiated_power_w=float(ff.P_rad[0]),
+        radiation_efficiency=rad_eff,
+        steps_run=steps,
+        wall_time_s=wall,
+        mcells_per_s=mcells,
+        diagnostics={
+            "s11_db_at_res": s11_db,
+            "nf2ff_freq_hz": float(sim.nf_freqs_hz[fi]),
+            "energy_ratio": float(out["e_ratio"]),
+            "rad_eff_converged": rad_eff_conv,
+            "port_spectra": spectra,
+            "device": str(sim.device),
+        },
+    )
+
+
 def run_prepared_fixed(
     prepared: SolverPrepared,
     *,
@@ -170,91 +282,16 @@ def run_prepared_fixed(
     run=None,
 ) -> FDTDSolverResult:
     """Run the prepared simulation and extract the dBi pattern grid:
-    NF2FF at the resonance, dBi via 20·log10(E/Emax) + 10·log10(Dmax),
-    plus the S11 sweep from the port DFTs.
-
-    ``run`` replaces ``sim.run`` with another runner of the same
-    simulation that returns the same output dict, such as
-    ``parallel.build_explicit_run(prepared.sim)``; the callbacks apply to
-    ``sim.run`` only."""
+    NF2FF at the resonance plus the S11 sweep from the port DFTs
+    (``run_single_port``, whose ``run`` and callbacks it passes on)."""
     try:
         if not prepared.ok or prepared.sim is None:
             return FDTDSolverResult(False, prepared.message)
-        sim = prepared.sim
-
-        t_start = time.perf_counter()
-        if run is not None:
-            out = run()
-        else:
-            out = sim.run(progress_cb=progress_cb, abort_cb=abort_cb)
-        steps = int(out["steps"])
-        wall = time.perf_counter() - t_start  # out["uf"] is on the host
-        if out.get("aborted"):
-            return FDTDSolverResult(
-                False,
-                f"Run aborted by user at step {steps}/"
-                f"{sim.cfg.n_steps_max} ({wall:.1f}s elapsed)",
-                diagnostics={"aborted": True, "steps_done": steps},
-            )
-        mcells = sim.grid.num_cells * steps / wall / 1e6
-
-        if verbose:
-            print(
-                f"FDTD done: {steps} steps, {wall:.2f}s, {mcells:.1f} Mcells/s, "
-                f"energy ratio {float(out['e_ratio']):.2e}"
-            )
-
-        spectra = port_spectra(
-            sim.port_freqs_hz, out["uf"][0], out["if_"][0],
-            sim.dft_dt, z_ref=sim.ports[0].spec.resistance,
-        )
-        f_res, s11_db = find_resonance(spectra, frequency_hz)
-
-        # NF2FF at the accumulated frequency nearest the resonance
-        fi = int(np.argmin(np.abs(sim.nf_freqs_hz - f_res)))
-        theta = np.asarray(prepared.theta)
-        phi = np.asarray(prepared.phi)
-        ff = nf2ff_transform(
-            sim.faces,
-            select_face_freqs(out["nf_e"], fi),
-            select_face_freqs(out["nf_h"], fi),
-            sim.dft_dt,
-            sim.nf_freqs_hz[fi : fi + 1],
-            theta,
-            phi,
-            center_m=prepared.nf_center,
-            device=sim.device,
-        )
-        intensity_db = ff.intensity_dbi(0)
-
-        rad_eff, rad_eff_conv = radiation_efficiency(
-            ff, spectra, float(out["e_ratio"])
-        )
-        return FDTDSolverResult(
-            True,
-            f"FDTD completed on {sim.device}",
-            theta=np.deg2rad(theta),
-            phi=np.deg2rad(phi),
-            intensity=intensity_db,
-            is_dBi=True,
-            freq=spectra.freq_hz,
-            s11=spectra.s11,
-            z_in=spectra.z_in,
-            f_res_hz=f_res,
-            Dmax=float(ff.Dmax[0]),
-            radiated_power_w=float(ff.P_rad[0]),
-            radiation_efficiency=rad_eff,
-            steps_run=steps,
-            wall_time_s=wall,
-            mcells_per_s=mcells,
-            diagnostics={
-                "s11_db_at_res": s11_db,
-                "nf2ff_freq_hz": float(sim.nf_freqs_hz[fi]),
-                "energy_ratio": float(out["e_ratio"]),
-                "rad_eff_converged": rad_eff_conv,
-                "device": str(sim.device),
-            },
-        )
+        return run_single_port(
+            prepared, frequency_hz=frequency_hz,
+            message=f"FDTD completed on {prepared.sim.device}",
+            verbose=verbose, progress_cb=progress_cb, abort_cb=abort_cb,
+            run=run)
     except Exception as e:
         return FDTDSolverResult(False, f"Fixed run failed: {e}")
 

@@ -1197,3 +1197,69 @@ def test_roofline_entry_point_runs_on_the_card(cuda):
     assert cal["shape"] == [56, 7040] and cal["iters"] >= 50
     assert cal["wall_s"] >= chunk_roofline.FLOOR_RATIO * cal["floor_s"] > 0
     assert cal["roll_gelems_per_s"] > 0 and rc.launches["roll_chain"] >= 5
+
+
+def _msl_sim(boundary, mode=None):
+    """The microstrip patch with its MSL port (a dense Ez source plane and
+    three V / two I probe rows, the third I row empty), 492 steps."""
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.physics import C0
+    from fdtd_solver_antennas_tpu_torch.solvers.microstrip import (
+        FeedDirection, build_microstrip_scene)
+
+    params = PatchAntennaParams.from_user_units(
+        frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02)
+    f0 = params.frequency_hz
+    res = C0 / (1.5 * f0) / 1e-3 / 20.0
+    scene, mb, _ = build_microstrip_scene(
+        params, FeedDirection.NEG_X, 20.0, res, port_mode="msl")
+    cfg = FDTDConfig(n_steps_max=492, end_criteria=1e-30, boundary=boundary,
+                     pallas_mode=mode)
+    return build_simulation(
+        scene, mb.build(res, ratio=1.4), f0=f0, fc=f0 / 2, cfg=cfg,
+        device="cuda", port_freqs_hz=np.linspace(2e9, 3e9, 21))
+
+
+def _assert_runs_close(k, p):
+    assert k["steps"] == p["steps"]
+    for fa, fb in zip(k["fields"], p["fields"], strict=True):
+        _close(fa, fb)
+    for key in ("uf", "if_"):
+        assert k[key].shape[0] == 3
+        _close(k[key], p[key])
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(k[key], p[key], strict=True):
+            _close(a, b)
+    for grp in ("psi_e", "psi_h"):
+        for name, v in p["state"][grp].items():
+            _close(k["state"][grp][name], v)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_8"])
+def test_msl_chunk_run_equals_plain(cuda, boundary):
+    """The MSL scene in chunk mode: one ``chunk_steps`` launch per chunk
+    and nothing else, equal to the plain twins, the MSL rows included."""
+    sim = _msl_sim(boundary)
+    assert sim.pallas_mode == "chunk"
+    assert sim.operands.probes.rows[:2] == (3, 3)
+    fdtd_cuda.reset_launch_counts()
+    k = run_simulation(sim, fdtd_cuda.kernels)
+    assert fdtd_cuda.launches["chunk_steps"] == 1
+    assert sum(fdtd_cuda.launches.values()) == 1
+    _assert_runs_close(k, run_simulation(sim, fdtd_cuda.plain))
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_8"])
+def test_msl_stream_run_equals_plain(cuda, boundary):
+    """The MSL scene forced onto the stream path: the MSL plane goes
+    through the march and the MSL rows through ``probe_gather``."""
+    sim = _msl_sim(boundary, mode="stream")
+    T, D = sim.stream_T, sim.probe_decim
+    fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+    k = run_simulation(sim, fdtd_stream.kernels)
+    steps = k["steps"]
+    assert fdtd_stream.launches_by_kernel["stream_march"] == steps // T > 0
+    assert fdtd_cuda.launches["probe_gather"] == steps // D
+    assert fdtd_cuda.launches["chunk_steps"] == 0
+    _assert_runs_close(k, run_simulation(sim, fdtd_stream.plain))
