@@ -174,7 +174,29 @@ and the script exits non-zero without printing a result:
     slice (chunk mode under CPML: ``chunk_steps`` alone, one launch
     against the twin), each to its energy stop, held to the bounds of
     tests/test_solvers.py (full sphere for the first two), with phase
-    20's figures.
+    20's figures;
+22. the multi-port slice: tests/test_sparams.py's two-patch scene through
+    ``compute_s_matrix`` (K1 alone; each one-hot run against the plain
+    twins; its reciprocity error under that test's 5e-3·max|S|); the 2×1
+    array of the canonical FR-4 patch at the CLI's defaults through
+    ``design_array`` (two one-hot runs, ``chunk_steps`` alone, one launch
+    at the array's shapes against the twin and timed beside its bound;
+    reciprocity error and passivity margin printed, not gated: the runs
+    stop on their energy criterion), its all-ports-on run against the
+    embedded patterns' superposition (residual < 2e-2,
+    tests/test_array_synth.py), drives (1, 0), (0, 1) and (1, 1) of the
+    same preparation at a fixed 4 chunks (linear to float32 rounding:
+    K1's resident form sees each new stamp), that run stopped after two
+    chunks, saved with ``save_state`` under ``outputs/smoke_checkpoint``,
+    loaded and resumed to the straight run, and the CLI's ``array --nx 2
+    --ny 1`` through ``__main__.main`` (``chunk_steps`` alone; writes
+    ``array_embedded.npz`` and ``array.s2p`` under
+    ``outputs/smoke_array``, held to ``design_array``'s); then the mixed
+    scene's two-port S matrix under MUR through phase 8's prepared
+    simulation (two one-hot runs on the march, ``stream_march`` and
+    ``probe_gather`` alone) and one state re-excited between two march
+    launches against the plain twin. Each run's steps, wall, launches and
+    idle share are printed.
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -3116,6 +3138,406 @@ def phase_stream_sweep_auto(card):
               f"[{card}]")
 
 
+TWO_PATCH_RECIP = 5e-3  # tests/test_sparams.py:104: reciprocity < 5e-3·max|S|
+SUPERPOSITION = 2e-2  # tests/test_array_synth.py:135: all-on run vs synthesis
+LINEAR_CHUNKS = 4  # the fixed length of the linearity runs, in chunks
+
+
+def two_patch_sim():
+    """tests/test_sparams.py's two-patch scene (two 12×10 mm patches on
+    one ground plane, a lumped z-port at each centre; 63×20×21, 3,000
+    steps asked) on the card."""
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import FDTDConfig, build_simulation
+    from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
+
+    scene = Scene()
+    scene.add_material_box("sub", 2.2, 0.0, [-30, -15, 0], [30, 15, 1.6], 0)
+    scene.add_metal_box("gnd", [-30, -15, 0], [30, 15, 0], priority=10)
+    for cx, name in ((-13.0, "pa"), (13.0, "pb")):
+        scene.add_metal_box(
+            name, [cx - 6, -5, 1.6], [cx + 6, 5, 1.6], priority=10)
+    scene.add_lumped_port(1, 50.0, [-13, 0, 0], [-13, 0, 1.6], direction="z")
+    scene.add_lumped_port(2, 50.0, [13, 0, 0], [13, 0, 1.6], direction="z")
+    mb = MeshBuilder()
+    mb.add_line("x", np.linspace(-34, 34, 35))
+    mb.add_line("x", [-19.0, -13.0, -7.0, 7.0, 13.0, 19.0])
+    mb.add_line("y", np.linspace(-19, 19, 20))
+    mb.add_line("z", list(np.linspace(-8, 12, 11)) + [0.0, 0.8, 1.6])
+    cfg = FDTDConfig(n_steps_max=3000, end_criteria=1e-5, check_every=500)
+    return build_simulation(
+        scene, mb.build(3.0), f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
+        port_freqs_hz=np.linspace(2.0e9, 3.0e9, 11),
+        nf_freqs_hz=np.array([2.45e9]))
+
+
+class runs_recorded:
+    """Within the block every ``PreparedSimulation.run`` is recorded: its
+    output, steps and wall (host clock; ``run`` returns after the host
+    has read the DFT sums)."""
+
+    def __enter__(self):
+        from fdtd_solver_antennas_tpu_torch.ops.fdtd import PreparedSimulation
+
+        self.cls, self.real = PreparedSimulation, PreparedSimulation.run
+        self.runs = []
+
+        def run(sim, *args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(sim, *args, **kw)
+            self.runs.append(dict(out=out, steps=int(out["steps"]),
+                                  wall=time.perf_counter() - t0))
+            return out
+
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.real
+        return False
+
+
+def abort_after(n_chunks):
+    """An ``abort_cb`` that stops a run after ``n_chunks`` chunks."""
+    calls = [0]
+
+    def cb():
+        calls[0] += 1
+        return calls[0] >= n_chunks
+    return cb
+
+
+def slashed(values, fmt) -> str:
+    return " / ".join(format(v, fmt) for v in values)
+
+
+def smatrix_text(res) -> str:
+    s = res.s
+    n = s.shape[0]
+    peak = float(np.nanmax(np.abs(s)))
+    recip = res.reciprocity_error()
+    off = np.abs(s[~np.eye(n, dtype=bool)])
+    diag = [20 * np.log10(np.nanmin(np.abs(s[i, i]))) for i in range(n)]
+    return (f"reciprocity error {recip:.3e} = {recip / peak:.3e} of max|S| "
+            f"{peak:.4f} (tests/test_sparams.py's bound: {TWO_PATCH_RECIP:g} "
+            f"of it), passivity margin {res.passivity_margin():.4f}, max "
+            f"coupling {20 * np.log10(np.nanmax(off)):.2f} dB, |S_ii|min "
+            f"{slashed(diag, '.2f')} dB")
+
+
+def runs_text(runs, busy) -> str:
+    walls = [r["wall"] for r in runs]
+    return (f"{len(runs)} runs of {slashed([r['steps'] for r in runs], 'd')} "
+            f"steps in {slashed(walls, '.3f')} s "
+            f"({slashed([w / r['steps'] * 1e6 for r, w in zip(runs, walls)], '.2f')}"
+            f" us a step), idle share "
+            f"{slashed([1 - b / w for b, w in zip(busy, walls)], '.3f')}")
+
+
+def linear_err(runs) -> float:
+    """Drive (1, 1) against (1, 0) + (0, 1): asserts the port DFT sums
+    within 1e-6 of their peak (8 float32 ulps) and the fields within 1e-4
+    of each component's peak (rounding over the steps, in fields far below
+    the peak); returns the DFT sums' gap over their peak."""
+    a, b, ab = runs
+    worst = 0.0
+    for key in ("uf", "if_"):
+        peak = np.abs(ab[key]).max()
+        gap = float(np.abs(a[key] + b[key] - ab[key]).max())
+        assert gap <= 1e-6 * peak, (key, gap, peak)
+        worst = max(worst, gap / peak)
+    for fa, fb, fab in zip(a["fields"], b["fields"], ab["fields"]):
+        gap = float((fa + fb - fab).abs().max())
+        assert gap <= 1e-4 * float(fab.abs().max()), gap
+    return worst
+
+
+def superposition_residual(sim, eps, out, fi) -> float:
+    """|E(out) − Σ w_j ê_j| / |E(out)| at row ``fi`` of ``eps.freq_hz``:
+    the far field of run ``out`` against the embedded patterns weighted by
+    the run's own incident waves (tests/test_array_synth.py:93)."""
+    from fdtd_solver_antennas_tpu_torch.post.nf2ff import (
+        nf2ff_transform, select_face_freqs)
+    from fdtd_solver_antennas_tpu_torch.solvers.sparams import _port_polarities
+
+    f = eps.freq_hz[fi]
+    row = int(np.argmin(np.abs(sim.nf_freqs_hz - f)))
+    ff = nf2ff_transform(
+        sim.faces, select_face_freqs(out["nf_e"], row),
+        select_face_freqs(out["nf_h"], row), sim.dft_dt, np.array([f]),
+        np.degrees(eps.theta), np.degrees(eps.phi), device=sim.device)
+    n = len(sim.ports)
+    pol = _port_polarities(sim)[:, None]
+    z = np.array([float(p.spec.resistance) for p in sim.ports])[:, None]
+    a = (0.5 * (out["uf"][:n] * pol + z * out["if_"][:n] * pol) / np.sqrt(z)
+         * sim.dft_dt)
+    w = np.array([np.interp(f, sim.port_freqs_hz, a[j].real)
+                  + 1j * np.interp(f, sim.port_freqs_hz, a[j].imag)
+                  for j in range(n)])
+    pat = eps.synthesize(w, fi=fi)
+    ref = np.stack([ff.E_theta[0], ff.E_phi[0]])
+    return float(np.linalg.norm(np.stack([pat.E_theta, pat.E_phi]) - ref)
+                 / np.linalg.norm(ref))
+
+
+def phase_two_patch_smatrix(card):
+    """tests/test_sparams.py's two-patch scene through ``compute_s_matrix``
+    on the card (K1), held to that test's reciprocity bound; each one-hot
+    run held to the plain twins on the same drive."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
+        chunk_geometry, run_simulation, set_port_excitation)
+    from fdtd_solver_antennas_tpu_torch.solvers.sparams import compute_s_matrix
+
+    sim = two_patch_sim()
+    with runs_recorded() as rec:
+        res, counts = counted(lambda: compute_s_matrix(sim))
+    assert res.ok, res.message
+    assert_only(counts, {"chunk_steps"}, "two-patch S matrix")
+    chunk = chunk_geometry(sim)[2]
+    assert counts["chunk_steps"] == sum(r["steps"] // chunk for r in rec.runs)
+    recip = res.reciprocity_error()
+    assert recip < TWO_PATCH_RECIP * np.nanmax(np.abs(res.s)), recip
+    err = 0.0
+    for j, r in enumerate(rec.runs):
+        set_port_excitation(sim, np.eye(2)[j])
+        err = max(err, compare_runs(
+            r["out"], run_simulation(sim, fdtd_stream.plain), f"one-hot {j}"))
+    set_port_excitation(sim, [1.0, 1.0])
+    row = k1_launch_alone(sim, "22", card, "two-patch")
+    busy = [r["steps"] // chunk * row["ms"] / 1e3 for r in rec.runs]
+    say("22", f"two-patch S matrix (tests/test_sparams.py's scene, "
+              f"{sim.grid.shape}; {sim.pallas_mode_reason}): one-hot "
+              f"{runs_text(rec.runs, busy)}; "
+              f"{smatrix_text(res)}; each run == its plain twin on the card "
+              f"(fields, uf, if_, nf_e, nf_h), max |err| {err:.3e}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+
+
+def phase_array_main_path(card):
+    """The 2×1 array of the canonical FR-4 patch at the CLI's defaults
+    through ``design_array`` (two one-hot runs, ``chunk_steps`` alone),
+    the all-ports-on run against the embedded patterns' superposition,
+    linearity across re-excitations at a fixed step count, a checkpoint
+    stopped after two chunks and resumed, and the CLI's ``array``."""
+    import contextlib
+    import io
+    import os
+
+    from fdtd_solver_antennas_tpu_torch import __main__ as cli
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
+        chunk_geometry, set_port_excitation)
+    from fdtd_solver_antennas_tpu_torch.post.checkpoint import load_state, save_state
+    from fdtd_solver_antennas_tpu_torch.post.touchstone import read_touchstone
+    from fdtd_solver_antennas_tpu_torch.solvers.array_synth import (
+        compute_embedded_patterns, design_array)
+
+    params = canonical_params()
+    t0 = time.perf_counter()
+    with runs_recorded() as rec:
+        design, counts = counted(lambda: design_array(params, 2, 1,
+                                                      device="cuda"))
+    total = time.perf_counter() - t0
+    forms = dict(fdtd_cuda.launches_by_form)
+    assert design.ok, design.message
+    sim = design.prep.sim
+    assert sim.pallas_mode == "chunk", sim.pallas_mode_reason
+    assert_only(counts, {"chunk_steps"}, "array 2x1")
+    chunk = chunk_geometry(sim)[2]
+    assert len(rec.runs) == 2
+    assert counts["chunk_steps"] == sum(r["steps"] // chunk for r in rec.runs)
+    row = k1_launch_alone(sim, "22", card, "array 2x1")
+    busy = [r["steps"] // chunk * row["ms"] / 1e3 for r in rec.runs]
+    sm, eps = design.smatrix, design.patterns
+    say("22", f"array 2x1 through design_array (the canonical FR-4 patch, "
+              f"pitch {design.spacing_mm:.1f} mm, margin "
+              f"{design.margin_mm:.1f} mm, feed {design.feed_mm:.1f} mm, mesh "
+              f"quality 3; grid {sim.grid.shape}, {sim.grid.num_cells} cells; "
+              f"{sim.pallas_mode_reason}): one-hot {runs_text(rec.runs, busy)}"
+              f"; launches {counts['chunk_steps']} chunk_steps (by form "
+              f"{forms}), nothing else; design_array {total:.2f} s in all; "
+              f"{smatrix_text(sm)} (the runs stop on their energy criterion: "
+              f"a finding, not a gate); synthesis at "
+              f"{eps.freq_hz[design.fi] / 1e9:.4f} GHz, resonant "
+              f"{design.resonant} [{card}]")
+
+    # the all-ports-on run: its far field is the embedded patterns'
+    # superposition at the run's own incident waves where all three runs
+    # have one length, as in tests/test_array_synth.py; the design's runs
+    # stop on their energy criterion, each at its own step, so there the
+    # residual also holds the DFTs' different truncations (printed)
+    out_all, counts = counted(sim.run)
+    assert counts["chunk_steps"] == out_all["steps"] // chunk
+    fi, f = design.fi, eps.freq_hz[design.fi]
+    resid_stop = superposition_residual(sim, eps, out_all, fi)
+    n_fix = max(r["steps"] for r in rec.runs)
+    fixed = dataclasses.replace(sim, cfg=dataclasses.replace(
+        sim.cfg, n_steps_max=n_fix, end_criteria=0.0))
+    (eps_fix, out_fix), counts = counted(lambda: (compute_embedded_patterns(
+        fixed, theta_deg=np.degrees(eps.theta), phi_deg=np.degrees(eps.phi),
+        freq_idx=[fi]), fixed.run()))
+    assert eps_fix.ok, eps_fix.message
+    assert counts["chunk_steps"] == 3 * n_fix // chunk, counts
+    resid = superposition_residual(fixed, eps_fix, out_fix, 0)
+    assert resid < SUPERPOSITION, resid
+    say("22", f"array 2x1 all ports on: far field at {f / 1e9:.4f} GHz "
+              f"against the embedded patterns weighted by the run's incident "
+              f"waves: residual {resid:.3e} with the two one-hot runs and the "
+              f"all-on run at {n_fix} steps each ({counts['chunk_steps']} "
+              f"chunk_steps; bound {SUPERPOSITION:g}, "
+              f"tests/test_array_synth.py); {resid_stop:.3e} for the design's "
+              f"patterns and the all-on run to its energy stop "
+              f"({out_all['steps']} steps; not gated) [{card}]")
+
+    # linearity across re-excitations on the same preparation, at a fixed
+    # step count: K1's resident form copies the stamps in at each launch
+    with runs_recorded() as lin:
+        for drive in ((1.0, 0.0), (0.0, 1.0), (1.0, 1.0)):
+            set_port_excitation(sim, drive)
+            out, counts = counted(
+                lambda: sim.run(abort_cb=abort_after(LINEAR_CHUNKS)))
+            assert out["aborted"] and out["steps"] == LINEAR_CHUNKS * chunk
+            assert_only(counts, {"chunk_steps"}, "linearity")
+    form = [k for k, v in fdtd_cuda.launches_by_form.items() if v]
+    lin_err = linear_err([r["out"] for r in lin.runs])
+    say("22", f"array 2x1 linearity, drives (1, 0), (0, 1), (1, 1) of the "
+              f"same preparation: {runs_text(lin.runs, [LINEAR_CHUNKS * row['ms'] / 1e3] * 3)}"
+              f", {LINEAR_CHUNKS} chunk_steps each (form {form}); uf and if_ "
+              f"of drive (1, 1) == (1, 0) + (0, 1) within {lin_err:.2e} of "
+              f"their peak (asserted 1e-6), fields within 1e-4 of each "
+              f"component's peak [{card}]")
+
+    # a checkpoint: stopped after two chunks, saved, loaded, resumed
+    set_port_excitation(sim, [float(p.spec.excite) for p in sim.ports])
+    stopped = sim.run(abort_cb=abort_after(2))
+    assert stopped["aborted"] and stopped["steps"] == 2 * chunk
+    path = "outputs/smoke_checkpoint/array_2x1.npz"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_state(path, stopped)
+    t0 = time.perf_counter()
+    resumed, counts = counted(lambda: sim.run(resume_state=load_state(path)))
+    resume_s = time.perf_counter() - t0
+    assert resumed["steps"] == out_all["steps"], (resumed["steps"], out_all["steps"])
+    assert counts["chunk_steps"] == (out_all["steps"] - 2 * chunk) // chunk
+    err = compare_runs(resumed, out_all, "checkpoint resume")
+    same = all(torch.equal(x, y) for x, y in zip(resumed["fields"],
+                                                 out_all["fields"]))
+    say("22", f"checkpoint: the all-on run stopped by abort_cb after 2 chunks "
+              f"({stopped['steps']} steps), saved to {path} "
+              f"({os.path.getsize(path):,} B), loaded and resumed to "
+              f"{resumed['steps']} steps ({counts['chunk_steps']} chunk_steps, "
+              f"{resume_s:.3f} s with the load): "
+              f"== the straight run (uf, if_, nf_e, nf_h, fields), max |err| "
+              f"{err:.3e}, fields bit-equal {same} [{card}]")
+
+    # the CLI: python -m fdtd_solver_antennas_tpu_torch array --nx 2 --ny 1
+    outdir = "outputs/smoke_array"
+    argv = ["array", "--frequency-ghz", "2.45", "--er", "4.3", "--h-mm", "1.6",
+            "--loss-tangent", "0.02", "--nx", "2", "--ny", "1",
+            "--outdir", outdir]
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text), runs_recorded() as cli_runs:
+        _none, counts = counted(lambda: cli.main(argv))
+    cli_s = time.perf_counter() - t0
+    cli_busy = [r["steps"] // chunk * row["ms"] / 1e3 for r in cli_runs.runs]
+    text = text.getvalue()
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    assert summary["device"].startswith("cuda"), summary
+    assert summary["n_ports"] == 2 and len(summary["s11_db"]) == 2
+    assert_only(counts, {"chunk_steps"}, "cli array")
+    with np.load(f"{outdir}/array_embedded.npz") as zf:
+        assert set(zf.files) == {"freq_hz", "theta", "phi", "e_theta", "e_phi",
+                                 "s", "s_freqs_hz", "port_centers_m"}
+        cli_err = max(close("cli S", zf["s"], sm.s),
+                      close("cli e_theta", zf["e_theta"], eps.e_theta),
+                      close("cli e_phi", zf["e_phi"], eps.e_phi))
+    f_ts, s_ts, z_ts = read_touchstone(f"{outdir}/array.s2p")
+    np.testing.assert_allclose(s_ts, sm.s, rtol=1e-6, atol=1e-9)
+    assert z_ts == 50.0 and len(f_ts) == len(sm.freq_hz)
+    say("22", f"CLI {' '.join(argv)}: one-hot "
+              f"{runs_text(cli_runs.runs, cli_busy)}; {counts['chunk_steps']} "
+              f"chunk_steps, nothing else; the whole command {cli_s:.1f} s; "
+              f"summary: "
+              f"synthesis {summary['synth_freq_ghz']:.4f} GHz, S11 "
+              f"{slashed(summary['s11_db'], '.2f')} dB, max coupling "
+              f"{summary['max_coupling_db']:.2f} dB, broadside "
+              f"{summary['broadside_gain_dbi']:.2f} dBi at "
+              f"{summary['broadside_peak_deg']}, steered "
+              f"{summary['steered_gain_dbi']:.2f} dBi at "
+              f"{summary['steered_peak_deg']}; wrote array_embedded.npz (S and "
+              f"patterns == design_array's, max |err| {cli_err:.3e}) and "
+              f"array.s2p [{card}]")
+    return dict(row, launches=sum(r["steps"] // chunk for r in rec.runs))
+
+
+def phase_mixed_smatrix(mixed_prep, k2, card):
+    """The mixed patch+horn scene's two-port S matrix under MUR through
+    ``MultiPatchScene``'s prepared simulation (phase 8's): two one-hot runs
+    on K2's march. Then the march's cached launch arguments: a state
+    re-excited between launches steps with the new drive, as the plain
+    twin does."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import set_port_excitation
+    from fdtd_solver_antennas_tpu_torch.solvers.sparams import compute_s_matrix
+
+    sim = mixed_prep.sim
+    T, decim = sim.stream_T, sim.probe_decim
+    with runs_recorded() as rec:
+        res, counts = counted(lambda: compute_s_matrix(mixed_prep))
+    assert res.ok, res.message
+    assert len(rec.runs) == 2
+    assert_only(counts, {"stream_steps", "stream_march", "probe_gather"},
+                "mixed S matrix")
+    steps = [r["steps"] for r in rec.runs]
+    assert counts["stream_march"] == sum(steps) // T, counts
+    assert counts["probe_gather"] == sum(steps) // decim, counts
+    e_stop = [r["out"]["e_ratio"] < sim.cfg.end_criteria for r in rec.runs]
+    busy = [(s // T * k2["ms"] + s // decim * k2["probe"]["ms"]) / 1e3
+            for s in steps]
+    s = res.s
+    say("22", f"mixed scene S matrix (MultiPatchScene's prepared sim, MUR, "
+              f"{sim.grid.shape}, stream T={T}): one-hot "
+              f"{runs_text(rec.runs, busy)}; energy stops {e_stop}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; "
+              f"{smatrix_text(res)}; |S21| max "
+              f"{20 * np.log10(np.nanmax(np.abs(s[1, 0]))):.2f} dB "
+              f"(patch-horn isolation) [{card}]")
+
+    # the march's packed arguments, kept on a running state, see a
+    # re-excitation between two launches
+    ops = sim.operands
+    wf = np.random.default_rng(5).uniform(-1.0, 1.0, 8 * T).tolist()
+
+    def go(impl, second):
+        set_port_excitation(sim, (1.0, 0.0))
+        st = fdtd_cuda.new_state(sim.padded_shape, sim.device, False)
+        for k in range(8):
+            if k == 4:
+                cached = st._stream
+                set_port_excitation(sim, second)
+            impl.stream_steps(ops, st, wf[k * T:(k + 1) * T])
+        assert st._stream is cached
+        return tuple(t.clone() for t in st.fields)
+
+    fdtd_stream.reset_launch_counts()
+    kern = go(fdtd_stream.kernels, (0.0, 1.0))
+    assert fdtd_stream.launches_by_kernel["stream_march"] == 8
+    plain = go(fdtd_stream.plain, (0.0, 1.0))
+    stale = go(fdtd_stream.kernels, (1.0, 0.0))
+    set_port_excitation(sim, [float(p.spec.excite) for p in sim.ports])
+    err = max(close(f"re-excited march {i}", a, b)
+              for i, (a, b) in enumerate(zip(kern, plain)))
+    moved = max(float((a - b).abs().max()) for a, b in zip(kern, stale))
+    assert moved > 1e3 * max(err, 1e-30), (moved, err)
+    say("22", f"mixed scene, one state re-excited between march launches 4 "
+              f"and 5 (its packed arguments reused): == the plain twin, max "
+              f"|err| {err:.3e}; the new drive moved the fields by up to "
+              f"{moved:.3e} against the old one [{card}]")
+    return dict(launches=counts["stream_march"])
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -3259,6 +3681,13 @@ def main() -> int:
     k20 = timed_phase("20", phase_microstrip_main_path, card)
     k21 = timed_phase("21", phase_solvers_main_path, card)
 
+    # 22. the multi-port slice: the S matrix (two patches on K1, the mixed
+    # scene on the march), the 2x1 array, re-excitation, a checkpoint, the
+    # CLI's array
+    timed_phase("22", phase_two_patch_smatrix, card)
+    k22 = timed_phase("22", phase_array_main_path, card)
+    k22m = timed_phase("22", phase_mixed_smatrix, k2["prep"], k2, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -3343,7 +3772,13 @@ def main() -> int:
         for name, source, K, row in (
             ("chunk_steps_msl", K1_SOURCE, K1_REPLACES, k20),
             ("stream_steps_cpml_microstrip_3d", K2_SOURCE, K2_REPLACES,
-             k21["microstrip_3d q5 PML_8"]))
+             k21["microstrip_3d q5 PML_8"]),
+            # the multi-port slice (phase 22): K1 on the 2x1 array's
+            # one-hot runs, timed at the array's shapes; the march on the
+            # mixed scene's two one-hot runs, timed at phase 8
+            ("chunk_steps_array", K1_SOURCE, K1_REPLACES, k22),
+            ("stream_steps_sparams", K2_SOURCE, K2_REPLACES,
+             dict(k2, launches=k22m["launches"])))
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

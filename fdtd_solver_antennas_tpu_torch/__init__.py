@@ -29,6 +29,12 @@ from .solvers.microstrip_3d import (
 from .solvers.patch_2d import Prepared2D, prepare_patch_2d, run_prepared_2d
 from .solvers.patch_fixed import prepare_patch_fixed, probe_fdtd, run_prepared_fixed
 from .solvers.patch_legacy import prepare_patch_legacy, run_prepared_legacy
+from .solvers.sparams import SMatrixResult, compute_s_matrix
+from .solvers.array_synth import (
+    ArrayPattern,
+    EmbeddedPatternSet,
+    compute_embedded_patterns,
+)
 
 __all__ = [
     "AnalyticalPatchSolver",
@@ -55,4 +61,9 @@ __all__ = [
     "prepare_patch_fixed",
     "probe_fdtd",
     "run_prepared_fixed",
+    "SMatrixResult",
+    "compute_s_matrix",
+    "ArrayPattern",
+    "EmbeddedPatternSet",
+    "compute_embedded_patterns",
 ]

@@ -1,13 +1,15 @@
-"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn ...``.
+"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn|array ...``.
 
-Counterpart of the ``fdtd``, ``s11`` and ``horn`` subcommands of
-``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
+Counterpart of the ``fdtd``, ``s11``, ``horn`` and ``array`` subcommands
+of ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
 canonical patch (``--solver fixed``) or of the microstrip-fed patch
 (``--solver microstrip``, the ``s11`` default), each printing its engine
-path and a JSON summary and writing ``s11.npz`` and a Touchstone file; or
-of a pyramidal horn (JSON summary and ``s11.npz``). Every subcommand runs
-on ``--device cuda`` unless ``--device cpu`` is asked for. It draws no
-plots.
+path and a JSON summary and writing ``s11.npz`` and a Touchstone file; of
+a pyramidal horn (JSON summary and ``s11.npz``); or of an nx×ny patch
+array, one run per port (JSON summary, ``array_embedded.npz`` with the
+embedded element patterns and the S matrix, and the array's Touchstone
+file). Every subcommand runs on ``--device cuda`` unless ``--device cpu``
+is asked for. It draws no plots.
 """
 
 from __future__ import annotations
@@ -66,6 +68,23 @@ def main(argv=None) -> None:
                    default="microstrip")
     s.add_argument("--feed-direction", type=str, default="-X")
     s.add_argument("--steps-max", type=int, default=30_000)
+    a = sub.add_parser(
+        "array",
+        help="nx×ny patch array: embedded element patterns, full S-matrix, "
+        "and steered-beam synthesis from N one-hot FDTD runs",
+    )
+    _add_common_antenna_args(a)
+    a.add_argument("--nx", type=int, default=2)
+    a.add_argument("--ny", type=int, default=1)
+    a.add_argument("--spacing-mm", type=float, default=None,
+                   help="element pitch (default: free-space λ0/2)")
+    a.add_argument("--mesh-quality", type=int, default=3)
+    a.add_argument("--steer-theta", type=float, default=25.0)
+    a.add_argument("--steer-phi", type=float, default=0.0)
+    a.add_argument("--steering", choices=["conjugate", "geometric"],
+                   default="conjugate")
+    a.add_argument("--theta-step", type=float, default=5.0)
+    a.add_argument("--phi-step", type=float, default=5.0)
     args = parser.parse_args(argv)
     if args.cmd == "horn":
         _horn(args)
@@ -85,6 +104,9 @@ def main(argv=None) -> None:
         metal=args.metal,
         loss_tangent=args.loss_tangent,
     )
+    if args.cmd == "array":
+        _array(args, params, outdir)
+        return
     if args.solver == "fixed":
         from .solvers.patch_fixed import prepare_patch_fixed, run_prepared_fixed
 
@@ -131,6 +153,45 @@ def main(argv=None) -> None:
     ts = write_touchstone(
         outdir / "s11", result.freq, result.s11, z_ref=50.0,
         comments=[f"{args.solver} patch, f0={params.frequency_hz/1e9:g} GHz"],
+    )
+    print(f"Saved: {ts}")
+
+
+def _array(args, params, outdir: Path) -> None:
+    """The ``array`` subcommand: ``design_array``, then the JAX CLI's JSON
+    summary, ``array_embedded.npz`` and the Touchstone file (no plot)."""
+    from .post.touchstone import write_touchstone
+    from .solvers.array_synth import array_run_summary, design_array
+
+    design = design_array(
+        params, args.nx, args.ny, args.spacing_mm,
+        mesh_quality=args.mesh_quality,
+        theta_step_deg=args.theta_step, phi_step_deg=args.phi_step,
+        verbose=1, device=args.device,
+        progress_cb=lambda j, n, r: (
+            print(f"one-hot run {j}/{n} done") if j and r >= j / n else None
+        ),
+    )
+    if not design.ok:
+        raise SystemExit(design.message)
+    summary, _broadside, _steered, _ = array_run_summary(
+        design, args.steer_theta, args.steer_phi, kind=args.steering
+    )
+    summary = {"design_freq_ghz": params.frequency_hz / 1e9, **summary,
+               "device": str(design.prep.sim.device)}
+    print(json.dumps(summary, indent=2))
+    eps, sm = design.patterns, design.smatrix
+    np.savez(
+        outdir / "array_embedded.npz",
+        freq_hz=eps.freq_hz, theta=eps.theta, phi=eps.phi,
+        e_theta=eps.e_theta, e_phi=eps.e_phi,
+        s=sm.s, s_freqs_hz=sm.freq_hz,
+        port_centers_m=eps.port_centers_m,
+    )
+    print(f"Saved: {outdir / 'array_embedded.npz'}")
+    ts = write_touchstone(
+        outdir / "array", sm.freq_hz, sm.s, z_ref=sm.z_ref,
+        comments=[f"{args.nx}x{args.ny} patch array, full S matrix"],
     )
     print(f"Saved: {ts}")
 

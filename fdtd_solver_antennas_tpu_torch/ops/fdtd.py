@@ -12,7 +12,9 @@ Counterpart of ``fdtd_solver_antennas_tpu/ops/fdtd.py`` (its XLA path):
 - decimated probe sampling: port V/I and Huygens-box tangential fields
   every D steps, staged per chunk and folded into the DFT accumulators as
   matmuls;
-- an energy-decay early exit checked once per chunk.
+- an energy-decay early exit checked once per chunk;
+- re-excitation of a prepared simulation (:func:`set_port_excitation`),
+  its source stamps rewritten on the device in place.
 
 The steps are K1's ``chunk_steps`` (``ops/fdtd_cuda.py``, "chunk" mode):
 one launch per termination chunk, the probe samples taken in the kernel;
@@ -953,6 +955,46 @@ def build_simulation(
         probes=probes,
     )
     return sim
+
+
+def set_port_excitation(sim: PreparedSimulation, scales) -> None:
+    """Re-excite a prepared simulation without re-voxelizing or
+    re-preparing (the JAX package's function of the same name).
+
+    ``scales`` gives every port's new excitation amplitude, lumped ports
+    first, then MSL ports (the order of the uf/if_ port rows). Each port's
+    ``src_col`` becomes its excite=1 basis ``src_col_unit`` times the
+    float32 scale; the stamps are rebuilt with :func:`build_src_mats` and
+    copied into the existing ``sim.operands.src`` tensors in place. The
+    port loads are untouched (a lumped port's resistance lives in the σ of
+    its cells), so a port scaled to 0 stays a matched termination. A
+    component that had a stamp keeps it, all zeros when no port on it is
+    driven; one that had none keeps ``None``. So the run's mode, launch
+    plans and storage forms are the same before and after.
+
+    In place, because launches hold the stamps by address: K1's and K2's
+    packed launch arguments (kept on a run's state, ``fdtd_cuda`` and
+    ``fdtd_stream``'s ``_StreamBuffers``) point at these tensors, and K1's
+    resident form copies them to shared memory at the start of each
+    launch, so the next launch of any of them, even on a state that is
+    already running, steps with the new drive. A K4 stepper
+    (``ops/fdtd_steps.py::build_stepper``) on the simulation's device
+    shares the tensors and sees it too. A stepper on a copy does not: an
+    explicit run (``parallel.build_explicit_run``) builds each slab's
+    stamps from ``src_col`` when it is built, so one built before a
+    re-excitation keeps the drive it was built with; build it again after.
+    """
+    all_ports = list(sim.ports) + list(sim.msl_ports)
+    scales = list(np.asarray(scales, np.float64).ravel())
+    if len(scales) != len(all_ports):
+        raise ValueError(
+            f"expected {len(all_ports)} port scales, got {len(scales)}")
+    for p, s in zip(all_ports, scales):
+        p.src_col = (p.src_col_unit * np.float32(s)).astype(np.float32)
+    src = build_src_mats(sim, *sim.padded_shape)
+    for m, t in enumerate(sim.operands.src):
+        if t is not None:  # the ports, hence the stamped components, are fixed
+            t.copy_(torch.from_numpy(src[m]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,6 @@
-"""Post-processing: port spectra, near-to-far-field transform, Touchstone."""
+"""Post-processing: port spectra, near-to-far-field transform, Touchstone,
+checkpoints."""
+
+from .checkpoint import load_state, save_state
+
+__all__ = ["save_state", "load_state"]

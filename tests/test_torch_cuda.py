@@ -1263,3 +1263,117 @@ def test_msl_stream_run_equals_plain(cuda, boundary):
     assert fdtd_cuda.launches["probe_gather"] == steps // D
     assert fdtd_cuda.launches["chunk_steps"] == 0
     _assert_runs_close(k, run_simulation(sim, fdtd_stream.plain))
+
+
+# ---------------------------------------------------------------------------
+# re-excitation in place (ops.fdtd.set_port_excitation)
+# ---------------------------------------------------------------------------
+
+def _two_patch_sim(mode, n_steps=1344):
+    """tests/test_sparams.py's two-patch scene (63×20×21, two lumped
+    z-ports) on the card for a fixed 1,344 steps (3 chunks of 4 × 112);
+    ``mode`` forces K1's chunk kernel or K2's march (T = 4)."""
+    scene = Scene()
+    scene.add_material_box("sub", 2.2, 0.0, [-30, -15, 0], [30, 15, 1.6], 0)
+    scene.add_metal_box("gnd", [-30, -15, 0], [30, 15, 0], priority=10)
+    for cx, name in ((-13.0, "pa"), (13.0, "pb")):
+        scene.add_metal_box(
+            name, [cx - 6, -5, 1.6], [cx + 6, 5, 1.6], priority=10)
+    scene.add_lumped_port(1, 50.0, [-13, 0, 0], [-13, 0, 1.6], direction="z")
+    scene.add_lumped_port(2, 50.0, [13, 0, 0], [13, 0, 1.6], direction="z")
+    mb = MeshBuilder()
+    mb.add_line("x", np.linspace(-34, 34, 35))
+    mb.add_line("x", [-19.0, -13.0, -7.0, 7.0, 13.0, 19.0])
+    mb.add_line("y", np.linspace(-19, 19, 20))
+    mb.add_line("z", list(np.linspace(-8, 12, 11)) + [0.0, 0.8, 1.6])
+    cfg = FDTDConfig(n_steps_max=n_steps, end_criteria=1e-30, check_every=500,
+                     pallas_mode=mode, stream_T=4 if mode == "stream" else None)
+    return build_simulation(
+        scene, mb.build(3.0), f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
+        port_freqs_hz=np.linspace(2e9, 3e9, 11),
+        nf_freqs_hz=np.array([2.45e9]))
+
+
+def _assert_linear(a, b, ab):
+    """Drive (1, 1) equals (1, 0) + (0, 1) to float32 rounding: the port
+    DFT sums within 1e-6 of their peak (8 ulps), the fields within 1e-4
+    of each component's peak (rounding over the steps, in fields far
+    below the peak where the two drives cancel)."""
+    for key in ("uf", "if_"):
+        np.testing.assert_allclose(a[key] + b[key], ab[key], rtol=0,
+                                   atol=1e-6 * np.abs(ab[key]).max())
+    for fa, fb, fab in zip(a["fields"], b["fields"], ab["fields"], strict=True):
+        fab = fab.cpu().numpy()
+        np.testing.assert_allclose((fa + fb).cpu().numpy(), fab, rtol=0,
+                                   atol=1e-4 * np.abs(fab).max())
+
+
+@pytest.mark.parametrize("mode", ["chunk", "stream"])
+def test_reexcitation_is_linear_on_the_card(cuda, mode):
+    """Three drives of one prepared scene, re-excited in place between the
+    runs: K1's resident form (it copies the stamps to shared memory at
+    each launch) and K2's march see each new stamp."""
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import set_port_excitation
+
+    sim = _two_patch_sim(mode)
+    if mode == "chunk":
+        st = fdtd_cuda.new_state(sim.padded_shape, cuda, False)
+        assert fdtd_cuda.chunk_launch_plan(sim.operands, st).form == "resident"
+    src = sim.operands.src
+    runs = []
+    for drive in ((1.0, 0.0), (0.0, 1.0), (1.0, 1.0)):
+        set_port_excitation(sim, drive)
+        assert sim.operands.src is src
+        fdtd_cuda.reset_launch_counts()
+        fdtd_stream.reset_launch_counts()
+        runs.append(run_simulation(sim, fdtd_stream.kernels))
+        assert runs[-1]["steps"] == 1344
+        if mode == "chunk":
+            assert fdtd_cuda.launches_by_form["resident"] == 3
+            assert sum(fdtd_cuda.launches.values()) == 3
+        else:
+            assert fdtd_stream.launches_by_kernel["stream_march"] == 1344 // 4
+            assert fdtd_cuda.launches["chunk_steps"] == 0
+    _assert_linear(*runs)
+    assert not np.allclose(runs[0]["uf"], runs[1]["uf"])
+
+
+@pytest.mark.parametrize("mode", ["chunk", "stream"])
+def test_reexcitation_reaches_a_running_state(cuda, mode):
+    """Re-excited between two launches on one state: the packed launch
+    arguments kept on the state (K1's ``_chunk``, K2's ``_stream``) are
+    reused and point at the rewritten stamps, so the second launch steps
+    with the new drive, as the plain twin does."""
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
+        ProbeDFT, padded_waveform, set_port_excitation)
+
+    sim = _two_patch_sim(mode)
+    ops, D = sim.operands, sim.probe_decim
+    wf = padded_waveform(sim)
+
+    def go(impl, second):
+        set_port_excitation(sim, (1.0, 0.0))
+        st = fdtd_cuda.new_state(sim.padded_shape, cuda, False)
+        bufs = ProbeDFT(sim, 2, cuda).bufs
+        if mode == "chunk":
+            wf_t = torch.tensor(wf, dtype=torch.float32, device=cuda)
+            impl.chunk_steps(ops, st, wf_t, 0, 2, D, bufs)
+            cached = st._chunk
+            set_port_excitation(sim, second)
+            impl.chunk_steps(ops, st, wf_t, 2 * D, 2, D, bufs)
+            assert st._chunk is cached
+        else:
+            for k in range(4 * D // 4):
+                if k == 2 * D // 4:
+                    cached = st._stream
+                    set_port_excitation(sim, second)
+                impl.stream_steps(ops, st, wf[4 * k:4 * k + 4])
+            assert st._stream is cached
+        return (*st.fields, bufs)
+
+    kern = go(fdtd_stream.kernels, (0.0, 1.0))
+    plain = go(fdtd_stream.plain, (0.0, 1.0))
+    same = go(fdtd_stream.kernels, (1.0, 0.0))
+    for a, b in zip(kern, plain, strict=True):
+        _close(a, b)
+    assert not torch.allclose(kern[2], same[2])
