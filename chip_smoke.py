@@ -196,7 +196,24 @@ and the script exits non-zero without printing a result:
     simulation (two one-hot runs on the march, ``stream_march`` and
     ``probe_gather`` alone) and one state re-excited between two march
     launches against the plain twin. Each run's steps, wall, launches and
-    idle share are printed.
+    idle share are printed;
+23. the inverse-design slice at the CLI's defaults (47×40×33, a 28×18 px
+    region, 3,310 differentiable steps, run as 3,350 in 67 checkpointed
+    chunks of 50): the exposed step (``ops.fdtd.ExposedStep``, PyTorch's
+    operations on the card) against K1's ``chunk_steps`` over one launch
+    of 500 × D = 1 steps on the overlay of a thresholded seeded density
+    (fields and every step's probe samples); the S11-band and broadside
+    losses with their gradients, finite, the largest-|g| pixel against
+    central differences (ε = 5e-2, within 5%: tests/test_inverse.py);
+    ``optimize(n_iters=3, lr=0.1)`` lowering the loss, each iteration's
+    wall, forward and forward + backward µs a step and peak memory;
+    ``validate(..., pattern=True)`` of the result through K1's
+    ``chunk_steps`` alone (counted) and ``nf2ff_transform`` on the card,
+    the base coefficients bit-equal afterwards, ρ ≡ 1 equal bit
+    for bit to the metal-patch scene built fresh and run; one such launch
+    against its twin, timed beside its bound; then the CLI's ``inverse
+    --iters 1`` through ``__main__.main`` (``chunk_steps`` alone; writes
+    ``inverse_design.npz`` under ``outputs/smoke_inverse``).
 
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -208,6 +225,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -780,17 +798,19 @@ def bound(nbytes: float, flops: float):
 def k1_chunk_bound(ops, n_sub, D, all_psi=False):
     """Bound of one ``chunk_steps`` launch: the fields in and out once, the
     ψ of ``psi_cells`` in and out once, ca/cb, the sources and the n_sub·D
-    samples in once, each probe table entry the data uses (index, weight,
-    value) read and each sample written once per interval; n_sub·D steps
-    of H and E updates (as ``k2_bound`` counts them) and 2 operations per
-    used entry per interval."""
+    samples in once, the index and weight of each probe table entry the
+    data uses read once (the table is the same every interval, and the
+    values it gathers are the fields, already counted), each interval's
+    samples written once; n_sub·D steps of H and E updates (as
+    ``k2_bound`` counts them) and 2 operations per used entry per
+    interval."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
     psi = psi_cells(ops, (0, ops.shape[0]), all_psi)
     rows = ops.probes.n_rows
     used = int(torch.count_nonzero(ops.probes.w))
     nbytes = (4 * n * (6 + 6 + n_src + 6) + 8 * psi + 4 * n_sub * D
-              + n_sub * (12 * used + 4 * rows))
+              + 8 * used + 4 * n_sub * rows)
     return bound(nbytes, n_sub * D * (48 * n + 4 * psi) + n_sub * 2 * used)
 
 
@@ -2140,17 +2160,16 @@ def k1_batch_bound(ops, batch, n_sub, D):
     stepping: per variant its fields in and out once, its ψ as
     ``psi_cells`` counts them in and out once and its ca/cb in once; the
     shared source stamps, samples and probe table (code and weight) in
-    once; each variant's field value of every used entry read and each
-    sample written once per interval; per variant the operations
-    ``k1_chunk_bound`` counts."""
+    once; each variant's samples written once per interval (the values
+    the table gathers are the fields, already counted); per variant the
+    operations ``k1_chunk_bound`` counts."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
     psi = psi_cells(ops, (0, ops.shape[0]))
     rows = ops.probes.n_rows
     used = int(torch.count_nonzero(ops.probes.w))
     nbytes = (batch * (4 * n * (6 + 6 + 6) + 8 * psi) + 4 * n * n_src
-              + 4 * n_sub * D
-              + n_sub * (8 * used + batch * (4 * used + 4 * rows)))
+              + 4 * n_sub * D + 8 * used + batch * n_sub * 4 * rows)
     flops = batch * (n_sub * D * (48 * n + 4 * psi) + n_sub * 2 * used)
     return bound(nbytes, flops)
 
@@ -3538,6 +3557,317 @@ def phase_mixed_smatrix(mixed_prep, k2, card):
     return dict(launches=counts["stream_march"])
 
 
+INVERSE_ITERS = 3  # optimize(n_iters=3, lr=0.1), tests/test_inverse.py's
+# The CLI's inverse runs one iteration: an iteration at its defaults is
+# 10-16 s on an NVIDIA H100 at 700 W, launch-bound (PERF.md), and the phase's
+# other iterations are the three above
+CLI_ITERS = 1
+INVERSE_STEPS = 500  # (a): the exposed step against K1, one chunk at D = 1
+FD_EPS = 5e-2  # tests/test_inverse.py's central-difference step
+FD_TOL = 0.05  # and its bound on the gradient against it
+
+
+def inverse_metal_sim(prob):
+    """The inverse problem's scene with the design region stamped as a
+    metal sheet (tests/test_inverse.py:60-97), on its grid and controls."""
+    from fdtd_solver_antennas_tpu_torch.models.scene import Scene
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import build_simulation
+    from fdtd_solver_antennas_tpu_torch.physics import substrate_conductivity
+
+    params, sim, r = canonical_params(), prob.sim, prob.region
+    f0, h, half = params.frequency_hz, params.h_m * 1e3, 30.0  # sub_mm / 2
+    scene = Scene()
+    scene.add_material_box(
+        "substrate", params.eps_r,
+        substrate_conductivity(f0, params.eps_r, params.loss_tangent),
+        [-half, -half, 0.0], [half, half, h], priority=0)
+    scene.add_metal_box("gnd", [-half, -half, 0.0], [half, half, 0.0],
+                        priority=10)
+    scene.add_metal_box("patch", [r.x_mm[0], r.y_mm[0], h],
+                        [r.x_mm[1], r.y_mm[1], h], priority=10)
+    scene.add_lumped_port(1, 50.0, [-6.0, 0.0, 0.0], [-6.0, 0.0, h],
+                          direction="z", excite=1.0)
+    return build_simulation(
+        scene, sim.grid, f0=f0, fc=sim.fc, cfg=sim.cfg, device="cuda",
+        port_freqs_hz=sim.port_freqs_hz, nf_freqs_hz=sim.nf_freqs_hz)
+
+
+def synced(fn):
+    """``(fn(), host seconds)``, the clock read after a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fd_check(loss_fn, rho, what):
+    """The loss and its gradient at ``rho``; the largest-|g| pixel against
+    central differences (tests/test_inverse.py's criterion). Returns the
+    seconds of the loss with its gradient and of one forward."""
+    r = torch.tensor(rho, device="cuda", requires_grad=True)
+
+    def value_and_grad():
+        v = loss_fn(r)
+        v.backward()
+        return v
+
+    val, grad_s = synced(value_and_grad)
+    g = r.grad.cpu().numpy()
+    assert np.isfinite(g).all(), what
+    i, j = (int(a) for a in np.unravel_index(np.argmax(np.abs(g)), g.shape))
+    plus, minus = rho.copy(), rho.copy()
+    plus[i, j] += FD_EPS
+    minus[i, j] -= FD_EPS
+    with torch.no_grad():
+        lp, fwd_s = synced(lambda: loss_fn(plus).item())
+        lm = loss_fn(minus).item()
+    fd = (lp - lm) / (2 * FD_EPS)
+    assert fd != 0.0 and abs(fd - g[i, j]) <= FD_TOL * abs(fd) + 1e-8, (
+        what, fd, g[i, j])
+    return val.item(), g, (i, j), fd, grad_s, fwd_s
+
+
+def chunk_loss_grad(prob, rho):
+    """The S11-band loss of ``prob`` at ``rho`` with its gradient."""
+    r = torch.tensor(rho, device="cuda", requires_grad=True)
+    prob.loss(r).backward()
+    return r.grad
+
+
+def traced_device_s(fn, path):
+    """(seconds the card was busy while ``fn()`` ran, number of device
+    activities) from a ``torch.profiler`` trace written to ``path``: the
+    union of its kernel, copy and set intervals; (None, 0) if the trace
+    holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None, 0
+    busy_us, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e6, len(spans)
+
+
+def phase_inverse_main_path(card):
+    """The inverse-design slice at the CLI's defaults: the exposed step
+    against K1's ``chunk_steps`` over one chunk, the S11-band and
+    broadside losses with their gradients against central differences,
+    three Adam iterations, ``validate`` through K1 alone (the base put
+    back bit for bit, ρ ≡ 1 equal to the metal-patch scene) and the CLI's
+    ``inverse``."""
+    import contextlib
+    import io
+
+    from fdtd_solver_antennas_tpu_torch import __main__ as cli
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
+        ExposedStep, chunk_geometry, padded_waveform)
+    from fdtd_solver_antennas_tpu_torch.post.ports import port_spectra
+    from fdtd_solver_antennas_tpu_torch.solvers.inverse import prepare_patch_inverse
+
+    params = canonical_params()
+    f0 = params.frequency_hz
+    prob, prep_s = synced(lambda: prepare_patch_inverse(
+        params, freqs_hz=np.linspace(0.9 * f0, 1.1 * f0, 5), device="cuda"))
+    sim = prob.sim
+    D, n_sub, _chunk, _ = chunk_geometry(sim)
+    n_total = -(-prob.n_steps // prob.remat_chunk) * prob.remat_chunk
+    assert sim.grid.shape == (47, 40, 33) and prob.region.shape == (28, 18)
+    assert prob.n_steps == 3310 and n_total == 3350, (prob.n_steps, n_total)
+    assert sim.pallas_mode == "chunk" and (D, n_sub) == (1, 500), (D, n_sub)
+    say("23", f"prepare_patch_inverse at the CLI's defaults (mesh lambda/20): "
+              f"grid {sim.grid.shape}, {sim.grid.num_cells:,} cells, region "
+              f"{prob.region.shape} px, {prob.n_steps} differentiable steps "
+              f"({n_total // prob.remat_chunk} checkpointed chunks of "
+              f"{prob.remat_chunk}), source {sim.n_source_steps} steps; "
+              f"{sim.pallas_mode_reason}; {prep_s:.2f} s")
+
+    # (a) the exposed step against K1 on a thresholded seeded density
+    rng = np.random.default_rng(23)
+    hard = (rng.uniform(size=prob.region.shape) >= 0.5).astype(np.float32)
+    with torch.no_grad():
+        coeffs = prob.overlay_coeffs(hard)
+    ops = dataclasses.replace(
+        sim.operands, ca=tuple(coeffs["ca_" + c] for c in ("ex", "ey", "ez")),
+        cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")))
+    wf = torch.tensor(padded_waveform(sim), dtype=torch.float32, device="cuda")
+    st = fdtd_cuda.new_state(sim.padded_shape, sim.device, False)
+    bufs = torch.zeros((INVERSE_STEPS, ops.probes.n_rows), device="cuda")
+    plan = fdtd_cuda.chunk_launch_plan(ops, st)
+    fdtd_cuda.chunk_steps(ops, st, wf, 0, INVERSE_STEPS, 1, bufs)
+    step = ExposedStep(sim)
+    E = H = torch.zeros((3, *sim.padded_shape), device="cuda")
+    samples = []
+    with torch.no_grad():
+        operands = step.operands(coeffs)
+        for n in range(INVERSE_STEPS):
+            E, H, _pe, _ph = step.step(E, H, None, None, *operands, wf[n])
+            samples.append(step.sample(E, H, step.all_rows))
+    err = max(close(f"exposed step vs K1, field {m}", a, b)
+              for m, (a, b) in enumerate(zip((*E, *H), fields_of(st))))
+    err = max(err, close("exposed step vs K1, probe samples",
+                         torch.stack(samples), bufs))
+    say("23", f"(a) the exposed step (autograd's forward) against K1's "
+              f"chunk_steps, one launch of {INVERSE_STEPS} x D=1 steps ("
+              f"{plan_text(plan)}, probe rows {ops.probes.n_rows:,}, bufs "
+              f"{tuple(bufs.shape)}) on the overlay of a thresholded seeded "
+              f"density ({int(hard.sum())} of {hard.size} px metal): fields "
+              f"and every step's probe samples agree, max |err| {err:.3e} "
+              f"[{card}]")
+
+    # (b) the losses and their gradients against central differences
+    rho = np.clip(0.5 + 0.1 * np.random.default_rng(7).standard_normal(
+        prob.region.shape), 0, 1).astype(np.float32)
+    for what, fn in (("S11 band", prob.loss),
+                     ("broadside gain", prob.broadside_gain_loss)):
+        val, g, ij, fd, grad_s, fwd_s = fd_check(fn, rho, what)
+        say("23", f"(b) {what} loss {val:.6f} at the seeded density: "
+                  f"gradient finite, max |g| {np.abs(g).max():.4e} at pixel "
+                  f"{ij}: {g[ij]:.5e} against central differences (eps "
+                  f"{FD_EPS:g}) {fd:.5e}, within {abs(fd - g[ij]) / abs(fd):.4f}"
+                  f" (bound {FD_TOL:g}); loss + gradient {grad_s:.3f} s "
+                  f"({grad_s / n_total * 1e6:.1f} us a step), forward "
+                  f"{fwd_s:.3f} s ({fwd_s / n_total * 1e6:.1f} us a step) "
+                  f"[{card}]")
+
+    # (c) three Adam iterations, each timed, its forward timed apart
+    fwd_s, marks = [], []
+    forward = prob.s11_fn
+
+    def timed_forward(r):
+        out, s = synced(lambda: forward(r))
+        fwd_s.append(s)
+        return out
+
+    def mark(it, loss, _rho):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), loss,
+                      torch.cuda.max_memory_allocated()))
+
+    prob._s11_fn = timed_forward
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prob.optimize(n_iters=INVERSE_ITERS, lr=0.1, callback=mark)
+    prob._s11_fn = forward
+    assert len(res.history) == INVERSE_ITERS, res.history
+    assert res.history[-1] < res.history[0], res.history
+    assert np.isfinite(res.s11).all()
+    for it, (t, loss, peak) in enumerate(marks):
+        wall = t - (marks[it - 1][0] if it else t0)
+        say("23", f"(c) optimize iteration {it + 1}/{INVERSE_ITERS}: loss "
+                  f"{loss:.6f}, wall {wall:.3f} s; forward "
+                  f"{fwd_s[it] / n_total * 1e6:.1f} us a step, the "
+                  f"iteration's wall per step {wall / n_total * 1e6:.1f} us "
+                  f"(forward, backward, Adam step and callback); "
+                  f"max_memory_allocated {peak / 2**20:,.1f} MiB [{card}]")
+    say("23", f"(c) optimize(n_iters={INVERSE_ITERS}, lr=0.1): loss "
+              f"{slashed(res.history, '.6f')} (falls), soft |S11| band "
+              f"{slashed(res.s11_db(), '.2f')} dB; {res.wall_s:.2f} s with "
+              f"the final S11 forward ({fwd_s[-1]:.3f} s) [{card}]")
+
+    # the device's share of one checkpointed chunk's loss and gradient
+    one = dataclasses.replace(prob, n_steps=prob.remat_chunk, _s11_fn=None,
+                              _pattern_fns=None)
+    walls = [synced(lambda: chunk_loss_grad(one, rho))[1] for _ in range(3)]
+    busy, spans = traced_device_s(lambda: chunk_loss_grad(one, rho),
+                                  "outputs/smoke_inverse/chunk_trace.json")
+    chunk_wall = float(np.median(walls[1:]))
+    busy_text = ("not measured: torch.profiler recorded no device activity"
+                 if busy is None else
+                 f"{busy * 1e3:.3f} ms busy in {spans} kernels, copies and "
+                 f"sets ({busy / prob.remat_chunk * 1e6:.1f} us a step), idle "
+                 f"share {1 - busy / chunk_wall:.3f}")
+    say("23", f"(c) one checkpointed chunk's loss and gradient "
+              f"({prob.remat_chunk} steps): wall {chunk_wall * 1e3:.3f} ms "
+              f"({chunk_wall / prob.remat_chunk * 1e6:.1f} us a step; "
+              f"{slashed([w * 1e3 for w in walls], '.3f')} ms, the first a "
+              f"warm-up); device under torch.profiler: {busy_text} [{card}]")
+
+    # (d) validate: K1 alone, the base put back, rho = 1 == the metal patch
+    base = {k: v.clone() for k, v in sim.coeffs.items()}
+    (val, counts), val_s = synced(lambda: counted(
+        lambda: prob.validate(res.rho, pattern=True)))
+    forms = dict(fdtd_cuda.launches_by_form)
+    assert_only(counts, {"chunk_steps"}, "validate")
+    assert counts["chunk_steps"] == val["steps"] // n_sub, (counts, val["steps"])
+    for k, v in base.items():
+        assert torch.equal(sim.coeffs[k], v), k
+    s11_db = 20 * np.log10(np.maximum(np.abs(val["spectra"].s11), 1e-12))
+    d_bs, d_max = val["broadside_directivity"], val["Dmax"]
+    assert np.isfinite(val["broadside_realized_gain_dbi"])
+    assert d_max >= d_bs - 1e-9 and d_bs > 0.0, (d_bs, d_max)
+    ones = np.ones(prob.region.shape, np.float32)
+    got = prob.validate(ones)
+    ref = inverse_metal_sim(prob).run()
+    assert got["steps"] == ref["steps"], (got["steps"], ref["steps"])
+    want = port_spectra(sim.port_freqs_hz, ref["uf"][0], ref["if_"][0],
+                        sim.dft_dt, z_ref=50.0)
+    for key in ("uf", "if_"):
+        assert np.array_equal(getattr(got["spectra"], key),
+                              getattr(want, key)), key
+    f_res = val["f_res_hz"]
+    say("23", f"(d) validate of the thresholded design "
+              f"({int(val['rho_binary'].sum())} of {hard.size} px metal): "
+              f"{val['steps']} steps in {val_s:.3f} s, {counts['chunk_steps']} "
+              f"chunk_steps (by form {forms}) and nothing else; f_res "
+              f"{f_res / 1e9:.4f} GHz, |S11|min {s11_db.min():.2f} dB; "
+              f"pattern=True through nf2ff_transform on the card: broadside "
+              f"D {d_bs:.3f}, Dmax {10 * np.log10(d_max):.2f} dBi, realized "
+              f"gain {val['broadside_realized_gain_dbi']:.2f} dBi; the "
+              f"base ca/cb bit-equal afterwards; rho = 1 through validate == "
+              f"the metal-patch scene built fresh and run ({got['steps']} "
+              f"steps, uf and if_ bit for bit) [{card}]")
+    row = k1_launch_alone(sim, "23", card, "inverse validate")
+
+    # (e) the CLI: python -m fdtd_solver_antennas_tpu_torch inverse
+    outdir = "outputs/smoke_inverse"
+    argv = ["inverse", "--frequency-ghz", "2.45", "--er", "4.3", "--h-mm",
+            "1.6", "--loss-tangent", "0.02", "--iters", str(CLI_ITERS),
+            "--outdir", outdir]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        (_none, cli_counts), cli_s = synced(lambda: counted(lambda: cli.main(argv)))
+    text = text.getvalue()
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    assert summary["device"].startswith("cuda"), summary
+    assert_only(cli_counts, {"chunk_steps"}, "cli inverse")
+    assert cli_counts["chunk_steps"] == summary["validated_steps"] // n_sub
+    assert f"iter {CLI_ITERS}/{CLI_ITERS}  loss=" in text, text
+    with np.load(f"{outdir}/inverse_design.npz") as zf:
+        assert set(zf.files) == {
+            "rho", "rho_binary", "loss_history", "freqs_hz", "s11",
+            "validated_freq_hz", "validated_s11", "region_x_mm", "region_y_mm"}
+        assert zf["rho"].shape == prob.region.shape
+        assert zf["loss_history"].shape == (CLI_ITERS,)
+        assert np.isfinite(zf["validated_s11"]).all()
+    say("23", f"CLI {' '.join(argv)}: {cli_s:.1f} s in all; loss "
+              f"{summary['loss_initial']:.6f} -> {summary['loss_final']:.6f}, "
+              f"validated {summary['validated_steps']} steps "
+              f"({cli_counts['chunk_steps']} chunk_steps, nothing else), f_res "
+              f"{summary['validated_f_res_ghz']:.4f} GHz, |S11|min "
+              f"{summary['validated_s11_min_db']:.2f} dB; wrote "
+              f"inverse_design.npz [{card}]")
+    return dict(row, launches=counts["chunk_steps"])
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -3688,6 +4018,10 @@ def main() -> int:
     k22 = timed_phase("22", phase_array_main_path, card)
     k22m = timed_phase("22", phase_mixed_smatrix, k2["prep"], k2, card)
 
+    # 23. the inverse-design slice: the exposed step under autograd, the
+    # two objectives' gradients, Adam, validate on K1, the CLI's inverse
+    k23 = timed_phase("23", phase_inverse_main_path, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -3778,7 +4112,11 @@ def main() -> int:
             # mixed scene's two one-hot runs, timed at phase 8
             ("chunk_steps_array", K1_SOURCE, K1_REPLACES, k22),
             ("stream_steps_sparams", K2_SOURCE, K2_REPLACES,
-             dict(k2, launches=k22m["launches"])))
+             dict(k2, launches=k22m["launches"])),
+            # the inverse-design slice (phase 23): K1 on validate's run at
+            # D = 1, timed at its shapes (the differentiated loop runs
+            # PyTorch's operations: no TPU kernel lies inside it)
+            ("chunk_steps_inverse", K1_SOURCE, K1_REPLACES, k23))
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -1,15 +1,17 @@
-"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn|array ...``.
+"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn|array|inverse ...``.
 
-Counterpart of the ``fdtd``, ``s11``, ``horn`` and ``array`` subcommands
-of ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
+Counterpart of the ``fdtd``, ``s11``, ``horn``, ``array`` and ``inverse``
+subcommands of ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
 canonical patch (``--solver fixed``) or of the microstrip-fed patch
 (``--solver microstrip``, the ``s11`` default), each printing its engine
 path and a JSON summary and writing ``s11.npz`` and a Touchstone file; of
 a pyramidal horn (JSON summary and ``s11.npz``); or of an nx×ny patch
 array, one run per port (JSON summary, ``array_embedded.npz`` with the
 embedded element patterns and the S matrix, and the array's Touchstone
-file). Every subcommand runs on ``--device cuda`` unless ``--device cpu``
-is asked for. It draws no plots.
+file); or the adjoint inverse design of the patch metallization
+(optimize, threshold, validate: progress lines, a JSON summary and
+``inverse_design.npz``). Every subcommand runs on ``--device cuda``
+unless ``--device cpu`` is asked for. It draws no plots.
 """
 
 from __future__ import annotations
@@ -85,6 +87,29 @@ def main(argv=None) -> None:
                    default="conjugate")
     a.add_argument("--theta-step", type=float, default=5.0)
     a.add_argument("--phi-step", type=float, default=5.0)
+    inv = sub.add_parser(
+        "inverse",
+        help="adjoint topology optimization of the patch metallization "
+        "against the S11 band or broadside realized gain "
+        "(optimize -> threshold -> validate)",
+    )
+    _add_common_antenna_args(inv)
+    inv.add_argument("--iters", type=int, default=40)
+    inv.add_argument("--lr", type=float, default=0.05)
+    inv.add_argument("--band-pct", type=float, default=10.0,
+                     help="loss band half-width around f0 in percent")
+    inv.add_argument("--n-freqs", type=int, default=5)
+    inv.add_argument("--mesh-divisor", type=float, default=20.0,
+                     help="design-region resolution: cells per wavelength")
+    inv.add_argument(
+        "--objective", choices=["s11_band", "broadside_gain"],
+        default="s11_band",
+        help="loss to optimize: mean |S11|^2 over the band, or negative "
+        "broadside realized gain D(0)*(1-|S11(f0)|^2) through the "
+        "differentiable NF2FF transform",
+    )
+    inv.add_argument("--beta", type=float, default=4.0,
+                     help="sigmoid sharpness pushing densities toward 0/1")
     args = parser.parse_args(argv)
     if args.cmd == "horn":
         _horn(args)
@@ -106,6 +131,9 @@ def main(argv=None) -> None:
     )
     if args.cmd == "array":
         _array(args, params, outdir)
+        return
+    if args.cmd == "inverse":
+        _inverse(args, params, outdir)
         return
     if args.solver == "fixed":
         from .solvers.patch_fixed import prepare_patch_fixed, run_prepared_fixed
@@ -194,6 +222,73 @@ def _array(args, params, outdir: Path) -> None:
         comments=[f"{args.nx}x{args.ny} patch array, full S matrix"],
     )
     print(f"Saved: {ts}")
+
+
+def _inverse(args, params, outdir: Path) -> None:
+    """The ``inverse`` subcommand: prepare, optimize, validate the binary
+    design, then the JAX CLI's JSON summary and ``inverse_design.npz`` (no
+    plot)."""
+    from .solvers import inverse
+
+    f0 = params.frequency_hz
+    half = args.band_pct / 100.0
+    freqs = np.linspace((1 - half) * f0, (1 + half) * f0, args.n_freqs)
+    print(f"Building differentiable problem (mesh λ/{args.mesh_divisor:g}) …")
+    prob = inverse.prepare_patch_inverse(
+        params, freqs_hz=freqs, mesh_divisor=args.mesh_divisor,
+        device=args.device,
+    )
+    ni, nj = prob.region.shape
+    print(
+        f"Design region {ni}×{nj} px over "
+        f"x∈[{prob.region.x_mm[0]:.1f},{prob.region.x_mm[1]:.1f}] "
+        f"y∈[{prob.region.y_mm[0]:.1f},{prob.region.y_mm[1]:.1f}] mm; "
+        f"{prob.n_steps} differentiable steps/iter"
+    )
+    res = prob.optimize(
+        n_iters=args.iters, lr=args.lr, beta_sharpen=args.beta,
+        objective=args.objective,
+        callback=lambda it, v, _r: print(
+            f"  iter {it + 1}/{args.iters}  loss={v:.5f}"
+        ),
+    )
+    pattern = args.objective == "broadside_gain"
+    val = prob.validate(res.rho, pattern=pattern)
+    spec = val["spectra"]
+    summary = {
+        "loss_initial": res.history[0],
+        "loss_final": res.history[-1],
+        "soft_s11_db_band": [float(v) for v in res.s11_db()],
+        "validated_f_res_ghz": (
+            val["f_res_hz"] / 1e9 if val["f_res_hz"] else None
+        ),
+        "validated_s11_min_db": (
+            float(np.min(20 * np.log10(np.maximum(np.abs(spec.s11), 1e-12))))
+            if spec is not None else None
+        ),
+        "validated_steps": val["steps"],
+        "optimize_wall_s": res.wall_s,
+    }
+    if pattern:
+        summary["objective"] = "broadside_gain"
+        summary["validated_broadside_directivity"] = val[
+            "broadside_directivity"
+        ]
+        summary["validated_broadside_realized_gain_dbi"] = val[
+            "broadside_realized_gain_dbi"
+        ]
+    summary["device"] = str(prob.device)
+    print(json.dumps(summary, indent=2))
+    np.savez(
+        outdir / "inverse_design.npz",
+        rho=res.rho, rho_binary=val["rho_binary"],
+        loss_history=np.asarray(res.history),
+        freqs_hz=res.freqs_hz, s11=res.s11,
+        validated_freq_hz=spec.freq_hz, validated_s11=spec.s11,
+        region_x_mm=np.asarray(prob.region.x_mm),
+        region_y_mm=np.asarray(prob.region.y_mm),
+    )
+    print(f"Saved: {outdir / 'inverse_design.npz'}")
 
 
 def _horn(args) -> None:

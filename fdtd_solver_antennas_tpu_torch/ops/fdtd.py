@@ -1411,3 +1411,255 @@ def _assemble_batch(sim, st, acc, steps, e_max, ratio) -> dict:
         fields=st.fields(),
         state=st,
     )
+
+
+# ---------------------------------------------------------------------------
+# the exposed step: one leapfrog iteration under torch.autograd
+# ---------------------------------------------------------------------------
+
+# The six curl terms in PSI_KEYS order (ψ_xy rides ∂/∂y of the z
+# component, …) as (derivative axis, component), and each component's curl
+# as the difference of two of them: x = xy − xz, y = yz − yx, z = zx − zy.
+_CURL_TERMS = ((1, 2), (2, 1), (2, 0), (0, 2), (0, 1), (1, 0))
+_CURL_PAIRS = ((0, 2, 4), (1, 3, 5))
+# the two field components tangential to the x, y and z walls
+_MUR_TANGENTIAL = (slice(1, 3), slice(0, 3, 2), slice(0, 2))
+
+
+def _axis_terms(F: torch.Tensor, inv: torch.Tensor, forward: bool) -> torch.Tensor:
+    """The (9, X, Y, Z) derivatives of a (3, X, Y, Z) field stack along
+    each axis a (rows 3a..3a+2), times ``inv`` (its inverse spacings as a
+    (9, X, Y, Z) stack): ``F[i+1] − F[i]`` (``forward``) or
+    ``F[i] − F[i−1]``, as the twins' ``_fdiff``/``_bdiff`` and the JAX
+    package's, whose neighbour past the edge reads 0. Here it is the
+    wrapped-around neighbour, and in every term a step uses that is 0 too:
+    forward, ``inv`` (a primary spacing) is 0 on the last plane; in a
+    backward term the last plane of H_c along an axis a ≠ c lies past the
+    grid's cells, where H stays 0 from a zero start (its ca/cb, and so its
+    E neighbours, are 0 there)."""
+    if forward:
+        d = [F.roll(-1, a + 1) - F for a in range(3)]
+    else:
+        d = [F - F.roll(1, a + 1) for a in range(3)]
+    return torch.cat(d) * inv
+
+
+class ExposedStep:
+    """One leapfrog iteration as a pure function of tensors.
+
+    Counterpart of the JAX package's exposed XLA step
+    (``_make_run_fn(..., _expose_step=True)`` and :func:`make_single_step`):
+    :meth:`field_step` ``(carry, n, coeffs, waveform) -> (carry, probes)``
+    and :meth:`init_carry` ``(coeffs, n_nf, n_pf)``, with the update order
+    of every run: H (and ψ_h under CPML), the lumped ports' I sampled from
+    the new H, E with ``coeffs``' ca/cb and the port-source FMA
+    ``src·waveform[n]`` (and ψ_e), the MUR walls x → y → z, then V sampled
+    from the new E. ``probes`` holds ``v`` and ``i`` (one entry per lumped
+    port) and ``faces_e``/``faces_h``, a (2, nu, nv) tangential (u, v)
+    sample per Huygens face. MUR, PEC and ``PML_N`` are supported.
+
+    Its inputs are never written (the MUR walls go into a fresh copy of
+    the new E), so ``torch.autograd`` differentiates through it: the
+    adjoint inverse design (``solvers/inverse.py``) runs it for a fixed
+    step count. A carry is one that steps produce from :meth:`init_carry`'s
+    zeros, whose H stays 0 past the grid's cells (:func:`_axis_terms`
+    reads it there). It runs on the simulation's device with
+    PyTorch's own operations; it is neither a kernel nor a kernel's plain
+    twin. The twins (``ops/fdtd_cuda.py``) update the fields in place,
+    which autograd refuses, and stay as the kernels' reference. In the
+    JAX package too the differentiated loop runs XLA ops, no Pallas
+    kernel. Each cell's arithmetic is the JAX step's; the three components
+    of a field move as one (3, X, Y, Z) stack and the six ψ as one (6, X,
+    Y, Z) stack, so a step is a few dozen operations (its cost on the card
+    is their launches). The source stamps are ``sim.operands.src`` (the
+    current excitation); the probes are rows of :func:`build_probe_gathers`.
+    """
+
+    def __init__(self, sim: PreparedSimulation):
+        self.sim = sim
+        ops = self.ops = sim.operands
+        dev = sim.device
+        # probe rows over the flat (Ex Ey Ez Hx Hy Hz) stack, each padded
+        # with weight-0 terms to its table's widest: the lumped ports' V
+        # then I rows, and those followed by the faces' E then H rows
+        pv, pi, fe, fh = probe_blocks(build_probe_gathers(sim),
+                                      int(np.prod(sim.padded_shape)))
+        n = len(sim.ports)
+        ports = [(pv[0][:n], pv[1][:n]), (pi[0][:n], pi[1][:n])]
+
+        def table(blocks):
+            k = max(i.shape[1] for i, _w in blocks)
+            pad = [((0, 0), (0, k - i.shape[1])) for i, _w in blocks]
+            idx = np.concatenate([np.pad(i, p) for (i, _w), p in zip(blocks, pad)])
+            w = np.concatenate([np.pad(w, p) for (_i, w), p in zip(blocks, pad)])
+            return (torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev))
+
+        self.port_rows = table(ports)
+        self.all_rows = table(ports + [fe, fh])
+        # the inverse spacings, primary and dual, as (9, X, Y, Z) stacks:
+        # axis a's profile in rows 3a..3a+2
+        def nine(prof):
+            return torch.cat([
+                fdtd_cuda._bvec(prof[a], a).expand(3, *sim.padded_shape)
+                for a in range(3)]).contiguous()
+
+        self.inv_p, self.inv_d = nine(ops.inv_p), nine(ops.inv_d)
+        self.psi_bc = None
+        if ops.pml is not None:
+            def six(prof):
+                return torch.stack([
+                    fdtd_cuda._bvec(prof[a], a).expand(sim.padded_shape)
+                    for a, _m in _CURL_TERMS])
+
+            self.psi_bc = {k: six(v) for k, v in ops.pml.items()}
+        terms = [3 * a + m for a, m in _CURL_TERMS]
+        self.terms = torch.tensor(terms, device=dev)
+        self.pairs = [torch.tensor(p, device=dev) for p in _CURL_PAIRS]
+        # without ψ the curl's terms straight from the nine derivatives
+        self.pairs9 = [torch.tensor([terms[i] for i in p], device=dev)
+                       for p in _CURL_PAIRS]
+        # per axis: its two walls and their inner neighbours along the
+        # axis (strided views) and the two coefficients broadcast along it
+        self.mur = None
+        if ops.mur is not None:
+            self.mur = []
+            for ax in range(3):
+                q = ops.grid_shape[ax]
+                walls, nbs = [slice(None)] * 4, [slice(None)] * 4
+                walls[ax + 1] = slice(0, q, q - 1)
+                nbs[ax + 1] = slice(1, q - 1, max(q - 3, 1))
+                shape = [1, 1, 1, 1]
+                shape[ax + 1] = 2
+                self.mur.append((tuple(walls), tuple(nbs), torch.tensor(
+                    ops.mur[ax], dtype=torch.float32, device=dev).view(shape)))
+
+    # -- the carry ------------------------------------------------------------
+
+    def init_carry(self, coeffs, n_nf: int, n_pf: int) -> dict:
+        """Zero fields (and ψ under CPML) with the JAX carry's keys; the
+        DFT sums and the stop state are not touched by :meth:`field_step`
+        (a caller keeps its own, as the JAX package's does)."""
+        del coeffs  # the JAX signature; the carry does not depend on it
+        sim = self.sim
+        f32 = dict(dtype=torch.float32, device=sim.device)
+
+        def zeros():
+            return torch.zeros(sim.padded_shape, **f32)
+
+        pml = self.psi_bc is not None
+        n_ports, T = n_probe_rows(sim), sim.n_face_slots
+        return dict(
+            fields=tuple(zeros() for _ in range(6)),
+            uf=torch.zeros((2, n_ports, n_pf), **f32),
+            if_=torch.zeros((2, n_ports, n_pf), **f32),
+            nf_e=torch.zeros((2, n_nf, T), **f32),
+            nf_h=torch.zeros((2, n_nf, T), **f32),
+            psi_e={k: zeros() for k in PSI_KEYS} if pml else {},
+            psi_h={k: zeros() for k in PSI_KEYS} if pml else {},
+            n=0,
+            e_max=0.0,
+            e_ratio=1.0,
+            done=False,
+        )
+
+    def operands(self, coeffs):
+        """``(ca, cb, src)`` as (3, X, Y, Z) stacks: ``coeffs``' ca_ex …
+        cb_ez and the current source stamps (zeros where none)."""
+        ca = torch.stack([coeffs["ca_" + c] for c in ("ex", "ey", "ez")])
+        cb = torch.stack([coeffs["cb_" + c] for c in ("ex", "ey", "ez")])
+        src = torch.stack([torch.zeros_like(ca[0]) if s is None else s
+                           for s in self.ops.src])
+        return ca, cb, src
+
+    # -- the updates ------------------------------------------------------------
+
+    def _curl(self, F, psi, bc, inv, forward):
+        """The curl of one half-step from the (3, X, Y, Z) stack ``F``:
+        the six terms of :data:`_CURL_TERMS`, with their ψ recursion under
+        CPML (``bc`` the (b, c) stacks), paired into the three components'
+        curls."""
+        d9 = _axis_terms(F, inv, forward)
+        if psi is None:
+            plus, minus = self.pairs9
+            return d9.index_select(0, plus) - d9.index_select(0, minus), None
+        d6 = d9.index_select(0, self.terms)
+        psi = bc[0] * psi + bc[1] * d6
+        d6 = d6 + psi
+        plus, minus = self.pairs
+        return d6.index_select(0, plus) - d6.index_select(0, minus), psi
+
+    def step(self, E, H, psi_e, psi_h, ca, cb, src, s):
+        """One step on the stacks: ``(E, H, ψ_e, ψ_h)`` after it, the ψ as
+        (6, X, Y, Z) in :data:`PSI_KEYS` order (None without CPML); ``s``
+        the source sample."""
+        bc = self.psi_bc
+        curl, psi_h = self._curl(E, psi_h, bc and (bc["bh"], bc["ch"]),
+                                 self.inv_p, True)
+        H = H - self.ops.dtmu * curl
+        curl, psi_e = self._curl(H, psi_e, bc and (bc["be"], bc["ce"]),
+                                 self.inv_d, False)
+        En = ca * E + cb * curl + src * s
+        if self.mur is not None:
+            # the walls of axis ax set the two components tangential to
+            # it (a strided view of the stack), axis by axis as in the JAX
+            # step, into a copy of the new E that only this step sees
+            En = En.clone()
+            for tang, (walls, nbs, c) in zip(_MUR_TANGENTIAL, self.mur):
+                Eo, Et = E[tang], En[tang]
+                Et[walls] = Eo[nbs] + c * (Et[nbs] - Eo[walls])
+        return En, H, psi_e, psi_h
+
+    def advance(self, carry: dict, n: int, coeffs, waveform) -> dict:
+        """The carry after step ``n`` (source sample ``waveform[n]``)."""
+        f = carry["fields"]
+        pml = self.psi_bc is not None
+
+        def six(d):
+            return torch.stack([d[k] for k in PSI_KEYS]) if pml else None
+
+        E, H, psi_e, psi_h = self.step(
+            torch.stack(f[:3]), torch.stack(f[3:]), six(carry["psi_e"]),
+            six(carry["psi_h"]), *self.operands(coeffs), waveform[n])
+        return dict(
+            carry, fields=(*E.unbind(0), *H.unbind(0)),
+            psi_e=dict(zip(PSI_KEYS, psi_e.unbind(0))) if pml else {},
+            psi_h=dict(zip(PSI_KEYS, psi_h.unbind(0))) if pml else {})
+
+    # -- the probes -------------------------------------------------------------
+
+    @staticmethod
+    def sample(E, H, rows) -> torch.Tensor:
+        """The probe rows ``rows`` (:attr:`port_rows`: the lumped ports' V
+        then I; :attr:`all_rows`: those, then every face's tangential E
+        then H, flat in ``sim.face_layout``'s order) of a step's (3, X, Y,
+        Z) E and H, as one vector."""
+        idx, w = rows
+        flat = torch.cat([E.reshape(-1), H.reshape(-1)])
+        return (flat[idx] * w).sum(-1)
+
+    def field_step(self, carry: dict, n: int, coeffs, waveform):
+        """One leapfrog iteration: ``(carry, probes)`` (see the class)."""
+        carry = self.advance(carry, n, coeffs, waveform)
+        f = carry["fields"]
+        out = self.sample(torch.stack(f[:3]), torch.stack(f[3:]), self.all_rows)
+        n_p, T = len(self.sim.ports), self.sim.n_face_slots
+        fe, fh = out[2 * n_p:2 * n_p + T], out[2 * n_p + T:]
+        lay = self.sim.face_layout
+        probes = dict(
+            v=out[:n_p], i=out[n_p:2 * n_p],
+            faces_e=[fe[o:o + 2 * nu * nv].view(2, nu, nv) for o, nu, nv in lay],
+            faces_h=[fh[o:o + 2 * nu * nv].view(2, nu, nv) for o, nu, nv in lay],
+        )
+        return carry, probes
+
+
+def make_single_step(sim: PreparedSimulation):
+    """One leapfrog step and its example arguments, as the JAX package's
+    function of the same name: ``(step_fn, (carry, 0, sim.coeffs,
+    waveform))`` with ``step_fn(carry, n, coeffs, waveform) -> (carry,
+    probes)`` the :class:`ExposedStep` of ``sim``."""
+    step = ExposedStep(sim)
+    carry = step.init_carry(sim.coeffs, len(sim.nf_freqs_hz),
+                            len(sim.port_freqs_hz))
+    wf = torch.from_numpy(np.asarray(sim.waveform, np.float32)).to(sim.device)
+    return step.field_step, (carry, 0, sim.coeffs, wf)

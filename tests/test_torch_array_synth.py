@@ -392,3 +392,74 @@ def test_cli_array_prints_the_summary_and_writes_the_files(
     np.testing.assert_allclose(f, FREQS, rtol=1e-9)
     np.testing.assert_allclose(s, eps.smatrix.s, rtol=1e-6, atol=1e-9)
     assert z_ref == 50.0
+
+
+def test_design_array_preparation_matches_jax(monkeypatch):
+    """The CLI's 2×1 array (the canonical FR-4 patch at λ0/2, mesh
+    quality 3) prepared by both packages' ``design_array``, each with its
+    FDTD runs stubbed out: pitch, margin and feed, the 86×44×53 grid, the
+    coefficients, port runtimes, source stamps, probe tables and Huygens
+    faces are equal bit for bit."""
+    import types
+
+    from fdtd_solver_antennas_tpu.ops import fdtd as jfdtd
+
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd as tfdtd
+    from fdtd_solver_antennas_tpu_torch.solvers import array_synth
+
+    def no_runs(store):
+        def stub(prep, **kw):
+            store["prep"] = prep
+            return types.SimpleNamespace(ok=False, message="runs stubbed")
+        return stub
+
+    user = dict(frequency_ghz=2.45, er=4.3, h_mm=1.6, loss_tangent=0.02)
+    seen, jseen = {}, {}
+    monkeypatch.setattr(array_synth, "compute_embedded_patterns",
+                        no_runs(seen))
+    monkeypatch.setattr(jsynth, "compute_embedded_patterns", no_runs(jseen))
+    got = design_array(PatchAntennaParams.from_user_units(**user), 2, 1,
+                       device="cpu")
+    want = jsynth.design_array(JParams.from_user_units(**user), 2, 1)
+    assert not got.ok and not want.ok and got.message == want.message
+    assert (got.spacing_mm, got.margin_mm, got.feed_mm) == \
+        (want.spacing_mm, want.margin_mm, want.feed_mm)
+    ts, js = seen["prep"].sim, jseen["prep"].sim
+    assert ts.grid.shape == js.grid.shape == (86, 44, 53)
+    for ax in "xyz":
+        np.testing.assert_array_equal(ts.grid.lines[ax], js.grid.lines[ax])
+    assert ts.dt == js.dt and ts.probe_decim == js.probe_decim
+    assert ts.n_source_steps == js.n_source_steps
+    assert ts.cfg.n_steps_max == js.cfg.n_steps_max
+    assert ts.cfg.end_criteria == js.cfg.end_criteria
+    np.testing.assert_array_equal(ts.waveform, np.asarray(js.waveform))
+    np.testing.assert_array_equal(ts.port_freqs_hz, js.port_freqs_hz)
+    np.testing.assert_array_equal(ts.nf_freqs_hz, js.nf_freqs_hz)
+    assert set(ts.coeffs) == set(js._coeffs_np)
+    for k, v in js._coeffs_np.items():
+        np.testing.assert_array_equal(ts.coeffs[k].numpy(), v, err_msg=k)
+    assert len(ts.ports) == len(js.ports) == 2
+    for a, b in zip(ts.ports, js.ports):
+        assert (a.axis, a.sl, a.i_gather, a.i_lengths) == \
+            (b.axis, b.sl, b.i_gather, b.i_lengths)
+        assert a.spec.excite == b.spec.excite
+        np.testing.assert_array_equal(a.dl_m, b.dl_m)
+        np.testing.assert_array_equal(a.src_col, b.src_col)
+    for m, stamp in enumerate(ts.operands.src):
+        want_m = np.zeros(ts.padded_shape, np.float32)
+        for b in js.ports:
+            if b.axis == m:
+                want_m[b.sl] += b.src_col
+        got_m = np.zeros_like(want_m) if stamp is None else stamp.numpy()
+        np.testing.assert_array_equal(got_m, want_m)
+    tg = tfdtd.build_probe_gathers(ts)
+    jg = jfdtd.build_probe_gathers(js, *js.grid.shape)
+    for i, (a, b) in enumerate(zip(tg, jg, strict=True)):
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f"item {i}")
+        else:
+            assert a == b, i
+    for tf, jf in zip(ts.faces, js.faces, strict=True):
+        for f in ("axis", "m", "u0", "u1", "v0", "v1"):
+            assert getattr(tf, f) == getattr(jf, f), f
+        np.testing.assert_array_equal(tf.centers_m, jf.centers_m)

@@ -266,3 +266,48 @@ def test_cli_writes_the_jax_clis_files(argv, tmp_path, capsys):
         assert np.isfinite(z["s11"]).all()
     touchstone = (tmp_path / "s11.s1p").read_text()
     assert "microstrip patch" in touchstone
+
+
+def _band_dip(freq, s11):
+    """(f, dB) of the deepest S11 in 1.6–2.3 GHz (tests/test_msl_port.py)."""
+    db = 20 * np.log10(np.abs(s11) + 1e-12)
+    win = (freq > 1.6e9) & (freq < 2.3e9)
+    i = int(np.argmin(np.where(win, db, 0.0)))
+    return float(freq[i]), float(db[i])
+
+
+@pytest.mark.slow
+def test_msl_run_to_the_step_cap_matches_jax():
+    """The MSL-fed patch under PML_8 at the solver's own cap (30,000
+    steps asked): both packages run to the cap, 30,012 steps, without
+    meeting the energy criterion; steps, e_ratio, the port DFTs (the three
+    MSL rows) and the deembedded dip agree at the north-star tolerance.
+    Prints the gaps (seen under ``pytest -s``): the largest difference of
+    ``uf``, ``if_`` and each final field over its peak, and the dips."""
+    jp, tp = _prepare("msl", n_steps=30_000)
+    jres, jout = _run_capturing(jp, jms.run_prepared_microstrip)
+    tres, tout = _run_capturing(tp, tms.run_prepared_microstrip)
+
+    def rel(a, b):
+        a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+        b = np.asarray(b)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    print(f"MSL patch PML_8 to the cap: JAX {jres.steps_run} steps, e_ratio "
+          f"{float(jout['e_ratio']):.6e}; port {tres.steps_run} steps, "
+          f"e_ratio {float(tout['e_ratio']):.6e}; max |port - JAX| / "
+          f"max|JAX|: uf {rel(tout['uf'], jout['uf']):.3e}, if_ "
+          f"{rel(tout['if_'], jout['if_']):.3e}, fields "
+          + ", ".join(f"{rel(a, b):.3e}"
+                      for a, b in zip(tout["fields"], jout["fields"]))
+          + f"; dip (Hz, dB): port {_band_dip(tres.freq, tres.s11)}, JAX "
+          f"{_band_dip(jres.freq, jres.s11)}")
+    assert tres.steps_run == jres.steps_run == 30_012
+    assert float(jout["e_ratio"]) > jp.sim.cfg.end_criteria
+    _close(tout["e_ratio"], float(jout["e_ratio"]))
+    _close(tout["uf"], jout["uf"])
+    _close(tout["if_"], jout["if_"])
+    (f, db), (jf, jdb) = _band_dip(tres.freq, tres.s11), \
+        _band_dip(jres.freq, jres.s11)
+    assert f == jf
+    assert db == pytest.approx(jdb, rel=RTOL)
