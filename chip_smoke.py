@@ -215,6 +215,25 @@ and the script exits non-zero without printing a result:
     --iters 1`` through ``__main__.main`` (``chunk_steps`` alone; writes
     ``inverse_design.npz`` under ``outputs/smoke_inverse``).
 
+24. the parallel slice, in a one-rank NCCL process group: (a) the
+    explicit path's per-step walk kernels (``h_update``, ``e_update``,
+    the three ``mur_faces``) against their twins on slabs of the mixed
+    scene (3 ranks' slabs, the x walls in and out of them, and the
+    one-rank slab the main path runs, there timed beside the bound);
+    (b) the canonical patch to its stop through the walk
+    (``build_explicit_run(use_kernel=False)`` inside
+    ``run_prepared_fixed``) against K1's chunk-mode run, the walk's
+    launches asserted (a ``h_update``, ``e_update`` and three
+    ``mur_faces`` a step, a ``probe_gather`` an interval, nothing else),
+    its wall, µs a step and idle share; (c) the mixed scene (Pz 152) to
+    its stop through the walk, held to the explicit path's march route,
+    its µs a step beside the march route's and K1 forced onto the grid;
+    (d) ``shard_simulation`` of the canonical patch over the one-rank
+    mesh, ``sim.run()`` equal to the unsharded run; (e) ``shard_sweep`` of
+    ``bench.py``'s 8-variant sweep over the one-rank sweep mesh: its
+    launches (``chunk_steps_batch`` alone, phase 16's count) and its
+    results bit-equal to the unsharded sweep's.
+
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
 exits non-zero when CUDA is unavailable.
@@ -3868,6 +3887,361 @@ def phase_inverse_main_path(card):
     return dict(row, launches=counts["chunk_steps"])
 
 
+WALK_SPLIT = 3  # (a): the mixed scene's 141 x rows as 3 slabs of 47
+
+
+def seeded_state(ops, seed):
+    """A state of ``ops``' shape, fields and ψ from a seeded normal draw on
+    the card."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    gen = torch.Generator(device=ops.device)
+    gen.manual_seed(seed)
+    st = fdtd_cuda.new_state(ops.shape, ops.device, ops.pml is not None)
+    for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+        t.copy_(torch.randn(t.shape, generator=gen, device=ops.device))
+    return st
+
+
+def walk_bound(name, ops):
+    """Bound of one launch of a walk kernel on ``ops`` (a slab): each input
+    read once, each output written once (float32), the larger of bytes over
+    the HBM rate and operations over the float32 peak. ``mur_faces``: the
+    mean of its x, y and z launches, each moving the two tangential
+    components of the walls inside the slab (read E[nb], E'[nb], E[wall],
+    write E'[wall]; 3 operations a cell)."""
+    n = int(np.prod(ops.shape))
+    n_src = sum(s is not None for s in ops.src)
+    psi = 12 if ops.pml is not None else 0
+    if name == "h_update":  # E, H in; H out (+ psi_h in and out)
+        return bound(4 * n * (9 + psi), n * (21 + 2 * psi))
+    if name == "e_update":  # E, H, ca, cb, src in; E out (+ psi_e)
+        return bound(4 * n * (15 + n_src + psi), n * (27 + 2 * psi))
+    cells = 0
+    for axis in range(3):
+        walls = sum(0 <= w < ops.shape[axis] for w in ops.mur_walls(axis))
+        cells += walls * 2 * n // ops.shape[axis]
+    return bound(16 * cells / 3, 3 * cells / 3)
+
+
+WALK_CALLS = {
+    "h_update": lambda m, ops, st: m.h_update(ops, st),
+    "e_update": lambda m, ops, st: m.e_update(ops, st, 0.37),
+    "mur_faces": lambda m, ops, st: [m.mur_faces(ops, st, a) for a in range(3)],
+}
+
+
+def phase_walk_vs_plain(mixed, card):
+    """(a) The walk's kernels on slabs of the mixed scene against their
+    plain twins: ``h_update``, ``e_update`` and the three ``mur_faces`` on
+    the three slabs of a 3-rank split (rank 0 holds the bottom x wall,
+    rank 1 none, rank 2 the top one; rows not starting at 0) and on the
+    one-rank slab the main path runs, there timed beside the bound."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda as fc
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_shard
+
+    Px = mixed.padded_shape[0]
+    n = Px // WALK_SPLIT
+    slabs = {f"rank {r} of {WALK_SPLIT}": fdtd_shard.slab_operands(mixed, r, n, 1)
+             for r in range(WALK_SPLIT)}
+    slabs["one rank"] = fdtd_shard.slab_operands(mixed, 0, Px, 1)
+    rows, worst = {}, 0.0
+    for label, ops in slabs.items():
+        base = seeded_state(ops, seed=241)
+        errs = []
+        for name, call in WALK_CALLS.items():
+            a, b = clone_state(base), clone_state(base)
+            call(fc.kernels, ops, a)
+            call(fc.plain, ops, b)
+            torch.cuda.synchronize()
+            got, ref = (*a.e[1], *a.h), (*b.e[1], *b.h)
+            err = max(close(f"{label} {name} {i}", x, y)
+                      for i, (x, y) in enumerate(zip(got, ref)))
+            same = all(torch.equal(x, y) for x, y in zip(got, ref))
+            worst = max(worst, err)
+            errs.append(f"{name} {err:.3e}{' (bit-equal)' if same else ''}")
+            if label == "one rank":
+                launches = 3 if name == "mur_faces" else 1
+                ms = device_ms(lambda: call(fc.kernels, ops, a)) / launches
+                plain_ms = device_ms(lambda: call(fc.plain, ops, b), reps=3,
+                                     warmup=1) / launches
+                b_ms, b_by = walk_bound(name, ops)
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by)
+                say("24", f"{name} on the one-rank slab {ops.shape}: device "
+                          f"{ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} "
+                          f"us, bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} "
+                          f"of it) [{card}]")
+        del base, a, b
+        say("24", f"(a) mixed scene slab {label} {ops.shape}, x walls at slab "
+                  f"rows {ops.mur_x_rows}: kernel == plain, max |err| "
+                  f"{', '.join(errs)}")
+    for row in rows.values():
+        row["max_abs_err"] = worst
+    return rows
+
+
+def walk_counts():
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+
+    return {**fdtd_cuda.launches, **fdtd_shard.launches,
+            **fdtd_stream.launches, **fdtd_stream.launches_by_kernel}
+
+
+def reset_counts():
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
+
+
+def assert_walk_counts(counts, steps, D, mur=True):
+    """A walk's run launched ``h_update`` and ``e_update`` once a step,
+    ``mur_faces`` three times a step, ``probe_gather`` once an interval,
+    and nothing else."""
+    want = dict(h_update=steps, e_update=steps, mur_faces=3 * steps if mur else 0,
+                probe_gather=steps // D)
+    for name, v in counts.items():
+        assert v == want.get(name, 0), (name, v, want.get(name, 0), counts)
+
+
+def phase_walk_canonical(group, card):
+    """(b) The canonical patch to its stop through the walk on one rank
+    (``use_kernel=False``), through ``run_prepared_fixed``, against K1's
+    chunk-mode run: launches, outputs, S11 and Dmax, wall, µs a step and
+    the idle share."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
+        prepare_patch_fixed, run_prepared_fixed)
+
+    params = canonical_params()
+    prep = prepare_patch_fixed(params, device="cuda")
+    assert prep.ok, prep.message
+    sim = prep.sim
+    run = build_explicit_run(sim, group, use_kernel=False)
+    walk, outs = run.stepper, []
+
+    def walked():
+        outs.append(run())
+        return outs[-1]
+
+    reset_counts()
+    res = run_prepared_fixed(prep, frequency_hz=params.frequency_hz, verbose=0,
+                             run=walked)
+    counts = walk_counts()
+    assert res.ok, res.message
+    out, D = outs[0], sim.probe_decim
+    steps = int(out["steps"])
+    assert_walk_counts(counts, steps, D)
+    ref = sim.run()
+    err = compare_runs(out, ref, "walk vs chunk mode")
+    same = all(torch.equal(a, b) for a, b in zip(out["fields"], ref["fields"]))
+    s11_db = 20 * np.log10(np.maximum(np.abs(res.s11), 1e-12))
+    dmax_dbi = 10 * np.log10(res.Dmax)
+    assert 5.0 < dmax_dbi < 8.0, f"Dmax {dmax_dbi:.2f} dBi outside 5-8"
+    assert s11_db.min() < -8.0, f"|S11|min {s11_db.min():.2f} dB not < -8"
+    # device time of one walk step (its kernels, behind a sleep kernel) and
+    # of one probe gather, on a seeded state of the slab
+    st = seeded_state(walk.ops, seed=9)
+    rows = torch.zeros(walk.ops.probes.n_rows, device=st.h[0].device)
+    gather_ms = device_ms(lambda: fdtd_cuda.probe_gather(walk.ops, st, rows))
+    step_ms = device_ms(lambda: walk.step(st, 0.37), reps=10)
+    del st
+    busy = (steps * step_ms + steps // D * gather_ms) / 1e3
+    wall = res.wall_time_s
+    say("24", f"(b) canonical patch {sim.grid.shape} through the walk "
+              f"(build_explicit_run(use_kernel=False)) in a one-rank NCCL group: "
+              f"slab {walk.ops.shape}, {steps} steps (chunk mode "
+              f"{ref['steps']}) in {wall:.3f} s, {wall / steps * 1e6:.2f} us a "
+              f"step, {res.mcells_per_s:.1f} Mcell-updates/s; == K1's chunk-mode "
+              f"run (steps, e_ratio, uf, if_, nf_e, nf_h, fields; fields "
+              f"bit-equal {same}), max |err| {err:.3e}; f_res "
+              f"{res.f_res_hz / 1e9:.4f} GHz, |S11|min {s11_db.min():.2f} dB, "
+              f"Dmax {dmax_dbi:.3f} dBi; kernels busy {busy:.3f} s (a step "
+              f"{step_ms * 1e3:.1f} us of device time, a gather "
+              f"{gather_ms * 1e3:.2f} us), idle share {1 - busy / wall:.3f}; "
+              f"launches {counts} [{card}]")
+    return counts
+
+
+def phase_walk_mixed(group, mixed, mixed_res, k2, walk_rows, card):
+    """(c) The mixed scene to its stop through the walk on one rank (Pz 152,
+    past K3's route), through ``run_prepared_multi_patch_3d``, against the
+    explicit path's march route on the same scene (launches, outputs,
+    physics), and µs a step beside the march's and K1 forced onto the
+    grid."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.multi_patch_3d import (
+        run_prepared_multi_patch_3d)
+
+    run = build_explicit_run(mixed, group, use_kernel=False)
+    walk, outs = run.stepper, []
+    assert mixed.padded_shape[2] > 128, mixed.padded_shape
+
+    def walked():
+        outs.append(run())
+        return outs[-1]
+
+    reset_counts()
+    res = run_prepared_multi_patch_3d(k2["prep"], frequency_hz=k2["f_run"],
+                                      verbose=0, run=walked)
+    counts = walk_counts()
+    assert res.ok, res.message
+    out, D = outs[0], mixed.probe_decim
+    steps = int(out["steps"])
+    assert_walk_counts(counts, steps, D)
+    e_ratio = res.diagnostics["energy_ratio"]
+    assert steps < mixed.cfg.n_steps_max and e_ratio < mixed.cfg.end_criteria, (
+        steps, e_ratio)
+    assert steps == mixed_res.steps_run, (steps, mixed_res.steps_run)
+    walk_wall = res.wall_time_s
+
+    march = build_explicit_run(mixed, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = march()
+    torch.cuda.synchronize()
+    march_wall = time.perf_counter() - t0
+    err = compare_runs(out, ref, "walk vs march route")
+    same = all(torch.equal(a, b) for a, b in zip(out["fields"], ref["fields"]))
+    k1_sim = dataclasses.replace(mixed, pallas_mode="chunk", stream_T=1)
+    k1_out, k1_wall = timed_run(k1_sim, fdtd_cuda.kernels)
+    assert k1_out["steps"] == steps, (k1_out["steps"], steps)
+    dmax, dmax_ref = 10 * np.log10(res.Dmax), 10 * np.log10(mixed_res.Dmax)
+    assert abs(dmax - dmax_ref) <= 0.01, (dmax, dmax_ref)
+    step_ms = sum(walk_rows[k]["ms"] for k in ("h_update", "e_update")) \
+        + 3 * walk_rows["mur_faces"]["ms"]
+    busy = (steps * step_ms + steps // D * k2["probe"]["ms"]) / 1e3
+    say("24", f"(c) mixed scene {mixed.grid.shape} through the walk on one "
+              f"rank: slab {walk.ops.shape}, {steps} steps (phase 8: "
+              f"{mixed_res.steps_run}), energy ratio {e_ratio:.3e}; == the "
+              f"march route's explicit run (steps, e_ratio, uf, if_, nf_e, "
+              f"nf_h, fields; fields bit-equal {same}), max |err| {err:.3e}; "
+              f"Dmax {dmax:.4f} dBi (phase 8 {dmax_ref:.4f}); launches {counts} "
+              f"[{card}]")
+    say("24", f"(c) mixed scene, {steps} steps, wall per step: walk "
+              f"{walk_wall / steps * 1e6:.1f} us ({walk_wall:.3f} s, kernels "
+              f"busy {busy:.3f} s: {step_ms * 1e3:.1f} us a step, idle share "
+              f"{1 - busy / walk_wall:.3f}), march route (explicit, T="
+              f"{march.kernel_window}) {march_wall / steps * 1e6:.1f} us "
+              f"({march_wall:.3f} s), K1 forced (chunk_steps) "
+              f"{k1_wall / steps * 1e6:.1f} us ({k1_wall:.3f} s) [{card}]")
+    return counts
+
+
+def phase_shard_simulation(group, card):
+    """(d) ``shard_simulation`` of the canonical patch over the one-rank
+    mesh: ``sim.run()`` runs the explicit path (K3) and equals the
+    unsharded run."""
+    from fdtd_solver_antennas_tpu_torch.parallel import (
+        make_device_mesh, shard_simulation)
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import prepare_patch_fixed
+
+    prep = prepare_patch_fixed(canonical_params(), device="cuda")
+    assert prep.ok, prep.message
+    sim = prep.sim
+    ref = sim.run()
+    mesh = make_device_mesh(group=group)
+    shard_simulation(sim, mesh)
+    reset_counts()
+    out = sim.run()
+    counts = walk_counts()
+    intervals = out["steps"] // sim.probe_decim
+    assert counts["probe_gather"] == intervals and counts["shard_steps"] > 0, counts
+    for name, v in counts.items():
+        assert v == 0 or name in ("shard_steps", "probe_gather"), counts
+    err = compare_runs(out, ref, "shard_simulation vs unsharded")
+    same = all(torch.equal(a, b) for a, b in zip(out["fields"], ref["fields"]))
+    say("24", f"(d) shard_simulation(canonical, mesh {mesh.shape} {mesh.axis_names}) "
+              f"-> sim.run(): {out['steps']} steps == the unsharded run "
+              f"(fields bit-equal {same}), max |err| {err:.3e}; launches "
+              f"{counts} [{card}]")
+
+
+def sweep_raw(prep):
+    """``run_patch_geometry_sweep(prep)`` and the raw batched output it
+    read."""
+    from fdtd_solver_antennas_tpu_torch.solvers import sweep
+
+    raw = []
+
+    def spy(prepared, impl=None):
+        raw.append(inner(prepared, impl))
+        return raw[-1]
+
+    inner, sweep._run_batched = sweep._run_batched, spy
+    try:
+        res = sweep.run_patch_geometry_sweep(prep)
+    finally:
+        sweep._run_batched = inner
+    assert res.ok, res.message
+    return res, raw[0][0]
+
+
+def phase_shard_sweep(group, k1b, card):
+    """(e) ``shard_sweep`` of ``bench.py``'s 8-variant sweep over the
+    one-rank sweep mesh: the share is every variant, run through K1
+    batched (one ``chunk_steps_batch`` a chunk, nothing else), and one
+    NCCL ``all_gather`` gives the results; they equal the unsharded
+    sweep's bit for bit."""
+    from fdtd_solver_antennas_tpu_torch.parallel import make_sweep_mesh, shard_sweep
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import prepare_patch_geometry_sweep
+
+    prep = prepare_patch_geometry_sweep(sweep_variants(), n_steps_max=SWEEP_STEPS,
+                                        end_criteria=1e-4, device="cuda")
+    assert prep.ok, prep.message
+    ref_res, ref = sweep_raw(prep)
+    mesh = make_sweep_mesh(group=group)
+    shard_sweep(prep, mesh)
+    reset_counts()
+    res, out = sweep_raw(prep)
+    counts = walk_counts()
+    chunks = k1b["launches"]
+    for name, v in counts.items():
+        assert v == (chunks if name == "chunk_steps_batch" else 0), counts
+    for key in ("uf", "if_", "steps", "e_ratio", "e_max"):
+        np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+    for key in ("nf_e", "nf_h"):
+        for a, b in zip(out[key], ref[key], strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=key)
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(res.f_res_hz, ref_res.f_res_hz)
+    say("24", f"(e) shard_sweep of the {len(prep.variants)}-variant sweep over "
+              f"the sweep mesh {mesh.shape} {mesh.axis_names}: {counts['chunk_steps_batch']} "
+              f"chunk_steps_batch launches and nothing else, one NCCL all_gather; "
+              f"uf, if_, nf_e, nf_h, steps, e_ratio, e_max and the fields "
+              f"bit-equal to the unsharded sweep; wall {res.wall_time_s:.3f} s "
+              f"(unsharded {ref_res.wall_time_s:.3f} s), {res.mcells_per_s:.1f} "
+              f"Mcell-updates/s aggregate [{card}]")
+
+
+def phase_parallel(mixed, mixed_res, k2, k1b, card):
+    """Phase 24, the parallel slice, inside a one-rank NCCL process group
+    (destroyed at the end whatever happens)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        walk_rows = timed_phase("24", phase_walk_vs_plain, mixed, card)
+        timed_phase("24", phase_walk_canonical, group, card)
+        mixed_counts = timed_phase("24", phase_walk_mixed, group, mixed,
+                                   mixed_res, k2, walk_rows, card)
+        timed_phase("24", phase_shard_simulation, group, card)
+        timed_phase("24", phase_shard_sweep, group, k1b, card)
+    finally:
+        dist.destroy_process_group()
+    for name, row in walk_rows.items():
+        row["launches"] = mixed_counts[name]
+    return walk_rows
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -4022,6 +4396,11 @@ def main() -> int:
     # two objectives' gradients, Adam, validate on K1, the CLI's inverse
     k23 = timed_phase("23", phase_inverse_main_path, card)
 
+    # 24. the parallel slice: the explicit path's per-step walk on K1's
+    # per-step kernels, shard_simulation and shard_sweep, in a one-rank
+    # NCCL group
+    k24 = phase_parallel(mixed, mixed_res, k2, k1b, card)
+
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]
     # the per-step kernels' launches: h_update, e_update and mur_faces in
@@ -4117,6 +4496,15 @@ def main() -> int:
             # D = 1, timed at its shapes (the differentiated loop runs
             # PyTorch's operations: no TPU kernel lies inside it)
             ("chunk_steps_inverse", K1_SOURCE, K1_REPLACES, k23))
+    ] + [
+        # the parallel slice (phase 24): K1's per-step kernels on the
+        # explicit path's walk, launches from the mixed scene's run, timed
+        # on its one-rank slab (mur_faces: the mean of an x, y and z launch)
+        {"name": f"{name}_walk", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": k24[name]["launches"],
+         **{k: k24[name][k] for k in (*keys, "bound_ms", "bound_by")},
+         "library_ms": None}
+        for name in ("h_update", "e_update", "mur_faces")
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -78,7 +78,9 @@
 //   e_update      one thread per cell: E' = ca*E + cb*curl H (+ 6 CPML psi_e)
 //                 + src * s(t), from the old E buffer into the new one
 //   mur_faces     launched once per axis, x then y then z: first-order MUR
-//                 on the two wall planes of that axis
+//                 on the two wall planes of that axis, at the array's own
+//                 rows (a rank's slab or block places them where the
+//                 global walls fall)
 //   probe_gather  one thread per probe row: a weighted gather over the six
 //                 field arrays, written to row j of the staging buffer
 //                 (redesigned for Hopper; see "The probe table" below)
@@ -90,8 +92,11 @@
 //
 // h_update, e_update and mur_faces step the per-step route
 // (ops/fdtd_cuda.py::step_kernels), kept to time beside chunk_steps and as
-// a second holder in the card tests; probe_gather samples the stream
-// stepper's (K2) and the explicit path's (K3) runs between their launches.
+// a second holder in the card tests, and the explicit path's per-step walk
+// (parallel/explicit.py, use_kernel=False: a rank's slab or x-y block with
+// one halo plane per split axis, the halos exchanged between the half-
+// steps); probe_gather samples the stream stepper's (K2), the explicit
+// path's (K3 and the walk) runs between their launches.
 // Each of these kernels runs for 3-5 us at the canonical patch, so that
 // route is bound by launch latency and the host that issues the launches;
 // on the tall grid (3.05M cells) h_update and e_update reach 67% and 82%
@@ -174,10 +179,12 @@ struct YeeArgs {
   const float* ce[3];
   ProbeTable probes;
   int nx, ny, nz;          // array shape
-  int qx, qy, qz;          // grid shape that places the MUR wall planes
   int has_pml;
   float dtmu;              // dt / mu0
   float mur_c[3][2];       // MUR coefficient per axis and side
+  int mur_wall[3][2];      // MUR wall plane per axis and side, in the
+                           // array's own indices (a block's, or the
+                           // grid's 0 and q-1); outside [0, n) no wall
 };
 
 __global__ void h_update_kernel(const YeeArgs a, const int p) {
@@ -288,15 +295,18 @@ __global__ void e_update_kernel(const YeeArgs a, const int p, const float s) {
 
 // One launch per wall axis b. Thread t covers (side, component, plane
 // cell): 2 sides x the 2 components tangential to the wall x the wall
-// plane. The plane index comes from the grid shape q (the wall), the
-// plane extent from the array shape.
-//   E'[wall] = E[nb] + c * (E'[nb] - E[wall])
+// plane.
+//   E'[wall] = E[nb] + c * (E'[nb] - E[wall]),   nb the inward neighbour
 // E is the old buffer, E' the new one, which already holds the walls of
-// the axes before b (order x, y, z). For q >= 3 the planes written and
-// the planes read are disjoint, so threads do not race.
+// the axes before b (order x, y, z). The wall planes are the array's own
+// (mur_wall): on a whole grid 0 and q-1 of the grid shape q; on a rank's
+// slab or block the rows where the global walls fall, a wall outside the
+// array written by no thread and a neighbour outside it read as 0 (a
+// neighbour on another rank is copied into the halo row first). For
+// q >= 3 the planes written and the planes read are disjoint, so threads
+// do not race.
 __global__ void mur_faces_kernel(const YeeArgs a, const int p, const int b) {
   const int dims[3] = {a.nx, a.ny, a.nz};
-  const int qs[3] = {a.qx, a.qy, a.qz};
   const int ua = (b + 1) % 3, va = (b + 2) % 3;
   const int u_ax = ua < va ? ua : va;  // the other two axes, ascending
   const int v_ax = ua < va ? va : ua;
@@ -306,11 +316,13 @@ __global__ void mur_faces_kernel(const YeeArgs a, const int p, const int b) {
   const int q = (int)(t / plane);
   const int64_t r = t % plane;
   const int side = q >> 1;
+  const int wall = a.mur_wall[b][side];
+  if (wall < 0 || wall >= dims[b]) return;
+  const int nb = side ? wall - 1 : wall + 1;
+  const bool nb_in = nb >= 0 && nb < dims[b];
   const int comp = (q & 1) ? v_ax : u_ax;
   const int u = (int)(r / dims[v_ax]);
   const int v = (int)(r % dims[v_ax]);
-  const int wall = side ? qs[b] - 1 : 0;
-  const int nb = side ? qs[b] - 2 : 1;
   const int64_t strides[3] = {(int64_t)a.ny * a.nz, a.nz, 1};
   const int64_t base = u * strides[u_ax] + v * strides[v_ax];
   const int64_t cw = base + wall * strides[b];
@@ -318,7 +330,9 @@ __global__ void mur_faces_kernel(const YeeArgs a, const int p, const int b) {
   const float* Eo = a.e[p][comp];
   float* En = a.e[1 - p][comp];
   const float cm = a.mur_c[b][side];
-  En[cw] = Eo[cn] + cm * (En[cn] - Eo[cw]);
+  const float eo_nb = nb_in ? Eo[cn] : 0.f;
+  const float en_nb = nb_in ? En[cn] : 0.f;
+  En[cw] = eo_nb + cm * (en_nb - Eo[cw]);
 }
 
 // Probe row r (of all blocks) of the fields ex .. hz: its terms summed

@@ -252,6 +252,9 @@ class PreparedSimulation:
     pallas_mode: str = "chunk"  # resolved stepping kernels: "chunk" | "stream"
     stream_T: int = 1  # leapfrog steps per stream launch
     pallas_mode_reason: str = ""
+    # the rank mesh ``parallel.shard_simulation`` set: ``run`` then runs
+    # SPMD over it (the JAX package's ``field_sharding``); None: one device
+    field_sharding: object = None
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -294,7 +297,20 @@ class PreparedSimulation:
         every chunk that does not end the run, and once at the end;
         ``abort_cb() -> bool`` is checked after every chunk and stops the
         run (``aborted=True``, the state is a valid checkpoint).
+
+        After ``parallel.shard_simulation(sim, mesh)`` every rank of the
+        mesh calls ``run`` and it runs the explicit path over the mesh
+        (``parallel/sharding.py::sharded_run``); ``progress_cb`` is then
+        called once at the end, and ``abort_cb`` is refused (one rank
+        alone cannot stop a run of all of them).
         """
+        if self.field_sharding is not None:
+            from ..parallel.sharding import sharded_run
+
+            if abort_cb is not None:
+                raise ValueError("abort_cb: a sharded run stops on its "
+                                 "energy criterion or step cap only")
+            return sharded_run(self, resume_state, progress_cb)
         return run_simulation(self, fdtd_stream.kernels, resume_state,
                               progress_cb, abort_cb)
 

@@ -29,7 +29,10 @@ The first design's per-step kernels stay, each one launch:
 - :func:`h_update`: H half-step, with the six ψ_h recursions under CPML;
 - :func:`e_update`: E half-step into the other E buffer, with ca/cb, the
   six ψ_e recursions and the port-source FMA ``src·s(t)``;
-- :func:`mur_faces`: the first-order MUR walls of one axis;
+- :func:`mur_faces`: the first-order MUR walls of one axis, at the planes
+  :meth:`YeeOperands.mur_walls` gives (a whole grid's, or where the global
+  walls fall in a rank's slab or block: the explicit path's walk runs
+  these three kernels on its block);
 - :func:`probe_gather`: port V/I and Huygens-face samples, a weighted
   gather over the :class:`ProbeTable` (one thread a row, the table read
   term-major), written to one row of the staging buffer (the stream and
@@ -188,8 +191,9 @@ class YeeOperands:
     """What a leapfrog step reads and never writes, on one device.
 
     1-D tensors are per-axis profiles (length of that axis); 3-D tensors
-    have ``shape``. ``grid_shape`` places the MUR wall planes. ``probes``
-    is the probe table over the stack ``[Ex Ey Ez Hx Hy Hz]``.
+    have ``shape``. ``grid_shape`` places the MUR wall planes of a whole
+    grid (:meth:`mur_walls`). ``probes`` is the probe table over the stack
+    ``[Ex Ey Ez Hx Hy Hz]``.
     """
 
     shape: Tuple[int, int, int]
@@ -207,10 +211,22 @@ class YeeOperands:
     # walls, global rows 0 and Qx−1, which may lie outside the slab. None
     # for a whole grid, whose x walls sit at rows 0 and grid_shape[0]−1.
     mur_x_rows: Optional[Tuple[int, int]] = None
+    # A rank's x-y block (the explicit path's walk split along y too): the
+    # block's planes of the MUR y walls, as ``mur_x_rows``. None when y is
+    # whole.
+    mur_y_rows: Optional[Tuple[int, int]] = None
 
     @property
     def device(self) -> torch.device:
         return self.ca[0].device
+
+    def mur_walls(self, axis: int) -> Tuple[int, int]:
+        """The planes of the two MUR walls of ``axis`` in this array's own
+        indices: ``mur_x_rows`` / ``mur_y_rows`` on a slab or block (a wall
+        outside ``[0, shape[axis])`` is on another rank), else 0 and
+        ``grid_shape[axis] − 1``."""
+        rows = (self.mur_x_rows, self.mur_y_rows, None)[axis]
+        return rows if rows is not None else (0, self.grid_shape[axis] - 1)
 
 
 @dataclasses.dataclass
@@ -433,16 +449,24 @@ def e_update_plain(ops: YeeOperands, st: YeeState, s: float) -> None:
 
 
 def mur_faces_plain(ops: YeeOperands, st: YeeState, axis: int) -> None:
+    """The MUR walls of ``axis`` at ``ops.mur_walls(axis)``: a wall outside
+    the array is skipped, a neighbour outside it reads 0."""
     Eo = st.e[st.parity]
     En = st.e[1 - st.parity]
-    q = ops.grid_shape[axis]
-    for side, (wall, nb) in enumerate(((0, 1), (q - 1, q - 2))):
+    dim = ops.shape[axis]
+    for side, wall in enumerate(ops.mur_walls(axis)):
+        if not 0 <= wall < dim:
+            continue
+        nb = wall - 1 if side else wall + 1
         c = ops.mur[axis][side]
         for comp in range(3):
             if comp == axis:
                 continue
-            new = Eo[comp].select(axis, nb) + c * (
-                En[comp].select(axis, nb) - Eo[comp].select(axis, wall))
+            if 0 <= nb < dim:
+                eo_nb, en_nb = Eo[comp].select(axis, nb), En[comp].select(axis, nb)
+            else:
+                eo_nb = en_nb = torch.zeros_like(Eo[comp].select(axis, wall))
+            new = eo_nb + c * (en_nb - Eo[comp].select(axis, wall))
             En[comp].select(axis, wall).copy_(new)
 
 
@@ -554,9 +578,9 @@ class _YeeArgs(ctypes.Structure):
         ("bh", _P * 3), ("ch", _P * 3), ("be", _P * 3), ("ce", _P * 3),
         ("probes", _ProbeTable),
         ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int),
-        ("qx", ctypes.c_int), ("qy", ctypes.c_int), ("qz", ctypes.c_int),
         ("has_pml", ctypes.c_int),
         ("dtmu", ctypes.c_float), ("mur_c", ctypes.c_float * 6),
+        ("mur_wall", ctypes.c_int * 6),
     ]
 
 
@@ -678,12 +702,12 @@ def _cuda_args(ops: YeeOperands, st: YeeState) -> int:
             a.psi_h[m] = _ptr(st.psi_h[m], shp, dev=dev)
     a.probes = _probe_args(ops.probes, dev)
     a.nx, a.ny, a.nz = shp
-    a.qx, a.qy, a.qz = ops.grid_shape
     a.has_pml = int(ops.pml is not None)
     a.dtmu = ops.dtmu
     for b in range(3):
-        for side in range(2):
+        for side, wall in enumerate(ops.mur_walls(b)):
             a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
+            a.mur_wall[2 * b + side] = wall
     st._cargs = (ops, a, ctypes.addressof(a))
     return st._cargs[2]
 
@@ -725,7 +749,8 @@ def e_update(ops: YeeOperands, st: YeeState, s: float) -> None:
 
 
 def mur_faces(ops: YeeOperands, st: YeeState, axis: int) -> None:
-    """First-order MUR on both walls of ``axis``, into ``e[1 - parity]``."""
+    """First-order MUR on both walls of ``axis`` (at
+    ``ops.mur_walls(axis)``), into ``e[1 - parity]``."""
     if ops.mur is None:
         raise ValueError("mur_faces on a simulation without MUR walls")
     if not _on_cuda(st.h[0]):

@@ -23,7 +23,7 @@ the halos from the neighbours (one exchange per K steps).
   walls fused into the E pass; the storage form, resident or streamed,
   picked from the shape by :func:`launch_plan`, see ``ops/persist.py``);
   on a CPU tensor :func:`shard_steps_plain`, the same steps built from
-  K1's plain twins with the x walls placed by ``mur_x_rows``. A CUDA
+  K1's plain twins (their x walls at the slab's ``mur_x_rows``). A CUDA
   tensor always goes to the kernel; a failed plan, build or launch
   raises.
 
@@ -131,84 +131,105 @@ class ShardStepper:
                                    self.ops.pml is not None)
 
 
-def _slab_rows(ga: np.ndarray, rank: int, n: int, W: int, m: int) -> np.ndarray:
-    """Global (Px, …) rows → this rank's halo-extended (m, …) rows; rows
-    outside [0, Px) are zero (out-of-domain fields are zero, and so must
-    their update coefficients be)."""
+def _cut(ga, axis: int, rank: int, n: int, W: int) -> np.ndarray:
+    """Global rows of ``axis`` → this rank's halo-extended ``n + 2W`` rows,
+    ``[rank·n − W, (rank + 1)·n + W)``; rows outside the array are zero
+    (out-of-domain fields are zero, and so must their update coefficients
+    be)."""
     ga = np.asarray(ga, np.float32)
-    out = np.zeros((m,) + ga.shape[1:], np.float32)
+    m = n + 2 * W
+    out = np.zeros(ga.shape[:axis] + (m,) + ga.shape[axis + 1:], np.float32)
     g0 = rank * n - W
-    s0, s1 = max(0, g0), min(ga.shape[0], g0 + m)
-    out[s0 - g0:s1 - g0] = ga[s0:s1]
+    s0, s1 = max(0, g0), min(ga.shape[axis], g0 + m)
+    dst = [slice(None)] * ga.ndim
+    src = [slice(None)] * ga.ndim
+    dst[axis], src[axis] = slice(s0 - g0, s1 - g0), slice(s0, s1)
+    out[tuple(dst)] = ga[tuple(src)]
     return out
 
 
-def _slab_probe_blocks(blocks, shape, rank: int, n: int, W: int, m: int):
+def _block_probe_blocks(blocks, shape, cut):
     """The global probe blocks (flat indices into the (Px, Py, Pz) stack
-    [Ex Ey Ez Hx Hy Hz]) → indices into this rank's (m, Py, Pz) slab stack,
-    block by block at the same widths. Entries on rows the rank does not
-    own get index 0 and weight 0, so the rank's samples are partial sums
-    (the JAX package's ``_localize_gathers``)."""
+    [Ex Ey Ez Hx Hy Hz]) → indices into this rank's block stack, block by
+    block at the same widths; ``cut`` is ``(rank, n, W)`` per axis (z
+    whole). Entries on cells the rank does not own get index 0 and weight
+    0, so the rank's samples are partial sums (the JAX package's
+    ``_localize_gathers``)."""
     Px, Py, Pz = shape
-    plane = Py * Pz
+    (rx, nx, Wx), (ry, ny, Wy) = cut
+    mx, my = nx + 2 * Wx, ny + 2 * Wy
     out = []
     for idx, w in blocks:
-        comp, rest = np.divmod(np.asarray(idx, np.int64), Px * plane)
-        i, jk = np.divmod(rest, plane)
-        own = (i >= rank * n) & (i < (rank + 1) * n)
-        local = (comp * m + W + i - rank * n) * plane + jk
+        comp, rest = np.divmod(np.asarray(idx, np.int64), Px * Py * Pz)
+        i, jk = np.divmod(rest, Py * Pz)
+        j, k = np.divmod(jk, Pz)
+        own = ((i >= rx * nx) & (i < (rx + 1) * nx)
+               & (j >= ry * ny) & (j < (ry + 1) * ny))
+        local = ((comp * mx + Wx + i - rx * nx) * my + Wy + j - ry * ny) * Pz + k
         out.append((np.where(own, local, 0), np.where(own, w, 0.0)))
     return out
 
 
-def slab_operands(sim, rank: int, n: int, W: int,
-                  device=None) -> YeeOperands:
+def slab_operands(sim, rank: int, n: int, W: int, device=None,
+                  y=None) -> YeeOperands:
     """The operands of ``rank``'s slab of ``m = n + 2W`` rows, on
     ``device`` (default ``sim.device``): ca/cb, x profiles and source
     stamps cut on the host from ``sim._coeffs_np`` and ``sim._aux``, rows
     outside ``[0, Px)`` zero; the slab probe table; the slab rows of the
     MUR x walls. Both slab steppers (K3 here, K2's in
-    ``ops/fdtd_stream.py``) take their operands from it."""
+    ``ops/fdtd_stream.py``) take their operands from it. ``y = (rank_y,
+    n_y, W_y)`` cuts y the same way, a block of the explicit path's walk
+    over an x × y grid of ranks (``mur_y_rows`` then places the y walls)."""
     from .fdtd import build_probe_gathers, build_src_mats, probe_blocks
 
     Px, Py, Pz = sim.padded_shape
-    m = n + 2 * W
-    Qx = sim.grid.shape[0]
+    cut = ((rank, n, W), y if y is not None else (0, Py, 0))
     dev = torch.device(device) if device is not None else sim.device
     inv_p, inv_d, mur_coef, pml = sim._aux
 
-    def rows(a):
-        return _slab_rows(a, rank, n, W, m)
+    def block(a):
+        for axis, (r, nn, w) in enumerate(cut):
+            if (r, nn, w) != (0, a.shape[axis], 0):
+                a = _cut(a, axis, r, nn, w)
+        return np.asarray(a, np.float32)
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def axis_vec(prof, a):  # x profiles are cut to the slab
-        return to_dev(rows(prof) if a == 0 else prof)
+    def axis_vec(prof, a):  # x and y profiles are cut to the block
+        return to_dev(_cut(prof, 0, *cut[a]) if a < 2 else prof)
 
-    coeffs = {k: to_dev(rows(v)) for k, v in sim._coeffs_np.items()}
+    coeffs = {k: to_dev(block(v)) for k, v in sim._coeffs_np.items()}
     src = build_src_mats(sim, Px, Py, Pz)
-    blocks = _slab_probe_blocks(
+    blocks = _block_probe_blocks(
         probe_blocks(build_probe_gathers(sim), Px * Py * Pz), (Px, Py, Pz),
-        rank, n, W, m)
-    g0 = rank * n - W  # global row of slab row 0
+        cut)
+    shape = tuple(nn + 2 * w for _r, nn, w in cut) + (Pz,)
+
+    def walls(a):
+        """The block's planes of the global walls 0 and Q−1 of axis a."""
+        r, nn, w = cut[a]
+        g0 = r * nn - w  # global plane of the block's plane 0
+        return (0 - g0, sim.grid.shape[a] - 1 - g0)
+
     return YeeOperands(
-        shape=(m, Py, Pz),
+        shape=shape,
         grid_shape=tuple(sim.grid.shape),
         dtmu=sim.operands.dtmu,
         inv_p=tuple(axis_vec(inv_p[a], a) for a in range(3)),
         inv_d=tuple(axis_vec(inv_d[a], a) for a in range(3)),
         ca=tuple(coeffs["ca_" + c] for c in ("ex", "ey", "ez")),
         cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")),
-        src=tuple(to_dev(rows(src[a])) if a in src else None for a in range(3)),
+        src=tuple(to_dev(block(src[a])) if a in src else None for a in range(3)),
         mur=mur_coef,
         pml=None if pml is None else {
             key: tuple(axis_vec(pml[a][kind][j], a) for a in range(3))
             for key, kind, j in (("bh", "half", 0), ("ch", "half", 1),
                                  ("be", "node", 0), ("ce", "node", 1))
         },
-        probes=ProbeTable.from_blocks(blocks, m * Py * Pz, dev),
-        mur_x_rows=(0 - g0, Qx - 1 - g0),
+        probes=ProbeTable.from_blocks(blocks, int(np.prod(shape)), dev),
+        mur_x_rows=walls(0),
+        mur_y_rows=walls(1) if y is not None else None,
     )
 
 
@@ -233,38 +254,13 @@ def build_shard_stepper(sim, n_dev: int, rank: int, k_steps=None,
 # plain PyTorch twin (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
-def mur_x_rows_plain(ops: YeeOperands, st: YeeState) -> None:
-    """The MUR x walls of a slab at rows ``ops.mur_x_rows``, skipped when
-    outside the slab; a neighbour past the slab edge reads 0."""
-    Eo = st.e[st.parity]
-    En = st.e[1 - st.parity]
-    m = ops.shape[0]
-    for side, wall in enumerate(ops.mur_x_rows):
-        if not 0 <= wall < m:
-            continue
-        nb = wall - 1 if side else wall + 1
-        c = ops.mur[0][side]
-        for comp in (1, 2):
-            if 0 <= nb < m:
-                eo_nb, en_nb = Eo[comp][nb], En[comp][nb]
-            else:
-                eo_nb = en_nb = torch.zeros_like(Eo[comp][wall])
-            En[comp][wall].copy_(eo_nb + c * (en_nb - Eo[comp][wall]))
-
-
 def shard_steps_plain(ops: YeeOperands, st: YeeState,
                       wf_window: Sequence[float]) -> None:
     """``len(wf_window)`` leapfrog steps of a slab: H, E with source
     sample ``wf_window[k]``, then the MUR walls x (at ``mur_x_rows``), y,
-    z, each reading the old E."""
+    z, each reading the old E (K1's plain twins on the slab)."""
     for s in wf_window:
-        fdtd_cuda.h_update_plain(ops, st)
-        fdtd_cuda.e_update_plain(ops, st, s)
-        if ops.mur is not None:
-            mur_x_rows_plain(ops, st)
-            fdtd_cuda.mur_faces_plain(ops, st, 1)
-            fdtd_cuda.mur_faces_plain(ops, st, 2)
-        st.parity ^= 1
+        fdtd_cuda.leapfrog_step(fdtd_cuda.plain, ops, st, s)
 
 
 # ---------------------------------------------------------------------------

@@ -365,6 +365,9 @@ def _pack(ops: YeeOperands, src, dst, view, blocks, batch: int = 0,
     grid's and ``active`` the device mask of the variants that step."""
     if ops.mur is not None and min(ops.grid_shape) < 3:
         raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+    if ops.mur_y_rows is not None:
+        raise ValueError("an x-y block (mur_y_rows) is the per-step walk's; "
+                         "the march takes a whole y extent")
     dev = ops.device
     pml = ops.pml is not None
     v0, x_lo, x_hi = view

@@ -79,6 +79,9 @@ def pack(ops: YeeOperands, st: YeeState, x_walls: Tuple[int, int],
         raise ValueError("MUR walls and CPML exclude each other")
     if ops.mur is not None and min(ops.grid_shape) < 3:
         raise ValueError(f"MUR needs >= 3 planes per axis, grid {ops.grid_shape}")
+    if ops.mur_y_rows is not None:
+        raise ValueError("an x-y block (mur_y_rows) is the per-step walk's; "
+                         "the persistent steppers take a whole y extent")
     shp = tuple(ops.shape)
     var = (batch,) + shp if batch else shp  # a per-variant array's shape
     if max(batch, 1) * shp[0] * shp[1] * shp[2] >= 2 ** 31:

@@ -20,6 +20,10 @@ package's vmapped run keeps its base's kernel:
   ``coef_ops_from`` form under ``jax.vmap``), the probe decimation
   rounded down to a multiple of T as the JAX base rounds it.
 
+``parallel.shard_sweep(prepared, mesh)`` spreads the variants over the
+ranks of a process group (``parallel/sweep_shard.py``): each rank runs
+its sweep group's share and every rank gets every variant's results.
+
 Early exit: each variant stops on its own. After every chunk each
 variant's energy ratio is checked; a variant that meets the criterion is
 frozen at that chunk (its step count, fields, DFT sums and ratio stay as
@@ -65,6 +69,11 @@ class SweepPrepared:
     theta: Optional[np.ndarray] = None  # degrees
     phi: Optional[np.ndarray] = None  # degrees
     nf_centers: Optional[List[np.ndarray]] = None  # per-variant, meters
+    # sweep-level sharding (``parallel/sweep_shard.py``): the rows past
+    # len(variants) are padding, dropped before post-processing; the mesh
+    # whose sweep group's share ``batched_coeffs`` holds
+    _sweep_pad: int = 0
+    _sweep_mesh: object = None
 
 
 @dataclasses.dataclass
@@ -277,7 +286,14 @@ def prepare_patch_geometry_sweep(
 
 def _run_batched(prepared: SweepPrepared, impl=None):
     """Run the batched loop; returns ``(out, wall_s, max_steps)``. The wall
-    time ends in host reads of the results."""
+    time ends in host reads of the results. A sweep sharded by
+    ``parallel.shard_sweep`` runs this rank's share and gathers every
+    variant's results (``parallel/sweep_shard.py::run_sweep_share``; the
+    padded rows stay in ``out``)."""
+    if prepared._sweep_mesh is not None:
+        from ..parallel.sweep_shard import run_sweep_share
+
+        return run_sweep_share(prepared, impl)
     t0 = time.perf_counter()
     out = run_batched(prepared.sim, prepared.batched_coeffs, impl)
     wall = time.perf_counter() - t0
@@ -332,8 +348,8 @@ def run_patch_geometry_sweep(
             steps_run=steps,
             wall_time_s=wall,
             mcells_per_s=rate,
-            steps=out["steps"],
-            e_ratio=out["e_ratio"],
+            steps=out["steps"][:n_var],
+            e_ratio=out["e_ratio"][:n_var],
         )
     except Exception as e:
         return SweepResult(False, f"sweep run failed: {e}")
@@ -460,9 +476,13 @@ def run_horn_aperture_sweep(
         n_var = len(prepared.variants)
         spectra = _batched_port_spectra(prepared, out)
         f_res, s11_min = _resonances(spectra, prepared.variants)
-        # one batched NF2FF pass for all variants × frequencies
+        # one batched NF2FF pass for all variants × frequencies, on the
+        # real variants: a sharded sweep pads the batch (shard_sweep), and
+        # nf_centers has only n_var rows
+        nf_e = [face[:n_var] for face in out["nf_e"]]
+        nf_h = [face[:n_var] for face in out["nf_h"]]
         ffs = nf2ff_transform_batch(
-            sim.faces, out["nf_e"], out["nf_h"], sim.dft_dt, sim.nf_freqs_hz,
+            sim.faces, nf_e, nf_h, sim.dft_dt, sim.nf_freqs_hz,
             prepared.theta, prepared.phi,
             centers_m=np.asarray(prepared.nf_centers), device=sim.device,
         )
@@ -483,8 +503,8 @@ def run_horn_aperture_sweep(
             steps_run=steps,
             wall_time_s=wall,
             mcells_per_s=rate,
-            steps=out["steps"],
-            e_ratio=out["e_ratio"],
+            steps=out["steps"][:n_var],
+            e_ratio=out["e_ratio"][:n_var],
         )
     except Exception as e:
         return SweepResult(False, f"horn sweep run failed: {e}")

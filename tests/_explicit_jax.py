@@ -10,7 +10,11 @@ import numpy as np
 from fdtd_solver_antennas_tpu.models.scene import Scene
 from fdtd_solver_antennas_tpu.ops.fdtd import FDTDConfig, build_simulation
 from fdtd_solver_antennas_tpu.ops.mesh import MeshBuilder
-from fdtd_solver_antennas_tpu.parallel import build_explicit_run, make_device_mesh
+from fdtd_solver_antennas_tpu.parallel import (
+    build_explicit_run,
+    make_device_mesh,
+    shard_simulation,
+)
 
 from _explicit_ranks import build_kwargs, controls, scene
 
@@ -46,3 +50,18 @@ def numpy_state(state) -> dict:
                 {kk: np.asarray(vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else np.asarray(v))
             for k, v in state.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sharded(kind, boundary, shape, pad, ctl=()):
+    """(single-device run, ``sim.run()`` after ``shard_simulation`` on a
+    mesh of ``shape`` over the first virtual devices, axes x and y) of the
+    JAX package, the simulation padded to ``pad``; ``ctl`` as sorted
+    (key, value) pairs."""
+    ctl = dict(ctl)
+    n = int(np.prod(shape))
+    mesh = make_device_mesh(shape, ("x", "y")[:len(shape)],
+                            devices=jax.devices()[:n])
+    sim = jax_sim(kind, boundary, pad, **ctl)
+    return (jax_sim(kind, boundary, pad, **ctl).run(),
+            shard_simulation(sim, mesh).run())

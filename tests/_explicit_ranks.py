@@ -20,7 +20,10 @@ def scene(mesh_builder, scene_cls, kind):
     the top MUR wall, row 12, is the first row of the last block;
     ``tall_z``: the z = 131 scene of tests/test_sharding.py::_build_tall
     on 16 x lines (16×16×131, past the 128 z lines of K3's route);
-    ``tall_straddle``: the same on 13 x lines, the straddle at z = 131."""
+    ``tall_straddle``: the same on 13 x lines, the straddle at z = 131;
+    ``ystraddle``: ``straddle`` with x and y swapped, so that over 4 ranks
+    along y (Py = 16, 4 planes a rank) the top y wall, plane 12, is the
+    first plane of the last block."""
     mb = mesh_builder()
     sc = scene_cls()
     if kind in ("tall_z", "tall_straddle"):
@@ -44,6 +47,15 @@ def scene(mesh_builder, scene_cls, kind):
         sc.add_metal_box("patch", [-15, -12, 1.6], [15, 12, 1.6], priority=10)
         sc.add_metal_box("gnd", [-20, -20, 0], [20, 20, 0], priority=10)
         sc.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
+    elif kind == "ystraddle":
+        mb.add_line("x", np.linspace(0, 15, 16))
+        mb.add_line("y", np.linspace(0, 12, 13))
+        mb.add_line("z", np.linspace(0, 19, 20))
+        grid = mb.build(1.0)
+        sc.add_material_box("sub", 4.3, 0.005, [4, 3, 8], [11, 9, 10], 0)
+        sc.add_metal_box("patch", [6, 4, 10], [10, 8, 10], priority=10)
+        sc.add_metal_box("gnd", [4, 3, 8], [11, 9, 8], priority=10)
+        sc.add_lumped_port(1, 50.0, [8, 6, 8], [8, 6, 10], direction="z")
     else:
         mb.add_line("x", np.linspace(0, 12, 13))
         mb.add_line("y", np.linspace(0, 15, 16))
@@ -62,8 +74,10 @@ def controls(boundary, n_steps=N_STEPS, decim=10, check_every=60):
 
 
 def build_kwargs(n_dev):
-    return dict(f0=2.45e9, fc=1.225e9, nf_margin_cells=2,
-                pad_multiple=(n_dev, 1, 1), **FREQS)
+    """``n_dev`` ranks along x, or a ``pad_multiple`` tuple."""
+    pad = tuple(n_dev) if isinstance(n_dev, (tuple, list)) else (n_dev, 1, 1)
+    return dict(f0=2.45e9, fc=1.225e9, nf_margin_cells=2, pad_multiple=pad,
+                **FREQS)
 
 
 def port_sim(kind, boundary, n_dev, device="cpu", **ctl):
@@ -156,44 +170,81 @@ def assert_close_surface(out, ref, rtol, atol_rel):
             close(out["state"][grp][k], v, f"{grp} {k}")
 
 
-def rank_worker(rank, world, store, jobs):
-    """One rank of a gloo process group that runs the port's explicit
-    path for each job ``(out_path, kind, boundary, ctl, resume_path)`` in
-    turn; rank 0 writes each output surface to its ``out_path``."""
+def last_path(out_path):
+    """Where the last rank writes its output surface (``every_rank``)."""
+    return out_path[:-len(".npz")] + "-last.npz"
+
+
+def run_job(world, kind, boundary, ctl, resume, opts):
+    """One job on this rank: the explicit path over the whole group
+    (``use_kernel`` from ``opts``: None the slab kernels, False the
+    walk), or, with ``opts["mesh"]``, ``sim.run()`` after
+    ``shard_simulation`` over that mesh (axes x, y), the simulation padded
+    to ``opts["pad"]`` (default ``(world, 1, 1)``)."""
+    import torch.distributed as dist
+
+    from fdtd_solver_antennas_tpu_torch.parallel import (
+        build_explicit_run, make_device_mesh, shard_simulation)
+
+    sim = port_sim(kind, boundary, opts.get("pad", world), **ctl)
+    if "mesh" in opts:
+        shape = opts["mesh"]
+        shard_simulation(sim, make_device_mesh(shape, ("x", "y")[:len(shape)]))
+        return sim.run(resume_state=resume)
+    return build_explicit_run(sim, group=dist.group.WORLD,
+                              use_kernel=opts.get("use_kernel"))(
+        resume_state=resume)
+
+
+def init_gloo(rank, world, store):
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world, timeout=timedelta(seconds=120))
-    try:
-        from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
 
-        for out_path, kind, boundary, ctl, resume_path in jobs:
-            sim = port_sim(kind, boundary, world, **ctl)
+
+def rank_worker(rank, world, store, jobs):
+    """One rank of a gloo process group that runs each job ``(out_path,
+    kind, boundary, ctl, resume_path, opts)`` in turn (:func:`run_job`);
+    rank 0 writes each output surface to its ``out_path``, and with
+    ``opts["every_rank"]`` the last rank to :func:`last_path` too."""
+    import torch.distributed as dist
+
+    init_gloo(rank, world, store)
+    try:
+        for out_path, kind, boundary, ctl, resume_path, opts in jobs:
             resume = load_state(np.load(resume_path)) if resume_path else None
-            out = build_explicit_run(sim, group=dist.group.WORLD)(
-                resume_state=resume)
+            out = run_job(world, kind, boundary, ctl, resume, opts)
             if rank == 0:
                 save_out(out_path, out)
+            elif rank == world - 1 and opts.get("every_rank"):
+                save_out(last_path(out_path), out)
     finally:
         dist.destroy_process_group()
 
 
 def spawn_runs(tmp_path, world, jobs):
     """Run the port's explicit path over ``world`` gloo ranks, one process
-    group for every job ``name: (kind, boundary, ctl, resume_state)``;
-    rank 0's output surface per name."""
+    group for every job ``name: (kind, boundary, ctl, resume_state)`` or
+    ``(kind, boundary, ctl, resume_state, opts)`` (:func:`run_job`);
+    rank 0's output surface per name (and the last rank's as
+    ``name + " last"`` where ``opts["every_rank"]``)."""
     import torch.multiprocessing as mp
 
     specs = []
-    for name, (kind, boundary, ctl, resume_state) in jobs.items():
+    for name, (kind, boundary, ctl, resume_state, *opts) in jobs.items():
         resume_path = None
         if resume_state is not None:
             resume_path = str(tmp_path / f"resume-{name}.npz")
             np.savez(resume_path, **_state_arrays(resume_state))
         specs.append((str(tmp_path / f"out-{name}.npz"), kind, boundary, ctl,
-                      resume_path))
+                      resume_path, opts[0] if opts else {}))
     mp.spawn(rank_worker, nprocs=world,
              args=(world, str(tmp_path / "store"), specs))
-    return {name: load_out(spec[0]) for name, spec in zip(jobs, specs)}
+    outs = {name: load_out(spec[0]) for name, spec in zip(jobs, specs)}
+    for name, spec in zip(jobs, specs):
+        if spec[5].get("every_rank"):
+            outs[name + " last"] = load_out(last_path(spec[0]))
+    return outs

@@ -133,6 +133,89 @@ def test_each_kernel_equals_its_twin_bit_for_bit(cuda, boundary):
             assert torch.equal(x, y)
 
 
+def _guarded_state(shape, device, pml, seed):
+    """A random state whose tensors are rows [1, m + 1) of larger tensors
+    (contiguous views): the guard rows 0 and m + 1 hold a sentinel, so a
+    write past either end of the slab shows."""
+    rng = np.random.default_rng(seed)
+    m = shape[0]
+    bigs = []
+
+    def t():
+        big = torch.full((m + 2, *shape[1:]), 7.5, device=device)
+        big[1:m + 1].copy_(torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)))
+        bigs.append(big)
+        return big[1:m + 1]
+
+    psi = (lambda: tuple(t() for _ in range(6))) if pml else (lambda: ())
+    st = fdtd_cuda.YeeState(e=[(t(), t(), t()), (t(), t(), t())],
+                            h=(t(), t(), t()), psi_e=psi(), psi_h=psi())
+    return st, bigs
+
+
+@pytest.mark.parametrize("case", ["whole", "one-rank slab", "rank 0 of 4",
+                                  "rank 3 of 4", "x-y block"])
+def test_mur_faces_on_slabs_equals_its_twin(cuda, case):
+    """``mur_faces`` places its walls from ``YeeOperands.mur_walls``: on a
+    whole grid rows 0 and q − 1 (K1's per-step route); on a slab or block
+    where the global walls fall, a wall outside it skipped. Bit-equal to
+    the twin on every cell, the guard rows around the slab untouched. The
+    slabs are the walk's (one halo row a side) of the straddle scene of
+    tests/_explicit_ranks.py: at 4 ranks rank 0 holds the bottom wall
+    only, rank 3 the top wall on its first owned row (its inward
+    neighbour in the halo row); at one rank both walls lie inside."""
+    from _explicit_ranks import port_sim
+
+    n_dev, rank, y = {"whole": (1, 0, None), "rank 0 of 4": (4, 0, None),
+                      "rank 3 of 4": (4, 3, None), "one-rank slab": (1, 0, None),
+                      "x-y block": (2, 1, (1, 8, 1))}[case]
+    sim = port_sim("straddle", "MUR", n_dev, device="cuda")
+    ops = sim.operands if case == "whole" else fdtd_shard.slab_operands(
+        sim, rank, sim.padded_shape[0] // n_dev, 1, cuda, y=y)
+    if case == "rank 3 of 4":
+        assert ops.mur_x_rows == (-11, 1)  # the top wall on the first owned row
+    if case == "x-y block":
+        assert ops.mur_y_rows == (-7, 8)
+    a, big_a = _guarded_state(ops.shape, cuda, False, seed=5)
+    b, big_b = _guarded_state(ops.shape, cuda, False, seed=5)
+    fdtd_cuda.reset_launch_counts()
+    for axis in range(3):
+        fdtd_cuda.mur_faces(ops, a, axis)
+        fdtd_cuda.plain.mur_faces(ops, b, axis)
+    torch.cuda.synchronize()
+    assert fdtd_cuda.launches["mur_faces"] == 3
+    for x, y_ in zip(big_a, big_b, strict=True):
+        assert torch.equal(x, y_)
+        assert (x[0] == 7.5).all() and (x[-1] == 7.5).all()
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_walk_on_one_card_matches_chunk_mode(cuda, boundary):
+    """The per-step walk on one rank launches only ``h_update``,
+    ``e_update``, ``mur_faces`` (three a step under MUR) and
+    ``probe_gather``, and matches the chunk-mode run."""
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+
+    sim = _sim(boundary, decim=12)
+    run = build_explicit_run(sim, use_kernel=False)
+    fdtd_cuda.reset_launch_counts()
+    fdtd_shard.reset_launch_counts()
+    out = run()
+    mur = 3 * 120 if boundary == "MUR" else 0
+    assert fdtd_cuda.launches == {"h_update": 120, "e_update": 120,
+                                  "mur_faces": mur, "probe_gather": 10,
+                                  "chunk_steps": 0, "chunk_steps_batch": 0,
+                                  "probe_gather_batch": 0}
+    assert fdtd_shard.launches == {"shard_steps": 0}
+    ref = sim.run()
+    assert out["steps"] == ref["steps"] == 120
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        _close(a, b)
+    for key in ("uf", "if_"):
+        _close(out[key], ref[key])
+
+
 def _stream_sim(boundary, tall=False, T=None, n_steps=120, mode="stream",
                 decim=4):
     """The scene of tests/test_stream_kernel.py (``tall``: 131 z lines),

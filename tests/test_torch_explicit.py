@@ -8,9 +8,14 @@ the port's own chunk-mode run bit for bit. At Pz > 128 (the ``tall_z``
 scene, z = 131) the run takes K2's slab stepper and must match the JAX
 package's single-device run and its explicit XLA walk
 (``use_kernel=False``) at the same tolerance under MUR_1, PEC and PML_4.
-Checkpoints carry across between the two packages' explicit paths, the
-padding and NF margin of ``build_simulation`` are the JAX package's, and
-the route the port does not have raises. Runs over 2 and 4 ranks are in
+Checkpoints carry across between the two packages' explicit paths, and
+the padding and NF margin of ``build_simulation`` are the JAX package's.
+``use_kernel=False`` is the per-step walk (K1's per-step kernels on a
+slab with one halo row a side; their plain twins here): it must match the
+JAX package's walk and its single-device run (rtol 1e-3, atol 1e-4·max on
+``small``, the JAX explicit path's own tolerance; 2e-4 / 1e-5·max on
+``tall_z``), equal the port's chunk-mode run bit for bit at one rank, and
+resume a JAX walk checkpoint. Runs over 2 and 4 ranks are in
 ``tests/test_torch_explicit_2ranks.py`` and ``..._4ranks.py``.
 """
 
@@ -31,6 +36,7 @@ from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
 from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
 
 RTOL, ATOL_REL = 2e-4, 1e-5  # the JAX package's kernel-vs-XLA tolerance
+WALK_RTOL, WALK_ATOL_REL = 1e-3, 1e-4  # its explicit path's (test_sharding.py)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,13 +150,23 @@ def test_padding_and_nf_margin_match_jax():
 
 @pytest.mark.parametrize("route", ["xla_walk", "tall_z"])
 def test_unported_routes_raise(route):
-    """The per-step walk raises. Pz = 131 once raised too; it now takes K2's
-    slab stepper and equals the single-card run, while K3's stepper still
+    """Both routes that once raised now run. The per-step walk
+    (``use_kernel=False``) runs on K1's per-step kernels: at one rank it
+    matches the JAX package's walk and equals chunk mode bit for bit, and
+    the slab kernels' ``k_steps`` is refused. Pz = 131 takes K2's slab
+    stepper and equals the single-card run, while K3's stepper still
     refuses it (the router, not K3, picks the route)."""
     if route == "xla_walk":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP, queue A: the per-step walk"):
-            build_explicit_run(port_sim("small", "MUR", 1), use_kernel=False)
+        sim = port_sim("small", "MUR", 1)
+        run = build_explicit_run(sim, use_kernel=False)
+        assert run.kernel_window is None and run.stepper.ops.shape == (24, 21, 21)
+        out, ref = run(), sim.run()
+        assert_close_surface(out, jax_refs("small", "MUR", 1, use_kernel=False)[1],
+                             WALK_RTOL, WALK_ATOL_REL)
+        for a, b in zip(out["fields"], ref["fields"], strict=True):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="k_steps"):
+            build_explicit_run(sim, use_kernel=False, k_steps=3)
         return
     mb = MeshBuilder()
     mb.add_line("x", np.linspace(0, 9, 10))
@@ -167,3 +183,47 @@ def test_unported_routes_raise(route):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="Pz=131"):
         fdtd_shard.build_shard_stepper(sim, 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# the per-step walk (use_kernel=False)
+# ---------------------------------------------------------------------------
+
+WALK_CASES = [("small", b) for b in ("MUR", "PEC", "PML_4")] + \
+    [("tall_z", b) for b in ("MUR_1", "PEC", "PML_4")]
+
+
+@pytest.mark.parametrize("kind,boundary", WALK_CASES)
+def test_walk_one_rank_matches_jax_walk(kind, boundary):
+    """The walk at one rank against the JAX package's single-device run and
+    its ``use_kernel=False`` walk, at any Pz (131 here on ``tall_z``)."""
+    tol = (RTOL, ATOL_REL) if kind == "tall_z" else (WALK_RTOL, WALK_ATOL_REL)
+    out = build_explicit_run(port_sim(kind, boundary, 1), use_kernel=False)()
+    for ref in jax_refs(kind, boundary, 1, use_kernel=False):
+        assert_close_surface(out, ref, *tol)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PML_4"])
+def test_walk_one_rank_equals_chunk_mode(boundary):
+    """One rank's halo rows are out-of-domain rows that stay zero, so the
+    walk does the chunk kernels' arithmetic on every owned cell: bit-equal,
+    the probe sums too."""
+    sim = port_sim("small", boundary, 1)
+    out, ref = build_explicit_run(sim, use_kernel=False)(), sim.run()
+    assert out["steps"] == ref["steps"] and out["e_ratio"] == ref["e_ratio"]
+    for a, b in zip((*out["fields"], *out["state"]["psi_h"].values()),
+                    (*ref["fields"], *ref["state"]["psi_h"].values()), strict=True):
+        assert torch.equal(a, b)
+    for key in ("uf", "if_"):
+        np.testing.assert_array_equal(out[key], ref[key])
+
+
+def test_walk_resumes_a_jax_walk_checkpoint():
+    """A JAX walk checkpoint at step 60 resumes on the port's walk to the
+    JAX package's uninterrupted walk."""
+    half = jax_explicit("small", "PML_4", 1, use_kernel=False, n_steps=60)
+    assert int(half["steps"]) == 60
+    out = build_explicit_run(port_sim("small", "PML_4", 1), use_kernel=False)(
+        resume_state=numpy_state(half["state"]))
+    assert_close_surface(out, jax_refs("small", "PML_4", 1, use_kernel=False)[1],
+                         WALK_RTOL, WALK_ATOL_REL)

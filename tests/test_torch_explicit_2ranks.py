@@ -13,7 +13,11 @@ under PEC, else 4, with a remainder window) are held to the JAX
 package's single-device run and its explicit XLA walk on a 2-device mesh
 at rtol 2e-4, atol 1e-5·max|ref|; PML_4 at z = 131 also to its ``shard=``
 stream kernel in interpret mode on that mesh (the ψ halos restocked each
-launch).
+launch). The per-step walk (``use_kernel=False``: K1's per-step kernels'
+twins on a slab with one halo row a side, the halos exchanged every
+half-step) runs MUR, PEC and PML_4 on the same scene, MUR_1 at z = 131
+and a resume from a JAX walk checkpoint, held to the JAX package's
+single-device run and its walk on a 2-device mesh at the same tolerances.
 """
 
 import pytest
@@ -39,6 +43,14 @@ def outs(tmp_path_factory):
     half = jax_explicit("small", "MUR", WORLD, **dict(CTL, n_steps=30))
     jobs["resume"] = ("small", "MUR", CTL, numpy_state(half["state"]))
     jobs.update({f"tall {b}": ("tall_z", b, CTL, None) for b in TALL})
+    walk = {"use_kernel": False}
+    jobs.update({f"walk {b}": ("small", b, CTL, None, walk)
+                 for b in ("MUR", "PEC", "PML_4")})
+    jobs["walk tall MUR_1"] = ("tall_z", "MUR_1", CTL, None, walk)
+    half = jax_explicit("small", "PML_4", WORLD, use_kernel=False,
+                        **dict(CTL, n_steps=30))
+    jobs["walk resume"] = ("small", "PML_4", CTL, numpy_state(half["state"]),
+                           walk)
     return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
 
 
@@ -70,3 +82,27 @@ def test_tall_z_pml_ranks_match_the_jax_shard_stream_kernel(outs):
     kernel it ports, on a 2-device mesh."""
     ref = jax_explicit("tall_z", "PML_4", WORLD, **CTL)
     assert_close_surface(outs["tall PML_4"], ref, TALL_RTOL, TALL_ATOL_REL)
+
+
+def _walk_refs(kind, boundary):
+    return jax_refs(kind, boundary, WORLD, tuple(sorted(CTL.items())),
+                    use_kernel=False)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_walk_ranks_match_jax_walk_and_single_device(outs, boundary):
+    out = outs[f"walk {boundary}"]
+    assert out["fields"][0].shape == (22, 21, 21)
+    for ref in _walk_refs("small", boundary):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
+def test_walk_tall_z_ranks_match_jax_walk(outs):
+    for ref in _walk_refs("tall_z", "MUR_1"):
+        assert_close_surface(outs["walk tall MUR_1"], ref, TALL_RTOL,
+                             TALL_ATOL_REL)
+
+
+def test_walk_ranks_resume_a_jax_walk_checkpoint(outs):
+    assert_close_surface(outs["walk resume"], _walk_refs("small", "PML_4")[1],
+                         RTOL, ATOL_REL)

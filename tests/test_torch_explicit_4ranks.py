@@ -15,6 +15,12 @@ T = 3) and the straddle at z = 131 (``tall_straddle``: the top wall on
 the last rank's first row, W = n = 4, so rank 1's lower halo starts on
 the bottom wall) are held to the JAX package's single-device run and its
 explicit XLA walk on a 4-device mesh at rtol 2e-4, atol 1e-5·max|ref|.
+The per-step walk (``use_kernel=False``: K1's per-step kernels' twins,
+the halos exchanged every half-step) runs MUR, PEC and PML_4 on the same
+scene, MUR_1 at z = 131, the straddle (the top wall's inward neighbour
+fetched from the rank before, JAX's ``straddle_top``) and the straddle
+at z = 131, held to the JAX package's single-device run and its walk on
+a 4-device mesh at the same tolerances.
 """
 
 import pytest
@@ -42,6 +48,13 @@ def outs(tmp_path_factory):
     jobs["half"] = ("small", "PML_4", dict(CTL, n_steps=30), None)
     jobs.update({f"tall {b}": ("tall_z", b, CTL, None) for b in TALL})
     jobs["tall straddle"] = ("tall_straddle", "MUR_1", STRADDLE, None)
+    walk = {"use_kernel": False}
+    jobs.update({f"walk {b}": ("small", b, CTL, None, walk)
+                 for b in ("MUR", "PEC", "PML_4")})
+    jobs["walk tall MUR_1"] = ("tall_z", "MUR_1", CTL, None, walk)
+    jobs["walk straddle"] = ("straddle", "MUR", STRADDLE, None, walk)
+    jobs["walk tall straddle"] = ("tall_straddle", "MUR_1", STRADDLE, None,
+                                  walk)
     return spawn_runs(tmp_path_factory.mktemp("ranks"), WORLD, jobs)
 
 
@@ -85,3 +98,23 @@ def test_tall_straddle(outs):
     assert out["fields"][0].shape == (16, 16, 131)
     for ref in _walk_refs("tall_straddle", "MUR_1", STRADDLE):
         assert_close_surface(out, ref, TALL_RTOL, TALL_ATOL_REL)
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
+def test_walk_ranks_match_jax_walk_and_single_device(outs, boundary):
+    out = outs[f"walk {boundary}"]
+    assert out["fields"][0].shape == (24, 21, 21)
+    for ref in _walk_refs("small", boundary, CTL):
+        assert_close_surface(out, ref, RTOL, ATOL_REL)
+
+
+@pytest.mark.parametrize("kind,ctl,tol", [
+    ("tall_z", CTL, (TALL_RTOL, TALL_ATOL_REL)),
+    ("straddle", STRADDLE, (RTOL, ATOL_REL)),
+    ("tall_straddle", STRADDLE, (TALL_RTOL, TALL_ATOL_REL))])
+def test_walk_tall_and_straddle(outs, kind, ctl, tol):
+    boundary = "MUR" if kind == "straddle" else "MUR_1"
+    name = {"tall_z": "walk tall MUR_1", "straddle": "walk straddle",
+            "tall_straddle": "walk tall straddle"}[kind]
+    for ref in _walk_refs(kind, boundary, ctl):
+        assert_close_surface(outs[name], ref, *tol)
