@@ -234,6 +234,28 @@ and the script exits non-zero without printing a result:
     launches (``chunk_steps_batch`` alone, phase 16's count) and its
     results bit-equal to the unsharded sweep's.
 
+25. the frontends slice: (a) the CLI's ``simulate`` and ``fdtd --solver
+    fixed`` at phase 4's arguments through ``__main__.main`` (``fdtd``:
+    ``chunk_steps`` alone, phase 4's 25 launches, its summary and
+    ``s11.npz`` equal to phase 4's run), each figure saved or named as not
+    drawn, and whether matplotlib is installed; (b) the desktop GUI's
+    ``dispatch_prepare`` for its five solver kinds on the canonical FR-4
+    patch (microstrip_3d at phase 21's quality 5 and PML_8), each runner
+    on a worker thread with ``progress_cb`` and ``abort_cb`` wired as the
+    GUI's worker wires them (the thread's device and stream printed):
+    ``chunk_steps`` alone for four kinds, the march and ``probe_gather``
+    alone for microstrip_3d, ``fixed`` equal to phase 4's run bit for bit,
+    the others' equality with phases 20 and 21 printed, with steps,
+    resonance, |S11|min, Dmax and ``format_port_diagnostics``' lines; (c)
+    the web app's ``BackgroundRun``: the canonical run (ticks monotone, the
+    result equal to phase 4's main-thread run bit for bit), ``sim.run``
+    aborted after its first tick (one chunk) and its state resumed to the
+    straight run, ``design_array`` of the 2×1 array equal to phase 22's S
+    matrix bit for bit; (d) ``open_scene_3d_view`` of the mixed designer
+    scene (its HTML's size) and ``utils.tracing.trace`` around a canonical
+    run, ``summarize_trace`` naming ``chunk_steps_kernel`` with phase 4's
+    25 events. Under 60 s.
+
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
 exits non-zero when CUDA is unavailable.
@@ -1375,7 +1397,7 @@ def phase_solvers_main_path(card):
                   f"cells), prepared in {prep_s:.2f} s on the host; "
                   f"{sim.pallas_mode_reason}; pattern {res.intensity.shape}; "
                   f"{run_text(res, counts, busy, card)}")
-        out[label] = row
+        out[label] = dict(row, res=res)  # phase 25 runs these again
     return out
 
 
@@ -3507,7 +3529,9 @@ def phase_array_main_path(card):
               f"{summary['steered_peak_deg']}; wrote array_embedded.npz (S and "
               f"patterns == design_array's, max |err| {cli_err:.3e}) and "
               f"array.s2p [{card}]")
-    return dict(row, launches=sum(r["steps"] // chunk for r in rec.runs))
+    # phase 25 designs the same array through the web app's BackgroundRun
+    return dict(row, launches=sum(r["steps"] // chunk for r in rec.runs),
+                s=sm.s)
 
 
 def phase_mixed_smatrix(mixed_prep, k2, card):
@@ -4242,6 +4266,334 @@ def phase_parallel(mixed, mixed_res, k2, k1b, card):
     return walk_rows
 
 
+def run_cli(argv):
+    """``__main__.main(argv)`` with its standard output captured and the
+    launch counts set to 0 just before it; returns (text, counts)."""
+    import contextlib
+    import io
+
+    from fdtd_solver_antennas_tpu_torch import __main__ as cli
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _none, counts = counted(lambda: cli.main(argv))
+    return text.getvalue(), counts
+
+
+def figure_lines(text):
+    """The CLI's lines about its figures: saved PNGs or not drawn."""
+    return [ln for ln in text.splitlines()
+            if ln.startswith("Not drawn:") or (ln.startswith("Saved:")
+                                               and ln.endswith(".png"))]
+
+
+def same_result(a, b) -> bool:
+    """Two solver results bit for bit: steps, S11, Z_in, pattern, Dmax."""
+    return (a.steps_run == b.steps_run and a.Dmax == b.Dmax
+            and all(np.array_equal(np.asarray(x), np.asarray(y))
+                    for x, y in ((a.s11, b.s11), (a.z_in, b.z_in),
+                                 (a.intensity, b.intensity))))
+
+
+def phase_frontends_cli(res4, counts4, card):
+    """(a) The CLI's ``simulate`` and ``fdtd --solver fixed`` at phase 4's
+    arguments through ``__main__.main``: ``fdtd`` launches ``chunk_steps``
+    alone, phase 4's count, and its summary and ``s11.npz`` equal phase
+    4's run; the figures written, or the lines naming those not drawn."""
+    import importlib.util
+
+    outdir = "outputs/smoke_cli"
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    t0 = time.perf_counter()
+    text, counts = run_cli(["simulate", "--frequency-ghz", "2.45", "--er",
+                            "4.3", "--h-mm", "1.6", "--outdir", outdir])
+    sim_s = time.perf_counter() - t0
+    assert_only(counts, set(), "cli simulate")
+    design = [ln.strip() for ln in text.splitlines() if ln.startswith("  ")]
+    pngs = figure_lines(text)
+    assert len(pngs) == 2 and all(("Saved:" in ln) == mpl for ln in pngs), pngs
+    say("25", f"CLI simulate in {sim_s:.2f} s (the analytical model, no "
+              f"launch); design {'; '.join(design)}; {' | '.join(pngs)}; "
+              f"matplotlib installed: {mpl}")
+
+    argv = ["fdtd", "--frequency-ghz", "2.45", "--er", "4.3", "--h-mm", "1.6",
+            "--loss-tangent", "0.02", "--solver", "fixed", "--outdir", outdir]
+    t0 = time.perf_counter()
+    text, counts = run_cli(argv)
+    fdtd_s = time.perf_counter() - t0
+    assert_only(counts, {"chunk_steps"}, "cli fdtd")
+    assert counts["chunk_steps"] == counts4["chunk_steps"], counts
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    s11_db = 20 * np.log10(np.maximum(np.abs(res4.s11), 1e-12))
+    want = {"f_res_ghz": res4.f_res_hz / 1e9, "s11_min_db": float(s11_db.min()),
+            "Dmax_dbi": 10 * np.log10(res4.Dmax), "steps": res4.steps_run}
+    for k, v in want.items():
+        assert summary[k] == v, (k, summary[k], v)
+    with np.load(f"{outdir}/s11.npz") as z:
+        assert np.array_equal(z["s11"], res4.s11)
+    pngs = figure_lines(text)
+    assert len(pngs) == 1 and pngs[0].endswith(
+        ("pattern_fdtd.png", "(matplotlib is not installed)")), pngs
+    say("25", f"CLI {' '.join(argv)} in {fdtd_s:.2f} s: "
+              f"{text.splitlines()[0] if text else ''}; {summary['steps']} "
+              f"steps, f_res {summary['f_res_ghz']:.4f} GHz, |S11|min "
+              f"{summary['s11_min_db']:.2f} dB, Dmax "
+              f"{summary['Dmax_dbi']:.3f} dBi == phase 4's run (summary and "
+              f"s11.npz bit for bit); launches {counts['chunk_steps']} "
+              f"chunk_steps, nothing else; {' | '.join(pngs)} [{card}]")
+
+
+def on_thread(fn):
+    """``fn()`` on a new thread, as the GUI's worker runs; returns its
+    result, the thread's CUDA device and stream, and the host seconds."""
+    import threading
+
+    box = {}
+
+    def work():
+        box["device"] = torch.cuda.current_device()
+        box["stream"] = torch.cuda.current_stream().cuda_stream
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised on the calling thread
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=work, daemon=True)
+    t.start()
+    t.join(600)
+    assert not t.is_alive(), "worker thread still running"
+    if "error" in box:
+        raise box["error"]
+    return box
+
+
+def phase_frontends_kinds(res4, k21, card):
+    """(b) ``dispatch_prepare`` for the five solver kinds on the canonical
+    FR-4 patch, each runner on a worker thread with ``progress_cb`` and
+    ``abort_cb`` wired as the GUI's worker wires them (by the runner's
+    signature): ``chunk_steps`` alone for four kinds, the march and
+    ``probe_gather`` alone for microstrip_3d (quality 5, PML_8: phase
+    21's arguments). ``fixed`` equals phase 4's run bit for bit."""
+    import threading
+
+    from fdtd_solver_antennas_tpu_torch.frontends.gui_app import (
+        dispatch_prepare, format_port_diagnostics, runner_kwargs)
+
+    params = canonical_params()
+    main_stream = torch.cuda.current_stream().cuda_stream
+    earlier = {"legacy": k21["legacy PML_8"]["res"],
+               "2d": k21["quasi-2D PML_8"]["res"],
+               "microstrip_3d": k21["microstrip_3d q5 PML_8"]["res"]}
+    with np.load("outputs/smoke_s11/s11.npz") as z:
+        s11_cli = z["s11"]  # phase 20's CLI s11: the same preparation
+    kinds = (("fixed", {}), ("microstrip", {}),
+             ("microstrip_3d", dict(boundary="PML_8", mesh_quality=5)),
+             ("legacy", {}), ("2d", {}))
+    for kind, kw in kinds:
+        t0 = time.perf_counter()
+        prep, runner = dispatch_prepare(params, kind, device="cuda", **kw)
+        prep_s = time.perf_counter() - t0
+        assert prep.ok, prep.message
+        sim = prep.sim
+        ticks, abort = [], threading.Event()
+        wired = runner_kwargs(
+            runner, lambda n, total, r: ticks.append((n, total, r)),
+            abort.is_set)
+        box, counts = counted(lambda: on_thread(lambda: runner(
+            prep, frequency_hz=params.frequency_hz, verbose=0, **wired)))
+        res = box["out"]
+        check_result(res, kind in ("microstrip_3d", "legacy"))
+        assert box["device"] == (sim.device.index or 0), box["device"]
+        steps = res.steps_run
+        if sim.pallas_mode == "stream":
+            assert kind == "microstrip_3d"
+            assert counts["stream_march"] == steps // sim.stream_T, counts
+            assert_only(counts, {"stream_steps", "stream_march",
+                                 "probe_gather"}, kind)
+        else:
+            assert kind != "microstrip_3d", sim.pallas_mode_reason
+            assert_only(counts, {"chunk_steps"}, kind)
+        if wired:
+            assert [t[0] for t in ticks] == sorted(t[0] for t in ticks)
+            assert ticks[-1][0] == ticks[-1][1] == steps, ticks[-1]
+        if kind == "fixed":
+            assert same_result(res, res4), "fixed != phase 4's run"
+            same = "== phase 4's run bit for bit"
+        elif kind == "microstrip":
+            same = (f"S11 bit-equal to phase 20's CLI s11: "
+                    f"{np.array_equal(res.s11, s11_cli)}")
+        else:
+            same = (f"bit-equal to phase 21's run: "
+                    f"{same_result(res, earlier[kind])}")
+        s11_db = 20 * np.log10(np.maximum(np.abs(res.s11), 1e-12))
+        say("25", f"GUI {kind} ({', '.join(f'{k}={v}' for k, v in kw.items()) or 'defaults'}) "
+                  f"grid {sim.grid.shape}, prepared in {prep_s:.2f} s, "
+                  f"{sim.pallas_mode} mode; on a worker thread (device "
+                  f"{box['device']}, stream {box['stream']:#x}, the main "
+                  f"thread's {main_stream:#x}), callbacks wired "
+                  f"{sorted(wired) or 'none (the runner takes none)'}, "
+                  f"{len(ticks)} ticks; {steps} steps in {box['s']:.3f} s, "
+                  f"f_res {res.f_res_hz / 1e9:.4f} GHz, |S11|min "
+                  f"{s11_db.min():.2f} dB, Dmax {10 * np.log10(res.Dmax):.3f} "
+                  f"dBi; launches { {k: v for k, v in counts.items() if v} }; "
+                  f"{same} [{card}]")
+        for line in format_port_diagnostics(res):
+            say("25", f"  {kind} port diagnostics: {line}")
+
+
+def wait_run(run, seconds=600.0):
+    t0 = time.perf_counter()
+    while run.running and time.perf_counter() - t0 < seconds:
+        time.sleep(0.001)
+    assert not run.running, "background run still running"
+    assert run.error is None, run.error
+    return time.perf_counter() - t0
+
+
+def phase_frontends_background(res4, k22, card):
+    """(c) ``BackgroundRun`` on the card: the canonical run with monotone
+    ticks and a result bit-equal to phase 4's main-thread run; an abort
+    after the first tick stopping at one chunk, its state resumed to the
+    straight run; ``design_array`` through it equal to phase 22's S."""
+    from fdtd_solver_antennas_tpu_torch.frontends.webapp import BackgroundRun
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+    from fdtd_solver_antennas_tpu_torch.solvers.array_synth import design_array
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
+        prepare_patch_fixed, run_prepared_fixed)
+
+    params = canonical_params()
+    prep = prepare_patch_fixed(params, device="cuda")
+    assert prep.ok, prep.message
+    chunk = chunk_geometry(prep.sim)[2]
+
+    def recording(bg, ticks, abort_after_first=False):
+        real = bg._on_progress
+
+        def tick(*a):
+            ticks.append(a)
+            real(*a)
+            if abort_after_first:
+                bg.abort()
+        bg._on_progress = tick
+        return bg
+
+    ticks = []
+    bg = recording(BackgroundRun(), ticks)
+    (wall, res), counts = counted(lambda: (wait_run(bg.start(
+        run_prepared_fixed, prep, frequency_hz=params.frequency_hz,
+        verbose=0)), bg.result))
+    assert_only(counts, {"chunk_steps"}, "background run")
+    steps = [t[0] for t in ticks]
+    # a tick after every chunk but one that meets the energy criterion,
+    # and the final one
+    stopped = res.diagnostics["energy_ratio"] < prep.sim.cfg.end_criteria
+    assert steps == sorted(steps), steps
+    assert len(ticks) == counts["chunk_steps"] + (not stopped), (ticks, counts)
+    assert ticks[-1][:2] == (res.steps_run, res.steps_run) == bg.progress[:2]
+    assert same_result(res, res4), "BackgroundRun != phase 4's run"
+    say("25", f"BackgroundRun(run_prepared_fixed) on the canonical patch: "
+              f"{res.steps_run} steps, {len(ticks)} ticks, monotone, last "
+              f"{ticks[-1][0]}/{ticks[-1][1]} (energy {ticks[-1][2]:.2e}); "
+              f"{counts['chunk_steps']} chunk_steps, nothing else; done in "
+              f"{wall:.3f} s of polling; result == phase 4's main-thread run "
+              f"bit for bit [{card}]")
+
+    ticks = []
+    bg = recording(BackgroundRun(), ticks, abort_after_first=True)
+    (wall, out), counts = counted(lambda: (wait_run(bg.start(prep.sim.run)),
+                                           bg.result))
+    assert out["aborted"] and out["steps"] == chunk == ticks[0][0], (
+        out["steps"], chunk, ticks)
+    assert counts["chunk_steps"] == 1, counts
+    resumed, counts_r = counted(lambda: prep.sim.run(resume_state=out["state"]))
+    straight = prep.sim.run()
+    assert resumed["steps"] == straight["steps"] == res4.steps_run
+    assert counts_r["chunk_steps"] == straight["steps"] // chunk - 1
+    err = compare_runs(resumed, straight, "abort resume")
+    same = all(torch.equal(x, y) for x, y in zip(resumed["fields"],
+                                                 straight["fields"]))
+    say("25", f"BackgroundRun(sim.run) aborted after its first tick: stopped "
+              f"at {out['steps']} steps (one chunk of {chunk}, "
+              f"{counts['chunk_steps']} chunk_steps) in {wall:.3f} s; its "
+              f"state resumed on the main thread to {resumed['steps']} steps "
+              f"({counts_r['chunk_steps']} chunk_steps) == the straight run "
+              f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}, fields "
+              f"bit-equal {same} [{card}]")
+
+    ticks = []
+    bg = recording(BackgroundRun(), ticks)
+    (wall, design), counts = counted(lambda: (wait_run(bg.start(
+        design_array, params, 2, 1, device="cuda")), bg.result))
+    assert design.ok, design.message
+    assert_only(counts, {"chunk_steps"}, "background design_array")
+    same = np.array_equal(design.smatrix.s, k22["s"])
+    assert same, "design_array through BackgroundRun != phase 22's S"
+    say("25", f"BackgroundRun(design_array, 2x1) in {wall:.2f} s: "
+              f"{counts['chunk_steps']} chunk_steps, nothing else; ticks "
+              f"{[t[:2] for t in ticks]}; S matrix == phase 22's bit for bit "
+              f"[{card}]")
+
+
+def phase_frontends_views(counts4, card):
+    """(d) ``open_scene_3d_view`` of phase 8's mixed designer scene, and
+    ``utils.tracing.trace`` around a canonical run with
+    ``summarize_trace`` naming ``chunk_steps_kernel``."""
+    from fdtd_solver_antennas_tpu_torch.frontends.gui_app import (
+        open_scene_3d_view)
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
+        prepare_patch_fixed, run_prepared_fixed)
+    from fdtd_solver_antennas_tpu_torch.utils.tracing import (
+        summarize_trace, trace)
+    from fdtd_solver_antennas_tpu_torch.viz.scene3d import scene_meshes
+
+    scene = mixed_designer()
+    os.makedirs("outputs/smoke_scene", exist_ok=True)
+    t0 = time.perf_counter()
+    path = open_scene_3d_view(scene, "outputs/smoke_scene/mixed_scene.html")
+    view_s = time.perf_counter() - t0
+    meshes = scene_meshes(scene)
+    size = os.path.getsize(path)
+    with open(path, encoding="utf-8") as f:
+        html = f.read()
+    assert len(meshes) >= 10 and all(f'"{m.name}"' in html for m in meshes)
+    say("25", f"open_scene_3d_view of the mixed designer scene: {path}, "
+              f"{size:,} B, {len(meshes)} meshes, "
+              f"{sum(len(m.faces) for m in meshes)} triangles, {view_s:.3f} s")
+
+    params = canonical_params()
+    prep = prepare_patch_fixed(params, device="cuda")
+    log_dir = "outputs/smoke_trace"
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        res, counts = counted(lambda: run_prepared_fixed(
+            prep, frequency_hz=params.frequency_hz, verbose=0))
+    traced_s = time.perf_counter() - t0
+    assert res.ok and counts["chunk_steps"] == counts4["chunk_steps"], counts
+    top = summarize_trace(log_dir, top=20)
+    hits = [(n, s, c) for n, s, c in top if "chunk_steps_kernel" in n]
+    assert hits and hits[0][2] == counts["chunk_steps"], top[:8]
+    name, secs, n = hits[0]
+    say("25", f"utils.tracing.trace around the canonical run ({traced_s:.2f} "
+              f"s with the trace's export): summarize_trace's top 20 holds "
+              f"{name[:60]!r}: {n} events, {secs * 1e3:.3f} ms in all, "
+              f"{secs / n * 1e6:.1f} us each; top 5: "
+              f"{[(a[:40], round(b * 1e3, 3), c) for a, b, c in top[:5]]} "
+              f"[{card}]")
+
+
+def phase_frontends(res4, counts4, k21, k22, card):
+    """25. The frontends slice (``res4``, ``counts4``: phase 4's run and
+    launches; ``k21``, ``k22``: phases 21's and 22's results)."""
+    t0 = time.perf_counter()
+    timed_phase("25", phase_frontends_cli, res4, counts4, card)
+    timed_phase("25", phase_frontends_kinds, res4, k21, card)
+    timed_phase("25", phase_frontends_background, res4, k22, card)
+    timed_phase("25", phase_frontends_views, counts4, card)
+    say("25", f"the frontends slice took {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -4400,6 +4752,11 @@ def main() -> int:
     # per-step kernels, shard_simulation and shard_sweep, in a one-rank
     # NCCL group
     k24 = phase_parallel(mixed, mixed_res, k2, k1b, card)
+
+    # 25. the frontends slice: the CLI's simulate and fdtd with its figures,
+    # the GUI's five solver kinds on a worker thread, the web app's
+    # BackgroundRun, the 3D scene view and utils.tracing
+    phase_frontends(res, counts, k21, k22, card)
 
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]

@@ -1,17 +1,24 @@
-"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch fdtd|s11|horn|array|inverse ...``.
+"""CLI frontend: ``python -m fdtd_solver_antennas_tpu_torch simulate|fdtd|s11|horn|array|inverse ...``.
 
-Counterpart of the ``fdtd``, ``s11``, ``horn``, ``array`` and ``inverse``
-subcommands of ``fdtd_solver_antennas_tpu/__main__.py``: a full 3D FDTD run of the
-canonical patch (``--solver fixed``) or of the microstrip-fed patch
+Counterpart of ``fdtd_solver_antennas_tpu/__main__.py``, with its
+subcommands, flags and files: ``simulate``, the analytical design (its
+summary, ``cuts.png`` and ``pattern_3d.png``); a full 3D FDTD run of the
+canonical patch (``fdtd --solver fixed``) or of the microstrip-fed patch
 (``--solver microstrip``, the ``s11`` default), each printing its engine
-path and a JSON summary and writing ``s11.npz`` and a Touchstone file; of
-a pyramidal horn (JSON summary and ``s11.npz``); or of an nx×ny patch
-array, one run per port (JSON summary, ``array_embedded.npz`` with the
-embedded element patterns and the S matrix, and the array's Touchstone
-file); or the adjoint inverse design of the patch metallization
-(optimize, threshold, validate: progress lines, a JSON summary and
-``inverse_design.npz``). Every subcommand runs on ``--device cuda``
-unless ``--device cpu`` is asked for. It draws no plots.
+path and a JSON summary and writing ``s11.npz`` and a Touchstone file
+(``fdtd`` also ``pattern_fdtd.png``); of a pyramidal horn (JSON summary,
+``s11.npz``, ``horn_pattern.png``); or of an nx×ny patch array, one run
+per port (JSON summary, ``array_embedded.npz`` with the embedded element
+patterns and the S matrix, the array's Touchstone file,
+``array_broadside.png`` and ``array_steered.png``); or the adjoint inverse
+design of the patch metallization (optimize, threshold, validate:
+progress lines, a JSON summary, ``inverse_design.npz`` and
+``inverse_design.png``). Every FDTD subcommand runs on ``--device cuda``
+unless ``--device cpu`` is asked for.
+
+The figures need matplotlib, which nothing else here imports. Without
+it every numeric output is still written, and each figure left out is
+named on a line of its own (``Not drawn: <file> (...)``).
 """
 
 from __future__ import annotations
@@ -42,11 +49,45 @@ def _add_device_arg(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _figure(path: Path, draw) -> None:
+    """Save the figure ``draw()`` returns at ``path`` (dpi 160, tight
+    bounding box, as the JAX CLI saves its figures), or print that it was
+    not drawn when matplotlib is not installed."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        print(f"Not drawn: {path} ({e.name or 'matplotlib'} is not installed)")
+        return
+    from .viz import plotting  # noqa: F401  (selects Agg, headless)
+    import matplotlib.pyplot as plt
+
+    fig = draw()
+    fig.savefig(path, dpi=160, bbox_inches="tight")
+    plt.close(fig)
+    print(f"Saved: {path}")
+
+
+def _grid_figure(theta, phi, intensity, colors_db):
+    """``draw`` for a far-field grid: the JAX CLI's 3D surface."""
+
+    def draw():
+        from .viz.plotting import plot_3d_pattern_from_grid
+
+        return plot_3d_pattern_from_grid(theta, phi, intensity,
+                                         colors_db=colors_db)
+
+    return draw
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Patch antenna FDTD simulator (PyTorch / CUDA)"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    sim_p = sub.add_parser(
+        "simulate", help="Analytical simulation; saves cuts.png + pattern_3d.png"
+    )
+    _add_common_antenna_args(sim_p)
     p = sub.add_parser(
         "fdtd", help="Full 3D FDTD run: S11 sweep, far-field, dBi grid"
     )
@@ -135,6 +176,9 @@ def main(argv=None) -> None:
     if args.cmd == "inverse":
         _inverse(args, params, outdir)
         return
+    if args.cmd == "simulate":
+        _simulate(params, outdir)
+        return
     if args.solver == "fixed":
         from .solvers.patch_fixed import prepare_patch_fixed, run_prepared_fixed
 
@@ -183,11 +227,40 @@ def main(argv=None) -> None:
         comments=[f"{args.solver} patch, f0={params.frequency_hz/1e9:g} GHz"],
     )
     print(f"Saved: {ts}")
+    if args.cmd == "fdtd":
+        _figure(outdir / "pattern_fdtd.png", _grid_figure(
+            result.theta, result.phi,
+            10 ** (np.asarray(result.intensity) / 10.0), result.intensity))
+
+
+def _simulate(params, outdir: Path) -> None:
+    """The ``simulate`` subcommand: the analytical cavity model's design
+    summary, then its polar cuts and 3D gain surface."""
+    from .solvers.analytical import AnalyticalPatchSolver
+
+    solver = AnalyticalPatchSolver(params)
+    print("Design:")
+    for k, v in solver.summary().items():
+        print(f"  {k}: {v}")
+
+    def cuts():
+        from .viz.plotting import plot_cross_sections
+
+        return plot_cross_sections(solver)
+
+    def pattern_3d():
+        from .viz.plotting import plot_3d_pattern
+
+        return plot_3d_pattern(solver)
+
+    _figure(outdir / "cuts.png", cuts)
+    _figure(outdir / "pattern_3d.png", pattern_3d)
 
 
 def _array(args, params, outdir: Path) -> None:
     """The ``array`` subcommand: ``design_array``, then the JAX CLI's JSON
-    summary, ``array_embedded.npz`` and the Touchstone file (no plot)."""
+    summary, ``array_embedded.npz``, the Touchstone file and the broadside
+    and steered realized-gain surfaces."""
     from .post.touchstone import write_touchstone
     from .solvers.array_synth import array_run_summary, design_array
 
@@ -202,7 +275,7 @@ def _array(args, params, outdir: Path) -> None:
     )
     if not design.ok:
         raise SystemExit(design.message)
-    summary, _broadside, _steered, _ = array_run_summary(
+    summary, broadside, steered, _ = array_run_summary(
         design, args.steer_theta, args.steer_phi, kind=args.steering
     )
     summary = {"design_freq_ghz": params.frequency_hz / 1e9, **summary,
@@ -222,12 +295,15 @@ def _array(args, params, outdir: Path) -> None:
         comments=[f"{args.nx}x{args.ny} patch array, full S matrix"],
     )
     print(f"Saved: {ts}")
+    for tag, pat in (("broadside", broadside), ("steered", steered)):
+        _figure(outdir / f"array_{tag}.png", _grid_figure(
+            pat.theta, pat.phi, pat.realized_gain, pat.realized_gain_dbi()))
 
 
 def _inverse(args, params, outdir: Path) -> None:
     """The ``inverse`` subcommand: prepare, optimize, validate the binary
-    design, then the JAX CLI's JSON summary and ``inverse_design.npz`` (no
-    plot)."""
+    design, then the JAX CLI's JSON summary, ``inverse_design.npz`` and the
+    density beside the validated and soft S11."""
     from .solvers import inverse
 
     f0 = params.frequency_hz
@@ -290,10 +366,33 @@ def _inverse(args, params, outdir: Path) -> None:
     )
     print(f"Saved: {outdir / 'inverse_design.npz'}")
 
+    def draw():
+        import matplotlib.pyplot as plt
+
+        fig, (ax0, ax1) = plt.subplots(1, 2, figsize=(10, 4))
+        ax0.imshow(
+            res.rho.T, origin="lower", cmap="gray_r", vmin=0, vmax=1,
+            extent=[*prob.region.x_mm, *prob.region.y_mm], aspect="equal",
+        )
+        ax0.set_title("metallization density ρ")
+        ax0.set_xlabel("x (mm)")
+        ax0.set_ylabel("y (mm)")
+        val_db = 20 * np.log10(np.maximum(np.abs(spec.s11), 1e-12))
+        ax1.plot(spec.freq_hz / 1e9, val_db, label="validated (binary)")
+        ax1.plot(res.freqs_hz / 1e9, res.s11_db(), "o", label="soft model")
+        ax1.axhline(-10, color="k", lw=0.5, ls="--")
+        ax1.set_xlabel("f (GHz)")
+        ax1.set_ylabel("S11 (dB)")
+        ax1.legend()
+        ax1.grid(alpha=0.3)
+        return fig
+
+    _figure(outdir / "inverse_design.png", draw)
+
 
 def _horn(args) -> None:
     """The ``horn`` subcommand: prepare and run, then the JAX CLI's JSON
-    summary and ``s11.npz`` (no plot)."""
+    summary, ``s11.npz`` and the gain surface."""
     from .models.params import HornAntennaParams
     from .solvers.horn import prepare_horn, run_prepared_horn
 
@@ -322,6 +421,9 @@ def _horn(args) -> None:
     }, indent=2))
     np.savez(outdir / "s11.npz", freq_hz=res.freq, s11=res.s11, z_in=res.z_in)
     print(f"Saved: {outdir / 's11.npz'}")
+    _figure(outdir / "horn_pattern.png", _grid_figure(
+        res.theta, res.phi, 10 ** (np.asarray(res.intensity) / 10.0),
+        res.intensity))
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ Counterpart of ``fdtd_solver_antennas_tpu/frontends/designer.py``:
 ``PatchInstance``/``HornInstance``, the simulation controls a designer
 panel exposes (``SimControls``) and ``MultiPatchScene``, which owns the
 instance list, change callbacks, a ``locked`` flag and a one-call bridge
-to the multi-antenna FDTD solver on ``device`` (the card by default). Any
-GUI can be a thin view over it. The preview renderer stays in the JAX
-package: the port imports no matplotlib.
+to the multi-antenna FDTD solver on ``device`` (the card by default), and
+a matplotlib preview of the scene (``render_preview``; matplotlib is
+imported only there). Any GUI can be a thin view over it.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..models.scene import rotation_matrix
 from ..solvers.microstrip import FeedDirection
 from ..solvers.multi_patch_3d import (
     _instance_local_geometry,
+    _patch_dims_mm,
     prepare_multi_patch_3d,
     run_prepared_multi_patch_3d,
 )
@@ -64,6 +65,29 @@ class SimControls:
     simbox_mode: str = "auto"  # 'auto' | 'manual'
     manual_size_mm: Optional[Tuple[float, float, float]] = None
     feed_line_length_mm: float = 20.0  # solver default, kept in sync
+
+
+def _add_oriented_box(ax, lo, hi, R, T, color, alpha):
+    """Draw a rotated cuboid as its six true faces (Poly3DCollection)."""
+    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
+
+    lo = np.asarray(lo, float)
+    hi = np.asarray(hi, float)
+    c = np.array(
+        [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+         for z in (lo[2], hi[2])]
+    ) @ np.asarray(R, float).T + np.asarray(T, float)
+    # corner index = 4*ix + 2*iy + iz
+    faces = [
+        (0, 1, 3, 2), (4, 5, 7, 6),  # x = lo / hi
+        (0, 1, 5, 4), (2, 3, 7, 6),  # y = lo / hi
+        (0, 2, 6, 4), (1, 3, 7, 5),  # z = lo / hi
+    ]
+    polys = [[c[i] for i in f] for f in faces]
+    ax.add_collection3d(
+        Poly3DCollection(polys, facecolor=color, alpha=alpha,
+                         edgecolor="k", linewidths=0.3)
+    )
 
 
 class MultiPatchScene:
@@ -166,6 +190,54 @@ class MultiPatchScene:
         lo = np.min([b[0] for b in bounds], axis=0)
         hi = np.max([b[1] for b in bounds], axis=0)
         return lo, hi
+
+    # --- preview -----------------------------------------------------------
+    def render_preview(self, fig_size=(8, 7), fig=None):
+        """3D matplotlib preview of the scene: each instance's substrate and
+        patch, or horn envelope, as oriented boxes; into ``fig`` when given
+        (a GUI's embedded figure), else a new ``pyplot`` figure."""
+        import matplotlib.pyplot as plt
+
+        if fig is None:
+            fig = plt.figure(figsize=fig_size)
+        ax = fig.add_subplot(111, projection="3d")
+        for inst in self.patches:
+            W, L, h = _patch_dims_mm(inst.params)
+            R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
+            T = np.array(
+                [inst.center_x_m, inst.center_y_m, inst.center_z_m]
+            ) * 1e3
+            for (lo, hi, color, alpha) in (
+                ((-W / 2 - 30, -L / 2 - 30, 0), (W / 2 + 30, L / 2 + 30, h),
+                 "#2d6a4f", 0.35),
+                ((-W / 2, -L / 2, h), (W / 2, L / 2, h * 1.4), "#e07a1f", 0.9),
+            ):
+                _add_oriented_box(ax, lo, hi, R, T, color, alpha)
+            ax.text(*(T + [0, 0, 6]), inst.name, ha="center", fontsize=8)
+        for inst in self.horns:
+            p = inst.params
+            A, B, Lh = p.aperture_A_m * 1e3, p.aperture_B_m * 1e3, p.length_m * 1e3
+            R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
+            T = np.array(
+                [inst.center_x_m, inst.center_y_m, inst.center_z_m]
+            ) * 1e3
+            _add_oriented_box(
+                ax, [-A / 2, -B / 2, 0], [A / 2, B / 2, Lh], R, T,
+                "#6a4c93", 0.5,
+            )
+            ax.text(*(T + [0, 0, Lh + 6]), inst.name, ha="center", fontsize=8)
+        lo, hi = self.scene_bounds_mm()
+        span = max(float((hi - lo).max()), 50.0)
+        c = 0.5 * (lo + hi)
+        ax.set_xlim(c[0] - span / 2, c[0] + span / 2)
+        ax.set_ylim(c[1] - span / 2, c[1] + span / 2)
+        ax.set_zlim(c[2] - span / 4, c[2] + span / 2)
+        ax.set_xlabel("x (mm)")
+        ax.set_ylabel("y (mm)")
+        ax.set_zlabel("z (mm)")
+        ax.set_title(f"Scene: {len(self.patches)} patch(es), "
+                     f"{len(self.horns)} horn(s)")
+        return fig
 
     # --- solver bridge ----------------------------------------------------
     def prepare(self, verbose: int = 0, log_cb=None):

@@ -294,8 +294,9 @@ class PreparedSimulation:
         either package, as numpy arrays or tensors; the loop continues
         from its step count until ``n_steps_max`` or the energy criterion.
         ``progress_cb(steps_done, n_steps_max, e_ratio)`` is called after
-        every chunk that does not end the run, and once at the end;
-        ``abort_cb() -> bool`` is checked after every chunk and stops the
+        every chunk that does not end the run, and once at the end (an
+        exception it raises is ignored: a broken UI callback must not kill
+        the run); ``abort_cb() -> bool`` is checked after every chunk and stops the
         run (``aborted=True``, the state is a valid checkpoint).
 
         After ``parallel.shard_simulation(sim, mesh)`` every rank of the
@@ -1254,13 +1255,19 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
         if ratio < end and n > sim.n_source_steps:
             break
         if progress_cb is not None:
-            progress_cb(n, int(cfg.n_steps_max), ratio)
+            try:
+                progress_cb(n, int(cfg.n_steps_max), ratio)
+            except Exception:
+                pass  # a broken UI callback must not kill the run
         if abort_cb is not None and abort_cb():
             aborted = True
             break
 
     if progress_cb is not None and not aborted:
-        progress_cb(n, n, ratio)
+        try:  # the final 100% tick
+            progress_cb(n, n, ratio)
+        except Exception:
+            pass
     return _assemble_output(sim, st, acc, n, e_max, ratio, decim, aborted)
 
 

@@ -156,7 +156,8 @@ def sharded_run(sim, resume_state=None, progress_cb=None) -> dict:
     """``sim.run()`` of a simulation marked by :func:`shard_simulation`:
     the explicit path over the mesh, built for this call (so it takes the
     simulation's current source stamps). ``progress_cb(steps, n_steps_max,
-    e_ratio)`` is called once at the end."""
+    e_ratio)`` is called once at the end; an exception it raises is
+    ignored."""
     from .explicit import build_explicit_run, build_walk_run
 
     mesh = sim.field_sharding
@@ -167,7 +168,10 @@ def sharded_run(sim, resume_state=None, progress_cb=None) -> dict:
         run = build_walk_run(sim, mesh.group, (sx, sy))
     out = run(resume_state)
     if progress_cb is not None:
-        progress_cb(out["steps"], out["steps"], out["e_ratio"])
+        try:
+            progress_cb(out["steps"], out["steps"], out["e_ratio"])
+        except Exception:
+            pass  # a broken UI callback must not kill the run
     return out
 
 

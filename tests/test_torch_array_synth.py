@@ -350,7 +350,8 @@ def test_cli_array_prints_the_summary_and_writes_the_files(
     (``design_array`` stubbed, so no FDTD run): the JAX CLI's arguments
     reach ``design_array``, the JSON summary is ``array_run_summary``'s
     with the design frequency and the device, and ``array_embedded.npz``
-    and ``array.s2p`` hold the patterns and the S matrix."""
+    and ``array.s2p`` hold the patterns and the S matrix; the broadside and
+    steered surfaces are drawn."""
     import json
     import types
 
@@ -392,6 +393,9 @@ def test_cli_array_prints_the_summary_and_writes_the_files(
     np.testing.assert_allclose(f, FREQS, rtol=1e-9)
     np.testing.assert_allclose(s, eps.smatrix.s, rtol=1e-6, atol=1e-9)
     assert z_ref == 50.0
+    for tag in ("broadside", "steered"):  # the JAX CLI's two figures
+        png = tmp_path / f"array_{tag}.png"
+        assert png.stat().st_size > 0 and f"Saved: {png}" in text
 
 
 def test_design_array_preparation_matches_jax(monkeypatch):

@@ -442,6 +442,8 @@ def test_cli_inverse_on_the_cpu(problems, tmp_path, monkeypatch, capsys):
             "region_y_mm"])
         assert z["rho"].shape == z["rho_binary"].shape == (20, 12)
         assert z["loss_history"].tolist() == [summary["loss_initial"]]
+    png = tmp_path / "inverse_design.png"  # the JAX CLI's figure
+    assert png.stat().st_size > 0 and f"Saved: {png}" in text
 
 
 def _fd_check(loss_fn, rho):

@@ -266,6 +266,8 @@ def test_cli_writes_the_jax_clis_files(argv, tmp_path, capsys):
         assert np.isfinite(z["s11"]).all()
     touchstone = (tmp_path / "s11.s1p").read_text()
     assert "microstrip patch" in touchstone
+    # the JAX CLI draws the far field for fdtd, nothing for s11
+    assert (tmp_path / "pattern_fdtd.png").exists() == (argv[0] == "fdtd")
 
 
 def _band_dip(freq, s11):
