@@ -256,6 +256,23 @@ and the script exits non-zero without printing a result:
     run, ``summarize_trace`` naming ``chunk_steps_kernel`` with phase 4's
     25 events. Under 60 s.
 
+26. the usage scripts (``fdtd_solver_antennas_tpu_torch/examples/``), each
+    through its function on the card, its files into a temporary
+    directory, its lines printed and its launches counted:
+    ``checkpoint_resume`` at the JAX script's budgets (the resumed run
+    against the straight one: steps equal, rtol 2e-4, and whether
+    bit-equal; ``chunk_steps`` alone), ``design_sweep``'s three variants
+    (``chunk_steps_batch`` alone; each dip beside phase 16's cavity
+    model), ``multi_patch_array`` (``chunk_steps`` alone),
+    ``mixed_patch_horn`` (the march at T = 4 and ``probe_gather`` alone,
+    equal to phase 8's run bit for bit), ``stream_tune`` over T = 1..5 on
+    the tall grid (T = 5 refused, every T's ``uf`` bit-equal to T = 1's),
+    both inverse-design scripts at their meshes cut to one Adam iteration
+    (the loss finite, ``validate`` on ``chunk_steps`` alone); then the
+    canonical run from a fresh thread, bit-equal to the main thread's,
+    each thread's current device the same before and after. Under 90 s;
+    then the whole smoke's seconds.
+
 The next-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
 exits non-zero when CUDA is unavailable.
@@ -4594,6 +4611,223 @@ def phase_frontends(res4, counts4, k21, k22, card):
     say("25", f"the frontends slice took {time.perf_counter() - t0:.1f} s")
 
 
+def script_run(tag, fn):
+    """``fn()`` (a usage script's function) with its standard output
+    captured and every launch count set to 0 just before it; prints the
+    script's lines under ``tag`` and returns (result, counts by wrapper and
+    route, counts by storage form, seconds)."""
+    import contextlib
+    import io
+
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard, fdtd_stream
+
+    reset_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        out = fn()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in {**fdtd_cuda.launches, **fdtd_shard.launches,
+                                **fdtd_stream.launches,
+                                **fdtd_stream.launches_by_kernel}.items() if v}
+    forms = {k: v for k, v in fdtd_cuda.launches_by_form.items() if v}
+    for ln in text.getvalue().splitlines():
+        say("26", f"{tag}| {ln}")
+    return out, counts, forms, secs
+
+
+def assert_launched(counts, want, what):
+    """The run launched exactly the kernels of ``want`` (each at least
+    once; ``want`` maps a name to its count, or to None for any count)."""
+    assert set(counts) == set(want), (what, counts, sorted(want))
+    for name, n in want.items():
+        assert n is None or counts[name] == n, (what, name, counts[name], n)
+
+
+def on_thread_with_device(fn):
+    """``fn()`` on a new thread; its result and the thread's current CUDA
+    device before and after it."""
+    import threading
+
+    box = {}
+
+    def work():
+        box["before"] = torch.cuda.current_device()
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised on the calling thread
+            box["error"] = e
+        box["after"] = torch.cuda.current_device()
+
+    t = threading.Thread(target=work, daemon=True)
+    t.start()
+    t.join(600)
+    assert not t.is_alive(), "worker thread still running"
+    if "error" in box:
+        raise box["error"]
+    return box
+
+
+def phase_examples(mixed_res, card):
+    """26. The usage scripts (``fdtd_solver_antennas_tpu_torch/examples/``)
+    on the card, each through its function, files into a temporary
+    directory; then the device check of launches from a fresh thread.
+    ``mixed_res``: phase 8's mixed-scene result. Returns the launches of
+    each script."""
+    import tempfile
+
+    from fdtd_solver_antennas_tpu_torch.examples import (
+        checkpoint_resume, design_sweep, inverse_broadside_gain,
+        inverse_miniaturized_patch, mixed_patch_horn, multi_patch_array,
+        stream_tune)
+
+    t_all = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) checkpoint_resume at the JAX script's budgets
+        out, counts, forms, secs = script_run(
+            "checkpoint_resume", lambda: checkpoint_resume.checkpoint_resume(
+                outdir=tmp, device="cuda"))
+        assert out["close"] and out["steps"][0] == out["steps"][1]
+        assert int(out["first"]["steps"]) >= 4000
+        assert_launched(counts, {"chunk_steps": None}, "checkpoint_resume")
+        runs["checkpoint_resume"] = (counts, forms)
+        say("26", f"(a) checkpoint_resume: first segment "
+                  f"{int(out['first']['steps'])} steps, resumed "
+                  f"{out['steps'][0]} == straight {out['steps'][1]}, e_ratio "
+                  f"{out['e_ratio'][0]:.6e} / {out['e_ratio'][1]:.6e}, max "
+                  f"|gap| {max(out['gaps'].values()):.3e}, bit-equal "
+                  f"{out['bit_equal']}; launches {counts}, forms {forms}; "
+                  f"{secs:.2f} s [{card}]")
+
+        # (b) design_sweep: K1 batched, each dip beside the cavity model
+        (prep, res), counts, forms, secs = script_run(
+            "design_sweep", lambda: design_sweep.design_sweep(device="cuda"))
+        assert prep.sim.pallas_mode == "chunk", prep.sim.pallas_mode_reason
+        assert_launched(counts, {"chunk_steps_batch": None}, "design_sweep")
+        runs["design_sweep"] = (counts, forms)
+        dips = []
+        for (L, W), sp in zip(design_sweep.GEOMETRIES_MM, res.spectra):
+            db = 20 * np.log10(np.abs(sp.s11) + 1e-30)
+            assert np.isfinite(db).all()
+            i = int(np.argmin(db))  # the script's dip: the whole band's
+            # phase 16's rule: the deepest dip within ±15% of the cavity
+            # model's fundamental (phase 16 holds its patches within 8%)
+            f_pred = cavity_f_hz(W)
+            win = (sp.freq_hz > 0.85 * f_pred) & (sp.freq_hz < 1.15 * f_pred)
+            j = int(np.argmin(np.where(win, db, 0.0)))
+            dips.append(f"L {L} W {W} mm: the band's dip {db[i]:.2f} dB at "
+                        f"{sp.freq_hz[i] / 1e9:.4f} GHz; near the cavity "
+                        f"model's {f_pred / 1e9:.4f} GHz: {db[j]:.2f} dB at "
+                        f"{sp.freq_hz[j] / 1e9:.4f} GHz "
+                        f"({abs(sp.freq_hz[j] - f_pred) / f_pred:.2%} off)")
+        say("26", f"(b) design_sweep {prep.sim.grid.shape}, steps "
+                  f"{res.steps.tolist()}, run {res.wall_time_s:.3f} s, "
+                  f"{res.mcells_per_s:.1f} aggregate Mcell-updates/s: "
+                  + "; ".join(dips)
+                  + f"; launches {counts}, forms {forms}; {secs:.2f} s [{card}]")
+
+        # (c) multi_patch_array: the two-patch designer scene on K1
+        res, counts, forms, secs = script_run(
+            "multi_patch_array", lambda: multi_patch_array.multi_patch_array(
+                outdir=tmp, device="cuda"))
+        check_result(res, full_sphere=True)
+        assert_launched(counts, {"chunk_steps": None}, "multi_patch_array")
+        runs["multi_patch_array"] = (counts, forms)
+        say("26", f"(c) multi_patch_array: {res.steps_run} steps, f_res "
+                  f"{res.f_res_hz / 1e9:.4f} GHz, Dmax "
+                  f"{10 * np.log10(res.Dmax):.3f} dBi, {len(res.diagnostics['s11_all_ports'])} "
+                  f"ports; launches {counts}, forms {forms}; run "
+                  f"{res.wall_time_s:.3f} s, script {secs:.2f} s [{card}]")
+
+        # (d) mixed_patch_horn: the march, == phase 8's run
+        res, counts, forms, secs = script_run(
+            "mixed_patch_horn", lambda: mixed_patch_horn.mixed_patch_horn(
+                outdir=tmp, device="cuda"))
+        check_result(res, full_sphere=True)
+        steps = res.steps_run
+        assert_launched(counts, {"stream_steps": steps // 4,
+                                 "stream_march": steps // 4,
+                                 "probe_gather": None}, "mixed_patch_horn")
+        runs["mixed_patch_horn"] = (counts, forms)
+        same = (steps == mixed_res.steps_run and res.f_res_hz == mixed_res.f_res_hz
+                and all(np.array_equal(a, b) for a, b in zip(
+                    res.diagnostics["s11_all_ports"],
+                    mixed_res.diagnostics["s11_all_ports"], strict=True))
+                and np.array_equal(res.z_in, mixed_res.z_in))
+        assert same, "the script's mixed run differs from phase 8's"
+        say("26", f"(d) mixed_patch_horn: {steps} steps in "
+                  f"{res.wall_time_s:.3f} s, {res.mcells_per_s:.1f} "
+                  f"Mcell-updates/s, == phase 8's run (steps, f_res, both "
+                  f"ports' S11, Z_in; bit for bit); launches {counts}; script "
+                  f"{secs:.2f} s [{card}]")
+
+        # (e) stream_tune over T = 1..5 on the tall grid
+        (recs, outs), counts, forms, secs = script_run(
+            "stream_tune", lambda: stream_tune.stream_tune(
+                Ts=(1, 2, 3, 4, 5), device="cuda"))
+        assert [r["T"] for r in recs] == [1, 2, 3, 4], recs
+        assert all(r["uf_gap"] == 0.0 for r in recs), recs
+        assert len({r["steps"] for r in recs}) == 1, recs
+        assert_launched(counts, {"stream_steps": None, "stream_march": None,
+                                 "probe_gather": None}, "stream_tune")
+        runs["stream_tune"] = (counts, forms)
+        say("26", f"(e) stream_tune: T = 5 skipped (the march's region), "
+                  + "; ".join(f"T {r['T']} {r['wall_s']} s, "
+                              f"{r['wall_s'] / r['steps'] * 1e6:.2f} us a "
+                              f"step, {r['gcells_per_s']} Gcell-updates/s"
+                              for r in recs)
+                  + f"; every T's uf bit-equal to T = 1's; launches {counts}; "
+                  f"{secs:.2f} s [{card}]")
+        del outs
+
+        # (f) the inverse-design scripts at their meshes, one iteration
+        for name, fn in (
+                ("inverse_miniaturized_patch",
+                 inverse_miniaturized_patch.inverse_miniaturized_patch),
+                ("inverse_broadside_gain",
+                 inverse_broadside_gain.inverse_broadside_gain)):
+            out, counts, forms, secs = script_run(name, lambda: fn(
+                iters=1, outdir=tmp, device="cuda", check_headline=False))
+            hist = out["result"].history
+            assert len(hist) == 1 and np.isfinite(hist).all(), hist
+            assert_launched(counts, {"chunk_steps": None}, name)
+            runs[name] = (counts, forms)
+            say("26", f"(f) {name}: grid {out['problem'].sim.grid.shape}, "
+                      f"{out['problem'].n_steps} differentiable steps, one "
+                      f"Adam iteration {out['optimize_s']:.2f} s, loss "
+                      f"{hist[0]:.6g}; validate on K1 alone: launches "
+                      f"{counts}, forms {forms}; script {secs:.2f} s [{card}]")
+
+    # (g) launches from a fresh thread take the simulation's device
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
+        prepare_patch_fixed)
+
+    prep = prepare_patch_fixed(canonical_params(), device="cuda")
+    sim = prep.sim
+    before = torch.cuda.current_device()
+    ref = sim.run()
+    box = on_thread_with_device(sim.run)
+    out = box["out"]
+    assert torch.cuda.current_device() == before
+    assert box["before"] == box["after"] == sim.device.index, box
+    same = int(out["steps"]) == int(ref["steps"]) and all(
+        torch.equal(a, b) for a, b in zip(out["fields"], ref["fields"]))
+    assert same and np.array_equal(out["uf"], ref["uf"])
+    say("26", f"(g) the canonical run from a fresh thread: the thread on "
+              f"device {box['before']} before and {box['after']} after, the "
+              f"simulation on {sim.device}, the main thread on {before} "
+              f"before and {torch.cuda.current_device()} after; bit-equal to "
+              f"the main thread's run ({int(out['steps'])} steps); "
+              f"{torch.cuda.device_count()} card(s) here, so every launch "
+              f"found its device current (fdtd_cuda.launch enters "
+              f"torch.cuda.device only for another card) [{card}]")
+    say("26", f"launches by script: "
+              + "; ".join(f"{k}: {c}, forms {f}" for k, (c, f) in runs.items()))
+    say("26", f"the usage-script slice took {time.perf_counter() - t_all:.1f} s")
+    return runs
+
+
 def ptxas_kernels(log):
     """(kernel, registers, spills) of each entry function in an nvcc
     ``-Xptxas -v`` log; a template kernel named as name<args>."""
@@ -4624,6 +4858,7 @@ def timed_phase(tag, fn, *args):
 
 
 def main() -> int:
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -4757,6 +4992,13 @@ def main() -> int:
     # the GUI's five solver kinds on a worker thread, the web app's
     # BackgroundRun, the 3D scene view and utils.tracing
     phase_frontends(res, counts, k21, k22, card)
+
+    # 26. the usage scripts: checkpoint resume, the design sweep, both
+    # designer scenes, the march's operating-point sweep, both inverse
+    # designs cut to one iteration; launches from a fresh thread
+    timed_phase("26", phase_examples, mixed_res, card)
+    say("26", f"the whole smoke took {time.perf_counter() - t_smoke:.1f} s "
+              "(the kernels' build included)")
 
     keys = ("max_abs_err", "ms", "plain_ms")
     k1 = k1c[("canonical", "MUR", None)]

@@ -53,18 +53,9 @@ def _figure(path: Path, draw) -> None:
     """Save the figure ``draw()`` returns at ``path`` (dpi 160, tight
     bounding box, as the JAX CLI saves its figures), or print that it was
     not drawn when matplotlib is not installed."""
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError as e:
-        print(f"Not drawn: {path} ({e.name or 'matplotlib'} is not installed)")
-        return
-    from .viz import plotting  # noqa: F401  (selects Agg, headless)
-    import matplotlib.pyplot as plt
+    from .viz import save_figure
 
-    fig = draw()
-    fig.savefig(path, dpi=160, bbox_inches="tight")
-    plt.close(fig)
-    print(f"Saved: {path}")
+    save_figure(path, draw, dpi=160, bbox_inches="tight")
 
 
 def _grid_figure(theta, phi, intensity, colors_db):

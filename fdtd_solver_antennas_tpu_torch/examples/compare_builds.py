@@ -1,5 +1,6 @@
 """Compare two checkouts of the port on one card: the canonical
-``chunk_steps`` launch's device time, and the persistent steppers' SASS.
+``chunk_steps`` launch's device time, K2's CPML route, the launch-bound
+walk's host time, and the persistent steppers' SASS.
 
 Each ROOT is a checkout of the repository (for example a commit unpacked
 with ``git archive``). Timing runs each root in a process of its own, in
@@ -23,6 +24,19 @@ where the profile is flat (as a run leaves them), three timings of ten
 launches behind a sleep kernel; the card's name and power limit. The
 scenes and the timer are this directory's ``scenes.py``, run against the
 root's package, so both roots are timed on the same scenes.
+
+    python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --walk A B B A
+
+prints one JSON line per root: the canonical patch run to its stop through
+the explicit path's per-step walk (``build_explicit_run(sim,
+use_kernel=False)``, one rank, no process group: five launches a step
+under MUR, each a few µs of device work, so the run is bound by the
+host's cost per launch), a warm-up run and then eight timed runs, the card
+synchronized around each (host clock, unrounded), with the steps, the
+best µs a step, the launches of one run and the card's name and power
+limit. A root that launches through ``fdtd_cuda.launch`` alternates its
+runs with it and with an unchecked launch, and times one call of it
+beside the stream query a launch made before.
 
     python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --sass A B
 
@@ -154,6 +168,75 @@ def _time_stream(root: str) -> dict:
     return {"root": root, "cpml_us_per_launch": out, "card": sc.card_line()}
 
 
+def _time_walk(root: str) -> dict:
+    """Host seconds of the canonical patch's run through the walk in the
+    package under ``root`` (this process imports it from there). Where
+    the package launches through ``fdtd_cuda.launch`` (each launch on its
+    tensors' device), the runs alternate with it and with a launch that
+    takes the raw stream and no device check (on, off, off, on, ...), and
+    the host cost of one call is timed over 100,000 calls: ``launch`` of a
+    function that does nothing, the raw stream alone, and the stream query
+    every launch made before (``torch.cuda.current_stream(dev)``)."""
+    sys.path.insert(0, root)
+    import time
+
+    import torch
+
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
+    from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import prepare_patch_fixed
+
+    if not fdtd_cuda.__file__.startswith(str(Path(root).resolve())):
+        raise RuntimeError(f"imported {fdtd_cuda.__file__}, not from {root}")
+    sc = _scenes()
+    prep = prepare_patch_fixed(sc.canonical_params(), device="cuda")
+    assert prep.ok, prep.message
+    run = build_explicit_run(prep.sim, use_kernel=False)
+    run()  # warm-up: builds the library, plans, first launches
+    guarded = getattr(fdtd_cuda, "launch", None)
+
+    def unchecked(dev, fn, *args):
+        return fn(*args, fdtd_cuda._stream(dev))
+
+    walls = {"guard": [], "no_guard": []}
+    for i in range(8):
+        on = guarded is None or i % 4 in (0, 3)
+        if guarded is not None:
+            fdtd_cuda.launch = guarded if on else unchecked
+        fdtd_cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls["guard" if on else "no_guard"].append(time.perf_counter() - t0)
+    if guarded is not None:
+        fdtd_cuda.launch = guarded
+    steps = int(out["steps"])
+    res = {"root": root, "steps": steps,
+           "launches": {k: v for k, v in fdtd_cuda.launches.items() if v},
+           "card": sc.card_line()}
+    dev, n = prep.sim.device, 100_000
+
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e9
+
+    res["ns_per_call"] = {
+        "current_stream": per_call(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "empty": per_call(lambda: None)}
+    if guarded is not None:
+        res["ns_per_call"].update(
+            launch=per_call(lambda: guarded(dev, lambda s: s)),
+            raw_stream=per_call(lambda: fdtd_cuda._stream(dev)))
+    res["walk_walls_s"] = walls if guarded is not None else walls["guard"]
+    res["best_us_per_step"] = {k: min(v) / steps * 1e6
+                               for k, v in walls.items() if v}
+    return res
+
+
 def _build_root(root: str) -> dict:
     """Paths of the libraries built from ``root``'s sources, and of nvcc."""
     sys.path.insert(0, root)
@@ -188,14 +271,16 @@ def _in_process(flag: str, root: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] in ("--one", "--build", "--one-stream"):
+    if len(argv) >= 2 and argv[0] in ("--one", "--build", "--one-stream",
+                                      "--one-walk"):
         fn = {"--one": _time_root, "--build": _build_root,
-              "--one-stream": _time_stream}[argv[0]]
+              "--one-stream": _time_stream, "--one-walk": _time_walk}[argv[0]]
         print(json.dumps(fn(str(Path(argv[1]).resolve()))))
         return 0
-    if argv and argv[0] == "--stream":
+    if argv and argv[0] in ("--stream", "--walk"):
         for root in argv[1:]:
-            print(json.dumps(_in_process("--one-stream", root)), flush=True)
+            print(json.dumps(_in_process(f"--one-{argv[0][2:]}", root)),
+                  flush=True)
         return 0
     if argv and argv[0] == "--sass":
         if len(argv) != 3:

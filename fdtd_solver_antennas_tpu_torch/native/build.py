@@ -75,3 +75,14 @@ def get_voxelize_lib() -> ctypes.CDLL:
             lib.cell_edge_avg_f64.restype = None
             _LIB = lib
         return _LIB
+
+
+def native_available() -> bool:
+    """True when the library builds (or is built) and loads, False when it
+    does not. A check for callers: the voxelizer itself has no fallback
+    and raises on a failed build."""
+    try:
+        get_voxelize_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True

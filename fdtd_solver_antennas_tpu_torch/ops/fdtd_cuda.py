@@ -44,7 +44,10 @@ MUR): the first design's route, kept to time beside :func:`chunk_steps`.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch twin
 beside it (``*_plain``) for CPU tensors; any other device raises. A
-failed plan, build or launch raises; nothing falls back. ``launches``
+failed plan, build or launch raises; nothing falls back. Every launch
+runs on its tensors' device, through :func:`launch`, and every plan or
+occupancy query under :func:`device_guard`, whatever the calling
+thread's current device is. ``launches``
 counts the kernel launches of each wrapper, so a run can show it went
 through the kernels, and ``launches_by_form`` the ``chunk_steps``
 launches by storage form.
@@ -52,6 +55,7 @@ launches by storage form.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from types import SimpleNamespace
@@ -722,7 +726,38 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of ``dev``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def launch(dev: torch.device, fn, *args):
+    """``fn(*args, stream)``: a library call that launches on ``dev``'s
+    current stream, made with ``dev`` the calling thread's current device
+    (the libraries launch on the CUDA runtime's current device, and a new
+    thread starts on device 0). Where ``dev`` is already current, as on
+    the thread that made the tensors, that costs one query of the current
+    device and no context; otherwise the call runs inside
+    ``torch.cuda.device(dev)``, which gives the caller its device back."""
+    if torch._C._cuda_getDevice() == dev.index:
+        return fn(*args, _stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, _stream(dev))
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def device_guard(dev: torch.device):
+    """The context a plan or occupancy query on ``dev`` runs in (the
+    libraries answer for the calling thread's current device): for a CUDA
+    ``dev`` other than the thread's current device ``torch.cuda.device(dev)``,
+    which makes ``dev`` current inside and gives the caller its device back
+    on exit; otherwise (the same device, or the CPU) a context that does
+    nothing."""
+    if (dev.type != "cuda" or dev.index is None
+            or torch.cuda.current_device() == dev.index):
+        return _NO_GUARD
+    return torch.cuda.device(dev)
 
 
 def h_update(ops: YeeOperands, st: YeeState) -> None:
@@ -731,7 +766,7 @@ def h_update(ops: YeeOperands, st: YeeState) -> None:
         return h_update_plain(ops, st)
     lib = _library()
     args = _cuda_args(ops, st)
-    _check(lib, lib.fdtd_h_update(args, st.parity, _stream(ops.device)),
+    _check(lib, launch(ops.device, lib.fdtd_h_update, args, st.parity),
            "h_update")
     launches["h_update"] += 1
 
@@ -743,8 +778,8 @@ def e_update(ops: YeeOperands, st: YeeState, s: float) -> None:
         return e_update_plain(ops, st, s)
     lib = _library()
     args = _cuda_args(ops, st)
-    _check(lib, lib.fdtd_e_update(args, st.parity, float(s),
-                                  _stream(ops.device)), "e_update")
+    _check(lib, launch(ops.device, lib.fdtd_e_update, args, st.parity,
+                       float(s)), "e_update")
     launches["e_update"] += 1
 
 
@@ -757,8 +792,8 @@ def mur_faces(ops: YeeOperands, st: YeeState, axis: int) -> None:
         return mur_faces_plain(ops, st, axis)
     lib = _library()
     args = _cuda_args(ops, st)
-    _check(lib, lib.fdtd_mur_faces(args, st.parity, int(axis),
-                                   _stream(ops.device)), "mur_faces")
+    _check(lib, launch(ops.device, lib.fdtd_mur_faces, args, st.parity,
+                       int(axis)), "mur_faces")
     launches["mur_faces"] += 1
 
 
@@ -772,8 +807,8 @@ def probe_gather(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
         return None  # nothing to launch
     lib = _library()
     args = _cuda_args(ops, st)
-    _check(lib, lib.fdtd_probe_gather(args, st.parity, ptr,
-                                      _stream(ops.device)), "probe_gather")
+    _check(lib, launch(ops.device, lib.fdtd_probe_gather, args, st.parity,
+                       ptr), "probe_gather")
     launches["probe_gather"] += 1
 
 
@@ -808,7 +843,7 @@ def probe_gather_batch(ops: YeeOperands, st: YeeBatch, out: torch.Tensor,
     a.batch, a.cells = B, int(np.prod(ops.shape))
     a.out_stride, a.out = out.stride(0), out.data_ptr()
     lib = _library()
-    _check(lib, lib.fdtd_probe_gather_batch(ctypes.addressof(a), _stream(dev)),
+    _check(lib, launch(dev, lib.fdtd_probe_gather_batch, ctypes.addressof(a)),
            "probe_gather_batch")
     launches["probe_gather_batch"] += 1
 
@@ -873,10 +908,11 @@ def chunk_steps(ops: YeeOperands, st: YeeState,
     a = _chunk_args(ops, st)
     plan = chunk_launch_plan(ops, st, form)
     wf = torch.as_tensor(wf, dtype=torch.float32, device=ops.device)
-    code = lib.fdtd_chunk_steps(
-        ctypes.addressof(a), st.parity, _ptr(wf, (len(wf),), dev=ops.device),
-        n0, n_sub, D, _ptr(bufs, (n_sub, rows), dev=ops.device),
-        plan.cells_per_thread, plan.blocks, _stream(ops.device))
+    code = launch(
+        ops.device, lib.fdtd_chunk_steps, ctypes.addressof(a), st.parity,
+        _ptr(wf, (len(wf),), dev=ops.device), n0, n_sub, D,
+        _ptr(bufs, (n_sub, rows), dev=ops.device), plan.cells_per_thread,
+        plan.blocks)
     _check(lib, code, "chunk_steps")
     launches["chunk_steps"] += 1
     launches_by_form[plan.form] += 1
@@ -933,11 +969,12 @@ def chunk_steps_batch(ops: YeeOperands, st: YeeBatch,
     mask = _device_mask(st, act)
     dev = ops.device
     wf = torch.as_tensor(wf, dtype=torch.float32, device=dev)
-    code = lib.fdtd_chunk_batch_steps(
-        ctypes.addressof(a), parity.pop(), _ptr(wf, (len(wf),), dev=dev), n0,
-        n_sub, D, _ptr(bufs, (B, n_sub, rows), dev=dev),
+    code = launch(
+        dev, lib.fdtd_chunk_batch_steps, ctypes.addressof(a), parity.pop(),
+        _ptr(wf, (len(wf),), dev=dev), n0, n_sub, D,
+        _ptr(bufs, (B, n_sub, rows), dev=dev),
         _ptr(mask, (B,), torch.int32, dev), B, plan.cells_per_thread,
-        plan.blocks, _stream(dev))
+        plan.blocks)
     _check(lib, code, "chunk_steps_batch")
     launches["chunk_steps_batch"] += 1
     launches_by_form[plan.form] += 1

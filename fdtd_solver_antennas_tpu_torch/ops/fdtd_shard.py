@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from . import fdtd_cuda, persist
-from .fdtd_cuda import ProbeTable, YeeOperands, YeeState, _on_cuda, _stream
+from .fdtd_cuda import ProbeTable, YeeOperands, YeeState, _on_cuda, launch
 
 KERNELS = ("shard_steps",)
 
@@ -352,9 +352,8 @@ def shard_steps(ops: YeeOperands, st: YeeState,
     a = _cuda_args(ops, st)
     plan = launch_plan(ops, st, form)
     a.wf[:k] = [float(s) for s in wf_window]
-    code = lib.fdtd_shard_steps(ctypes.addressof(a), st.parity, k,
-                                plan.cells_per_thread, plan.blocks,
-                                _stream(ops.device))
+    code = launch(ops.device, lib.fdtd_shard_steps, ctypes.addressof(a),
+                  st.parity, k, plan.cells_per_thread, plan.blocks)
     persist.check(lib, _PREFIX, code, "shard_steps")
     launches["shard_steps"] += 1
     launches_by_form[plan.form] += 1

@@ -37,7 +37,7 @@ import torch
 from . import fdtd_cuda, persist
 from .fdtd import resolve_device
 from .fdtd_cuda import (ProbeTable, YeeOperands, YeeState, _on_cuda, _ptr,
-                        _stream)
+                        _stream, launch)
 
 KERNELS = ("interval_steps",)
 
@@ -219,10 +219,9 @@ def interval_steps(ops: YeeOperands, st: YeeState, wf: Sequence[float], *,
     plan = launch_plan(ops, st, form)
     samples = torch.as_tensor(wf, dtype=torch.float32, device=ops.device)
     d = samples.numel()
-    code = lib.fdtd_steps_interval(ctypes.addressof(a), st.parity, d,
-                                   _ptr(samples, (d,), dev=ops.device),
-                                   plan.cells_per_thread, plan.blocks,
-                                   _stream(ops.device))
+    code = launch(ops.device, lib.fdtd_steps_interval, ctypes.addressof(a),
+                  st.parity, d, _ptr(samples, (d,), dev=ops.device),
+                  plan.cells_per_thread, plan.blocks)
     persist.check(lib, _PREFIX, code, "interval_steps")
     launches["interval_steps"] += 1
     launches_by_form[plan.form] += 1

@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from . import fdtd_cuda, fdtd_shard
-from .fdtd_cuda import YeeBatch, YeeOperands, YeeState, _on_cuda, _ptr, _stream
+from .fdtd_cuda import (YeeBatch, YeeOperands, YeeState, _on_cuda, _ptr,
+                        device_guard, launch)
 
 KERNELS = ("stream_steps", "stream_shard_steps", "stream_steps_batch")
 
@@ -585,7 +586,8 @@ def blocks_per_sm(st: YeeState, T: int) -> int:
     buf = st._stream
     if buf is None:
         raise ValueError("no stream launch on this state yet")
-    n = _library().fdtd_march_blocks_per_sm(buf.addr[0], T)
+    with device_guard(st.h[0].device):
+        n = _library().fdtd_march_blocks_per_sm(buf.addr[0], T)
     if n < 0:
         raise RuntimeError(_library().fdtd_stream_error_string(-n).decode())
     return n
@@ -618,7 +620,7 @@ def _launch(lib, fn, addr: int, wf_t, dev, wrapper: str, route: str,
     ``wf_t`` (and the batch size for a batched kernel); raise on a failed
     launch, else count it."""
     samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
-    code = fn(addr, ctypes.addressof(samples), len(wf_t), *batch, _stream(dev))
+    code = launch(dev, fn, addr, ctypes.addressof(samples), len(wf_t), *batch)
     if code != 0:
         msg = lib.fdtd_stream_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {route} failed: {msg} ({code})")

@@ -154,7 +154,10 @@ def plan(lib, prefix: str, ops: YeeOperands, args_addr: int,
     key = (prefix, str(ops.device), tuple(ops.shape), ops.pml is not None,
            ops.mur is not None, form, batch)
     if key not in _PLANS:
-        _PLANS[key] = _query(lib, prefix, args_addr, form, what, batch)
+        from .fdtd_cuda import device_guard
+
+        with device_guard(ops.device):  # the occupancy of ops' card
+            _PLANS[key] = _query(lib, prefix, args_addr, form, what, batch)
     return _PLANS[key]
 
 

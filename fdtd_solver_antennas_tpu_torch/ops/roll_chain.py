@@ -27,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .fdtd_cuda import _on_cuda, _ptr, _stream
+from .fdtd_cuda import _on_cuda, _ptr, launch
 
 KERNELS = ("roll_chain",)
 
@@ -129,9 +129,9 @@ def roll_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     if a.data_ptr() % 16:
         a = a.clone()  # the kernel reads whole float4s
     out = torch.empty_like(a)
-    code = lib.roll_chain_launch(_ptr(a, (R, C), dev=a.device),
-                                 _ptr(out, (R, C), dev=a.device), R, C,
-                                 int(iters), _stream(a.device))
+    code = launch(a.device, lib.roll_chain_launch,
+                  _ptr(a, (R, C), dev=a.device),
+                  _ptr(out, (R, C), dev=a.device), R, C, int(iters))
     _check(lib, code, "launch")
     launches["roll_chain"] += 1
     return out

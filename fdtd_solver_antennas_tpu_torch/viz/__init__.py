@@ -2,7 +2,8 @@
 
 Counterpart of ``fdtd_solver_antennas_tpu/viz``. The plotting names resolve
 on first use (PEP 562), so importing this package or ``viz.scene3d`` needs
-no matplotlib; only the plots do.
+no matplotlib; only the plots do. :func:`save_figure` saves a figure, or
+says that it was not drawn where matplotlib is not installed.
 """
 
 from .scene3d import (
@@ -29,7 +30,28 @@ __all__ = [
     "scene_html",
     "scene_meshes",
     "scene_plotly_figure",
+    "save_figure",
 ]
+
+
+def save_figure(path, draw, **savefig) -> bool:
+    """Save the figure ``draw()`` returns at ``path`` (``savefig`` goes to
+    ``Figure.savefig``) and print ``Saved: <path>``; where matplotlib is
+    not installed, print ``Not drawn: <path> (...)`` instead, without
+    calling ``draw``. True when the figure was saved."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        print(f"Not drawn: {path} ({e.name or 'matplotlib'} is not installed)")
+        return False
+    from . import plotting  # noqa: F401  (selects Agg, headless)
+    import matplotlib.pyplot as plt
+
+    fig = draw()
+    fig.savefig(path, **savefig)
+    plt.close(fig)
+    print(f"Saved: {path}")
+    return True
 
 
 def __getattr__(name):

@@ -33,9 +33,11 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _sim(boundary, n_steps=120, decim=4, pad_x=1):
-    """The small scene of tests/test_pallas_kernel.py, on the card, its x
-    extent padded to a multiple of ``pad_x``."""
+def _sim(boundary, n_steps=120, decim=4, pad_x=1, device="cuda",
+         mode=None):
+    """The small scene of tests/test_pallas_kernel.py, on the card (or
+    ``device``), its x extent padded to a multiple of ``pad_x``, its
+    stepping kernels ``mode`` (None: as the resolver picks)."""
     mb = MeshBuilder()
     mb.add_line("x", [-40, 40, 0.0, -6.0])
     mb.add_line("y", [-40, 40, 0.0])
@@ -49,9 +51,9 @@ def _sim(boundary, n_steps=120, decim=4, pad_x=1):
     scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
     cfg = FDTDConfig(n_steps_max=n_steps, check_every=n_steps,
                      end_criteria=1e-30, boundary=boundary,
-                     probe_decimation=decim)
+                     probe_decimation=decim, pallas_mode=mode)
     return build_simulation(
-        scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
+        scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg, device=device,
         port_freqs_hz=np.linspace(2e9, 3e9, 11),
         nf_freqs_hz=np.array([2.45e9]), pad_multiple=(pad_x, 1, 1))
 
@@ -1460,3 +1462,40 @@ def test_reexcitation_reaches_a_running_state(cuda, mode):
     for a, b in zip(kern, plain, strict=True):
         _close(a, b)
     assert not torch.allclose(kern[2], same[2])
+
+
+@pytest.mark.parametrize("mode", ["chunk", "stream"])
+def test_run_on_a_second_card_from_a_worker_thread(cuda, mode):
+    """A run on ``cuda:1`` from a new thread (which starts on device 0)
+    launches on ``cuda:1``: bit-equal to the same run from the main
+    thread, and neither thread's current device moves."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    before = torch.cuda.current_device()
+    ref = _sim("MUR", device=dev, mode=mode).run()
+    assert torch.cuda.current_device() == before
+    box = {}
+
+    def work():
+        box["before"] = torch.cuda.current_device()
+        box["out"] = _sim("MUR", device=dev, mode=mode).run()
+        box["after"] = torch.cuda.current_device()
+
+    t = threading.Thread(target=work, daemon=True)
+    t.start()
+    t.join(300)
+    assert not t.is_alive() and "out" in box
+    assert box["before"] == box["after"] == 0
+    out = box["out"]
+    assert out["fields"][0].device == dev
+    assert int(out["steps"]) == int(ref["steps"])
+    for a, b in zip(out["fields"], ref["fields"], strict=True):
+        assert torch.equal(a, b)
+    host = (lambda x: x.cpu().numpy() if torch.is_tensor(x)
+            else np.asarray(x))
+    for key in ("uf", "if_", "nf_e", "nf_h"):
+        assert np.array_equal(host(out[key]), host(ref[key])), key
+

@@ -664,3 +664,114 @@ def test_worker_thread_wiring_as_the_gui_does():
     res = box["res"]
     assert not res.ok and res.diagnostics["aborted"]
     assert res.diagnostics["steps_done"] == 445 and ticks == [445]
+
+
+# ---------------------------------------------------------------------------
+# launches run on their tensors' device, whatever the thread's current one
+# ---------------------------------------------------------------------------
+
+def test_device_guard_switches_only_to_another_card(monkeypatch):
+    """The guard is ``torch.cuda.device(i)`` for ``cuda:i`` when the
+    calling thread's current device is another, and the no-op context
+    otherwise: the CPU, or the current device (no device query then sets
+    anything)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    def no_set(*a):
+        raise AssertionError("device set")
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", no_set)
+    assert fdtd_cuda.device_guard(torch.device("cpu")) is fdtd_cuda._NO_GUARD
+    same = fdtd_cuda.device_guard(torch.device("cuda", 0))
+    assert same is fdtd_cuda._NO_GUARD
+    with same:
+        pass
+    other = fdtd_cuda.device_guard(torch.device("cuda", 1))
+    assert isinstance(other, torch.cuda.device) and other.idx == 1
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert fdtd_cuda.device_guard(torch.device("cuda", 1)) is fdtd_cuda._NO_GUARD
+    other = fdtd_cuda.device_guard(torch.device("cuda", 0))
+    assert isinstance(other, torch.cuda.device) and other.idx == 0
+
+
+def test_launch_sets_the_device_only_for_another_card(monkeypatch):
+    """``launch(dev, fn, *args)`` calls ``fn(*args, stream)`` with ``dev``'s
+    current stream: directly where ``dev`` is the thread's current device,
+    inside ``torch.cuda.device(dev)`` where it is not."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+
+    entered = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *exc):
+            return False
+
+    current = {"index": 0}
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current["index"],
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    assert fdtd_cuda.launch(torch.device("cuda", 0), fn, "a", 7) == 0
+    assert calls == [("a", 7, 1000)] and entered == []
+    fdtd_cuda.launch(torch.device("cuda", 1), fn, "b")
+    assert calls[-1] == ("b", 1001) and entered == [torch.device("cuda", 1)]
+    current["index"] = 1
+    fdtd_cuda.launch(torch.device("cuda", 1), fn)
+    assert calls[-1] == (1001,) and len(entered) == 1
+
+
+def test_every_launch_and_query_sits_in_a_device_guard():
+    """Every library call that takes a stream goes through
+    ``fdtd_cuda.launch`` (``_stream`` is called nowhere else but in
+    ``fdtd_steps.grid_barriers``, which launches on the thread's current
+    device by its own definition), and every plan or occupancy query on a
+    tensor's card sits inside ``with device_guard(...)``."""
+    import ast
+    from pathlib import Path
+
+    ops = Path(__file__).resolve().parents[1] / (
+        "fdtd_solver_antennas_tpu_torch/ops")
+    queries = {"_query", "fdtd_march_blocks_per_sm"}
+    launches = queried = 0
+    for path in sorted(ops.glob("*.py")):
+        tree = ast.parse(path.read_text())
+
+        def walk(node, guarded, fn):
+            nonlocal launches, queried
+            if isinstance(node, ast.FunctionDef):
+                fn = node.name
+            if isinstance(node, ast.With) and any(
+                    isinstance(i.context_expr, ast.Call)
+                    and getattr(i.context_expr.func, "id", None) == "device_guard"
+                    for i in node.items):
+                guarded = True
+            if isinstance(node, ast.Call):
+                f = node.func
+                name = f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
+                where = f"{path.name}:{node.lineno} {name}"
+                if name == "_stream":
+                    assert fn in ("launch", "grid_barriers"), where
+                elif name == "launch":
+                    launches += 1
+                elif name in queries:
+                    assert guarded, where + " unguarded"
+                    queried += 1
+            for child in ast.iter_child_nodes(node):
+                walk(child, guarded, fn)
+
+        walk(tree, False, None)
+    assert launches >= 11 and queried >= 2, (launches, queried)

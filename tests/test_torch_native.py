@@ -23,7 +23,7 @@ from fdtd_solver_antennas_tpu.ops.voxelize import voxelize as jvoxelize
 
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene, rotation_matrix
 from fdtd_solver_antennas_tpu_torch.native import build as native_build
-from fdtd_solver_antennas_tpu_torch.native import get_voxelize_lib
+from fdtd_solver_antennas_tpu_torch.native import get_voxelize_lib, native_available
 from fdtd_solver_antennas_tpu_torch.ops import voxelize as vx
 from fdtd_solver_antennas_tpu_torch.ops._build import BUILD_DIR
 from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
@@ -141,6 +141,24 @@ def test_a_core_that_does_not_compile_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native_build.build()
     assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_native_available():
+    """True here (g++ is installed), as ``tests/test_native.py`` asserts
+    of the JAX package's; False, and no library bound, where the core does
+    not build."""
+    assert native_available(), "g++ toolchain expected in this image"
+
+
+def test_native_unavailable_when_the_core_does_not_build(monkeypatch,
+                                                         tmp_path):
+    bad = tmp_path / "voxelize.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native_build, "_LIB", None)
+    monkeypatch.setattr(native_build, "SRC", bad)
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    assert native_available() is False
+    assert native_build._LIB is None
 
 
 @pytest.mark.parametrize("which", ["test_native", "microstrip_msl",
