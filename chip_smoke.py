@@ -8,7 +8,8 @@ Phases, each printing its own lines and its seconds; any failure raises
 and the script exits non-zero without printing a result:
 
 1. environment: torch/CUDA versions, the card, its power limit;
-2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_stream.cu``,
+2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_chunk_march.cu``,
+   ``csrc/fdtd_stream.cu``,
    ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu`` and ``csrc/roll_chain.cu``
    with nvcc for sm_90a and the voxelizer's core ``native/voxelize.cpp``
    with g++, all at once; print ptxas registers and memory;
@@ -90,13 +91,21 @@ and the script exits non-zero without printing a result:
     twin, two chunks with one variant frozen in the second, at the small
     scene (B = 3, MUR/PEC/PML_4) and the canonical patch (B = 2,
     MUR/PML_8), in the form the shape picks and every other form the plan
-    allows; B = 1 bit-equal to ``chunk_steps``; then the main path:
+    allows (streamed, resident, and under MUR and PEC the marched form of
+    ``csrc/fdtd_chunk_march.cu``, whose T = 3 divides neither D = 5 nor
+    D = 89); B = 1 bit-equal to ``chunk_steps`` (the marched form too);
+    then the main path:
     ``bench.py``'s 8-variant canonical-patch sweep (2,000 steps) through
-    ``prepare_patch_geometry_sweep`` and ``run_patch_geometry_sweep``
-    (asserts one ``chunk_steps_batch`` launch per chunk and no other
-    launch, eight distinct spectra), its prepare time, wall time,
-    aggregate rate and idle share, one launch at its shapes against the
-    twin and timed on the device beside its bound; the same eight variants
+    ``prepare_patch_geometry_sweep`` and ``run_patch_geometry_sweep`` in
+    the form the plan picks and, the plan's rule patched, in the other
+    of the streamed and marched forms (each asserts one
+    ``chunk_steps_batch`` launch per chunk in that form and no other
+    launch; their steps, energy ratios and spectra agree; eight distinct
+    spectra), its prepare time, wall time, aggregate rate and idle share,
+    one launch of each form at its shapes against the twin, the streamed
+    form, the marched form and K2's batched march timed on the device in
+    the same call beside their bounds (the plan may pick the marched form
+    only where it is the faster); the same eight variants
     as eight unbatched ``chunk_steps`` runs in turns; ``tests/test_sweep.py``'s
     two patches at 6,000 steps held to the cavity model, and its two
     12 GHz horn apertures held to their gain;
@@ -263,7 +272,8 @@ and the script exits non-zero without printing a result:
     against the straight one: steps equal, rtol 2e-4, and whether
     bit-equal; ``chunk_steps`` alone), ``design_sweep``'s three variants
     (``chunk_steps_batch`` alone; each dip beside phase 16's cavity
-    model), ``multi_patch_array`` (``chunk_steps`` alone),
+    model; one chunk in its plan's form against the twin and timed at its
+    shapes, that form's row of the kernels line), ``multi_patch_array`` (``chunk_steps`` alone),
     ``mixed_patch_horn`` (the march at T = 4 and ``probe_gather`` alone,
     equal to phase 8's run bit for bit), ``stream_tune`` over T = 1..5 on
     the tall grid (T = 5 refused, every T's ``uf`` bit-equal to T = 1's),
@@ -300,6 +310,7 @@ RTOL = 2e-4  # the JAX package's own kernel-vs-XLA tolerance
 ATOL_REL = 1e-5  # atol = 1e-5 · max|plain|
 K1_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_chunk.cu"
 K1_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:1376"
+K1M_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_chunk_march.cu"
 K2_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_stream.cu"
 K2_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:468"
 K3_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/fdtd_shard.cu"
@@ -1809,6 +1820,14 @@ def plan_text(plan) -> str:
     """A persistent stepper's launch: form, blocks × threads, barriers."""
     from fdtd_solver_antennas_tpu_torch.ops import persist
 
+    if plan.form == "marched":
+        seg, _so, segs = plan.segments
+        return (f"marched form ({plan.blocks} blocks x {plan.threads} threads, "
+                f"{plan.blocks_per_sm} an SM, {plan.smem_bytes:,} B shared; "
+                f"T={plan.T}, {plan.tiles[0]}x{plan.tiles[1]} tiles of "
+                f"{plan.core[0]}x{plan.core[1]}, {segs} x segments of {seg}, "
+                f"{plan.items_per_variant} items a variant), one barrier "
+                f"among a variant's blocks a round of T steps")
     cells = (f", {plan.cells_per_thread} cells a thread, {plan.smem_bytes:,} B "
              "shared" if plan.form == "resident" else "")
     return (f"{plan.form} form ({plan.blocks} blocks x {plan.threads} threads"
@@ -2282,7 +2301,7 @@ def batch_forms(ops, st):
 
     picked = fdtd_cuda.chunk_launch_plan(ops, st).form
     forms = [None]
-    for form in ("resident", "streamed"):
+    for form in ("resident", "streamed", "marched"):
         if form == picked:
             continue
         try:
@@ -2293,16 +2312,32 @@ def batch_forms(ops, st):
     return forms
 
 
+def batch_current(st, bufs):
+    """Each variant's current fields (its own E buffer and H set) and the
+    staging buffers: what a form's chunk leaves for the run loop."""
+    return (*st.fields(), bufs)
+
+
+def batch_frozen(st, v):
+    """Copies of variant v's slice of every tensor of a batch state."""
+    return [t[v].clone() for t in (*batch_tensors(st), *st.h1)]
+
+
 def phase_batch_vs_plain(card):
     """``chunk_steps_batch`` against ``chunk_steps_batch_plain``: two chunks
     from parity 1 on a seeded random batch, every variant stepping in the
     first and variant 1 frozen in the second; every field, ψ and sample
-    compared, the frozen variant untouched; in the form the plan picks and
-    each other form it allows. Then B = 1 against ``chunk_steps`` at the
-    canonical patch, bit for bit. Returns the worst max |err|."""
+    compared (the marched form: each variant's current fields, which it
+    leaves in the set its last round wrote), the frozen variant untouched;
+    in the form the plan picks and each other form it allows (the marched
+    form's T = 3 divides neither D here: each interval ends in a shorter
+    round). Then B = 1 against
+    ``chunk_steps`` at the canonical patch, bit for bit (the marched form:
+    its current fields and samples). Returns the worst max |err| and the
+    marched form's."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
 
-    worst = 0.0
+    worst = marched_worst = 0.0
     for label, make, boundary, batch, decim, n_sub in (
             ("small", small_scene, "MUR", 3, 5, 3),
             ("small", small_scene, "PEC", 3, 5, 3),
@@ -2317,11 +2352,12 @@ def phase_batch_vs_plain(card):
             a, bufs_a = clone_batch(base), bufs.clone()
             b, bufs_b = clone_batch(base), bufs.clone()
             plan = fdtd_cuda.chunk_launch_plan(ops, a, form)
+            marched = plan.form == "marched"
             err, same = 0.0, True
             for i, mask in enumerate(([True] * batch,
                                       [v != 1 for v in range(batch)])):
                 if i == 1:
-                    frozen = [t[1].clone() for t in batch_tensors(a)]
+                    frozen = batch_frozen(a, 1)
                     frozen_bufs = bufs_a[1].clone()
                 n0 = 7 + i * n_sub * D
                 fdtd_cuda.chunk_steps_batch(ops, a, wf, n0, n_sub, D, bufs_a,
@@ -2329,55 +2365,76 @@ def phase_batch_vs_plain(card):
                 fdtd_cuda.chunk_steps_batch_plain(ops, b, wf, n0, n_sub, D,
                                                   bufs_b, mask)
                 torch.cuda.synchronize()
-                assert a.parity == b.parity, (a.parity, b.parity)
-                got = (*batch_tensors(a), bufs_a)
-                ref = (*batch_tensors(b), bufs_b)
+                if marched:
+                    got, ref = batch_current(a, bufs_a), batch_current(b, bufs_b)
+                else:
+                    assert a.parity == b.parity, (a.parity, b.parity)
+                    got = (*batch_tensors(a), bufs_a)
+                    ref = (*batch_tensors(b), bufs_b)
                 err = max(err, *(close(f"chunk_steps_batch {label} {boundary} "
                                        f"chunk {i}", x, y)
                                  for x, y in zip(got, ref)))
                 same = same and all(torch.equal(x, y) for x, y in zip(got, ref))
             untouched = (all(torch.equal(t[1], t0) for t, t0 in
-                             zip(batch_tensors(a), frozen))
+                             zip((*batch_tensors(a), *a.h1), frozen))
                          and torch.equal(bufs_a[1], frozen_bufs))
             assert untouched, "chunk_steps_batch wrote a frozen variant"
             worst = max(worst, err)
+            if marched:
+                marched_worst = max(marched_worst, err)
+            rounds = (f" ({D // plan.T} rounds of T={plan.T} and one of "
+                      f"{D % plan.T} an interval)" if marched else "")
             say("16", f"{label} {sim.grid.shape} {boundary}, B={batch}, {n_sub} "
-                      f"intervals x D={D}, {plan_text(plan)}: chunk_steps_batch "
+                      f"intervals x D={D}{rounds}, {plan_text(plan)}: chunk_steps_batch "
                       f"== plain over two chunks, variant 1 frozen in the "
                       f"second (untouched {untouched}; bit-equal {same}), max "
                       f"|err| {err:.3e} [{card}]")
         if label == "canonical":
-            one, st1, wf1, bufs1 = batch_inputs(sim, 1, seed=109, n_sub=n_sub)
-            v0 = st1.variant(0)
-            ref = fdtd_cuda.YeeState(
-                e=[tuple(t.clone() for t in v0.e[p]) for p in range(2)],
-                h=tuple(t.clone() for t in v0.h),
-                psi_e=tuple(t.clone() for t in v0.psi_e),
-                psi_h=tuple(t.clone() for t in v0.psi_h), parity=1)
-            rbufs = bufs1[0].clone()
-            plan1 = fdtd_cuda.chunk_launch_plan(one, st1)
-            fdtd_cuda.chunk_steps_batch(one, st1, wf1, 7, n_sub, D, bufs1, [True])
-            fdtd_cuda.chunk_steps(sim.operands, ref, wf1, 7, n_sub, D, rbufs)
-            torch.cuda.synchronize()
-            got = st1.variant(0)
-            same = (got.parity == ref.parity and torch.equal(bufs1[0], rbufs)
-                    and all(torch.equal(x, y) for x, y in zip(
-                        (*got.fields, *got.psi_e, *got.psi_h),
-                        (*ref.fields, *ref.psi_e, *ref.psi_h))))
-            assert same, f"B = 1 differs from chunk_steps at {label} {boundary}"
-            say("16", f"{label} {boundary}, B=1, {plan_text(plan1)}: "
-                      f"chunk_steps_batch bit-equal to chunk_steps [{card}]")
-    return worst
+            forms = [None] + (["marched"] if boundary == "MUR" else [])
+            for form in forms:
+                one, st1, wf1, bufs1 = batch_inputs(sim, 1, seed=109,
+                                                    n_sub=n_sub)
+                v0 = st1.variant(0)
+                ref = fdtd_cuda.YeeState(
+                    e=[tuple(t.clone() for t in v0.e[p]) for p in range(2)],
+                    h=tuple(t.clone() for t in v0.h),
+                    psi_e=tuple(t.clone() for t in v0.psi_e),
+                    psi_h=tuple(t.clone() for t in v0.psi_h), parity=1)
+                rbufs = bufs1[0].clone()
+                plan1 = fdtd_cuda.chunk_launch_plan(one, st1, form)
+                fdtd_cuda.chunk_steps_batch(one, st1, wf1, 7, n_sub, D, bufs1,
+                                            [True], form=form)
+                fdtd_cuda.chunk_steps(sim.operands, ref, wf1, 7, n_sub, D, rbufs)
+                torch.cuda.synchronize()
+                got = st1.variant(0)
+                same = (torch.equal(bufs1[0], rbufs)
+                        and (form == "marched" or got.parity == ref.parity)
+                        and all(torch.equal(x, y) for x, y in zip(
+                            (*got.fields, *got.psi_e, *got.psi_h),
+                            (*ref.fields, *ref.psi_e, *ref.psi_h))))
+                assert same, (f"B = 1 differs from chunk_steps at {label} "
+                              f"{boundary} ({plan1.form})")
+                say("16", f"{label} {boundary}, B=1, {plan_text(plan1)}: "
+                          f"chunk_steps_batch bit-equal to chunk_steps [{card}]")
+    return worst, marched_worst
 
 
-def phase_sweep_main_path(card):
+def phase_sweep_main_path(marched_err, card):
     """``bench.py``'s 8-variant sweep through the entry points a user
-    calls: prepare, then a run whose launches are counted (one
-    ``chunk_steps_batch`` per chunk, nothing else) and a rerun, eight
-    distinct spectra; one launch at its shapes against the twin and timed
-    on the device beside its bound; the same variants as eight unbatched
-    ``chunk_steps`` runs, in turns with the batched run."""
-    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    calls: prepare, then a run in the form the plan picks whose launches
+    are counted (one ``chunk_steps_batch`` per chunk, nothing else) and a
+    rerun, eight distinct spectra; the same sweep in the other of the
+    streamed and marched forms (``fdtd_cuda.marches``, the plan's rule,
+    patched for that run), counted alike, its steps, energy ratios and
+    spectra equal to the first run's at the tolerance; one launch of each
+    form at its shapes against the twin, and the streamed form, the
+    marched form and K2's batched march timed on the device in this call
+    beside their bounds; the plan may pick the marched form only where it
+    is the faster; the same variants as eight unbatched ``chunk_steps``
+    runs, in turns with the batched run. Returns the kernels line's row
+    of the form the plan picks (launches from the counted run) and the
+    sweep's result and walls."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
     from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
         prepare_patch_geometry_sweep, run_patch_geometry_sweep)
@@ -2394,27 +2451,54 @@ def phase_sweep_main_path(card):
     sim = prep.sim
     cells = sim.grid.num_cells
     D, n_sub, chunk, _ = chunk_geometry(sim)
-    coeffs = prep.batched_coeffs
-    bops = fdtd_cuda.batch_operands(
-        sim.operands, [coeffs["ca_" + c] for c in ("ex", "ey", "ez")],
-        [coeffs["cb_" + c] for c in ("ex", "ey", "ez")])
-    plan = fdtd_cuda.chunk_launch_plan(
-        bops, fdtd_cuda.new_batch_state(sim.padded_shape, sim.device, False, B))
+    bops = sweep_operands(prep)
+
+    def fresh():
+        return fdtd_cuda.new_batch_state(sim.padded_shape, sim.device, False, B)
+
+    plan = fdtd_cuda.chunk_launch_plan(bops, fresh())
+    plans = {f: fdtd_cuda.chunk_launch_plan(bops, fresh(), f)
+             for f in ("streamed", "marched")}
     say("16", f"sweep prepared: {B} variants on the union grid {sim.grid.shape} "
               f"({cells:,} cells, {B * cells:,} cell-updates a step), D={D}, "
-              f"{n_sub} intervals a chunk, in {prep_s:.2f} s; {plan_text(plan)} "
-              f"[{card}]")
+              f"{n_sub} intervals a chunk, in {prep_s:.2f} s; the plan picks "
+              f"{plan_text(plan)}; the marched form's plan: "
+              f"{plan_text(plans['marched'])} [{card}]")
+
+    def counted_run(form):
+        """One run with the plan's rule patched to pick ``form``; its
+        result, launches by wrapper and by form."""
+        saved = fdtd_cuda.marches
+        fdtd_cuda.marches = lambda ops, batch: form == "marched"
+        try:
+            assert fdtd_cuda.chunk_launch_plan(bops, fresh()).form == form
+            fdtd_cuda.reset_launch_counts()
+            fdtd_stream.reset_launch_counts()
+            out = run_patch_geometry_sweep(prep)
+            counts = {**fdtd_cuda.launches, **fdtd_stream.launches}
+            forms = dict(fdtd_cuda.launches_by_form)
+        finally:
+            fdtd_cuda.marches = saved
+        assert out.ok, out.message
+        chunks = -(-out.steps_run // chunk)
+        assert counts["chunk_steps_batch"] == chunks > 0, counts
+        assert all(v == 0 for k, v in counts.items()
+                   if k != "chunk_steps_batch"), counts
+        assert forms[form] == chunks and sum(forms.values()) == chunks, forms
+        return out, counts, forms
 
     fdtd_cuda.reset_launch_counts()
+    fdtd_stream.reset_launch_counts()
     res = run_patch_geometry_sweep(prep)
-    counts = dict(fdtd_cuda.launches)
+    counts = {**fdtd_cuda.launches, **fdtd_stream.launches}
     forms = dict(fdtd_cuda.launches_by_form)
     assert res.ok, res.message
-    chunks = -(-res.steps_run // chunk)
-    assert counts["chunk_steps_batch"] == chunks > 0, counts
+    assert counts["chunk_steps_batch"] == -(-res.steps_run // chunk) > 0, counts
     assert all(v == 0 for k, v in counts.items()
                if k != "chunk_steps_batch"), counts
-    assert forms[plan.form] == chunks, forms
+    assert forms[plan.form] == counts["chunk_steps_batch"] == sum(
+        forms.values()), forms
+    chunks = counts["chunk_steps_batch"]
     assert (res.steps == res.steps_run).all(), res.steps
     uf = np.stack([sp.uf for sp in res.spectra]) / sim.dft_dt  # raw DFT sums
     assert np.isfinite(uf).all(), "non-finite port DFTs"
@@ -2426,13 +2510,25 @@ def phase_sweep_main_path(card):
     np.testing.assert_array_equal(
         np.stack([sp.uf for sp in res2.spectra]) / sim.dft_dt, uf)
 
-    # one launch at the main path's shapes against the twin, and its time
+    # the same sweep in the other form, held to the first run
+    other = "streamed" if plan.form == "marched" else "marched"
+    res_o, counts_o, forms_o = counted_run(other)
+    np.testing.assert_array_equal(res_o.steps, res.steps)
+    close(f"sweep e_ratio, {other} against {plan.form}", res_o.e_ratio,
+          res.e_ratio)
+    for v in range(B):
+        for q in ("uf", "if_"):
+            close(f"sweep variant {v} {q}, {other} against {plan.form}",
+                  getattr(res_o.spectra[v], q), getattr(res.spectra[v], q))
+    say("16", f"sweep main path in the {other} form: launches "
+              f"{counts_o['chunk_steps_batch']} chunk_steps_batch by form "
+              f"{forms_o}, nothing else, {res_o.wall_time_s:.3f} s; steps, "
+              f"e_ratio and every variant's uf and if_ == the {plan.form} "
+              f"run's at rtol {RTOL}, atol {ATOL_REL}*max [{card}]")
+
+    # one launch of each form at the main path's shapes against the twin
     _ops, base, wf, bufs = batch_inputs(sim, B, seed=113, n_sub=n_sub)
-    a, bufs_a = clone_batch(base), bufs.clone()
-    fdtd_cuda.chunk_steps_batch(bops, a, wf, 7, n_sub, D, bufs_a, [True] * B)
     b, bufs_b = clone_batch(base), bufs.clone()
-    del base
-    torch.cuda.synchronize()
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ev0.record()
     fdtd_cuda.chunk_steps_batch_plain(bops, b, wf, 7, n_sub, D, bufs_b,
@@ -2440,26 +2536,73 @@ def phase_sweep_main_path(card):
     ev1.record()
     ev1.synchronize()
     plain_ms = ev0.elapsed_time(ev1)
-    got, ref = (*batch_tensors(a), bufs_a), (*batch_tensors(b), bufs_b)
-    err = max(close(f"chunk_steps_batch sweep {i}", x, y)
-              for i, (x, y) in enumerate(zip(got, ref)))
-    same = all(torch.equal(x, y) for x, y in zip(got, ref))
-    del b, bufs_b, got, ref
-    times = [device_ms(lambda: fdtd_cuda.chunk_steps_batch(
-        bops, a, wf, 7, n_sub, D, bufs_a, [True] * B), reps=3, warmup=1)
-        for _ in range(2)]
-    ms = min(times)
-    b_ms, b_by = k1_batch_bound(bops, B, n_sub, D)
+    ref = batch_current(b, bufs_b)
+    del b, bufs_b
+    check = {}
+    for form in ("streamed", "marched"):
+        a, bufs_a = clone_batch(base), bufs.clone()
+        fdtd_cuda.chunk_steps_batch(bops, a, wf, 7, n_sub, D, bufs_a,
+                                    [True] * B, form=form)
+        got = batch_current(a, bufs_a)
+        check[form] = (
+            max(close(f"chunk_steps_batch {form} sweep {i}", x, y)
+                for i, (x, y) in enumerate(zip(got, ref))),
+            all(torch.equal(x, y) for x, y in zip(got, ref)))
+        del a, bufs_a, got
+    del ref
     steps = n_sub * D
-    say("16", f"chunk_steps_batch at the sweep's shapes (B={B}, {n_sub} x "
-              f"D={D}), {plan_text(plan)}: == plain (bit-equal {same}), max "
-              f"|err| {err:.3e}; device "
-              f"{' / '.join(f'{t * 1e3:,.1f}' for t in times)} us/launch "
-              f"({ms * 1e3 / steps:.2f} us a step of {B} variants, "
-              f"{ms * 1e3 / steps / B:.2f} us a variant-step); plain "
-              f"{plain_ms * 1e3:,.1f} us; bound {b_ms * 1e3:.2f} us by {b_by} "
-              f"({b_ms / ms:.4f} of it) [{card}]")
-    del a, bufs_a
+    b_ms, b_by = k1_batch_bound(bops, B, n_sub, D)
+    times = {}
+    a, bufs_a = clone_batch(base), bufs.clone()
+    times["streamed"] = [device_ms(lambda: fdtd_cuda.chunk_steps_batch(
+        bops, a, wf, 7, n_sub, D, bufs_a, [True] * B, form="streamed"),
+        reps=3, warmup=1) for _ in range(2)]
+    times["marched"] = [device_ms(lambda: fdtd_cuda.chunk_steps_batch(
+        bops, a, wf, 7, n_sub, D, bufs_a, [True] * B, form="marched"),
+        reps=3, warmup=1) for _ in range(2)]
+    del a, bufs_a, base
+    # K2's batched march (stream mode's kernel) on the same grid at T = 4
+    T2 = 4
+    st2 = stream_batch_state(sim, B, 117)
+    wf2 = [0.37, -0.21, 0.55, 0.13][:T2]
+    k2_ms = [device_ms(lambda: fdtd_stream.stream_steps_batch(
+        bops, st2, wf2, [True] * B), reps=10, warmup=2) for _ in range(2)]
+    del st2
+    k2b_ms, k2b_by = k2_batch_bound(bops, T2, B)
+    mT = plans["marched"].T
+    march_bytes_ms = n_sub * plans["marched"].rounds(D) * k2_batch_bound(
+        bops, mT, B)[0]
+
+    def us(ts):
+        return " / ".join(f"{t * 1e3:,.1f}" for t in ts)
+
+    for form in ("streamed", "marched"):
+        err, same = check[form]
+        ms = min(times[form])
+        extra = "" if form == "streamed" else (
+            f"; the march's bytes, {n_sub} x {plans['marched'].rounds(D)} "
+            f"rounds of T={mT} each moving its fields, ca/cb and stamps "
+            f"once: {march_bytes_ms * 1e3:,.1f} us ({march_bytes_ms / ms:.3f} "
+            f"of it)")
+        say("16", f"chunk_steps_batch {form} at the sweep's shapes (B={B}, "
+                  f"{n_sub} x D={D}), {plan_text(plans[form])}: == plain "
+                  f"(bit-equal {same}), max |err| {err:.3e}; device "
+                  f"{us(times[form])} us/launch ({ms * 1e3 / steps:.2f} us a "
+                  f"step of {B} variants, {ms * 1e3 / steps / B:.2f} us a "
+                  f"variant-step); plain {plain_ms * 1e3:,.1f} us; bound "
+                  f"{b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.4f} of it)"
+                  f"{extra} [{card}]")
+    say("16", f"K2's batched march (stream_steps_batch) on the same grid, "
+              f"T={T2}: {us(k2_ms)} us/launch ({min(k2_ms) * 1e3 / T2:.2f} us "
+              f"a step of {B} variants), bound {k2b_ms * 1e3:.1f} us by "
+              f"{k2b_by} ({k2b_ms / min(k2_ms):.3f} of it) [{card}]")
+    faster = min(times["marched"]) < min(times["streamed"])
+    say("16", f"the marched form is {'faster' if faster else 'slower'} than "
+              f"the streamed form in this call "
+              f"({min(times['marched']) / min(times['streamed']):.2f}x its "
+              f"time); the plan picks the {plan.form} form [{card}]")
+    assert plan.form != "marched" or faster, (
+        "the plan picks the marched form where it is the slower")
 
     # the batched run against eight unbatched chunk_steps runs, in turns
     walls = {"batched": [res.wall_time_s, res2.wall_time_s], "unbatched": []}
@@ -2482,6 +2625,7 @@ def phase_sweep_main_path(card):
         assert res3.ok, res3.message
         walls["batched"].append(res3.wall_time_s)
     assert single_counts["chunk_steps"] == B * chunks, single_counts
+    ms = min(times[plan.form])
     busy = chunks * ms / 1e3
     rate = [cells * res.steps_run * B / t / 1e6 for t in walls["batched"]]
     say("16", f"sweep main path: {B} variants x {res.steps_run} steps "
@@ -2501,9 +2645,57 @@ def phase_sweep_main_path(card):
               f"{walls['batched'][3]:.3f} s in the same turns "
               f"({walls['unbatched'][0] / walls['batched'][2]:.2f}x / "
               f"{walls['unbatched'][1] / walls['batched'][3]:.2f}x) [{card}]")
-    return dict(launches=counts["chunk_steps_batch"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, res=res,
+    err = check[plan.form][0]
+    if plan.form == "marched":
+        err = max(err, marched_err)
+    return dict(launches=counts["chunk_steps_batch"], max_abs_err=err,
+                ms=min(times[plan.form]), plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, form=plan.form, res=res,
                 walls=walls["batched"])
+
+
+def sweep_chunk_row(prep, card, tag):
+    """One ``chunk_steps_batch`` chunk of a prepared sweep in the form its
+    plan picks, from a seeded random state of its own batched operands,
+    against the twin (each variant's current fields and samples), then
+    timed on the device beside its bound and the twin's time: the kernels
+    line's numbers for that form at the sweep's shapes."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+
+    sim = prep.sim
+    bops = sweep_operands(prep)
+    B = int(bops.ca[0].shape[0])
+    D, n_sub, _, _ = chunk_geometry(sim)
+    _ops, base, wf, bufs = batch_inputs(sim, B, seed=131, n_sub=n_sub)
+    plan = fdtd_cuda.chunk_launch_plan(bops, base)
+    b, bufs_b = clone_batch(base), bufs.clone()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    fdtd_cuda.chunk_steps_batch_plain(bops, b, wf, 7, n_sub, D, bufs_b,
+                                      [True] * B)
+    ev1.record()
+    ev1.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)
+    a, bufs_a = clone_batch(base), bufs.clone()
+    fdtd_cuda.chunk_steps_batch(bops, a, wf, 7, n_sub, D, bufs_a, [True] * B)
+    got, ref = batch_current(a, bufs_a), batch_current(b, bufs_b)
+    err = max(close(f"{tag} chunk_steps_batch {i}", x, y)
+              for i, (x, y) in enumerate(zip(got, ref)))
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    del b, bufs_b, got, ref
+    ms = [device_ms(lambda: fdtd_cuda.chunk_steps_batch(
+        bops, a, wf, 7, n_sub, D, bufs_a, [True] * B), reps=5, warmup=1)
+        for _ in range(2)]
+    b_ms, b_by = k1_batch_bound(bops, B, n_sub, D)
+    say("26", f"{tag}: chunk_steps_batch at its shapes ({sim.grid.shape}, "
+              f"B={B}, {n_sub} x D={D}), {plan_text(plan)}: == plain "
+              f"(bit-equal {same}), max |err| {err:.3e}; device "
+              f"{' / '.join(f'{t * 1e3:,.1f}' for t in ms)} us/launch; plain "
+              f"{plain_ms * 1e3:,.1f} us; bound {b_ms * 1e3:.2f} us by {b_by} "
+              f"({b_ms / min(ms):.4f} of it) [{card}]")
+    return dict(form=plan.form, max_abs_err=err, ms=min(ms), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def cavity_f_hz(w_mm: float) -> float:
@@ -4672,8 +4864,9 @@ def phase_examples(mixed_res, card):
     """26. The usage scripts (``fdtd_solver_antennas_tpu_torch/examples/``)
     on the card, each through its function, files into a temporary
     directory; then the device check of launches from a fresh thread.
-    ``mixed_res``: phase 8's mixed-scene result. Returns the launches of
-    each script."""
+    ``mixed_res``: phase 8's mixed-scene result. Returns the kernels
+    line's row of ``chunk_steps_batch`` in the form ``design_sweep`` runs
+    (its launches there, its numbers at its shapes)."""
     import tempfile
 
     from fdtd_solver_antennas_tpu_torch.examples import (
@@ -4706,6 +4899,11 @@ def phase_examples(mixed_res, card):
         assert prep.sim.pallas_mode == "chunk", prep.sim.pallas_mode_reason
         assert_launched(counts, {"chunk_steps_batch": None}, "design_sweep")
         runs["design_sweep"] = (counts, forms)
+        # its form's row of the kernels line: launches from this run,
+        # numbers at its shapes
+        row = sweep_chunk_row(prep, card, "(b) design_sweep")
+        assert forms == {row["form"]: counts["chunk_steps_batch"]}, forms
+        batch_row = dict(row, launches=counts["chunk_steps_batch"])
         dips = []
         for (L, W), sp in zip(design_sweep.GEOMETRIES_MM, res.spectra):
             db = 20 * np.log10(np.abs(sp.s11) + 1e-30)
@@ -4825,7 +5023,7 @@ def phase_examples(mixed_res, card):
     say("26", f"launches by script: "
               + "; ".join(f"{k}: {c}, forms {f}" for k, (c, f) in runs.items()))
     say("26", f"the usage-script slice took {time.perf_counter() - t_all:.1f} s")
-    return runs
+    return batch_row
 
 
 def ptxas_kernels(log):
@@ -4872,9 +5070,10 @@ def main() -> int:
              f"count {torch.cuda.device_count()}")
     print(card, flush=True)
 
-    # 2. build the five libraries at once
+    # 2. build the six libraries at once
     from fdtd_solver_antennas_tpu_torch.ops import (
-        _build, fdtd_cuda, fdtd_shard, fdtd_steps, fdtd_stream, roll_chain)
+        _build, chunk_march, fdtd_cuda, fdtd_shard, fdtd_steps, fdtd_stream,
+        roll_chain)
 
     from fdtd_solver_antennas_tpu_torch.native import build as native_build
 
@@ -4884,8 +5083,8 @@ def main() -> int:
         return path, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    libs = ("fdtd_chunk", "fdtd_stream", "fdtd_shard", "fdtd_steps",
-            "roll_chain")
+    libs = ("fdtd_chunk", "fdtd_chunk_march", "fdtd_stream", "fdtd_shard",
+            "fdtd_steps", "roll_chain")
     with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
         native = pool.submit(build_native)
         builds = {name: pool.submit(_build.build, name) for name in libs}
@@ -4899,6 +5098,7 @@ def main() -> int:
         for fn, regs, spill in ptxas_kernels(log):
             say("2", f"ptxas {name}: {fn}: {regs}; {spill}")
     fdtd_cuda._library()
+    chunk_march._library()
     fdtd_stream._library()
     fdtd_shard._library()
     fdtd_steps._library()
@@ -4943,9 +5143,10 @@ def main() -> int:
     k5 = timed_phase("15", phase_roll_chain, card)
 
     # 16. the sweep slice (K1 batched)
-    worst = timed_phase("16", phase_batch_vs_plain, card)
-    say("16", f"all chunk_steps_batch comparisons agree; worst max |err| {worst:.3e}")
-    k1b = timed_phase("16", phase_sweep_main_path, card)
+    worst, marched_err = timed_phase("16", phase_batch_vs_plain, card)
+    say("16", f"all chunk_steps_batch comparisons agree; worst max |err| "
+              f"{worst:.3e} (the marched form's {marched_err:.3e})")
+    k1b = timed_phase("16", phase_sweep_main_path, marched_err, card)
     timed_phase("16", phase_sweep_physics, card)
 
     # 17. the explicit slice at Pz > 128 (K2's slab stepper)
@@ -4996,7 +5197,7 @@ def main() -> int:
     # 26. the usage scripts: checkpoint resume, the design sweep, both
     # designer scenes, the march's operating-point sweep, both inverse
     # designs cut to one iteration; launches from a fresh thread
-    timed_phase("26", phase_examples, mixed_res, card)
+    k26 = timed_phase("26", phase_examples, mixed_res, card)
     say("26", f"the whole smoke took {time.perf_counter() - t_smoke:.1f} s "
               "(the kernels' build included)")
 
@@ -5058,9 +5259,15 @@ def main() -> int:
         for name, source, replaces, row in (
             ("interval_steps", K4_SOURCE, K4_REPLACES, k4),
             ("roll_chain", K5_SOURCE, K5_REPLACES, k5),
-            # K1 under jax.vmap (solvers/sweep.py:69-103); no PyTorch call
-            # computes a batched Yee chunk
-            ("chunk_steps_batch", K1_SOURCE, K1_REPLACES, k1b),
+            # K1 under jax.vmap (solvers/sweep.py:69-103): the form the
+            # 8-variant sweep's plan picks, launches from its main path
+            # (phase 16), and the form design_sweep's plan picks, launches
+            # from its run and numbers at its shapes (phase 26); no PyTorch
+            # call computes a batched Yee chunk
+            ("chunk_steps_batch", K1M_SOURCE if k1b["form"] == "marched"
+             else K1_SOURCE, K1_REPLACES, k1b),
+            (f"chunk_steps_batch_{k26['form']}", K1M_SOURCE
+             if k26["form"] == "marched" else K1_SOURCE, K1_REPLACES, k26),
             # K2's coef_ops_from form under jax.vmap: the batched march on
             # the stream sweep's main path (phase 18), and under CPML on one
             # chunk of the same sweep under PML_8

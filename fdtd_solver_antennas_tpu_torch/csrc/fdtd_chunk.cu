@@ -26,8 +26,8 @@
 // flush, ops/fdtd.py::ProbeDFT, assumes). The barrier after it keeps the
 // next H pass from overwriting H while another block still samples it. A
 // row sums its k terms m = 0 .. k-1, one rounding each, as probe_gather
-// does (probe_row below, the same code), so the samples are bit-equal to
-// the per-step route. The source
+// does (probe_row of csrc/probe_rows.cuh, the same code), so the samples
+// are bit-equal to the per-step route. The source
 // samples are one float32 array on the device per run, read at offset n0;
 // a chunk that runs past n_steps_max reads the zeros padded there. The
 // energy check and the DFT flush stay outside, once per chunk in PyTorch,
@@ -56,9 +56,11 @@
 // cell) space, the resident form gives each variant an equal share of the
 // blocks, so a block's shared memory holds only its variant's coefficients.
 // At the 8-variant canonical sweep (about 4.2M cells a step) the operands
-// do not fit on chip and the plan picks the streamed form; bytes bound it
-// there, as on any grid that spills the L2. The unbatched chunk_steps_kernel
-// is compiled from the same passes with vo = 0.
+// do not fit on chip and these passes read every operand from memory every
+// step; a third form of the same chunk, the marched form in
+// csrc/fdtd_chunk_march.cu, reuses each variant's planes across T steps
+// there (ops/fdtd_cuda.py::chunk_launch_plan picks between them). The
+// unbatched chunk_steps_kernel is compiled from the same passes with vo = 0.
 //
 // What bounds it on the card: at the canonical patch (56 x 55 x 50 =
 // 154,000 cells, 0.62 MB per array) a launch must move the fields in and
@@ -133,12 +135,12 @@
 // fused multiply-add, so each cell's arithmetic rounds like the plain
 // PyTorch twin, one operation at a time.
 
+#include "probe_rows.cuh"
 #include "yee_persist.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kProbeBlocks = 4;  // port V, port I, face E, face H
 // terms loaded ahead of their adds: the standalone gather (whose mixed
 // scene has 70-term rows) and the chunk kernel's (canonical rows <= 8,
 // inside a kernel held to 48 registers)
@@ -146,21 +148,6 @@ constexpr int kGatherUnroll = 8;
 constexpr int kChunkGatherUnroll = 4;
 
 }  // namespace
-
-// Mirrored field for field by ops/fdtd_cuda.py::_ProbeTable (ctypes).
-struct ProbeTable {
-  const int* code;   // cell << 3 | component (0..5: Ex..Hz)
-  const float* w;    // weights, laid out as code
-  const int* meta;   // on the device: row0[kProbeBlocks + 1], k[kProbeBlocks],
-                     // off[kProbeBlocks] (kMeta* below)
-  int rows;          // all blocks' rows
-};
-
-// meta: block b's rows are [row0[b], row0[b + 1]), k[b] terms each, its
-// first entry off[b]; term m of its row r at off[b] + m * rows_b + r
-constexpr int kMetaRow0 = 0;
-constexpr int kMetaK = kProbeBlocks + 1;
-constexpr int kMetaOff = 2 * kProbeBlocks + 1;
 
 // Mirrored field for field by ops/fdtd_cuda.py::_YeeArgs (ctypes).
 struct YeeArgs {
@@ -333,48 +320,6 @@ __global__ void mur_faces_kernel(const YeeArgs a, const int p, const int b) {
   const float eo_nb = nb_in ? Eo[cn] : 0.f;
   const float en_nb = nb_in ? En[cn] : 0.f;
   En[cw] = eo_nb + cm * (en_nb - Eo[cw]);
-}
-
-// Probe row r (of all blocks) of the fields ex .. hz: its terms summed
-// m = 0 .. k-1, one rounding each, kU terms' code and weight loaded, then
-// their field values, then added in order.
-template <int kU>
-__device__ __forceinline__ float probe_row(
-    const int* __restrict__ code, const float* __restrict__ w,
-    const int* __restrict__ meta, const int r, const float* ex,
-    const float* ey, const float* ez, const float* hx, const float* hy,
-    const float* hz) {
-  int b = 0;
-#pragma unroll
-  for (int q = 1; q < kProbeBlocks; ++q) b += r >= __ldg(meta + kMetaRow0 + q);
-  const int r0 = __ldg(meta + kMetaRow0 + b);
-  const int rows = __ldg(meta + kMetaRow0 + b + 1) - r0;
-  const int k = __ldg(meta + kMetaK + b);
-  const int at = __ldg(meta + kMetaOff + b) + (r - r0);
-  code += at;
-  w += at;
-  float acc = 0.f;
-  for (int m0 = 0; m0 < k; m0 += kU) {
-    int c[kU];
-    float wt[kU], v[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const bool on = m0 + u < k;
-      c[u] = on ? __ldg(code + (m0 + u) * rows) : 0;
-      wt[u] = on ? __ldg(w + (m0 + u) * rows) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int comp = c[u] & 7;
-      const float* f = comp < 3 ? (comp == 0 ? ex : (comp == 1 ? ey : ez))
-                                : (comp == 3 ? hx : (comp == 4 ? hy : hz));
-      v[u] = m0 + u < k ? f[c[u] >> 3] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
-      if (m0 + u < k) acc = acc + v[u] * wt[u];
-  }
-  return acc;
 }
 
 __global__ void probe_gather_kernel(const YeeArgs a, const int p,

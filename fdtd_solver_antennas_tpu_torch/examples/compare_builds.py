@@ -1,6 +1,7 @@
 """Compare two checkouts of the port on one card: the canonical
 ``chunk_steps`` launch's device time, K2's CPML route, the launch-bound
-walk's host time, and the persistent steppers' SASS.
+walk's host time, the 8-variant sweep's ``chunk_steps_batch`` launch, and
+the persistent steppers' SASS.
 
 Each ROOT is a checkout of the repository (for example a commit unpacked
 with ``git archive``). Timing runs each root in a process of its own, in
@@ -37,6 +38,16 @@ best µs a step, the launches of one run and the card's name and power
 limit. A root that launches through ``fdtd_cuda.launch`` alternates its
 runs with it and with an unchecked launch, and times one call of it
 beside the stream query a launch made before.
+
+    python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --sweep A B B A
+
+prints one JSON line per root: µs per ``chunk_steps_batch`` launch of the
+8-variant sweep (``bench.py``'s eight canonical-patch variants on their
+100×109×50 union grid, one chunk of 2 × 244 steps from parity 1 on a
+seeded random state, three timings of three launches behind a sleep
+kernel) in the form the root's plan picks, and in each form the root
+offers by name (``streamed``; ``marched`` where the root has it), with
+the plan's form and the card's name and power limit.
 
     python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --sass A B
 
@@ -168,6 +179,47 @@ def _time_stream(root: str) -> dict:
     return {"root": root, "cpml_us_per_launch": out, "card": sc.card_line()}
 
 
+def _time_sweep(root: str) -> dict:
+    """Device µs per ``chunk_steps_batch`` launch of the 8-variant sweep in
+    the package under ``root`` (this process imports it from there)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, persist
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import chunk_geometry
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import prepare_patch_geometry_sweep
+
+    if not fdtd_cuda.__file__.startswith(str(Path(root).resolve())):
+        raise RuntimeError(f"imported {fdtd_cuda.__file__}, not from {root}")
+    sc = _scenes()
+    variants = sc.sweep_variants()
+    B = len(variants)
+    prep = prepare_patch_geometry_sweep(variants, n_steps_max=2000,
+                                        end_criteria=1e-4, device="cuda")
+    sim, ops = prep.sim, sc.sweep_operands(prep)
+    D, n_sub, _, _ = chunk_geometry(sim)
+    rng = np.random.default_rng(113)
+    st = fdtd_cuda.new_batch_state(sim.padded_shape, sim.device, False, B)
+    for t in (*st.e[0], *st.e[1], *st.h):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+    st.parity = [1] * B
+    wf = torch.from_numpy(rng.uniform(-1.0, 1.0, 7 + n_sub * D).astype(
+        np.float32)).to(sim.device)
+    bufs = torch.zeros((B, n_sub, ops.probes.n_rows), device=sim.device)
+    picked = fdtd_cuda.chunk_launch_plan(ops, st).form
+    out = {}
+    for form in (None, "streamed", "marched"):
+        if form is not None and form not in persist.FORMS:
+            continue
+        out[form or f"plan ({picked})"] = [
+            round(sc.device_ms(lambda: fdtd_cuda.chunk_steps_batch(
+                ops, st, wf, 7, n_sub, D, bufs, [True] * B, form=form),
+                reps=3, warmup=1) * 1e3, 1) for _ in range(3)]
+    return {"root": root, "batch": B, "steps_a_launch": n_sub * D,
+            "us_per_launch": out, "card": sc.card_line()}
+
+
 def _time_walk(root: str) -> dict:
     """Host seconds of the canonical patch's run through the walk in the
     package under ``root`` (this process imports it from there). Where
@@ -272,12 +324,13 @@ def _in_process(flag: str, root: str) -> dict:
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] in ("--one", "--build", "--one-stream",
-                                      "--one-walk"):
+                                      "--one-walk", "--one-sweep"):
         fn = {"--one": _time_root, "--build": _build_root,
-              "--one-stream": _time_stream, "--one-walk": _time_walk}[argv[0]]
+              "--one-stream": _time_stream, "--one-walk": _time_walk,
+              "--one-sweep": _time_sweep}[argv[0]]
         print(json.dumps(fn(str(Path(argv[1]).resolve()))))
         return 0
-    if argv and argv[0] in ("--stream", "--walk"):
+    if argv and argv[0] in ("--stream", "--walk", "--sweep"):
         for root in argv[1:]:
             print(json.dumps(_in_process(f"--one-{argv[0][2:]}", root)),
                   flush=True)

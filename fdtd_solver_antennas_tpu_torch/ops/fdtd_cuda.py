@@ -14,12 +14,15 @@ probe samples in the kernel. So does the port:
   (``ops/persist.py``). The engine's chunk loop (``ops/fdtd.py``) calls
   it once per chunk.
 - :func:`chunk_steps_batch`: the same chunk for B design variants of one
-  grid in one cooperative launch of ``chunk_batch_kernel`` (the TPU
-  kernel under ``jax.vmap``, which the JAX package's geometry sweeps run):
-  a :class:`YeeBatch` of (B, X, Y, Z) fields, ca/cb of that shape
-  (:func:`batch_operands`), everything else shared, a mask of the
-  variants that step. The engine's batched loop
-  (``ops/fdtd.py::run_batched``) calls it once per chunk in chunk mode.
+  grid in one cooperative launch (the TPU kernel under ``jax.vmap``,
+  which the JAX package's geometry sweeps run): a :class:`YeeBatch` of
+  (B, X, Y, Z) fields, ca/cb of that shape (:func:`batch_operands`),
+  everything else shared, a mask of the variants that step; in the
+  resident or streamed form of ``chunk_batch_kernel``, or, where the
+  batch spills the L2 under MUR or PEC (:func:`marches`), the marched form
+  of ``csrc/fdtd_chunk_march.cu`` (``ops/chunk_march.py``). The engine's
+  batched loop (``ops/fdtd.py::run_batched``) calls it once per chunk in
+  chunk mode.
 - :func:`probe_gather_batch`: the probe rows of every active variant of a
   :class:`YeeBatch` in one launch, the batched stream stepper's gather
   (``ops/fdtd_stream.py::stream_steps_batch``), once per probe interval.
@@ -49,8 +52,8 @@ runs on its tensors' device, through :func:`launch`, and every plan or
 occupancy query under :func:`device_guard`, whatever the calling
 thread's current device is. ``launches``
 counts the kernel launches of each wrapper, so a run can show it went
-through the kernels, and ``launches_by_form`` the ``chunk_steps``
-launches by storage form.
+through the kernels, and ``launches_by_form`` the ``chunk_steps`` and
+``chunk_steps_batch`` launches by storage form.
 """
 
 from __future__ import annotations
@@ -296,6 +299,7 @@ class YeeBatch:
     _chunk: object = None  # chunk_steps_batch's packed arguments
     _mask: object = None  # (host mask, its int32 copy on the device)
     _stream: object = None  # stream_steps_batch's packed arguments
+    _march: object = None  # the marched form's packed arguments
 
     def __post_init__(self):
         if not self.hset:
@@ -868,17 +872,41 @@ def _chunk_args(ops: YeeOperands, st) -> _ChunkArgs:
     return a
 
 
-def chunk_launch_plan(ops: YeeOperands, st,
-                      form: Optional[str] = None) -> persist.Plan:
+def marches(ops: YeeOperands, batch: int) -> bool:
+    """Whether ``chunk_steps_batch``'s plan takes the marched form for
+    ``batch`` variants of ``ops`` by itself: under MUR or PEC, where the
+    batch's working set (``ops/fdtd.py::working_set_bytes`` times B)
+    exceeds the L2 (``ops/fdtd.py::L2_BYTES``). ``chip_smoke.py`` phase
+    16 times both forms at the 8-variant sweep in one call and fails
+    where the plan picks the slower (``PERF.md``)."""
+    from . import fdtd
+
+    n_src = sum(s is not None for s in ops.src)
+    return (ops.pml is None
+            and batch * fdtd.working_set_bytes(ops.shape, n_src, False)
+            > fdtd.L2_BYTES)
+
+
+def chunk_launch_plan(ops: YeeOperands, st, form: Optional[str] = None):
     """The storage form, blocks × threads and shared bytes ``chunk_steps``
     launches with for (ops, st): ``form`` None lets the shape pick (the
     resident form where the operands fit on chip), else "resident" or
     "streamed" (the resident form raises where it does not fit). For a
     :class:`YeeBatch` of B variants, ``chunk_steps_batch``'s plan: the
+    marched form (a ``chunk_march.MarchPlan``) where :func:`marches` says
+    so or ``form`` is "marched" (which raises under CPML), else the
     resident form only where each variant's equal share of the blocks the
-    card holds keeps its cells on chip."""
-    a = _chunk_args(ops, st)
+    card holds keeps its cells on chip, else the streamed form (a
+    ``persist.Plan``)."""
     batch = _batch(st)
+    if form == "marched" and not batch:
+        raise ValueError("chunk_steps: the marched form is chunk_steps_batch's "
+                         "alone")
+    if batch and (form == "marched" or (form is None and marches(ops, batch))):
+        from . import chunk_march
+
+        return chunk_march.plan(ops, batch)
+    a = _chunk_args(ops, st)
     return persist.plan(_library(), _PREFIX, ops, ctypes.addressof(a), form,
                         "chunk_steps_batch" if batch else "chunk_steps",
                         batch=batch)
@@ -940,11 +968,15 @@ def chunk_steps_batch(ops: YeeOperands, st: YeeBatch,
     (``ops`` from :func:`batch_operands`), variant b's samples into
     ``bufs[b]`` (``bufs``: ``(B, n_sub, probe rows)``). Every variant is
     driven by the same source samples ``wf``. A frozen variant is neither
-    stepped nor sampled, and keeps its parity. On a CUDA tensor one
-    launch of ``chunk_batch_kernel`` (every active variant must be at the
-    same parity, as they are when the variants that stop stay stopped); on
-    a CPU tensor :func:`chunk_steps_batch_plain`. ``form`` forces a
-    storage form (:func:`chunk_launch_plan`)."""
+    stepped nor sampled, and keeps its parity and H set. On a CUDA tensor
+    one launch in the form :func:`chunk_launch_plan` gives (``form``
+    forces one): ``chunk_batch_kernel`` (resident or streamed: each
+    active variant's parity flips with every step, its H stays in its
+    set, which must be the first) or the marched form
+    (``ops/chunk_march.py``: each active variant's E buffer and H set end
+    where its last round wrote them). Every active variant must be at the
+    same E buffer and H set, as they are when the variants that stop stay
+    stopped. On a CPU tensor :func:`chunk_steps_batch_plain`."""
     B, rows = st.batch, ops.probes.n_rows
     if tuple(bufs.shape) != (B, n_sub, rows):
         raise ValueError(f"chunk_steps_batch: bufs {tuple(bufs.shape)} != "
@@ -956,21 +988,27 @@ def chunk_steps_batch(ops: YeeOperands, st: YeeBatch,
     live = [b for b in range(B) if act[b]]
     if not live:
         return None  # nothing to step
-    parity = {st.parity[b] for b in live}
-    if len(parity) != 1:
-        raise ValueError(f"chunk_steps_batch: active variants at parities "
-                         f"{sorted(parity)}; one launch steps one parity")
-    if any(st.hset[b] for b in live):
-        raise ValueError("chunk_steps_batch: an active variant's H lies in "
-                         "the stream stepper's second set")
-    lib = _library()
-    a = _chunk_args(ops, st)
+    p, q = one_set(st, live, "chunk_steps_batch")
     plan = chunk_launch_plan(ops, st, form)
     mask = _device_mask(st, act)
     dev = ops.device
     wf = torch.as_tensor(wf, dtype=torch.float32, device=dev)
+    if plan.form == "marched":
+        from . import chunk_march
+
+        chunk_march.chunk_steps(ops, st, wf, n0, n_sub, D, bufs, act, plan,
+                                mask)
+        launches["chunk_steps_batch"] += 1
+        launches_by_form[plan.form] += 1
+        return None
+    if q:
+        raise ValueError("chunk_steps_batch: the active variants' H lies in "
+                         "the second set, which only the marched form and "
+                         "the stream stepper step from")
+    lib = _library()
+    a = _chunk_args(ops, st)
     code = launch(
-        dev, lib.fdtd_chunk_batch_steps, ctypes.addressof(a), parity.pop(),
+        dev, lib.fdtd_chunk_batch_steps, ctypes.addressof(a), p,
         _ptr(wf, (len(wf),), dev=dev), n0, n_sub, D,
         _ptr(bufs, (B, n_sub, rows), dev=dev),
         _ptr(mask, (B,), torch.int32, dev), B, plan.cells_per_thread,

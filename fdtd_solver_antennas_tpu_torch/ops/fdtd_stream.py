@@ -125,17 +125,18 @@ def _cut(n: int, wall: int, core: int, mur: bool) -> Tuple[int, int]:
 
 
 def _march_layout(shape, grid_shape, mur: bool, x_wall=None,
-                  blocks=None, batch: int = 1, pml: bool = False):
+                  blocks=None, batch: int = 1, pml: bool = False, core=None):
     """The T-independent part of :func:`march_plan`. The x segments: the
     length (at least 3 planes) whose blocks finish soonest, counting
     rounds of ``blocks`` resident blocks (default :func:`march_blocks`)
     over the ``batch`` variants of a launch times the planes a block
-    marches (its segment and the trapezoid's 2T more, taken at T = 4)."""
+    marches (its segment and the trapezoid's 2T more, taken at T = 4).
+    ``core``: the y-z core (default :func:`march_core`)."""
     n0, n1, n2 = (int(v) for v in shape)
     q0, q1, q2 = (int(v) for v in grid_shape)
     x_wall = q0 - 1 if x_wall is None else int(x_wall)
     blocks = march_blocks(pml) if blocks is None else blocks
-    core = march_core(mur, pml)
+    core = tuple(core) if core is not None else march_core(mur, pml)
     oy, ty = _cut(n1, q1 - 1, core[0], mur)
     oz, tz = _cut(n2, q2 - 1, core[1], mur)
 

@@ -16,7 +16,9 @@ Either form is exact (bit-equal to the plain twins); a form that fails to
 plan, build or launch raises. K1's batched form (``chunk_steps_batch``)
 steps B variants of one grid in one launch: :func:`pack` then takes the
 per-variant arrays as (B, X, Y, Z) and :func:`plan` the batch, so the
-occupancy query decides the form for the batched shape.
+occupancy query decides the form for the batched shape; it has a third
+form, ``"marched"``, planned and launched by ``ops/chunk_march.py``
+(``FORMS`` names it for ``launches_by_form``; :func:`plan` refuses it).
 
 - :class:`PersistOps`: the ctypes mirror of ``struct persist::Ops``;
 - :func:`pack`: a state's and its operands' pointers into one;
@@ -33,7 +35,9 @@ from typing import TYPE_CHECKING, Dict, Optional, Tuple
 if TYPE_CHECKING:  # fdtd_cuda imports this module
     from .fdtd_cuda import YeeOperands, YeeState
 
-FORMS = ("streamed", "resident")
+# the forms' names, as launches_by_form counts them; "marched" is K1
+# batched's alone (ops/chunk_march.py), never planned here
+FORMS = ("streamed", "resident", "marched")
 BARRIERS_PER_STEP = 2  # grid.sync() after the H pass and after the E pass
 
 _P = ctypes.c_void_p
@@ -149,8 +153,9 @@ def plan(lib, prefix: str, ops: YeeOperands, args_addr: int,
     None lets the shape decide, else "resident" or "streamed" (the
     resident form raises where it does not fit). ``batch`` B > 0 plans the
     batched kernels for B variants (the library's ``*_batch_plan``)."""
-    if form is not None and form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS} or None, got {form!r}")
+    if form is not None and form not in FORMS[:2]:
+        raise ValueError(f"{what}: form must be one of {FORMS[:2]} or None, "
+                         f"got {form!r}")
     key = (prefix, str(ops.device), tuple(ops.shape), ops.pml is not None,
            ops.mur is not None, form, batch)
     if key not in _PLANS:

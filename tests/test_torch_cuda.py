@@ -722,7 +722,8 @@ def test_canonical_run_makes_one_chunk_launch_per_chunk(cuda):
                                   "probe_gather": 0, "chunk_steps": 25,
                                   "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}
-    assert fdtd_cuda.launches_by_form == {"streamed": 0, "resident": 25}
+    assert fdtd_cuda.launches_by_form == {"streamed": 0, "resident": 25,
+                                          "marched": 0}
 
 
 def test_chunk_plan_refuses_the_resident_form_where_it_does_not_fit(cuda):
@@ -832,9 +833,97 @@ def test_chunk_steps_batch_of_one_equals_chunk_steps(cuda, boundary, form):
     _assert_same_chunk(a.variant(0), bufs_a[0], b, bufs_b)
 
 
+@pytest.mark.parametrize("core", [None, (4, 6)])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_marched_chunk_equals_its_twin(cuda, boundary, batch, core):
+    """The marched form (``ops/chunk_march.py``) over two chunks of 3
+    intervals of D = 5 (a round of T = 3 and one of 2 each), the second
+    with variant 1 frozen (B > 1), at the plan's core and at a 4 × 6 core
+    (more tiles and segments): each variant's current fields and every
+    sample bit-equal to the plain twin, the frozen variant's every slice,
+    samples, E buffer and H set untouched, one launch a chunk counted
+    under "marched"."""
+    from fdtd_solver_antennas_tpu_torch.ops import chunk_march
+
+    sim = _sim(boundary, decim=5)
+    D, n_sub = sim.probe_decim, 3
+    ops, a, wf, bufs_a = _batch_inputs(sim, cuda, batch, seed=89 + batch,
+                                       n_sub=n_sub)
+    b, bufs_b = _clone_batch(a), bufs_a.clone()
+    plan = (fdtd_cuda.chunk_launch_plan(ops, a, "marched") if core is None
+            else chunk_march.plan(ops, batch, core=core))
+    assert plan.form == "marched"
+    fdtd_cuda.reset_launch_counts()
+    for i, mask in enumerate(([True] * batch, [v != 1 for v in range(batch)])):
+        n0 = 7 + i * n_sub * D
+        if i == 1 and batch > 1:
+            frozen = [t[1].clone() for t in (*_batch_tensors(a), *a.h1)]
+            frozen_set = (a.parity[1], a.hset[1])
+            frozen_bufs = bufs_a[1].clone()
+        if core is None:
+            fdtd_cuda.chunk_steps_batch(ops, a, wf, n0, n_sub, D, bufs_a, mask,
+                                        form="marched")
+        else:
+            act = tuple(mask)
+            chunk_march.chunk_steps(ops, a, wf, n0, n_sub, D, bufs_a, act, plan,
+                                    fdtd_cuda._device_mask(a, act))
+        fdtd_cuda.chunk_steps_batch_plain(ops, b, wf, n0, n_sub, D, bufs_b, mask)
+        torch.cuda.synchronize()
+        for x, y in zip(a.fields(), b.fields(), strict=True):
+            assert torch.equal(x, y)
+        assert torch.equal(bufs_a, bufs_b)
+    if core is None:
+        assert fdtd_cuda.launches["chunk_steps_batch"] == 2
+        assert fdtd_cuda.launches_by_form["marched"] == 2
+    if batch > 1:
+        for t, t0 in zip((*_batch_tensors(a), *a.h1), frozen):
+            assert torch.equal(t[1], t0)
+        assert torch.equal(bufs_a[1], frozen_bufs)
+        assert (a.parity[1], a.hset[1]) == frozen_set
+
+
+@pytest.mark.parametrize("boundary", ["MUR", "PEC"])
+def test_marched_chunk_of_one_equals_chunk_steps(cuda, boundary):
+    """B = 1 at the canonical patch in the marched form: its current
+    fields and samples bit-equal to ``chunk_steps`` on the same state."""
+    sim = _canonical_sim(boundary)
+    D = sim.probe_decim
+    ops, a, wf, bufs_a = _batch_inputs(sim, cuda, 1, seed=103)
+    v = a.variant(0)
+    b = fdtd_cuda.YeeState(e=[tuple(t.clone() for t in v.e[p]) for p in range(2)],
+                           h=tuple(t.clone() for t in v.h), parity=1)
+    bufs_b = bufs_a[0].clone()
+    fdtd_cuda.chunk_steps_batch(ops, a, wf, 7, 2, D, bufs_a, [True],
+                                form="marched")
+    fdtd_cuda.chunk_steps(sim.operands, b, wf, 7, 2, D, bufs_b)
+    torch.cuda.synchronize()
+    for x, y in zip(a.variant(0).fields, b.fields, strict=True):
+        assert torch.equal(x, y)
+    assert torch.equal(bufs_a[0], bufs_b)
+
+
+def test_marched_form_raises_on_a_failed_launch(cuda):
+    """A launch the kernel refuses (more blocks than items) raises; nothing
+    carries on on the twin."""
+    import dataclasses
+
+    from fdtd_solver_antennas_tpu_torch.ops import chunk_march
+
+    sim = _sim("MUR", decim=5)
+    ops, a, wf, bufs = _batch_inputs(sim, cuda, 2, seed=7, n_sub=1)
+    plan = chunk_march.plan(ops, 2)
+    bad = dataclasses.replace(plan, blocks=2 * plan.items_per_variant + 1)
+    act = (True, True)
+    with pytest.raises(RuntimeError, match="marched"):
+        chunk_march.chunk_steps(ops, a, wf, 0, 1, 5, bufs, act, bad,
+                                fdtd_cuda._device_mask(a, act))
+
+
 def test_batch_plan_refuses_the_resident_form_at_the_sweeps_shape(cuda):
     """Eight variants of the 8-variant sweep's union grid do not fit on
-    chip together: the plan gives the streamed form and refuses the
+    chip together: the plan gives the marched form (the batch spills the
+    L2 under MUR), the streamed form where asked, and refuses the
     resident one (no launch is tried)."""
     ops = _synthetic_ops((100, 109, 50), "MUR", cuda)
     batch = 8
@@ -843,7 +932,8 @@ def test_batch_plan_refuses_the_resident_form_at_the_sweeps_shape(cuda):
                                     [c[None].repeat(batch, 1, 1, 1)
                                      for c in ops.cb])
     st = fdtd_cuda.new_batch_state(ops.shape, cuda, False, batch)
-    assert fdtd_cuda.chunk_launch_plan(bops, st).form == "streamed"
+    assert fdtd_cuda.chunk_launch_plan(bops, st).form == "marched"
+    assert fdtd_cuda.chunk_launch_plan(bops, st, "streamed").form == "streamed"
     with pytest.raises(ValueError, match="resident form does not fit"):
         fdtd_cuda.chunk_launch_plan(bops, st, "resident")
 

@@ -448,16 +448,27 @@ def test_an_edited_header_changes_the_library_tag(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     users = ("fdtd_steps", "fdtd_shard", "fdtd_chunk")
+    gather = {"fdtd_chunk": ["probe_rows.cuh"]}  # the probe table's header
     for name in users:
         assert [p.name for p in _build.sources(name)] == [
-            f"{name}.cu", "yee_persist.cuh"]
-    before = {n: _build.tag(n) for n in (*users, "roll_chain")}
+            f"{name}.cu", *gather.get(name, []), "yee_persist.cuh"]
+    assert [p.name for p in _build.sources("fdtd_chunk_march")] == [
+        "fdtd_chunk_march.cu", "probe_rows.cuh"]
+    before = {n: _build.tag(n) for n in (*users, "roll_chain", "fdtd_chunk_march")}
     header = csrc / "yee_persist.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.tag(n) for n in before}
     for name in users:
         assert after[name] != before[name], name
     assert after["roll_chain"] == before["roll_chain"]
+    assert after["fdtd_chunk_march"] == before["fdtd_chunk_march"]
+    probe = csrc / "probe_rows.cuh"
+    probe.write_text(probe.read_text() + "\n// edited\n")
+    again = {n: _build.tag(n) for n in before}
+    for name in ("fdtd_chunk", "fdtd_chunk_march"):
+        assert again[name] != after[name], name
+    for name in ("fdtd_steps", "fdtd_shard", "roll_chain"):
+        assert again[name] == after[name], name
 
 
 def test_the_tag_follows_every_source_and_the_flags(tmp_path, monkeypatch):
