@@ -226,17 +226,19 @@ and the script exits non-zero without printing a result:
 
 24. the parallel slice, in a one-rank NCCL process group: (a) the
     explicit path's per-step walk kernels (``h_update``, ``e_update``,
-    the three ``mur_faces``) against their twins on slabs of the mixed
-    scene (3 ranks' slabs, the x walls in and out of them, and the
-    one-rank slab the main path runs, there timed beside the bound);
-    (b) the canonical patch to its stop through the walk
-    (``build_explicit_run(use_kernel=False)`` inside
-    ``run_prepared_fixed``) against K1's chunk-mode run, the walk's
-    launches asserted (a ``h_update``, ``e_update`` and three
-    ``mur_faces`` a step, a ``probe_gather`` an interval, nothing else),
-    its wall, µs a step and idle share; (c) the mixed scene (Pz 152) to
-    its stop through the walk, held to the explicit path's march route,
-    its µs a step beside the march route's and K1 forced onto the grid;
+    the three ``mur_faces`` and ``e_update_mur``, the last asserted
+    bit-equal) against their twins on slabs of the mixed scene (3 ranks'
+    slabs, the x walls in and out of them, and the one-rank slab the main
+    path runs, there timed beside the bound); (b) the canonical patch to
+    its stop through the walk (``build_explicit_run(use_kernel=False)``
+    inside ``run_prepared_fixed``) against K1's chunk-mode run, the
+    walk's route (``Walk.fused``: no wall straddles the one rank) and
+    launches asserted (a ``h_update`` and an ``e_update_mur`` a step, a
+    ``probe_gather`` an interval, nothing else), its wall, µs a step and
+    idle share, and the walk kernels on its slab against their twins,
+    timed beside their bounds; (c) the mixed scene (Pz 152) to its stop
+    through the walk, held to the explicit path's march route, its µs a
+    step beside the march route's and K1 forced onto the grid;
     (d) ``shard_simulation`` of the canonical patch over the one-rank
     mesh, ``sim.run()`` equal to the unsharded run; (e) ``shard_sweep`` of
     ``bench.py``'s 8-variant sweep over the one-rank sweep mesh: its
@@ -4142,13 +4144,14 @@ def walk_bound(name, ops):
     the HBM rate and operations over the float32 peak. ``mur_faces``: the
     mean of its x, y and z launches, each moving the two tangential
     components of the walls inside the slab (read E[nb], E'[nb], E[wall],
-    write E'[wall]; 3 operations a cell)."""
+    write E'[wall]; 3 operations a cell). ``e_update_mur``: ``e_update``'s
+    (its walls read and write only cells the E update moves already)."""
     n = int(np.prod(ops.shape))
     n_src = sum(s is not None for s in ops.src)
     psi = 12 if ops.pml is not None else 0
     if name == "h_update":  # E, H in; H out (+ psi_h in and out)
         return bound(4 * n * (9 + psi), n * (21 + 2 * psi))
-    if name == "e_update":  # E, H, ca, cb, src in; E out (+ psi_e)
+    if name in ("e_update", "e_update_mur"):  # E, H, ca, cb, src in; E out
         return bound(4 * n * (15 + n_src + psi), n * (27 + 2 * psi))
     cells = 0
     for axis in range(3):
@@ -4161,16 +4164,54 @@ WALK_CALLS = {
     "h_update": lambda m, ops, st: m.h_update(ops, st),
     "e_update": lambda m, ops, st: m.e_update(ops, st, 0.37),
     "mur_faces": lambda m, ops, st: [m.mur_faces(ops, st, a) for a in range(3)],
+    "e_update_mur": lambda m, ops, st: m.e_update_mur(ops, st, 0.37),
 }
+
+
+def walk_kernels_vs_plain(label, ops, seed, card, timed):
+    """Each walk kernel of ``WALK_CALLS`` on ``ops`` from one seeded state
+    against its plain twin (at the tolerance; ``e_update_mur`` asserted bit
+    for bit); with ``timed``, each timed beside its bound (``mur_faces``:
+    the mean of its x, y and z launches). Returns (worst max |err|, rows
+    by kernel, the comparison's text)."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda as fc
+
+    base = seeded_state(ops, seed)
+    rows, errs, worst = {}, [], 0.0
+    for name, call in WALK_CALLS.items():
+        a, b = clone_state(base), clone_state(base)
+        call(fc.kernels, ops, a)
+        call(fc.plain, ops, b)
+        torch.cuda.synchronize()
+        got, ref = (*a.e[1], *a.h), (*b.e[1], *b.h)
+        err = max(close(f"{label} {name} {i}", x, y)
+                  for i, (x, y) in enumerate(zip(got, ref)))
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        assert same or name != "e_update_mur", f"{label}: {name} not bit-equal"
+        worst = max(worst, err)
+        errs.append(f"{name} {err:.3e}{' (bit-equal)' if same else ''}")
+        if timed:
+            launches = 3 if name == "mur_faces" else 1
+            ms = device_ms(lambda: call(fc.kernels, ops, a)) / launches
+            plain_ms = device_ms(lambda: call(fc.plain, ops, b), reps=3,
+                                 warmup=1) / launches
+            b_ms, b_by = walk_bound(name, ops)
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            say("24", f"{name} on the {label} {ops.shape}: device "
+                      f"{ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} "
+                      f"us, bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} "
+                      f"of it) [{card}]")
+    return worst, rows, ", ".join(errs)
 
 
 def phase_walk_vs_plain(mixed, card):
     """(a) The walk's kernels on slabs of the mixed scene against their
-    plain twins: ``h_update``, ``e_update`` and the three ``mur_faces`` on
-    the three slabs of a 3-rank split (rank 0 holds the bottom x wall,
-    rank 1 none, rank 2 the top one; rows not starting at 0) and on the
-    one-rank slab the main path runs, there timed beside the bound."""
-    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda as fc
+    plain twins: ``h_update``, ``e_update``, the three ``mur_faces`` and
+    ``e_update_mur`` on the three slabs of a 3-rank split (rank 0 holds
+    the bottom x wall, rank 1 none, rank 2 the top one; rows not starting
+    at 0) and on the one-rank slab the main path runs, there timed beside
+    the bound."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_shard
 
     Px = mixed.padded_shape[0]
@@ -4180,35 +4221,12 @@ def phase_walk_vs_plain(mixed, card):
     slabs["one rank"] = fdtd_shard.slab_operands(mixed, 0, Px, 1)
     rows, worst = {}, 0.0
     for label, ops in slabs.items():
-        base = seeded_state(ops, seed=241)
-        errs = []
-        for name, call in WALK_CALLS.items():
-            a, b = clone_state(base), clone_state(base)
-            call(fc.kernels, ops, a)
-            call(fc.plain, ops, b)
-            torch.cuda.synchronize()
-            got, ref = (*a.e[1], *a.h), (*b.e[1], *b.h)
-            err = max(close(f"{label} {name} {i}", x, y)
-                      for i, (x, y) in enumerate(zip(got, ref)))
-            same = all(torch.equal(x, y) for x, y in zip(got, ref))
-            worst = max(worst, err)
-            errs.append(f"{name} {err:.3e}{' (bit-equal)' if same else ''}")
-            if label == "one rank":
-                launches = 3 if name == "mur_faces" else 1
-                ms = device_ms(lambda: call(fc.kernels, ops, a)) / launches
-                plain_ms = device_ms(lambda: call(fc.plain, ops, b), reps=3,
-                                     warmup=1) / launches
-                b_ms, b_by = walk_bound(name, ops)
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by)
-                say("24", f"{name} on the one-rank slab {ops.shape}: device "
-                          f"{ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f} "
-                          f"us, bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.3f} "
-                          f"of it) [{card}]")
-        del base, a, b
+        err, timed, text = walk_kernels_vs_plain(
+            f"mixed {label} slab", ops, 241, card, timed=label == "one rank")
+        worst = max(worst, err)
+        rows.update(timed)
         say("24", f"(a) mixed scene slab {label} {ops.shape}, x walls at slab "
-                  f"rows {ops.mur_x_rows}: kernel == plain, max |err| "
-                  f"{', '.join(errs)}")
+                  f"rows {ops.mur_x_rows}: kernel == plain, max |err| {text}")
     for row in rows.values():
         row["max_abs_err"] = worst
     return rows
@@ -4229,12 +4247,16 @@ def reset_counts():
     fdtd_stream.reset_launch_counts()
 
 
-def assert_walk_counts(counts, steps, D, mur=True):
-    """A walk's run launched ``h_update`` and ``e_update`` once a step,
-    ``mur_faces`` three times a step, ``probe_gather`` once an interval,
-    and nothing else."""
-    want = dict(h_update=steps, e_update=steps, mur_faces=3 * steps if mur else 0,
-                probe_gather=steps // D)
+def assert_walk_counts(counts, steps, D, fused=True):
+    """A walk's run on the fused route launched ``h_update`` and
+    ``e_update_mur`` once a step, ``probe_gather`` once an interval, and
+    nothing else (no ``e_update``, no ``mur_faces``); on the per-axis route
+    (``fused`` false, MUR) ``h_update`` and ``e_update`` once a step and
+    ``mur_faces`` three times, ``probe_gather`` once an interval, and
+    nothing else."""
+    want = (dict(h_update=steps, e_update_mur=steps, probe_gather=steps // D)
+            if fused else dict(h_update=steps, e_update=steps,
+                               mur_faces=3 * steps, probe_gather=steps // D))
     for name, v in counts.items():
         assert v == want.get(name, 0), (name, v, want.get(name, 0), counts)
 
@@ -4242,8 +4264,9 @@ def assert_walk_counts(counts, steps, D, mur=True):
 def phase_walk_canonical(group, card):
     """(b) The canonical patch to its stop through the walk on one rank
     (``use_kernel=False``), through ``run_prepared_fixed``, against K1's
-    chunk-mode run: launches, outputs, S11 and Dmax, wall, µs a step and
-    the idle share."""
+    chunk-mode run: the fused route, launches, outputs, S11 and Dmax,
+    wall, µs a step and the idle share; then each walk kernel on its slab
+    against its twin, timed beside its bound."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
     from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
     from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
@@ -4255,6 +4278,7 @@ def phase_walk_canonical(group, card):
     sim = prep.sim
     run = build_explicit_run(sim, group, use_kernel=False)
     walk, outs = run.stepper, []
+    assert walk.fused and not walk.straddles, walk.straddles
 
     def walked():
         outs.append(run())
@@ -4296,6 +4320,10 @@ def phase_walk_canonical(group, card):
               f"{step_ms * 1e3:.1f} us of device time, a gather "
               f"{gather_ms * 1e3:.2f} us), idle share {1 - busy / wall:.3f}; "
               f"launches {counts} [{card}]")
+    _err, _rows, text = walk_kernels_vs_plain("canonical slab", walk.ops, 9,
+                                              card, timed=True)
+    say("24", f"(b) canonical slab {walk.ops.shape}: kernel == plain, max "
+              f"|err| {text} [{card}]")
     return counts
 
 
@@ -4304,7 +4332,10 @@ def phase_walk_mixed(group, mixed, mixed_res, k2, walk_rows, card):
     past K3's route), through ``run_prepared_multi_patch_3d``, against the
     explicit path's march route on the same scene (launches, outputs,
     physics), and µs a step beside the march's and K1 forced onto the
-    grid."""
+    grid; then the same walk again with ``Walk.fused`` forced off, the
+    per-axis route a straddled rank takes (``e_update`` and a
+    ``mur_faces`` per axis), its launches asserted and its outputs bit-equal
+    to the fused run's. Returns the launches of both runs."""
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda
     from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
     from fdtd_solver_antennas_tpu_torch.solvers.multi_patch_3d import (
@@ -4313,6 +4344,7 @@ def phase_walk_mixed(group, mixed, mixed_res, k2, walk_rows, card):
     run = build_explicit_run(mixed, group, use_kernel=False)
     walk, outs = run.stepper, []
     assert mixed.padded_shape[2] > 128, mixed.padded_shape
+    assert walk.fused and not walk.straddles, walk.straddles
 
     def walked():
         outs.append(run())
@@ -4345,8 +4377,7 @@ def phase_walk_mixed(group, mixed, mixed_res, k2, walk_rows, card):
     assert k1_out["steps"] == steps, (k1_out["steps"], steps)
     dmax, dmax_ref = 10 * np.log10(res.Dmax), 10 * np.log10(mixed_res.Dmax)
     assert abs(dmax - dmax_ref) <= 0.01, (dmax, dmax_ref)
-    step_ms = sum(walk_rows[k]["ms"] for k in ("h_update", "e_update")) \
-        + 3 * walk_rows["mur_faces"]["ms"]
+    step_ms = sum(walk_rows[k]["ms"] for k in ("h_update", "e_update_mur"))
     busy = (steps * step_ms + steps // D * k2["probe"]["ms"]) / 1e3
     say("24", f"(c) mixed scene {mixed.grid.shape} through the walk on one "
               f"rank: slab {walk.ops.shape}, {steps} steps (phase 8: "
@@ -4362,7 +4393,35 @@ def phase_walk_mixed(group, mixed, mixed_res, k2, walk_rows, card):
               f"{march.kernel_window}) {march_wall / steps * 1e6:.1f} us "
               f"({march_wall:.3f} s), K1 forced (chunk_steps) "
               f"{k1_wall / steps * 1e6:.1f} us ({k1_wall:.3f} s) [{card}]")
-    return counts
+
+    walk.fused = False  # the per-axis route, as a straddled rank runs it
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        axis_out = run()
+        torch.cuda.synchronize()
+        axis_wall = time.perf_counter() - t0
+        axis_counts = walk_counts()
+    finally:
+        walk.fused = True
+    assert_walk_counts(axis_counts, steps, D, fused=False)
+    axis_err = compare_runs(axis_out, out, "per-axis walk vs fused walk")
+    assert axis_err == 0.0 and axis_out["e_ratio"] == out["e_ratio"], (
+        axis_err, axis_out["e_ratio"], out["e_ratio"])
+    axis_ms = (walk_rows["h_update"]["ms"] + walk_rows["e_update"]["ms"]
+               + 3 * walk_rows["mur_faces"]["ms"])
+    axis_busy = (steps * axis_ms + steps // D * k2["probe"]["ms"]) / 1e3
+    say("24", f"(c) mixed scene through the walk with Walk.fused forced off "
+              f"(the per-axis route of a straddled rank): {steps} steps, "
+              f"launches {axis_counts}; steps, e_ratio, uf, if_, nf_e, nf_h, "
+              f"fields and psi bit-equal to the fused walk's; wall "
+              f"{axis_wall / steps * 1e6:.1f} us a step ({axis_wall:.3f} s; "
+              f"the fused run's, from run_prepared_multi_patch_3d: "
+              f"{walk_wall / steps * 1e6:.1f} us), kernels busy "
+              f"{axis_busy:.3f} s ({axis_ms * 1e3:.1f} us a step), idle share "
+              f"{1 - axis_busy / axis_wall:.3f} [{card}]")
+    return counts, axis_counts
 
 
 def phase_shard_simulation(group, card):
@@ -4464,14 +4523,16 @@ def phase_parallel(mixed, mixed_res, k2, k1b, card):
         group = dist.group.WORLD
         walk_rows = timed_phase("24", phase_walk_vs_plain, mixed, card)
         timed_phase("24", phase_walk_canonical, group, card)
-        mixed_counts = timed_phase("24", phase_walk_mixed, group, mixed,
-                                   mixed_res, k2, walk_rows, card)
+        mixed_counts, axis_counts = timed_phase(
+            "24", phase_walk_mixed, group, mixed, mixed_res, k2, walk_rows,
+            card)
         timed_phase("24", phase_shard_simulation, group, card)
         timed_phase("24", phase_shard_sweep, group, k1b, card)
     finally:
         dist.destroy_process_group()
-    for name, row in walk_rows.items():
-        row["launches"] = mixed_counts[name]
+    for name, row in walk_rows.items():  # each from the route that runs it
+        row["launches"] = (axis_counts if name in ("e_update", "mur_faces")
+                           else mixed_counts)[name]
     return walk_rows
 
 
@@ -5304,13 +5365,18 @@ def main() -> int:
             ("chunk_steps_inverse", K1_SOURCE, K1_REPLACES, k23))
     ] + [
         # the parallel slice (phase 24): K1's per-step kernels on the
-        # explicit path's walk, launches from the mixed scene's run, timed
-        # on its one-rank slab (mur_faces: the mean of an x, y and z launch)
+        # explicit path's walk, timed on the mixed scene's one-rank slab
+        # (mur_faces: the mean of an x, y and z launch). h_update and
+        # e_update_mur: launches from the mixed scene's walk on the fused
+        # route. On the walk only a rank in a straddled wall's exchange
+        # launches e_update and mur_faces, which one card cannot hold:
+        # their launches come from the same walk run again with
+        # Walk.fused forced off, the per-axis route such a rank takes
         {"name": f"{name}_walk", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": k24[name]["launches"],
          **{k: k24[name][k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None}
-        for name in ("h_update", "e_update", "mur_faces")
+        for name in ("h_update", "e_update", "mur_faces", "e_update_mur")
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -83,6 +83,10 @@
 //                 on the two wall planes of that axis, at the array's own
 //                 rows (a rank's slab or block places them where the
 //                 global walls fall)
+//   e_update_mur  e_update and the three mur_faces launches in one: every
+//                 cell's E update with the MUR walls of all three axes
+//                 fused in, bit for bit what the four launches write (the
+//                 walk's E half-step wherever no wall straddles a rank)
 //   probe_gather  one thread per probe row: a weighted gather over the six
 //                 field arrays, written to row j of the staging buffer
 //                 (redesigned for Hopper; see "The probe table" below)
@@ -94,11 +98,14 @@
 //
 // h_update, e_update and mur_faces step the per-step route
 // (ops/fdtd_cuda.py::step_kernels), kept to time beside chunk_steps and as
-// a second holder in the card tests, and the explicit path's per-step walk
+// a second holder in the card tests. The explicit path's per-step walk
 // (parallel/explicit.py, use_kernel=False: a rank's slab or x-y block with
 // one halo plane per split axis, the halos exchanged between the half-
-// steps); probe_gather samples the stream stepper's (K2), the explicit
-// path's (K3 and the walk) runs between their launches.
+// steps) launches h_update and e_update_mur a step; a rank that takes part
+// in a straddled wall's exchange, which must fall between the axes' walls,
+// launches e_update and the three mur_faces instead. probe_gather samples
+// the stream stepper's (K2), the explicit path's (K3 and the walk) runs
+// between their launches.
 // Each of these kernels runs for 3-5 us at the canonical patch, so that
 // route is bound by launch latency and the host that issues the launches;
 // on the tall grid (3.05M cells) h_update and e_update reach 67% and 82%
@@ -141,6 +148,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+// e_update_mur_kernel's block: at its 56 registers a thread the register
+// file holds 36 warps an SM, which 128-thread blocks fill (256-thread
+// blocks: 32).
+constexpr int kWallThreads = 128;
 // terms loaded ahead of their adds: the standalone gather (whose mixed
 // scene has 70-term rows) and the chunk kernel's (canonical rows <= 8,
 // inside a kernel held to 48 registers)
@@ -172,6 +183,7 @@ struct YeeArgs {
   int mur_wall[3][2];      // MUR wall plane per axis and side, in the
                            // array's own indices (a block's, or the
                            // grid's 0 and q-1); outside [0, n) no wall
+                           // (-1 without MUR)
 };
 
 __global__ void h_update_kernel(const YeeArgs a, const int p) {
@@ -223,15 +235,16 @@ __global__ void h_update_kernel(const YeeArgs a, const int p) {
   }
 }
 
-__global__ void e_update_kernel(const YeeArgs a, const int p, const float s) {
-  const int64_t n = (int64_t)a.nx * a.ny * a.nz;
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
+// The E update of the cell (i, j, k) (flat index c) from e[p] into v:
+// E' = ca*E + cb*curl H (+ the six CPML psi_e, updated in place) + src*s;
+// eo gets the cell's old E.
+__device__ __forceinline__ void e_interior(const YeeArgs& a, const int p,
+                                           const float s, const int64_t c,
+                                           const int i, const int j,
+                                           const int k, float (&v)[3],
+                                           float (&eo)[3]) {
   const int64_t sy = a.nz;
   const int64_t sx = (int64_t)a.ny * a.nz;
-  const int k = (int)(c % a.nz);
-  const int j = (int)((c / sy) % a.ny);
-  const int i = (int)(c / sx);
   const float* Hx = a.h[0];
   const float* Hy = a.h[1];
   const float* Hz = a.h[2];
@@ -274,9 +287,97 @@ __global__ void e_update_kernel(const YeeArgs a, const int p, const float s) {
   const float cu[3] = {cux, cuy, cuz};
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
-    float v = a.ca[m][c] * a.e[p][m][c] + a.cb[m][c] * cu[m];
-    if (a.src[m] != nullptr) v = v + a.src[m][c] * s;
-    a.e[1 - p][m][c] = v;
+    eo[m] = a.e[p][m][c];
+    float x = a.ca[m][c] * eo[m] + a.cb[m][c] * cu[m];
+    if (a.src[m] != nullptr) x = x + a.src[m][c] * s;
+    v[m] = x;
+  }
+}
+
+__global__ void e_update_kernel(const YeeArgs a, const int p, const float s) {
+  const int64_t n = (int64_t)a.nx * a.ny * a.nz;
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  const int k = (int)(c % a.nz);
+  const int j = (int)((c / a.nz) % a.ny);
+  const int i = (int)(c / ((int64_t)a.ny * a.nz));
+  float v[3], eo[3];
+  e_interior(a, p, s, c, i, j, k, v, eo);
+#pragma unroll
+  for (int m = 0; m < 3; ++m) a.e[1 - p][m][c] = v[m];
+}
+
+// YeeArgs' walls and dual spacings for the wall arithmetic of
+// csrc/yee_persist.cuh (persist::mur_fix and persist::e_at find these by
+// argument-dependent lookup): the planes of mur_wall, a plane outside the
+// array never matching; the spacings from memory.
+__device__ __forceinline__ int wall_side(const YeeArgs& a, const int b,
+                                         const int x) {
+  return x == a.mur_wall[b][0] ? 0 : (x == a.mur_wall[b][1] ? 1 : -1);
+}
+
+template <bool kOnChip>
+__device__ __forceinline__ float inv_dual(const YeeArgs& a, const int ax,
+                                          const int idx) {
+  return a.inv_d[ax][idx];
+}
+
+// e_update_kernel, then mur_faces_kernel for x, y and z, in one launch, one
+// thread a cell.
+// The recipe of K1's, K3's and K4's E pass (csrc/yee_persist.cuh): the
+// thread that owns a wall cell writes the fix of the last wall axis it sits
+// on, recomputing its inner neighbour's update (and, where the neighbour
+// sits on an earlier wall axis too, that axis's fix from the diagonal
+// cell) from H and the old E, which no thread writes in the pass. The
+// inner neighbour of a z wall cell, (i, j, 1) or (i, j, qz-2), is the next
+// or previous cell, so usually the next or previous lane's: its final Ex
+// and Ey and its old ones come over by warp shuffle, and only a wall cell
+// at the warp's edge recomputes. Nothing reads what another thread writes,
+// so the result is bit for bit the four launches' (built without FMA, the
+// recomputed updates round as e_update's). x and y walls cover whole
+// planes of cells, so their warps run uniformly. Blocks of kWallThreads;
+// a lane is c mod 32 whatever the block. Indices in the wall arithmetic
+// are int: the host refuses arrays of 2^31 cells or more.
+__global__ void e_update_mur_kernel(const YeeArgs a, const int p,
+                                    const float s) {
+  const int64_t n = (int64_t)a.nx * a.ny * a.nz;
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = c < n;  // every lane of a warp reaches the shuffles
+  float v[3] = {0.f, 0.f, 0.f}, eo[3] = {0.f, 0.f, 0.f};
+  int zside = -1;
+  bool lane_z = false;
+  if (live) {
+    const int k = (int)(c % a.nz);
+    const int j = (int)((c / a.nz) % a.ny);
+    const int i = (int)(c / ((int64_t)a.ny * a.nz));
+    e_interior(a, p, s, c, i, j, k, v, eo);
+    const int lane = threadIdx.x & 31;
+    zside = wall_side(a, 2, k);
+    lane_z = zside == 0 ? lane < 31 && c + 1 < n : zside == 1 && lane > 0;
+    if (zside >= 0 || wall_side(a, 0, i) >= 0 || wall_side(a, 1, j) >= 0) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        if (!(lane_z && m < 2))
+          v[m] = persist::mur_fix<false>(a, m, i, j, k, (int)c, v[m], s,
+                                         a.h[0], a.h[1], a.h[2], a.e[p][m],
+                                         0);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float up = __shfl_down_sync(0xffffffffu, v[m], 1);
+    const float dn = __shfl_up_sync(0xffffffffu, v[m], 1);
+    const float eup = __shfl_down_sync(0xffffffffu, eo[m], 1);
+    const float edn = __shfl_up_sync(0xffffffffu, eo[m], 1);
+    if (lane_z) {
+      const float eo_nb = zside == 0 ? eup : edn;
+      const float en_nb = zside == 0 ? up : dn;
+      v[m] = eo_nb + a.mur_c[2][zside] * (en_nb - eo[m]);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) a.e[1 - p][m][c] = v[m];
   }
 }
 
@@ -600,6 +701,26 @@ int fdtd_h_update(const YeeArgs* a, int p, void* stream) {
 int fdtd_e_update(const YeeArgs* a, int p, float s, void* stream) {
   const int64_t n = (int64_t)a->nx * a->ny * a->nz;
   e_update_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*a, p, s);
+  return (int)cudaGetLastError();
+}
+
+// e_update, then mur_faces x, y and z, in one launch: the walls of
+// mur_wall that lie inside the array fused into the E update; with none
+// (no MUR: the host packs -1) e_update_kernel alone.
+int fdtd_e_update_mur(const YeeArgs* a, int p, float s, void* stream) {
+  const int64_t n = (int64_t)a->nx * a->ny * a->nz;
+  if (n >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const int dims[3] = {a->nx, a->ny, a->nz};
+  bool walls = false;
+  for (int b = 0; b < 3; ++b)
+    for (int side = 0; side < 2; ++side)
+      walls |= a->mur_wall[b][side] >= 0 && a->mur_wall[b][side] < dims[b];
+  cudaStream_t st = (cudaStream_t)stream;
+  if (walls)
+    e_update_mur_kernel<<<(unsigned)((n + kWallThreads - 1) / kWallThreads),
+                          kWallThreads, 0, st>>>(*a, p, s);
+  else
+    e_update_kernel<<<blocks_for(n), kThreads, 0, st>>>(*a, p, s);
   return (int)cudaGetLastError();
 }
 

@@ -229,13 +229,25 @@ __device__ __forceinline__ int wall_side(const Ops& a, const int b,
   return x == a.wall_lo[b] ? 0 : (x == a.wall_hi[b] ? 1 : -1);
 }
 
+// The inverse dual spacing of axis ax at idx.
+template <bool kOnChip>
+__device__ __forceinline__ float inv_dual(const Ops& a, const int ax,
+                                          const int idx) {
+  return prof<kOnChip>(a, kID, ax, idx);
+}
+
+// e_at and mur_fix below serve any argument struct Args that has Ops'
+// shape, coefficient, source and mur_c members and its own wall_side and
+// inv_dual, found by argument-dependent lookup: Ops here, and the per-step
+// kernels' YeeArgs in csrc/fdtd_chunk.cu (e_update_mur_kernel).
+
 // The interior E update of component m at (i, j, k), without CPML (MUR and
 // CPML exclude each other), its operands read from memory: what the owner
 // of that cell computes, for the wall fix of a neighbour. Eo is the old
 // buffer of component m; vo the variant's offset into the per-variant
 // arrays (the source stamp is shared).
-template <bool kOnChip>
-__device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
+template <bool kOnChip, class Args>
+__device__ __forceinline__ float e_at(const Args& a, const int m, const int i,
                                       const int j, const int k, const float s,
                                       const float* Hx, const float* Hy,
                                       const float* Hz, const float* Eo,
@@ -248,18 +260,18 @@ __device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
   if (m == 0) {
     const float hz_ym = j > 0 ? Hz[c - sy] : 0.f;
     const float hy_zm = k > 0 ? Hy[c - 1] : 0.f;
-    cu = (Hz[c] - hz_ym) * prof<kOnChip>(a, kID, 1, j) -
-         (Hy[c] - hy_zm) * prof<kOnChip>(a, kID, 2, k);
+    cu = (Hz[c] - hz_ym) * inv_dual<kOnChip>(a, 1, j) -
+         (Hy[c] - hy_zm) * inv_dual<kOnChip>(a, 2, k);
   } else if (m == 1) {
     const float hx_zm = k > 0 ? Hx[c - 1] : 0.f;
     const float hz_xm = i > 0 ? Hz[c - sx] : 0.f;
-    cu = (Hx[c] - hx_zm) * prof<kOnChip>(a, kID, 2, k) -
-         (Hz[c] - hz_xm) * prof<kOnChip>(a, kID, 0, i);
+    cu = (Hx[c] - hx_zm) * inv_dual<kOnChip>(a, 2, k) -
+         (Hz[c] - hz_xm) * inv_dual<kOnChip>(a, 0, i);
   } else {
     const float hy_xm = i > 0 ? Hy[c - sx] : 0.f;
     const float hx_ym = j > 0 ? Hx[c - sy] : 0.f;
-    cu = (Hy[c] - hy_xm) * prof<kOnChip>(a, kID, 0, i) -
-         (Hx[c] - hx_ym) * prof<kOnChip>(a, kID, 1, j);
+    cu = (Hy[c] - hy_xm) * inv_dual<kOnChip>(a, 0, i) -
+         (Hx[c] - hx_ym) * inv_dual<kOnChip>(a, 1, j);
   }
   float v = __ldg(a.ca[m] + c) * Eo[c] + __ldg(a.cb[m] + c) * cu;
   if (a.src[m] != nullptr) v = v + __ldg(a.src[m] + cg) * s;
@@ -274,8 +286,8 @@ __device__ __forceinline__ float e_at(const Ops& a, const int m, const int i,
 // is the cell's own update, returned when no wall of a tangential axis
 // holds it; Eo is the old buffer of component m; c = vo + the cell's index
 // in the grid.
-template <bool kOnChip>
-__device__ __forceinline__ float mur_fix(const Ops& a, const int m,
+template <bool kOnChip, class Args>
+__device__ __forceinline__ float mur_fix(const Args& a, const int m,
                                          const int i, const int j, const int k,
                                          const int c, const float v,
                                          const float s, const float* Hx,

@@ -30,14 +30,16 @@ root's package, so both roots are timed on the same scenes.
 
 prints one JSON line per root: the canonical patch run to its stop through
 the explicit path's per-step walk (``build_explicit_run(sim,
-use_kernel=False)``, one rank, no process group: five launches a step
-under MUR, each a few µs of device work, so the run is bound by the
-host's cost per launch), a warm-up run and then eight timed runs, the card
-synchronized around each (host clock, unrounded), with the steps, the
-best µs a step, the launches of one run and the card's name and power
-limit. A root that launches through ``fdtd_cuda.launch`` alternates its
-runs with it and with an unchecked launch, and times one call of it
-beside the stream query a launch made before.
+use_kernel=False)``, one rank, no process group: a few launches a step,
+each a few µs of device work, so the run is bound by the host's cost per
+launch), a warm-up run and then eight timed runs, the card synchronized
+around each (host clock, unrounded), with the steps, the best µs a step,
+the launches of one run and the card's name and power limit; then the
+mixed patch+horn scene (141×201×152) through the same walk to its stop,
+two timed runs after its preparation, with its steps, µs a step and
+launches. A root that launches through ``fdtd_cuda.launch`` alternates
+its canonical runs with it and with an unchecked launch, and times one
+call of it beside the stream query a launch made before.
 
     python fdtd_solver_antennas_tpu_torch/examples/compare_builds.py --sweep A B B A
 
@@ -286,6 +288,22 @@ def _time_walk(root: str) -> dict:
     res["walk_walls_s"] = walls if guarded is not None else walls["guard"]
     res["best_us_per_step"] = {k: min(v) / steps * 1e6
                                for k, v in walls.items() if v}
+    mixed = sc.mixed_designer().prepare()
+    assert mixed.ok, mixed.message
+    run = build_explicit_run(mixed.sim, use_kernel=False)
+    mixed_walls = []
+    for _ in range(2):
+        fdtd_cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        mixed_walls.append(time.perf_counter() - t0)
+    steps = int(out["steps"])
+    res["mixed"] = {"steps": steps, "walls_s": mixed_walls,
+                    "us_per_step": [t / steps * 1e6 for t in mixed_walls],
+                    "launches": {k: v for k, v in fdtd_cuda.launches.items()
+                                 if v}}
     return res
 
 

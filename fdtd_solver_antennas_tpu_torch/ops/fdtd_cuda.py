@@ -34,8 +34,12 @@ The first design's per-step kernels stay, each one launch:
   six ψ_e recursions and the port-source FMA ``src·s(t)``;
 - :func:`mur_faces`: the first-order MUR walls of one axis, at the planes
   :meth:`YeeOperands.mur_walls` gives (a whole grid's, or where the global
-  walls fall in a rank's slab or block: the explicit path's walk runs
-  these three kernels on its block);
+  walls fall in a rank's slab or block);
+- :func:`e_update_mur`: :func:`e_update` and the three :func:`mur_faces`
+  in one launch, the walls of all three axes fused into the E update, bit
+  for bit what the four launches write (the explicit path's walk runs it
+  on a rank's block wherever no MUR wall straddles the rank, and
+  ``e_update`` and ``mur_faces`` where one does);
 - :func:`probe_gather`: port V/I and Huygens-face samples, a weighted
   gather over the :class:`ProbeTable` (one thread a row, the table read
   term-major), written to one row of the staging buffer (the stream and
@@ -70,8 +74,8 @@ import torch
 from . import persist
 
 PSI_KEYS = ("xy", "xz", "yz", "yx", "zx", "zy")
-KERNELS = ("h_update", "e_update", "mur_faces", "probe_gather", "chunk_steps",
-           "chunk_steps_batch", "probe_gather_batch")
+KERNELS = ("h_update", "e_update", "e_update_mur", "mur_faces", "probe_gather",
+           "chunk_steps", "chunk_steps_batch", "probe_gather_batch")
 
 # kernel launches per wrapper; only the wrappers' CUDA branches add to it
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -478,6 +482,15 @@ def mur_faces_plain(ops: YeeOperands, st: YeeState, axis: int) -> None:
             En[comp].select(axis, wall).copy_(new)
 
 
+def e_update_mur_plain(ops: YeeOperands, st: YeeState, s: float) -> None:
+    """:func:`e_update_plain`, then (MUR) :func:`mur_faces_plain` for x, y
+    and z."""
+    e_update_plain(ops, st, s)
+    if ops.mur is not None:
+        for axis in range(3):
+            mur_faces_plain(ops, st, axis)
+
+
 def probe_gather_plain(ops: YeeOperands, st: YeeState, out: torch.Tensor) -> None:
     """Block by block, each row's k terms summed m = 0 .. k−1, one
     rounding each, in the kernels' order."""
@@ -632,11 +645,13 @@ def _library():
         lib.fdtd_chunk_batch_steps.restype = _i
         lib.fdtd_h_update.argtypes = [_P, ctypes.c_int, _P]
         lib.fdtd_e_update.argtypes = [_P, ctypes.c_int, ctypes.c_float, _P]
+        lib.fdtd_e_update_mur.argtypes = [_P, ctypes.c_int, ctypes.c_float, _P]
         lib.fdtd_mur_faces.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P]
         lib.fdtd_probe_gather.argtypes = [_P, ctypes.c_int, _P, _P]
         lib.fdtd_probe_gather_batch.argtypes = [_P, _P]
         for fn in (lib.fdtd_h_update, lib.fdtd_e_update,
-                   lib.fdtd_mur_faces, lib.fdtd_probe_gather,
+                   lib.fdtd_e_update_mur, lib.fdtd_mur_faces,
+                   lib.fdtd_probe_gather,
                    lib.fdtd_probe_gather_batch):
             fn.restype = ctypes.c_int
         for name, c_size, py in (
@@ -712,10 +727,10 @@ def _cuda_args(ops: YeeOperands, st: YeeState) -> int:
     a.nx, a.ny, a.nz = shp
     a.has_pml = int(ops.pml is not None)
     a.dtmu = ops.dtmu
-    for b in range(3):
+    for b in range(3):  # no wall (-1) without MUR
         for side, wall in enumerate(ops.mur_walls(b)):
             a.mur_c[2 * b + side] = ops.mur[b][side] if ops.mur else 0.0
-            a.mur_wall[2 * b + side] = wall
+            a.mur_wall[2 * b + side] = wall if ops.mur else -1
     st._cargs = (ops, a, ctypes.addressof(a))
     return st._cargs[2]
 
@@ -785,6 +800,21 @@ def e_update(ops: YeeOperands, st: YeeState, s: float) -> None:
     _check(lib, launch(ops.device, lib.fdtd_e_update, args, st.parity,
                        float(s)), "e_update")
     launches["e_update"] += 1
+
+
+def e_update_mur(ops: YeeOperands, st: YeeState, s: float) -> None:
+    """:func:`e_update` and then, under MUR, :func:`mur_faces` for x, y
+    and z, in one launch of ``e_update_mur_kernel``: the walls at
+    ``ops.mur_walls`` fused into the E update, bit for bit the four
+    launches' result (without MUR the launch is ``e_update_kernel``'s; on
+    a CPU tensor :func:`e_update_mur_plain`)."""
+    if not _on_cuda(st.h[0]):
+        return e_update_mur_plain(ops, st, s)
+    lib = _library()
+    args = _cuda_args(ops, st)
+    _check(lib, launch(ops.device, lib.fdtd_e_update_mur, args, st.parity,
+                       float(s)), "e_update_mur")
+    launches["e_update_mur"] += 1
 
 
 def mur_faces(ops: YeeOperands, st: YeeState, axis: int) -> None:
@@ -1036,6 +1066,7 @@ def chunk_by_steps(ops: YeeOperands, st: YeeState, wf, n0: int, n_sub: int,
 plain = SimpleNamespace(
     h_update=h_update_plain,
     e_update=e_update_plain,
+    e_update_mur=e_update_mur_plain,
     mur_faces=mur_faces_plain,
     probe_gather=probe_gather_plain,
     chunk_steps=chunk_steps_plain,
@@ -1045,6 +1076,7 @@ plain = SimpleNamespace(
 kernels = SimpleNamespace(
     h_update=h_update,
     e_update=e_update,
+    e_update_mur=e_update_mur,
     mur_faces=mur_faces,
     probe_gather=probe_gather,
     chunk_steps=chunk_steps,

@@ -22,13 +22,16 @@ are the port's routes (``use_kernel``):
   top MUR wall Qx − 1 is a rank's first row, the old and new (Ey, Ez) of
   row Qx − 2 come from the rank before into the lower halo (JAX's
   ``straddle_top``), then the walls x (at the slab's ``mur_x_rows``), y,
-  z. ψ is not exchanged: it is elementwise given the halo-extended
-  differences. :func:`build_walk_run` runs the same walk over an x × y
-  grid of ranks (``parallel/sharding.py::shard_simulation`` on a 2-axis
-  mesh): one halo plane per split axis, (Ez, Ex) from +y before H and
-  (Hz, Hx) from −y before E, the y walls at the block's ``mur_y_rows``
-  and a y straddle after the x walls. The curl reads no diagonal
-  neighbour, so no corner is exchanged.
+  z. A rank that takes part in no straddle (every rank under PEC and
+  CPML, every one-rank walk) runs the E half-step and the three axes'
+  walls as one launch, ``fdtd_cuda.e_update_mur`` (``Walk.fused``): two
+  launches a step. ψ is not exchanged: it is elementwise given the
+  halo-extended differences. :func:`build_walk_run` runs the same walk
+  over an x × y grid of ranks (``parallel/sharding.py::shard_simulation``
+  on a 2-axis mesh): one halo plane per split axis, (Ez, Ex) from +y
+  before H and (Hz, Hx) from −y before E, the y walls at the block's
+  ``mur_y_rows`` and a y straddle after the x walls. The curl reads no
+  diagonal neighbour, so no corner is exchanged.
 
 Per probe interval of D steps the slab kernels make ``D // K`` launches
 of K steps and one of ``D % K`` when that is not 0, with ONE halo restock
@@ -243,6 +246,10 @@ class Walk:
         # the axes whose straddle this rank takes part in, by axis
         self.straddles = {ax.axis: ax for ax in self.axes
                           if ax.straddle_send or ax.straddle_recv}
+        # no straddle: E and the walls of all three axes in one launch. A
+        # rank in a straddle sends or receives plane Q − 2 as the walls of
+        # the earlier axes alone leave it, so it keeps a launch per axis.
+        self.fused = not self.straddles
 
     def new_state(self):
         return fdtd_cuda.new_state(self.ops.shape, self.ops.device,
@@ -291,8 +298,10 @@ class Walk:
         self._halves(st, "e")
         fdtd_cuda.h_update(ops, st)
         self._halves(st, "h")
-        fdtd_cuda.e_update(ops, st, s)
-        if ops.mur is not None:
+        if self.fused:
+            fdtd_cuda.e_update_mur(ops, st, s)
+        else:
+            fdtd_cuda.e_update(ops, st, s)
             for axis in range(3):
                 if axis in self.straddles:
                     self._straddle(st, self.straddles[axis])

@@ -108,12 +108,15 @@ def _state_arrays(st) -> dict:
     return arrs
 
 
-def save_out(path, out):
-    """A run's output surface and its state as numpy arrays."""
+def save_out(path, out, fused=None):
+    """A run's output surface and its state as numpy arrays, and ``fused``,
+    each rank's ``Walk.fused`` (None: not a walk)."""
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import state_to_numpy
 
     arrs = _state_arrays(state_to_numpy(out["state"]))
     arrs["uf"], arrs["if_"] = out["uf"], out["if_"]
+    if fused is not None and None not in fused:
+        arrs["fused"] = np.array(fused, bool)
     for key in ("nf_e", "nf_h"):
         for i, a in enumerate(out[key]):
             arrs[f"{key}{i}"] = a
@@ -142,6 +145,7 @@ def load_out(path) -> dict:
         nf_e=[npz[f"nf_e{i}"] for i in range(n_faces)],
         nf_h=[npz[f"nf_h{i}"] for i in range(n_faces)],
         steps=int(st["n"]), e_ratio=float(st["e_ratio"]), state=st,
+        fused=npz["fused"] if "fused" in npz.files else None,
     )
 
 
@@ -180,7 +184,8 @@ def run_job(world, kind, boundary, ctl, resume, opts):
     (``use_kernel`` from ``opts``: None the slab kernels, False the
     walk), or, with ``opts["mesh"]``, ``sim.run()`` after
     ``shard_simulation`` over that mesh (axes x, y), the simulation padded
-    to ``opts["pad"]`` (default ``(world, 1, 1)``)."""
+    to ``opts["pad"]`` (default ``(world, 1, 1)``). Returns the output and
+    the rank's ``Walk.fused`` (None off the walk or under a mesh)."""
     import torch.distributed as dist
 
     from fdtd_solver_antennas_tpu_torch.parallel import (
@@ -190,10 +195,10 @@ def run_job(world, kind, boundary, ctl, resume, opts):
     if "mesh" in opts:
         shape = opts["mesh"]
         shard_simulation(sim, make_device_mesh(shape, ("x", "y")[:len(shape)]))
-        return sim.run(resume_state=resume)
-    return build_explicit_run(sim, group=dist.group.WORLD,
-                              use_kernel=opts.get("use_kernel"))(
-        resume_state=resume)
+        return sim.run(resume_state=resume), None
+    run = build_explicit_run(sim, group=dist.group.WORLD,
+                             use_kernel=opts.get("use_kernel"))
+    return run(resume_state=resume), getattr(run.stepper, "fused", None)
 
 
 def init_gloo(rank, world, store):
@@ -208,17 +213,20 @@ def init_gloo(rank, world, store):
 def rank_worker(rank, world, store, jobs):
     """One rank of a gloo process group that runs each job ``(out_path,
     kind, boundary, ctl, resume_path, opts)`` in turn (:func:`run_job`);
-    rank 0 writes each output surface to its ``out_path``, and with
-    ``opts["every_rank"]`` the last rank to :func:`last_path` too."""
+    rank 0 writes each output surface, with every rank's ``Walk.fused``,
+    to its ``out_path``, and with ``opts["every_rank"]`` the last rank to
+    :func:`last_path` too."""
     import torch.distributed as dist
 
     init_gloo(rank, world, store)
     try:
         for out_path, kind, boundary, ctl, resume_path, opts in jobs:
             resume = load_state(np.load(resume_path)) if resume_path else None
-            out = run_job(world, kind, boundary, ctl, resume, opts)
+            out, fused = run_job(world, kind, boundary, ctl, resume, opts)
+            flags = [None] * world
+            dist.all_gather_object(flags, fused)
             if rank == 0:
-                save_out(out_path, out)
+                save_out(out_path, out, flags)
             elif rank == world - 1 and opts.get("every_rank"):
                 save_out(last_path(out_path), out)
     finally:
@@ -229,8 +237,9 @@ def spawn_runs(tmp_path, world, jobs):
     """Run the port's explicit path over ``world`` gloo ranks, one process
     group for every job ``name: (kind, boundary, ctl, resume_state)`` or
     ``(kind, boundary, ctl, resume_state, opts)`` (:func:`run_job`);
-    rank 0's output surface per name (and the last rank's as
-    ``name + " last"`` where ``opts["every_rank"]``)."""
+    rank 0's output surface per name, its ``fused`` every rank's route on
+    the walk (and the last rank's surface as ``name + " last"`` where
+    ``opts["every_rank"]``)."""
     import torch.multiprocessing as mp
 
     specs = []

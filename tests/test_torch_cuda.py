@@ -71,7 +71,8 @@ def test_chunk_through_kernels_matches_plain(cuda, boundary):
     sim = _sim(boundary)
     fdtd_cuda.reset_launch_counts()
     k = run_simulation(sim, fdtd_cuda.kernels)
-    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "e_update_mur": 0,
+                                  "mur_faces": 0,
                                   "probe_gather": 0, "chunk_steps": 1,
                                   "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}
@@ -192,22 +193,71 @@ def test_mur_faces_on_slabs_equals_its_twin(cuda, case):
         assert (x[0] == 7.5).all() and (x[-1] == 7.5).all()
 
 
+@pytest.mark.parametrize("case", ["canonical", "canonical PEC", "small PML_4",
+                                  "whole", "one-rank slab", "rank 0 of 4",
+                                  "rank 2 of 4", "rank 3 of 4", "x-y block"])
+def test_e_update_mur_equals_its_twin(cuda, case):
+    """``e_update_mur`` (one launch: E and the MUR walls of x, y and z)
+    against ``e_update_mur_plain`` (``e_update_plain``, then
+    ``mur_faces_plain`` per axis), bit for bit: on the canonical grid, on
+    the slabs and the block of ``test_mur_faces_on_slabs_equals_its_twin``
+    (rank 2 of 4: the top wall on its upper halo row), the guard rows
+    around a slab untouched; without walls (PEC, CPML with its ψ) the
+    kernel is ``e_update``."""
+    from _explicit_ranks import port_sim
+
+    if case.startswith(("canonical", "small")):
+        sim = (_canonical_sim("PEC" if "PEC" in case else "MUR")
+               if case.startswith("canonical") else _sim("PML_4"))
+        ops = sim.operands
+        a = _random_state(sim, cuda, seed=11)
+        b, bigs = _clone(a), None
+    else:
+        n_dev, rank, y = {"whole": (1, 0, None), "one-rank slab": (1, 0, None),
+                          "rank 0 of 4": (4, 0, None), "rank 2 of 4": (4, 2, None),
+                          "rank 3 of 4": (4, 3, None),
+                          "x-y block": (2, 1, (1, 8, 1))}[case]
+        sim = port_sim("straddle", "MUR", n_dev, device="cuda")
+        ops = sim.operands if case == "whole" else fdtd_shard.slab_operands(
+            sim, rank, sim.padded_shape[0] // n_dev, 1, cuda, y=y)
+        if case == "rank 2 of 4":
+            assert ops.mur_x_rows == (-7, 5)  # the top wall on the halo row
+        a, bigs = _guarded_state(ops.shape, cuda, False, seed=5)
+        b, big_b = _guarded_state(ops.shape, cuda, False, seed=5)
+    fdtd_cuda.reset_launch_counts()
+    fdtd_cuda.e_update_mur(ops, a, 0.37)
+    fdtd_cuda.plain.e_update_mur(ops, b, 0.37)
+    torch.cuda.synchronize()
+    assert fdtd_cuda.launches["e_update_mur"] == 1
+    assert sum(fdtd_cuda.launches.values()) == 1
+    if bigs is not None:
+        for x, y_ in zip(bigs, big_b, strict=True):
+            assert torch.equal(x, y_)
+            assert (x[0] == 7.5).all() and (x[-1] == 7.5).all()
+    for x, y_ in zip((*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h),
+                     (*b.e[0], *b.e[1], *b.h, *b.psi_e, *b.psi_h), strict=True):
+        assert torch.equal(x, y_)
+
+
 @pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
 def test_walk_on_one_card_matches_chunk_mode(cuda, boundary):
-    """The per-step walk on one rank launches only ``h_update``,
-    ``e_update``, ``mur_faces`` (three a step under MUR) and
-    ``probe_gather``, and matches the chunk-mode run."""
+    """The per-step walk on one rank takes no straddle, so it launches only
+    ``h_update`` and ``e_update_mur`` a step (E and the MUR walls fused;
+    under PEC and CPML the same kernel without walls) and ``probe_gather``
+    an interval: no ``e_update`` and no ``mur_faces``; it matches the
+    chunk-mode run."""
     from fdtd_solver_antennas_tpu_torch.parallel import build_explicit_run
 
     sim = _sim(boundary, decim=12)
     run = build_explicit_run(sim, use_kernel=False)
+    assert run.stepper.fused
     fdtd_cuda.reset_launch_counts()
     fdtd_shard.reset_launch_counts()
     out = run()
-    mur = 3 * 120 if boundary == "MUR" else 0
-    assert fdtd_cuda.launches == {"h_update": 120, "e_update": 120,
-                                  "mur_faces": mur, "probe_gather": 10,
-                                  "chunk_steps": 0, "chunk_steps_batch": 0,
+    assert fdtd_cuda.launches == {"h_update": 120, "e_update": 0,
+                                  "e_update_mur": 120, "mur_faces": 0,
+                                  "probe_gather": 10, "chunk_steps": 0,
+                                  "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}
     assert fdtd_shard.launches == {"shard_steps": 0}
     ref = sim.run()
@@ -522,7 +572,8 @@ def test_explicit_run_on_one_card_equals_chunk_mode(cuda, boundary):
     fdtd_shard.reset_launch_counts()
     out = run()
     assert fdtd_shard.launches == {"shard_steps": 120 // 12}
-    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "e_update_mur": 0,
+                                  "mur_faces": 0,
                                   "probe_gather": 120 // 12, "chunk_steps": 0,
                                   "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}
@@ -699,7 +750,8 @@ def test_chunk_steps_equals_the_per_step_kernels(cuda, boundary):
     torch.cuda.synchronize()
     mur = 3 * 2 * D if boundary == "MUR" else 0
     assert fdtd_cuda.launches == {"h_update": 2 * D, "e_update": 2 * D,
-                                  "mur_faces": mur, "probe_gather": 2,
+                                  "e_update_mur": 0, "mur_faces": mur,
+                                  "probe_gather": 2,
                                   "chunk_steps": 1, "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}
     _assert_same_chunk(a, bufs_a, b, bufs_b)
@@ -718,7 +770,8 @@ def test_canonical_run_makes_one_chunk_launch_per_chunk(cuda):
     fdtd_cuda.reset_launch_counts()
     out = prep.sim.run()
     assert out["steps"] == 11_125
-    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "mur_faces": 0,
+    assert fdtd_cuda.launches == {"h_update": 0, "e_update": 0, "e_update_mur": 0,
+                                  "mur_faces": 0,
                                   "probe_gather": 0, "chunk_steps": 25,
                                   "chunk_steps_batch": 0,
                                   "probe_gather_batch": 0}

@@ -15,8 +15,11 @@ slab with one halo row a side; their plain twins here): it must match the
 JAX package's walk and its single-device run (rtol 1e-3, atol 1e-4·max on
 ``small``, the JAX explicit path's own tolerance; 2e-4 / 1e-5·max on
 ``tall_z``), equal the port's chunk-mode run bit for bit at one rank, and
-resume a JAX walk checkpoint. Runs over 2 and 4 ranks are in
-``tests/test_torch_explicit_2ranks.py`` and ``..._4ranks.py``.
+resume a JAX walk checkpoint. A one-rank walk takes no straddle, so it
+steps E and the MUR walls of all three axes in one call,
+``fdtd_cuda.e_update_mur`` (``Walk.fused``; its kernel's schedule is held
+to its twin in ``tests/test_torch_persist.py``). Runs over 2 and 4 ranks
+are in ``tests/test_torch_explicit_2ranks.py`` and ``..._4ranks.py``.
 """
 
 import numpy as np
@@ -26,7 +29,7 @@ import torch
 from _explicit_jax import jax_explicit, jax_refs, jax_sim, numpy_state
 from _explicit_ranks import FREQS, assert_close_surface, controls, port_sim
 from fdtd_solver_antennas_tpu_torch.models.scene import Scene
-from fdtd_solver_antennas_tpu_torch.ops import fdtd_shard
+from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_shard
 from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
     FDTDConfig,
     build_simulation,
@@ -198,7 +201,9 @@ def test_walk_one_rank_matches_jax_walk(kind, boundary):
     """The walk at one rank against the JAX package's single-device run and
     its ``use_kernel=False`` walk, at any Pz (131 here on ``tall_z``)."""
     tol = (RTOL, ATOL_REL) if kind == "tall_z" else (WALK_RTOL, WALK_ATOL_REL)
-    out = build_explicit_run(port_sim(kind, boundary, 1), use_kernel=False)()
+    run = build_explicit_run(port_sim(kind, boundary, 1), use_kernel=False)
+    assert run.stepper.fused and not run.stepper.straddles
+    out = run()
     for ref in jax_refs(kind, boundary, 1, use_kernel=False):
         assert_close_surface(out, ref, *tol)
 
@@ -227,3 +232,29 @@ def test_walk_resumes_a_jax_walk_checkpoint():
         resume_state=numpy_state(half["state"]))
     assert_close_surface(out, jax_refs("small", "PML_4", 1, use_kernel=False)[1],
                          WALK_RTOL, WALK_ATOL_REL)
+
+
+def test_walk_one_rank_takes_the_fused_route(monkeypatch):
+    """A one-rank MUR walk has no straddle: ``Walk.fused``, one
+    ``e_update_mur`` call a step and no ``e_update`` or ``mur_faces``
+    call; its outputs equal the JAX walk's as before."""
+    calls = []
+    twin = fdtd_cuda.e_update_mur
+
+    def spy(ops, st, s):
+        calls.append(s)
+        twin(ops, st, s)
+
+    def refused(*args):
+        raise AssertionError("the fused route launches no e_update or mur_faces")
+
+    monkeypatch.setattr(fdtd_cuda, "e_update_mur", spy)
+    monkeypatch.setattr(fdtd_cuda, "e_update", refused)
+    monkeypatch.setattr(fdtd_cuda, "mur_faces", refused)
+    run = build_explicit_run(port_sim("small", "MUR", 1), use_kernel=False)
+    assert run.stepper.fused
+    out = run()
+    assert len(calls) == int(out["steps"]) == 120
+    assert_close_surface(out, jax_refs("small", "MUR", 1, use_kernel=False)[1],
+                         WALK_RTOL, WALK_ATOL_REL)
+

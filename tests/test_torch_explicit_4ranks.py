@@ -20,7 +20,10 @@ the halos exchanged every half-step) runs MUR, PEC and PML_4 on the same
 scene, MUR_1 at z = 131, the straddle (the top wall's inward neighbour
 fetched from the rank before, JAX's ``straddle_top``) and the straddle
 at z = 131, held to the JAX package's single-device run and its walk on
-a 4-device mesh at the same tolerances.
+a 4-device mesh at the same tolerances. Each rank reports its walk's
+route: the two ranks of a straddle (2 sends plane Qx − 2, 3 receives it)
+keep ``e_update`` and a ``mur_faces`` per axis, every other rank fuses
+them into ``e_update_mur``.
 """
 
 import pytest
@@ -118,3 +121,14 @@ def test_walk_tall_and_straddle(outs, kind, ctl, tol):
             "tall_straddle": "walk tall straddle"}[kind]
     for ref in _walk_refs(kind, boundary, ctl):
         assert_close_surface(outs[name], ref, *tol)
+
+
+@pytest.mark.parametrize("name,fused", [
+    ("walk MUR", [True] * 4), ("walk PEC", [True] * 4),
+    ("walk PML_4", [True] * 4), ("walk tall MUR_1", [True] * 4),
+    ("walk straddle", [True, True, False, False]),
+    ("walk tall straddle", [True, True, False, False])])
+def test_walk_ranks_route_by_straddle(outs, name, fused):
+    """``Walk.fused`` of ranks 0-3: false exactly on the sender and the
+    receiver of the top x wall's straddle."""
+    assert outs[name]["fused"].tolist() == fused

@@ -18,7 +18,13 @@ of and outside the slab, the straddle slab included. The resident form
 fixes a z wall cell's Ex and Ey from the next or previous lane's final
 value where that lane holds the neighbour (a warp shuffle); the
 transcription takes that route for the block and lane layouts given, and
-recomputes elsewhere, as the kernel does.
+recomputes elsewhere, as the kernel does. The walk's ``e_update_mur_kernel``
+(``csrc/fdtd_chunk.cu``) is the same E pass on one thread a cell, its
+walls at ``YeeOperands.mur_walls`` on every axis (a block's y walls too):
+:func:`emulate_e_update_mur` is held bit for bit to ``e_update_mur_plain``
+(``e_update_plain``, then ``mur_faces_plain`` for x, y and z) on
+synthetic grids, on the walk's slabs and blocks (walls inside, on the
+halo plane, outside) and without walls.
 """
 
 import shutil
@@ -437,6 +443,84 @@ def test_shard_schedule_on_a_slab(kind, boundary, n_dev, rank):
     got = emulate_steps(sh.ops, st, wf, sh.ops.mur_x_rows, (3, 1024))
     fdtd_shard.shard_steps_plain(sh.ops, st, wf)
     _assert_state_equals(st, got, rows=sh.owned)
+
+
+# ---------------------------------------------------------------------------
+# the walk's fused E half-step (e_update_mur_kernel, one thread a cell)
+# ---------------------------------------------------------------------------
+
+def emulate_e_update_mur(ops: YeeOperands, st, s, paths=None):
+    """``e_update_mur_kernel`` in NumPy: the E pass above on one thread a
+    cell in flat order (lane c mod 32, whatever the block's size),
+    so a z wall cell takes its neighbour's values from the next lane
+    (low wall) unless it is lane 31 or the last cell, or from the previous
+    lane (high wall) unless it is lane 0; its walls at
+    ``ops.mur_walls(axis)`` for x, y and z. Returns (new E, ψ_e)."""
+    kern = _Kernel(ops, ops.mur_walls(0))
+    kern.lo, kern.hi = (tuple(ops.mur_walls(b)[side] for b in range(3))
+                        for side in (0, 1))
+    E = [_np(e) for e in st.e[st.parity]]
+    H = [_np(h) for h in st.h]
+    psi_e = [_np(p) for p in st.psi_e]
+    return kern.e_pass(E, H, psi_e, s, (1, 32), paths), psi_e
+
+
+def _assert_e_update_mur(ops, st, s):
+    """The emulated kernel == ``e_update_mur_plain`` on every cell of the
+    new E (and ψ_e); returns the z fixes by route."""
+    paths = {}
+    got, psi_e = emulate_e_update_mur(ops, st, s, paths)
+    fdtd_cuda.e_update_mur_plain(ops, st, s)
+    for i, (a, b) in enumerate(zip((*got, *psi_e),
+                                   (*st.e[1 - st.parity], *st.psi_e),
+                                   strict=True)):
+        assert not np.isnan(a).any(), f"array {i}: a cell was never written"
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=f"array {i}")
+    return paths
+
+
+@pytest.mark.parametrize("x_walls", X_WALLS)
+@pytest.mark.parametrize("shape", [(6, 5, 4), (6, 3, 11)])
+def test_e_update_mur_schedule_on_synthetic_slabs(shape, x_walls):
+    """Slab x walls inside, on either edge and outside, on a grid whose
+    z lines (11) put wall cells on both sides of lane edges."""
+    ops = _operands(shape, (x_walls[1] - x_walls[0] + 1, *shape[1:]), "MUR",
+                    seed=31 + x_walls[0], x_rows=x_walls)
+    paths = _assert_e_update_mur(ops, _random_state(shape, False, seed=7), 0.45)
+    assert paths.get("lane", 0) > 0, paths
+    if shape[2] == 11:  # cell 32 = (0, 2, 10), a high z wall on lane 0
+        assert paths.get("recomputed", 0) > 0, paths
+
+
+@pytest.mark.parametrize("boundary", ["PEC", "PML_4"])
+def test_e_update_mur_without_walls_is_e_update(boundary):
+    shape = (5, 4, 6)
+    ops = _operands(shape, shape, boundary, seed=5)
+    paths = _assert_e_update_mur(ops, _random_state(shape, boundary == "PML_4",
+                                                    seed=9), -0.3)
+    assert paths == {}
+
+
+@pytest.mark.parametrize("kind,n_dev,coords", [
+    ("straddle", 4, (3, 0)),         # the top x wall on the first owned row
+    ("straddle", 4, (2, 0)),         # the top x wall on the upper halo row
+    ("small", 1, (0, 0)),            # one rank: every wall inside
+    ("small", 3, (0, 0)),            # a 3-rank x split: the bottom x wall,
+    ("small", 3, (1, 0)),            # no x wall,
+    ("small", 3, (2, 0)),            # the top x wall
+    ("small", (2, 3, 1), (1, 2)),    # an x-y block: the top x and y walls
+    ("ystraddle", (1, 4, 1), (0, 3)),  # the top y wall on the first plane
+])
+def test_e_update_mur_schedule_on_walk_blocks(kind, n_dev, coords):
+    sim = port_sim(kind, "MUR", n_dev)
+    sx, sy = (n_dev, 1) if isinstance(n_dev, int) else n_dev[:2]
+    Px, Py, _ = sim.padded_shape
+    cx, cy = coords
+    ops = fdtd_shard.slab_operands(sim, cx, Px // sx, 1, "cpu",
+                                   y=(cy, Py // sy, 1) if sy > 1 else None)
+    paths = _assert_e_update_mur(ops, _random_state(ops.shape, False, seed=3),
+                                 0.8)
+    assert paths.get("lane", 0) > 0, paths
 
 
 # ---------------------------------------------------------------------------
