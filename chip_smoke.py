@@ -4809,7 +4809,8 @@ def phase_frontends_background(res4, k22, card):
 def phase_frontends_views(counts4, card):
     """(d) ``open_scene_3d_view`` of phase 8's mixed designer scene, and
     ``utils.tracing.trace`` around a canonical run with
-    ``summarize_trace`` naming ``chunk_steps_kernel``."""
+    ``summarize_trace`` naming ``chunk_steps_kernel`` among the device
+    events, and the idle gaps by the port span open."""
     from fdtd_solver_antennas_tpu_torch.frontends.gui_app import (
         open_scene_3d_view)
     from fdtd_solver_antennas_tpu_torch.solvers.patch_fixed import (
@@ -4841,16 +4842,19 @@ def phase_frontends_views(counts4, card):
             prep, frequency_hz=params.frequency_hz, verbose=0))
     traced_s = time.perf_counter() - t0
     assert res.ok and counts["chunk_steps"] == counts4["chunk_steps"], counts
-    top = summarize_trace(log_dir, top=20)
+    summary = summarize_trace(log_dir, top=20)
+    top = summary.device
     hits = [(n, s, c) for n, s, c in top if "chunk_steps_kernel" in n]
     assert hits and hits[0][2] == counts["chunk_steps"], top[:8]
     name, secs, n = hits[0]
+    idle = summary.idle_by_label()
     say("25", f"utils.tracing.trace around the canonical run ({traced_s:.2f} "
-              f"s with the trace's export): summarize_trace's top 20 holds "
-              f"{name[:60]!r}: {n} events, {secs * 1e3:.3f} ms in all, "
-              f"{secs / n * 1e6:.1f} us each; top 5: "
-              f"{[(a[:40], round(b * 1e3, 3), c) for a, b, c in top[:5]]} "
-              f"[{card}]")
+              f"s with the trace's export): summarize_trace's top 20 device "
+              f"events hold {name[:60]!r}: {n} events, {secs * 1e3:.3f} ms in "
+              f"all, {secs / n * 1e6:.1f} us each; top 5: "
+              f"{[(a[:40], round(b * 1e3, 3), c) for a, b, c in top[:5]]}; "
+              f"idle ms by the port span open: "
+              f"{ {k: round(v * 1e3, 3) for k, v in idle.items()} } [{card}]")
 
 
 def phase_frontends(res4, counts4, k21, k22, card):

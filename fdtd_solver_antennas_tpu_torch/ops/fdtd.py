@@ -43,6 +43,7 @@ import torch
 
 from ..models.scene import LumpedPortSpec, Scene
 from ..physics import C0, EPS0, ETA0, MU0
+from ..utils.tracing import span
 from . import fdtd_cuda, fdtd_stream
 from .fdtd_cuda import PSI_KEYS, ProbeTable, YeeOperands
 from .mesh import YeeGrid
@@ -787,190 +788,200 @@ def build_simulation(
     Qx, Qy, Qz = grid.shape
     dt = grid.courant_dt(cfg.courant)
 
-    vox = voxelize(scene, grid)
+    with span("fdtd.prepare.voxelize"):
+        vox = voxelize(scene, grid)
 
-    # --- per-edge material arrays -----------------------------------------
-    sigma_edges = {
-        "ex": cell_to_edge_average(vox.sigma, "ex"),
-        "ey": cell_to_edge_average(vox.sigma, "ey"),
-        "ez": cell_to_edge_average(vox.sigma, "ez"),
-    }
-    # finite-conductivity metallization: per-edge added conductivity
-    for comp, sheet in (("ex", vox.sheet_sigma_ex),
-                        ("ey", vox.sheet_sigma_ey),
-                        ("ez", vox.sheet_sigma_ez)):
-        if sheet is not None:
-            sigma_edges[comp] = sigma_edges[comp] + sheet
-    eps_edges = {
-        c: cell_to_edge_average(vox.eps_r, c) * EPS0 for c in ("ex", "ey", "ez")
-    }
+    # the host's build; the uploads nest inside as their own spans
+    with span("fdtd.prepare.coeffs"):
+        # --- per-edge material arrays -------------------------------------
+        sigma_edges = {
+            "ex": cell_to_edge_average(vox.sigma, "ex"),
+            "ey": cell_to_edge_average(vox.sigma, "ey"),
+            "ez": cell_to_edge_average(vox.sigma, "ez"),
+        }
+        # finite-conductivity metallization: per-edge added conductivity
+        for comp, sheet in (("ex", vox.sheet_sigma_ex),
+                            ("ey", vox.sheet_sigma_ey),
+                            ("ez", vox.sheet_sigma_ez)):
+            if sheet is not None:
+                sigma_edges[comp] = sigma_edges[comp] + sheet
+        eps_edges = {
+            c: cell_to_edge_average(vox.eps_r, c) * EPS0 for c in ("ex", "ey", "ez")
+        }
 
-    # --- ports fold their resistance into sigma ---------------------------
-    ports = [_build_port_runtime(p, grid, sigma_edges) for p in scene.ports]
-    msl_ports = [_build_msl_runtime(m, grid) for m in scene.msl_ports]
+        # --- ports fold their resistance into sigma -----------------------
+        ports = [_build_port_runtime(p, grid, sigma_edges) for p in scene.ports]
+        msl_ports = [_build_msl_runtime(m, grid) for m in scene.msl_ports]
 
-    # --- Ca/Cb per component ----------------------------------------------
-    pec = {"ex": vox.pec_ex, "ey": vox.pec_ey, "ez": vox.pec_ez}
-    coeffs_np: Dict[str, np.ndarray] = {}
-    mur = cfg.boundary.upper().startswith("MUR")
-    for comp, d_axis in (("ex", 0), ("ey", 1), ("ez", 2)):
-        eps_a = eps_edges[comp]
-        sig_a = sigma_edges[comp]
-        beta = sig_a * dt / (2.0 * eps_a)
-        ca = (1.0 - beta) / (1.0 + beta)
-        cb = (dt / eps_a) / (1.0 + beta)
-        # invalid trailing slot along the component's own axis
-        sl = [slice(None)] * 3
-        sl[d_axis] = -1
-        ca[tuple(sl)] = 0.0
-        cb[tuple(sl)] = 0.0
-        # outer boundary planes tangential to this component
-        for b_axis in (a for a in range(3) if a != d_axis):
-            for idx in (0, grid.shape[b_axis] - 1):
-                slb = [slice(None)] * 3
-                slb[b_axis] = idx
-                cb[tuple(slb)] = 0.0
-                ca[tuple(slb)] = 1.0 if mur else 0.0
-        # PEC objects win last
-        ca[pec[comp]] = 0.0
-        cb[pec[comp]] = 0.0
-        coeffs_np["ca_" + comp] = ca.astype(np.float32, copy=False)
-        coeffs_np["cb_" + comp] = cb.astype(np.float32, copy=False)
+        # --- Ca/Cb per component ------------------------------------------
+        pec = {"ex": vox.pec_ex, "ey": vox.pec_ey, "ez": vox.pec_ez}
+        coeffs_np: Dict[str, np.ndarray] = {}
+        mur = cfg.boundary.upper().startswith("MUR")
+        for comp, d_axis in (("ex", 0), ("ey", 1), ("ez", 2)):
+            eps_a = eps_edges[comp]
+            sig_a = sigma_edges[comp]
+            beta = sig_a * dt / (2.0 * eps_a)
+            ca = (1.0 - beta) / (1.0 + beta)
+            cb = (dt / eps_a) / (1.0 + beta)
+            # invalid trailing slot along the component's own axis
+            sl = [slice(None)] * 3
+            sl[d_axis] = -1
+            ca[tuple(sl)] = 0.0
+            cb[tuple(sl)] = 0.0
+            # outer boundary planes tangential to this component
+            for b_axis in (a for a in range(3) if a != d_axis):
+                for idx in (0, grid.shape[b_axis] - 1):
+                    slb = [slice(None)] * 3
+                    slb[b_axis] = idx
+                    cb[tuple(slb)] = 0.0
+                    ca[tuple(slb)] = 1.0 if mur else 0.0
+            # PEC objects win last
+            ca[pec[comp]] = 0.0
+            cb[pec[comp]] = 0.0
+            coeffs_np["ca_" + comp] = ca.astype(np.float32, copy=False)
+            coeffs_np["cb_" + comp] = cb.astype(np.float32, copy=False)
 
-    # --- MSL excitation planes (need cb): uniform quasi-TEM profile -------
-    for msl in msl_ports:
-        msl.src_col_unit = coeffs_np["cb_ez"][msl.sl].astype(np.float32)
-        msl.src_col = (msl.src_col_unit * msl.spec.excite).astype(np.float32)
+        # --- MSL excitation planes (need cb): uniform quasi-TEM profile ---
+        for msl in msl_ports:
+            msl.src_col_unit = coeffs_np["cb_ez"][msl.sl].astype(np.float32)
+            msl.src_col = (msl.src_col_unit * msl.spec.excite).astype(np.float32)
 
-    # --- port source columns (need cb) ------------------------------------
-    dd = [grid.dual_deltas_m("xyz"[a]) for a in range(3)]
-    for prt in ports:
-        cb_col = coeffs_np["cb_e" + prt.spec.direction][prt.sl]
-        t_axes = [a for a in range(3) if a != prt.axis]
-        idx_probe = prt.i_gather[0]
-        area = dd[t_axes[0]][idx_probe[t_axes[0]]] * dd[t_axes[1]][idx_probe[t_axes[1]]]
-        prt.src_col_unit = (cb_col / (prt.spec.resistance * area)).astype(
-            np.float32)
-        prt.src_col = (prt.src_col_unit * prt.spec.excite).astype(np.float32)
+        # --- port source columns (need cb) --------------------------------
+        dd = [grid.dual_deltas_m("xyz"[a]) for a in range(3)]
+        for prt in ports:
+            cb_col = coeffs_np["cb_e" + prt.spec.direction][prt.sl]
+            t_axes = [a for a in range(3) if a != prt.axis]
+            idx_probe = prt.i_gather[0]
+            area = (dd[t_axes[0]][idx_probe[t_axes[0]]]
+                    * dd[t_axes[1]][idx_probe[t_axes[1]]])
+            prt.src_col_unit = (cb_col / (prt.spec.resistance * area)).astype(
+                np.float32)
+            prt.src_col = (prt.src_col_unit * prt.spec.excite).astype(np.float32)
 
-    # --- zero padding for shard divisibility ----------------------------
-    padded_shape = tuple(
-        int(-(-grid.shape[a] // pad_multiple[a]) * pad_multiple[a])
-        for a in range(3))
-    if padded_shape != tuple(grid.shape):
-        pads = [(0, padded_shape[a] - grid.shape[a]) for a in range(3)]
-        coeffs_np = {k: np.pad(v, pads) for k, v in coeffs_np.items()}
+        # --- zero padding for shard divisibility ------------------------
+        padded_shape = tuple(
+            int(-(-grid.shape[a] // pad_multiple[a]) * pad_multiple[a])
+            for a in range(3))
+        if padded_shape != tuple(grid.shape):
+            pads = [(0, padded_shape[a] - grid.shape[a]) for a in range(3)]
+            coeffs_np = {k: np.pad(v, pads) for k, v in coeffs_np.items()}
 
-    # --- inverse spacing vectors -------------------------------------------
-    inv_p, inv_d = {}, {}
-    for a, name in enumerate("xyz"):
-        d = grid.deltas_m(name)
-        ip = np.zeros(padded_shape[a], np.float32)
-        ip[: len(d)] = 1.0 / d
-        inv_p[a] = ip
-        idv = np.zeros(padded_shape[a], np.float32)
-        idv[: grid.shape[a]] = 1.0 / grid.dual_deltas_m(name)
-        inv_d[a] = idv
-
-    # --- MUR face coefficients ----------------------------------------------
-    mur_coef = None
-    if mur:
-        mur_coef = []
-        for name in "xyz":
+        # --- inverse spacing vectors ---------------------------------------
+        inv_p, inv_d = {}, {}
+        for a, name in enumerate("xyz"):
             d = grid.deltas_m(name)
-            mur_coef.append((
-                float(np.float32((C0 * dt - d[0]) / (C0 * dt + d[0]))),
-                float(np.float32((C0 * dt - d[-1]) / (C0 * dt + d[-1]))),
-            ))
-        mur_coef = tuple(mur_coef)
+            ip = np.zeros(padded_shape[a], np.float32)
+            ip[: len(d)] = 1.0 / d
+            inv_p[a] = ip
+            idv = np.zeros(padded_shape[a], np.float32)
+            idv[: grid.shape[a]] = 1.0 / grid.dual_deltas_m(name)
+            inv_d[a] = idv
 
-    # --- CPML profiles -------------------------------------------------------
-    npml = cfg.pml_cells()
-    pml = _cpml_profiles(grid, padded_shape, dt, npml) if npml > 0 else None
+        # --- MUR face coefficients ------------------------------------------
+        mur_coef = None
+        if mur:
+            mur_coef = []
+            for name in "xyz":
+                d = grid.deltas_m(name)
+                mur_coef.append((
+                    float(np.float32((C0 * dt - d[0]) / (C0 * dt + d[0]))),
+                    float(np.float32((C0 * dt - d[-1]) / (C0 * dt + d[-1]))),
+                ))
+            mur_coef = tuple(mur_coef)
 
-    # --- NF2FF faces ----------------------------------------------------------
-    m = max(nf_margin_cells, npml + 3)  # keep the box out of the PML
-    faces = _build_faces(grid, (m, Qx - 1 - m, m, Qy - 1 - m, m, Qz - 1 - m))
+        # --- CPML profiles ---------------------------------------------------
+        npml = cfg.pml_cells()
+        pml = _cpml_profiles(grid, padded_shape, dt, npml) if npml > 0 else None
 
-    # --- excitation ------------------------------------------------------------
-    n_src = source_active_steps(f0, fc, dt)
-    # the waveform covers the full source duration, not just n_steps_max,
-    # so a short run's checkpoint resumes to the same physics
-    waveform = gaussian_excitation(
-        f0, fc, dt, max(int(cfg.n_steps_max), n_src))
+        # --- NF2FF faces ------------------------------------------------------
+        m = max(nf_margin_cells, npml + 3)  # keep the box out of the PML
+        faces = _build_faces(grid, (m, Qx - 1 - m, m, Qy - 1 - m, m, Qz - 1 - m))
 
-    if port_freqs_hz is None:
-        port_freqs_hz = np.linspace(max(1e8, f0 * 0.5), f0 * 1.5, 201)
-    if nf_freqs_hz is None:
-        nf_freqs_hz = np.linspace(f0 * 0.85, f0 * 1.15, 11)
-    port_freqs_hz = np.asarray(port_freqs_hz, np.float64)
-    nf_freqs_hz = np.asarray(nf_freqs_hz, np.float64)
+        # --- excitation --------------------------------------------------------
+        n_src = source_active_steps(f0, fc, dt)
+        # the waveform covers the full source duration, not just n_steps_max,
+        # so a short run's checkpoint resumes to the same physics
+        waveform = gaussian_excitation(
+            f0, fc, dt, max(int(cfg.n_steps_max), n_src))
 
-    if cfg.probe_decimation is not None:
-        probe_decim = max(1, int(cfg.probe_decimation))
-    else:
-        # 2.5x the -20 dB corner: content that could alias back sits at
-        # ≥1.8·fc beyond the corner, where the Gaussian envelope is below
-        # 10^-3 in amplitude.
-        probe_decim = max(1, int(1.0 / (2.5 * (f0 + fc) * dt)))
-    probe_decim = min(probe_decim, max(1, int(cfg.check_every)))
-    n_stamps = len({prt.axis for prt in ports} | ({2} if msl_ports else set()))
-    mode, stream_T, probe_decim, mode_reason = resolve_pallas_mode(
-        cfg, padded_shape, n_stamps, probe_decim)
+        if port_freqs_hz is None:
+            port_freqs_hz = np.linspace(max(1e8, f0 * 0.5), f0 * 1.5, 201)
+        if nf_freqs_hz is None:
+            nf_freqs_hz = np.linspace(f0 * 0.85, f0 * 1.15, 11)
+        port_freqs_hz = np.asarray(port_freqs_hz, np.float64)
+        nf_freqs_hz = np.asarray(nf_freqs_hz, np.float64)
 
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if cfg.probe_decimation is not None:
+            probe_decim = max(1, int(cfg.probe_decimation))
+        else:
+            # 2.5x the -20 dB corner: content that could alias back sits at
+            # ≥1.8·fc beyond the corner, where the Gaussian envelope is below
+            # 10^-3 in amplitude.
+            probe_decim = max(1, int(1.0 / (2.5 * (f0 + fc) * dt)))
+        probe_decim = min(probe_decim, max(1, int(cfg.check_every)))
+        n_stamps = len({prt.axis for prt in ports} | ({2} if msl_ports else set()))
+        mode, stream_T, probe_decim, mode_reason = resolve_pallas_mode(
+            cfg, padded_shape, n_stamps, probe_decim)
 
-    coeffs = {k: to_dev(v) for k, v in coeffs_np.items()}
-    sim = PreparedSimulation(
-        grid=grid,
-        dt=dt,
-        cfg=cfg,
-        device=dev,
-        coeffs=coeffs,
-        waveform=waveform,
-        ports=ports,
-        msl_ports=msl_ports,
-        faces=faces,
-        port_freqs_hz=port_freqs_hz,
-        nf_freqs_hz=nf_freqs_hz,
-        n_source_steps=n_src,
-        f0=f0,
-        fc=fc,
-        padded_shape=padded_shape,
-        probe_decim=probe_decim,
-        operands=None,
-        face_layout=[],
-        n_face_slots=0,
-        _coeffs_np=coeffs_np,
-        pallas_mode=mode,
-        stream_T=stream_T,
-        pallas_mode_reason=mode_reason,
-        _aux=(inv_p, inv_d, mur_coef, pml),
-    )
-    gathers = build_probe_gathers(sim)
-    sim.face_layout, sim.n_face_slots = gathers[4], gathers[5]
-    n_cells = int(np.prod(padded_shape))
-    probes = ProbeTable.from_blocks(probe_blocks(gathers, n_cells), n_cells, dev)
-    src = build_src_mats(sim, *padded_shape)
-    sim.operands = YeeOperands(
-        shape=padded_shape,
-        grid_shape=tuple(grid.shape),
-        dtmu=float(np.float32(dt / MU0)),
-        inv_p=tuple(to_dev(inv_p[a]) for a in range(3)),
-        inv_d=tuple(to_dev(inv_d[a]) for a in range(3)),
-        ca=tuple(coeffs["ca_" + c] for c in ("ex", "ey", "ez")),
-        cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")),
-        src=tuple(to_dev(src[a]) if a in src else None for a in range(3)),
-        mur=mur_coef,
-        pml=None if pml is None else {
-            "bh": tuple(to_dev(pml[a]["half"][0]) for a in range(3)),
-            "ch": tuple(to_dev(pml[a]["half"][1]) for a in range(3)),
-            "be": tuple(to_dev(pml[a]["node"][0]) for a in range(3)),
-            "ce": tuple(to_dev(pml[a]["node"][1]) for a in range(3)),
-        },
-        probes=probes,
-    )
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        with span("fdtd.prepare.upload"):
+            coeffs = {k: to_dev(v) for k, v in coeffs_np.items()}
+        sim = PreparedSimulation(
+            grid=grid,
+            dt=dt,
+            cfg=cfg,
+            device=dev,
+            coeffs=coeffs,
+            waveform=waveform,
+            ports=ports,
+            msl_ports=msl_ports,
+            faces=faces,
+            port_freqs_hz=port_freqs_hz,
+            nf_freqs_hz=nf_freqs_hz,
+            n_source_steps=n_src,
+            f0=f0,
+            fc=fc,
+            padded_shape=padded_shape,
+            probe_decim=probe_decim,
+            operands=None,
+            face_layout=[],
+            n_face_slots=0,
+            _coeffs_np=coeffs_np,
+            pallas_mode=mode,
+            stream_T=stream_T,
+            pallas_mode_reason=mode_reason,
+            _aux=(inv_p, inv_d, mur_coef, pml),
+        )
+        gathers = build_probe_gathers(sim)
+        sim.face_layout, sim.n_face_slots = gathers[4], gathers[5]
+        n_cells = int(np.prod(padded_shape))
+        probes = ProbeTable.from_blocks(probe_blocks(gathers, n_cells), n_cells)
+        src = build_src_mats(sim, *padded_shape)
+        with span("fdtd.prepare.upload"):
+            probes = probes.to(dev)
+            on_dev = dict(
+                inv_p=tuple(to_dev(inv_p[a]) for a in range(3)),
+                inv_d=tuple(to_dev(inv_d[a]) for a in range(3)),
+                src=tuple(to_dev(src[a]) if a in src else None for a in range(3)),
+                pml=None if pml is None else {
+                    "bh": tuple(to_dev(pml[a]["half"][0]) for a in range(3)),
+                    "ch": tuple(to_dev(pml[a]["half"][1]) for a in range(3)),
+                    "be": tuple(to_dev(pml[a]["node"][0]) for a in range(3)),
+                    "ce": tuple(to_dev(pml[a]["node"][1]) for a in range(3)),
+                },
+            )
+        sim.operands = YeeOperands(
+            shape=padded_shape,
+            grid_shape=tuple(grid.shape),
+            dtmu=float(np.float32(dt / MU0)),
+            ca=tuple(coeffs["ca_" + c] for c in ("ex", "ey", "ez")),
+            cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")),
+            mur=mur_coef,
+            probes=probes,
+            **on_dev,
+        )
     return sim
 
 
@@ -1203,72 +1214,76 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     if T_stream and decim % T_stream:
         raise ValueError(f"probe decimation {decim} is not a multiple of "
                          f"stream_T={T_stream}")
-    f32 = dict(dtype=torch.float32, device=dev)
+    with span("fdtd.run"):
+        f32 = dict(dtype=torch.float32, device=dev)
 
-    st = fdtd_cuda.new_state(sim.padded_shape, dev, ops.pml is not None)
-    probes = ProbeDFT(sim, n_sub, dev)
-    acc = probes.acc
-    n = 0
-    e_max = torch.zeros((), **f32)
-    ratio = 1.0
-    if resume_state is not None:
-        scale = resume_decim_scale(resume_state, decim)
-        rs = state_from_numpy(sim._adapt_resume_arrays(resume_state), dev)
-        for k in acc:
-            acc[k].copy_(rs[k] * scale if scale != 1.0 else rs[k])
-        for dst, src in zip(st.fields, rs["fields"]):
-            dst.copy_(src)
-        if ops.pml is not None and rs["psi_e"]:
-            for dst, k in zip(st.psi_e, PSI_KEYS):
-                dst.copy_(rs["psi_e"][k])
-            for dst, k in zip(st.psi_h, PSI_KEYS):
-                dst.copy_(rs["psi_h"][k])
-        n = rs["n"]
-        e_max.fill_(rs["e_max"])
-        ratio = rs["e_ratio"]
+        st = fdtd_cuda.new_state(sim.padded_shape, dev, ops.pml is not None)
+        probes = ProbeDFT(sim, n_sub, dev)
+        acc = probes.acc
+        n = 0
+        e_max = torch.zeros((), **f32)
+        ratio = 1.0
+        if resume_state is not None:
+            scale = resume_decim_scale(resume_state, decim)
+            rs = state_from_numpy(sim._adapt_resume_arrays(resume_state), dev)
+            for k in acc:
+                acc[k].copy_(rs[k] * scale if scale != 1.0 else rs[k])
+            for dst, src in zip(st.fields, rs["fields"]):
+                dst.copy_(src)
+            if ops.pml is not None and rs["psi_e"]:
+                for dst, k in zip(st.psi_e, PSI_KEYS):
+                    dst.copy_(rs["psi_e"][k])
+                for dst, k in zip(st.psi_h, PSI_KEYS):
+                    dst.copy_(rs["psi_h"][k])
+            n = rs["n"]
+            e_max.fill_(rs["e_max"])
+            ratio = rs["e_ratio"]
 
-    wf = padded_waveform(sim)
-    if not T_stream:  # chunk_steps reads the samples on the device
-        wf = torch.tensor(wf, dtype=torch.float32, device=dev)
-    bufs = probes.bufs
-    end = np.float32(cfg.end_criteria)
+        wf = padded_waveform(sim)
+        if not T_stream:  # chunk_steps reads the samples on the device
+            wf = torch.tensor(wf, dtype=torch.float32, device=dev)
+        bufs = probes.bufs
+        end = np.float32(cfg.end_criteria)
 
-    aborted = False
-    while n < cfg.n_steps_max:
-        n0 = n
-        if T_stream:
-            for j in range(n_sub):
-                for _ in range(decim // T_stream):
-                    impl.stream_steps(ops, st, wf[n:n + T_stream])
-                    n += T_stream
-                impl.probe_gather(ops, st, bufs[j])
-        else:
-            impl.chunk_steps(ops, st, wf, n0, n_sub, decim, bufs)
-            n += n_sub * decim
-        probes.flush(n0)
+        aborted = False
+        while n < cfg.n_steps_max:
+            n0 = n
+            if T_stream:
+                for j in range(n_sub):
+                    for _ in range(decim // T_stream):
+                        impl.stream_steps(ops, st, wf[n:n + T_stream])
+                        n += T_stream
+                    impl.probe_gather(ops, st, bufs[j])
+            else:
+                impl.chunk_steps(ops, st, wf, n0, n_sub, decim, bufs)
+                n += n_sub * decim
+            probes.flush(n0)
 
-        # energy-decay check over the current E
-        energy = sum((e * e).sum() for e in st.e[st.parity])
-        e_max = torch.maximum(e_max, energy)
-        r = torch.where(e_max > 0, energy / e_max, torch.ones((), **f32))
-        ratio = float(r)  # the one host sync of the chunk
-        if ratio < end and n > sim.n_source_steps:
-            break
-        if progress_cb is not None:
-            try:
-                progress_cb(n, int(cfg.n_steps_max), ratio)
+            # energy-decay check over the current E
+            energy = sum((e * e).sum() for e in st.e[st.parity])
+            e_max = torch.maximum(e_max, energy)
+            r = torch.where(e_max > 0, energy / e_max, torch.ones((), **f32))
+            with span("fdtd.run.sync"):
+                ratio = float(r)  # the one host sync of the chunk
+            if ratio < end and n > sim.n_source_steps:
+                break
+            if progress_cb is not None:
+                try:
+                    progress_cb(n, int(cfg.n_steps_max), ratio)
+                except Exception:
+                    pass  # a broken UI callback must not kill the run
+            if abort_cb is not None and abort_cb():
+                aborted = True
+                break
+
+        if progress_cb is not None and not aborted:
+            try:  # the final 100% tick
+                progress_cb(n, n, ratio)
             except Exception:
-                pass  # a broken UI callback must not kill the run
-        if abort_cb is not None and abort_cb():
-            aborted = True
-            break
-
-    if progress_cb is not None and not aborted:
-        try:  # the final 100% tick
-            progress_cb(n, n, ratio)
-        except Exception:
-            pass
-    return _assemble_output(sim, st, acc, n, e_max, ratio, decim, aborted)
+                pass
+        with span("fdtd.run.sync"):  # the output's host reads
+            return _assemble_output(sim, st, acc, n, e_max, ratio, decim,
+                                    aborted)
 
 
 def _assemble_output(sim, st, acc, n, e_max, ratio, decim, aborted) -> dict:
@@ -1361,54 +1376,60 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
     if T_stream and decim % T_stream:
         raise ValueError(f"probe decimation {decim} is not a multiple of "
                          f"stream_T={T_stream}")
-    f32 = dict(dtype=torch.float32, device=dev)
+    with span("fdtd.run") as run_span:
+        f32 = dict(dtype=torch.float32, device=dev)
 
-    st = fdtd_cuda.new_batch_state(sim.padded_shape, dev, ops.pml is not None, B)
-    probes = ProbeDFT(sim, n_sub, dev, batch=B)
-    wf = padded_waveform(sim)
-    if not T_stream:  # chunk_steps_batch reads the samples on the device
-        wf = torch.tensor(wf, **f32)
-    e_max = torch.zeros(B, **f32)
-    ratio = torch.ones(B, **f32)
-    active = [True] * B
-    on = torch.ones(B, dtype=torch.bool, device=dev)
-    steps = [0] * B
-    end = np.float32(cfg.end_criteria)
-    n = 0
-    while n < cfg.n_steps_max and any(active):
-        n0 = n
-        if T_stream:
-            for j in range(n_sub):
-                for _ in range(decim // T_stream):
-                    impl.stream_steps_batch(ops, st, wf[n:n + T_stream],
-                                            active)
-                    n += T_stream
-                impl.probe_gather_batch(ops, st, probes.bufs[:, j], active)
-        else:
-            impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
-                                   active)
-            n += chunk
-        probes.flush(n0, on)
-        # energy-decay check over each variant's current E: every active
-        # variant is at the same parity
-        p = st.parity[active.index(True)]
-        energy = sum((e * e).sum(dim=(1, 2, 3)) for e in st.e[p])
-        peak = torch.maximum(e_max, energy)
-        r = torch.where(peak > 0, energy / peak, torch.ones((), **f32))
-        e_max = torch.where(on, peak, e_max)
-        ratio = torch.where(on, r, ratio)
-        ratios = ratio.tolist()  # the one host sync of the chunk
-        done = [b for b in range(B) if active[b] and ratios[b] < end
-                and n > sim.n_source_steps]
-        for b in done:
-            active[b] = False
-            steps[b] = n
-        if done:
-            on = torch.tensor(active, dtype=torch.bool, device=dev)
-    for b in range(B):
-        if active[b]:
-            steps[b] = n
-    return _assemble_batch(sim, st, probes.acc, steps, e_max, ratio)
+        st = fdtd_cuda.new_batch_state(sim.padded_shape, dev, ops.pml is not None, B)
+        probes = ProbeDFT(sim, n_sub, dev, batch=B)
+        wf = padded_waveform(sim)
+        if not T_stream:  # chunk_steps_batch reads the samples on the device
+            wf = torch.tensor(wf, **f32)
+        e_max = torch.zeros(B, **f32)
+        ratio = torch.ones(B, **f32)
+        active = [True] * B
+        on = torch.ones(B, dtype=torch.bool, device=dev)
+        steps = [0] * B
+        end = np.float32(cfg.end_criteria)
+        n = 0
+        while n < cfg.n_steps_max and any(active):
+            n0 = n
+            live = sum(active)
+            run_span.add("live_variant_chunks", live)
+            run_span.add("frozen_variant_chunks", B - live)
+            if T_stream:
+                for j in range(n_sub):
+                    for _ in range(decim // T_stream):
+                        impl.stream_steps_batch(ops, st, wf[n:n + T_stream],
+                                                active)
+                        n += T_stream
+                    impl.probe_gather_batch(ops, st, probes.bufs[:, j], active)
+            else:
+                impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
+                                       active)
+                n += chunk
+            probes.flush(n0, on)
+            # energy-decay check over each variant's current E: every active
+            # variant is at the same parity
+            p = st.parity[active.index(True)]
+            energy = sum((e * e).sum(dim=(1, 2, 3)) for e in st.e[p])
+            peak = torch.maximum(e_max, energy)
+            r = torch.where(peak > 0, energy / peak, torch.ones((), **f32))
+            e_max = torch.where(on, peak, e_max)
+            ratio = torch.where(on, r, ratio)
+            with span("fdtd.run.sync"):
+                ratios = ratio.tolist()  # the one host sync of the chunk
+            done = [b for b in range(B) if active[b] and ratios[b] < end
+                    and n > sim.n_source_steps]
+            for b in done:
+                active[b] = False
+                steps[b] = n
+            if done:
+                on = torch.tensor(active, dtype=torch.bool, device=dev)
+        for b in range(B):
+            if active[b]:
+                steps[b] = n
+        with span("fdtd.run.sync"):  # the output's host reads
+            return _assemble_batch(sim, st, probes.acc, steps, e_max, ratio)
 
 
 def _assemble_batch(sim, st, acc, steps, e_max, ratio) -> dict:

@@ -156,6 +156,11 @@ class ProbeTable:
                    w=torch.from_numpy(np.concatenate(ws)).to(device),
                    rows=tuple(rows), k=tuple(ks))
 
+    def to(self, device) -> "ProbeTable":
+        """The same table on ``device``."""
+        return ProbeTable(code=self.code.to(device), w=self.w.to(device),
+                          rows=self.rows, k=self.k)
+
     @classmethod
     def empty(cls, device="cpu") -> "ProbeTable":
         """No probe rows."""

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..physics import C0, ETA0
+from ..utils.tracing import traced
 
 # Cap on P·A_chunk elements per intermediate (~256 MB of f32); larger
 # angle grids are processed in chunks of rhat.
@@ -230,6 +231,7 @@ def _assemble_far_field(N, L, k_rows, rhat, trig, centers, P_rad, nth, nph):
     return E_theta, E_phi, E_norm, directivity, Dmax
 
 
+@traced("fdtd.post.nf2ff")
 def nf2ff_transform(
     faces: Sequence,
     nf_e: Sequence[np.ndarray],
@@ -285,6 +287,7 @@ def nf2ff_transform(
     )
 
 
+@traced("fdtd.post.nf2ff")
 def nf2ff_transform_batch(
     faces: Sequence,
     nf_e_batched: Sequence,

@@ -37,6 +37,7 @@ from ..ops.source import source_active_steps
 from ..physics import C0, design_patch_for_frequency, substrate_conductivity
 from ..post.nf2ff import nf2ff_transform, select_face_freqs
 from ..post.ports import find_resonance, port_spectra
+from ..utils import tracing
 from .base import FDTDSolverResult, SolverPrepared, radiation_efficiency
 from .horn import horn_local_geometry
 from .microstrip import FeedDirection, calculate_microstrip_width
@@ -153,6 +154,7 @@ def _port_on_axis(p0, p1, axis):
     return lo, hi, span, pol
 
 
+@tracing.traced("fdtd.prepare")
 def prepare_multi_patch_3d(
     patches: Sequence[PatchLike],
     *,
@@ -187,178 +189,180 @@ def prepare_multi_patch_3d(
             if verbose:
                 print(msg)
 
-        freqs = [
-            float(inst.params.frequency_hz)
-            for inst in list(patches) + list(horns)
-        ]
-        f_lo, f_hi = min(freqs), max(freqs)
-        if f_lo == f_hi:
-            f0 = f_hi
-            fc = f0 / 2.0
-        else:
-            # mixed-frequency scene: the excitation band and the analysis
-            # sweep cover every instance
-            f0 = 0.5 * (0.7 * f_lo + 1.3 * f_hi)
-            fc = max(0.5 * (1.3 * f_hi - 0.7 * f_lo), f0 / 2.0)
-        q = max(1, min(10, int(mesh_quality)))
-        ppw = PPW_MAP_10.get(q, 20.0)
-        mesh_res = C0 / (f0 + fc) / 1e-3 / ppw
-
-        scene = Scene()
-        mb = MeshBuilder()
-        centers = []
-        port_axes = []
-        top_metal_aabbs = []  # (instance, name, world lo, world hi)
-        for idx, inst in enumerate(patches):
-            boxes, port_line, dims = _instance_local_geometry(
-                inst, feed_line_length_mm, element_margin_mm
-            )
-            R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
-            rotated = not np.allclose(R, np.eye(3), atol=1e-9)
-            T = np.array(
-                [inst.center_x_m, inst.center_y_m, inst.center_z_m]
-            ) * 1e3  # mm
-            centers.append(T)
-            kw = dict(rotation=R if rotated else None, translation=tuple(T))
-
-            kappa = substrate_conductivity(
-                inst.params.frequency_hz, inst.params.eps_r,
-                inst.params.loss_tangent,
-            )
-            scene.add_material_box(
-                f"substrate_{idx}", inst.params.eps_r, kappa, *boxes["substrate"],
-                priority=0, **kw,
-            )
-            scene.add_metal_box(f"ground_{idx}", *boxes["ground"], priority=10, **kw)
-            b_patch = scene.add_metal_box(
-                f"patch_{idx}", *boxes["patch"], priority=10, **kw)
-            b_feed = scene.add_metal_box(
-                f"feed_{idx}", *boxes["feed"], priority=10, **kw)
-            for b in (b_patch, b_feed):
-                c = b.world_corners()
-                top_metal_aabbs.append(
-                    (idx, b.prop.name, c.min(axis=0), c.max(axis=0)))
-
-            # port along the rotated substrate normal's dominant axis
-            p0 = port_line[0] @ R.T + T
-            p1 = port_line[1] @ R.T + T
-            axis = int(np.argmax(np.abs(R @ np.array([0.0, 0.0, 1.0]))))
-            port_axes.append(axis)
-            lo, hi, span, pol = _port_on_axis(p0, p1, axis)
-            scene.add_lumped_port(
-                idx + 1, 50.0, lo, hi, direction="xyz"[axis], excite=pol
-            )
-            mid = 0.5 * (lo + hi)
-            _log(
-                f"port {idx + 1}: axis {'xyz'[axis]}, span {span:.3f} mm, "
-                f"center ({mid[0]:.1f}, {mid[1]:.1f}, {mid[2]:.1f}) mm"
-            )
-
-            if not rotated:
-                mb.add_metal_edges(
-                    [b + t for b, t in zip(boxes["patch"][0], T)],
-                    [b + t for b, t in zip(boxes["patch"][1], T)],
-                    dirs="xy", metal_edge_res=mesh_res / 2,
-                )
-                mb.add_metal_edges(
-                    [b + t for b, t in zip(boxes["ground"][0], T)],
-                    [b + t for b, t in zip(boxes["ground"][1], T)], dirs="xy",
-                )
-                mb.add_metal_edges(
-                    [b + t for b, t in zip(boxes["feed"][0], T)],
-                    [b + t for b, t in zip(boxes["feed"][1], T)],
-                    dirs="xy", metal_edge_res=mesh_res / 2,
-                )
-                mb.add_line("z", np.linspace(T[2], T[2] + dims["h"], 5))
-                mb.add_line("x", [lo[0]])
-                mb.add_line("y", [lo[1]])
+        with tracing.span("fdtd.prepare.scene"):  # the scene and its mesh
+            freqs = [
+                float(inst.params.frequency_hz)
+                for inst in list(patches) + list(horns)
+            ]
+            f_lo, f_hi = min(freqs), max(freqs)
+            if f_lo == f_hi:
+                f0 = f_hi
+                fc = f0 / 2.0
             else:
-                sub_box = Box(
-                    None, boxes["substrate"][0], boxes["substrate"][1],
-                    rotation=R, translation=tuple(T),
-                )
-                _densify_rotated(mb, sub_box, mesh_res, axis, lo, hi)
+                # mixed-frequency scene: the excitation band and the analysis
+                # sweep cover every instance
+                f0 = 0.5 * (0.7 * f_lo + 1.3 * f_hi)
+                fc = max(0.5 * (1.3 * f_hi - 0.7 * f_lo), f0 / 2.0)
+            q = max(1, min(10, int(mesh_quality)))
+            ppw = PPW_MAP_10.get(q, 20.0)
+            mesh_res = C0 / (f0 + fc) / 1e-3 / ppw
 
-        # cross-instance top-metal overlap: a galvanic short between
-        # elements reads as absurd coupling, not a failure, so say so
-        # (AABB test: exact for unrotated instances, conservative else)
-        for ii in range(len(top_metal_aabbs)):
-            for jj in range(ii + 1, len(top_metal_aabbs)):
-                ia, na, lo_a, hi_a = top_metal_aabbs[ii]
-                ib, nb, lo_b, hi_b = top_metal_aabbs[jj]
-                if ia == ib:
-                    continue
-                if np.all(hi_a >= lo_b - 1e-9) and np.all(hi_b >= lo_a - 1e-9):
-                    _log(
-                        f"WARNING: metal '{na}' (instance {ia}) overlaps "
-                        f"'{nb}' (instance {ib}) — the elements are "
-                        f"galvanically connected; increase spacing or "
-                        f"shrink element_margin_mm/feed_line_length_mm"
+            scene = Scene()
+            mb = MeshBuilder()
+            centers = []
+            port_axes = []
+            top_metal_aabbs = []  # (instance, name, world lo, world hi)
+            for idx, inst in enumerate(patches):
+                boxes, port_line, dims = _instance_local_geometry(
+                    inst, feed_line_length_mm, element_margin_mm
+                )
+                R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
+                rotated = not np.allclose(R, np.eye(3), atol=1e-9)
+                T = np.array(
+                    [inst.center_x_m, inst.center_y_m, inst.center_z_m]
+                ) * 1e3  # mm
+                centers.append(T)
+                kw = dict(rotation=R if rotated else None, translation=tuple(T))
+
+                kappa = substrate_conductivity(
+                    inst.params.frequency_hz, inst.params.eps_r,
+                    inst.params.loss_tangent,
+                )
+                scene.add_material_box(
+                    f"substrate_{idx}", inst.params.eps_r, kappa, *boxes["substrate"],
+                    priority=0, **kw,
+                )
+                scene.add_metal_box(f"ground_{idx}", *boxes["ground"],
+                                    priority=10, **kw)
+                b_patch = scene.add_metal_box(
+                    f"patch_{idx}", *boxes["patch"], priority=10, **kw)
+                b_feed = scene.add_metal_box(
+                    f"feed_{idx}", *boxes["feed"], priority=10, **kw)
+                for b in (b_patch, b_feed):
+                    c = b.world_corners()
+                    top_metal_aabbs.append(
+                        (idx, b.prop.name, c.min(axis=0), c.max(axis=0)))
+
+                # port along the rotated substrate normal's dominant axis
+                p0 = port_line[0] @ R.T + T
+                p1 = port_line[1] @ R.T + T
+                axis = int(np.argmax(np.abs(R @ np.array([0.0, 0.0, 1.0]))))
+                port_axes.append(axis)
+                lo, hi, span, pol = _port_on_axis(p0, p1, axis)
+                scene.add_lumped_port(
+                    idx + 1, 50.0, lo, hi, direction="xyz"[axis], excite=pol
+                )
+                mid = 0.5 * (lo + hi)
+                _log(
+                    f"port {idx + 1}: axis {'xyz'[axis]}, span {span:.3f} mm, "
+                    f"center ({mid[0]:.1f}, {mid[1]:.1f}, {mid[2]:.1f}) mm"
+                )
+
+                if not rotated:
+                    mb.add_metal_edges(
+                        [b + t for b, t in zip(boxes["patch"][0], T)],
+                        [b + t for b, t in zip(boxes["patch"][1], T)],
+                        dirs="xy", metal_edge_res=mesh_res / 2,
+                    )
+                    mb.add_metal_edges(
+                        [b + t for b, t in zip(boxes["ground"][0], T)],
+                        [b + t for b, t in zip(boxes["ground"][1], T)], dirs="xy",
+                    )
+                    mb.add_metal_edges(
+                        [b + t for b, t in zip(boxes["feed"][0], T)],
+                        [b + t for b, t in zip(boxes["feed"][1], T)],
+                        dirs="xy", metal_edge_res=mesh_res / 2,
+                    )
+                    mb.add_line("z", np.linspace(T[2], T[2] + dims["h"], 5))
+                    mb.add_line("x", [lo[0]])
+                    mb.add_line("y", [lo[1]])
+                else:
+                    sub_box = Box(
+                        None, boxes["substrate"][0], boxes["substrate"][1],
+                        rotation=R, translation=tuple(T),
+                    )
+                    _densify_rotated(mb, sub_box, mesh_res, axis, lo, hi)
+
+            # cross-instance top-metal overlap: a galvanic short between
+            # elements reads as absurd coupling, not a failure, so say so
+            # (AABB test: exact for unrotated instances, conservative else)
+            for ii in range(len(top_metal_aabbs)):
+                for jj in range(ii + 1, len(top_metal_aabbs)):
+                    ia, na, lo_a, hi_a = top_metal_aabbs[ii]
+                    ib, nb, lo_b, hi_b = top_metal_aabbs[jj]
+                    if ia == ib:
+                        continue
+                    if np.all(hi_a >= lo_b - 1e-9) and np.all(hi_b >= lo_a - 1e-9):
+                        _log(
+                            f"WARNING: metal '{na}' (instance {ia}) overlaps "
+                            f"'{nb}' (instance {ib}) — the elements are "
+                            f"galvanically connected; increase spacing or "
+                            f"shrink element_margin_mm/feed_line_length_mm"
+                        )
+
+            for hidx, inst in enumerate(horns):
+                geo = horn_local_geometry(inst.params, mesh_res)
+                R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
+                rotated = not np.allclose(R, np.eye(3), atol=1e-9)
+                T = np.array(
+                    [inst.center_x_m, inst.center_y_m, inst.center_z_m]
+                ) * 1e3  # mm
+                centers.append(T)
+                kw = dict(rotation=R if rotated else None, translation=tuple(T))
+
+                for bi, (blo, bhi) in enumerate(geo["boxes"]):
+                    scene.add_metal_box(f"horn{hidx}_wg_{bi}", blo, bhi,
+                                        priority=10, **kw)
+                pec = PEC(f"horn{hidx}_flare")
+                for quad in geo["quads"]:
+                    # plates take world-frame corners directly
+                    scene.add_polyhedron(
+                        make_plate(quad @ R.T + T, geo["t"], pec, priority=10)
                     )
 
-        for hidx, inst in enumerate(horns):
-            geo = horn_local_geometry(inst.params, mesh_res)
-            R = rotation_matrix(inst.rot_x_deg, inst.rot_y_deg, inst.rot_z_deg)
-            rotated = not np.allclose(R, np.eye(3), atol=1e-9)
-            T = np.array(
-                [inst.center_x_m, inst.center_y_m, inst.center_z_m]
-            ) * 1e3  # mm
-            centers.append(T)
-            kw = dict(rotation=R if rotated else None, translation=tuple(T))
-
-            for bi, (blo, bhi) in enumerate(geo["boxes"]):
-                scene.add_metal_box(f"horn{hidx}_wg_{bi}", blo, bhi,
-                                    priority=10, **kw)
-            pec = PEC(f"horn{hidx}_flare")
-            for quad in geo["quads"]:
-                # plates take world-frame corners directly
-                scene.add_polyhedron(
-                    make_plate(quad @ R.T + T, geo["t"], pec, priority=10)
+                # feed port along the rotated guide-height (local y) direction
+                p0 = geo["port_line"][0] @ R.T + T
+                p1 = geo["port_line"][1] @ R.T + T
+                axis = int(np.argmax(np.abs(R @ np.array([0.0, 1.0, 0.0]))))
+                port_axes.append(axis)
+                lo, hi, span, pol = _port_on_axis(p0, p1, axis)
+                port_id = len(patches) + hidx + 1
+                scene.add_lumped_port(
+                    port_id, 50.0, lo, hi, direction="xyz"[axis], excite=pol
+                )
+                mid = 0.5 * (lo + hi)
+                _log(
+                    f"port {port_id} (horn): axis {'xyz'[axis]}, "
+                    f"span {span:.3f} mm, "
+                    f"center ({mid[0]:.1f}, {mid[1]:.1f}, {mid[2]:.1f}) mm"
                 )
 
-            # feed port along the rotated guide-height (local y) direction
-            p0 = geo["port_line"][0] @ R.T + T
-            p1 = geo["port_line"][1] @ R.T + T
-            axis = int(np.argmax(np.abs(R @ np.array([0.0, 1.0, 0.0]))))
-            port_axes.append(axis)
-            lo, hi, span, pol = _port_on_axis(p0, p1, axis)
-            port_id = len(patches) + hidx + 1
-            scene.add_lumped_port(
-                port_id, 50.0, lo, hi, direction="xyz"[axis], excite=pol
-            )
-            mid = 0.5 * (lo + hi)
-            _log(
-                f"port {port_id} (horn): axis {'xyz'[axis]}, "
-                f"span {span:.3f} mm, "
-                f"center ({mid[0]:.1f}, {mid[1]:.1f}, {mid[2]:.1f}) mm"
-            )
+                if not rotated:
+                    for nm, vals in geo["mesh_lines"].items():
+                        off = T["xyz".index(nm)]
+                        mb.add_line(nm, [v + off for v in vals])
+                else:
+                    ext = max(geo["A"], geo["B"]) / 2
+                    hull = Box(
+                        None,
+                        [-ext, -ext, -geo["L_wg"] - geo["t"]],
+                        [ext, ext, geo["L"]],
+                        rotation=R, translation=tuple(T),
+                    )
+                    _densify_rotated(mb, hull, mesh_res, axis, lo, hi)
 
-            if not rotated:
-                for nm, vals in geo["mesh_lines"].items():
-                    off = T["xyz".index(nm)]
-                    mb.add_line(nm, [v + off for v in vals])
+            # simulation box
+            lo_b, hi_b = scene.world_bounds()
+            if simbox_mode == "manual" and manual_size_mm is not None:
+                c = 0.5 * (lo_b + hi_b)
+                half = np.asarray(manual_size_mm, float) / 2
+                box_lo, box_hi = c - half, c + half
             else:
-                ext = max(geo["A"], geo["B"]) / 2
-                hull = Box(
-                    None,
-                    [-ext, -ext, -geo["L_wg"] - geo["t"]],
-                    [ext, ext, geo["L"]],
-                    rotation=R, translation=tuple(T),
-                )
-                _densify_rotated(mb, hull, mesh_res, axis, lo, hi)
-
-        # simulation box
-        lo_b, hi_b = scene.world_bounds()
-        if simbox_mode == "manual" and manual_size_mm is not None:
-            c = 0.5 * (lo_b + hi_b)
-            half = np.asarray(manual_size_mm, float) / 2
-            box_lo, box_hi = c - half, c + half
-        else:
-            m = np.asarray(auto_margin_mm, float) / 2
-            box_lo, box_hi = lo_b - m, hi_b + m
-        for a, nm in enumerate("xyz"):
-            mb.add_line(nm, [box_lo[a], box_hi[a]])
-        grid = mb.build(mesh_res, ratio=1.4)
+                m = np.asarray(auto_margin_mm, float) / 2
+                box_lo, box_hi = lo_b - m, hi_b + m
+            for a, nm in enumerate("xyz"):
+                mb.add_line(nm, [box_lo[a], box_hi[a]])
+            grid = mb.build(mesh_res, ratio=1.4)
 
         # timestep budget, from the exact dt
         nr_ts = NRTS_MAP.get(q, 30_000)

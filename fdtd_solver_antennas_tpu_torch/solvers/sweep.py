@@ -53,6 +53,7 @@ from ..ops.voxelize import _edge_axes, _inflated_bounds
 from ..physics import C0, design_patch_for_frequency, substrate_conductivity
 from ..post.nf2ff import nf2ff_transform_batch
 from ..post.ports import PortSpectra, find_resonance, port_spectra
+from ..utils.tracing import span, traced
 from .horn import horn_local_geometry
 
 _COMPS = ("ex", "ey", "ez")
@@ -161,28 +162,32 @@ def _batched_coeffs_delta(variants, grid, feed_pos_mm, f0, fc, cfg,
     ports, probes, waveform and faces; ``batched`` the ``ca_*``/``cb_*``
     tensors.
     """
-    naked = _variant_scene(variants[0], feed_pos_mm)
-    naked.boxes = [b for b in naked.boxes if b.prop.name != "patch"]
+    with span("fdtd.prepare.scene"):
+        naked = _variant_scene(variants[0], feed_pos_mm)
+        naked.boxes = [b for b in naked.boxes if b.prop.name != "patch"]
     sim = build_simulation(
         naked, grid, f0=f0, fc=fc, cfg=cfg, device=device,
         port_freqs_hz=port_freqs, nf_freqs_hz=nf_freqs,
     )
     pshape = sim.padded_shape
     h = variants[0].h_m * 1e3
-    zero = torch.zeros((), dtype=torch.float32, device=sim.device)
     batched = {}
-    for comp in _COMPS:
-        per_axis = [
-            _patch_axis_masks(comp, grid, pshape, *_patch_dims_mm(v), h)
-            for v in variants
-        ]
-        mx, my, mz = (
-            torch.from_numpy(np.stack([pa[a] for pa in per_axis])).to(sim.device)
-            for a in range(3)
-        )
-        m = mx[:, :, None, None] & my[:, None, :, None] & mz[:, None, None, :]
-        for pre in ("ca_", "cb_"):
-            batched[pre + comp] = torch.where(m, zero, sim.coeffs[pre + comp][None])
+    with span("fdtd.prepare.coeffs"):  # the masks; their uploads nest inside
+        zero = torch.zeros((), dtype=torch.float32, device=sim.device)
+        for comp in _COMPS:
+            per_axis = [
+                _patch_axis_masks(comp, grid, pshape, *_patch_dims_mm(v), h)
+                for v in variants
+            ]
+            with span("fdtd.prepare.upload"):
+                mx, my, mz = (
+                    torch.from_numpy(np.stack([pa[a] for pa in per_axis]))
+                    .to(sim.device) for a in range(3)
+                )
+            m = mx[:, :, None, None] & my[:, None, :, None] & mz[:, None, None, :]
+            for pre in ("ca_", "cb_"):
+                batched[pre + comp] = torch.where(
+                    m, zero, sim.coeffs[pre + comp][None])
     return sim, batched
 
 
@@ -190,6 +195,7 @@ def _stack_coeffs(sims) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([s.coeffs[k] for s in sims]) for k in sims[0].coeffs}
 
 
+@traced("fdtd.prepare")
 def prepare_patch_geometry_sweep(
     variants: Sequence[PatchAntennaParams],
     *,
@@ -226,21 +232,22 @@ def prepare_patch_geometry_sweep(
         mesh_res = C0 / (f0 + fc) / 1e-3 / 20.0
 
         # union mesh: every variant's metal edges refine the shared grid
-        mb = MeshBuilder()
-        mb.add_line("x", [-100.0, 100.0])
-        mb.add_line("y", [-100.0, 100.0])
-        mb.add_line("z", [-50.0, 100.0])
-        mb.add_line("z", np.linspace(0.0, h, 5))
-        mb.add_line("x", [feed_pos_mm])
-        mb.add_line("y", [0.0])
-        mb.add_metal_edges([-30, -30, 0], [30, 30, 0], dirs="xy")
-        for v in variants:
-            W, L = _patch_dims_mm(v)
-            mb.add_metal_edges(
-                [-W / 2, -L / 2, h], [W / 2, L / 2, h], dirs="xy",
-                metal_edge_res=mesh_res / 2,
-            )
-        grid = mb.build(mesh_res, ratio=1.4)
+        with span("fdtd.prepare.scene"):
+            mb = MeshBuilder()
+            mb.add_line("x", [-100.0, 100.0])
+            mb.add_line("y", [-100.0, 100.0])
+            mb.add_line("z", [-50.0, 100.0])
+            mb.add_line("z", np.linspace(0.0, h, 5))
+            mb.add_line("x", [feed_pos_mm])
+            mb.add_line("y", [0.0])
+            mb.add_metal_edges([-30, -30, 0], [30, 30, 0], dirs="xy")
+            for v in variants:
+                W, L = _patch_dims_mm(v)
+                mb.add_metal_edges(
+                    [-W / 2, -L / 2, h], [W / 2, L / 2, h], dirs="xy",
+                    metal_edge_res=mesh_res / 2,
+                )
+            grid = mb.build(mesh_res, ratio=1.4)
 
         cfg = FDTDConfig(
             n_steps_max=n_steps_max, end_criteria=end_criteria,

@@ -2,7 +2,7 @@
 ``fdtd_solver_antennas_tpu/utils``)."""
 
 from .profiling import CellRateReport, cell_rate, timed
-from .tracing import StepTimer, summarize_trace, trace
+from .tracing import TraceSummary, records, span, summarize_trace, trace
 
 __all__ = [
     "CellRateReport",
@@ -10,5 +10,7 @@ __all__ = [
     "timed",
     "trace",
     "summarize_trace",
-    "StepTimer",
+    "TraceSummary",
+    "span",
+    "records",
 ]

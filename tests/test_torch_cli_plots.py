@@ -198,25 +198,68 @@ def test_ensure_backend_never_falls_back():
 
 def test_trace_and_summary(tmp_path):
     """``utils.tracing.trace`` writes a Chrome trace of the block;
-    ``summarize_trace`` reads the newest and sums its complete events by
-    name, as the JAX helper does."""
+    ``summarize_trace`` reads the newest: device events only (none on the
+    CPU), and the device's idle gaps cut where a port span opens or
+    closes, each piece labelled with the innermost port span open on the
+    host over it (a hand-built trace)."""
     from fdtd_solver_antennas_tpu_torch.utils import (
-        StepTimer, cell_rate, summarize_trace, timed, trace)
+        cell_rate, summarize_trace, timed, trace)
+    from fdtd_solver_antennas_tpu_torch.utils.tracing import span
 
     a = torch.ones(64, 64)
     with trace(str(tmp_path)) as d:
-        for _ in range(3):
-            a = torch.mm(a, a) / 64
+        with span("fdtd.run"):
+            for _ in range(3):
+                a = torch.mm(a, a) / 64
     assert d == str(tmp_path)
     files = list(tmp_path.glob("*.json"))
     assert len(files) == 1
-    top = summarize_trace(str(tmp_path), top=50)
-    names = [n for n, _, _ in top]
-    assert "aten::mm" in names
-    mm = top[names.index("aten::mm")]
-    assert mm[2] == 3 and mm[1] > 0
-    assert [t for _, t, _ in top] == sorted((t for _, t, _ in top),
-                                            reverse=True)
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(e.get("name") == "fdtd.run"
+               and e.get("cat") == "user_annotation" for e in events)
+    got = summarize_trace(str(tmp_path), top=50)
+    if not torch.cuda.is_available():
+        assert got.device == [] and got.gaps == []
+
+    def x(name, cat, ts, dur):
+        return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+
+    hand = tmp_path / "hand"
+    hand.mkdir()
+    (hand / "trace.json").write_text(json.dumps({"traceEvents": [
+        x("fdtd.prepare", "user_annotation", 0, 100),
+        x("fdtd.prepare.voxelize", "user_annotation", 0, 60),
+        x("fdtd.prepare.upload", "user_annotation", 70, 20),
+        x("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 75, 10),
+        x("fdtd.run", "user_annotation", 100, 100),
+        x("fdtd.run.sync", "user_annotation", 150, 50),
+        x("march_kernel", "kernel", 105, 40),
+        x("march_kernel", "kernel", 150, 10),
+        x("march_kernel", "kernel", 165, 15),
+        x("fdtd.run", "gpu_user_annotation", 105, 75),  # a mirror: ignored
+        x("aten::mm", "cpu_op", 0, 300),  # a host op: ignored
+        x("march_kernel", "kernel", 220, 10),
+        x("Memset (Device)", "gpu_memset", 180, 2),
+    ]}))
+    got = summarize_trace(str(hand), top=5)
+    assert [(n, c) for n, _, c in got.device] == [
+        ("march_kernel", 4), ("Memcpy HtoD (Pageable -> Device)", 1),
+        ("Memset (Device)", 1)]
+    assert [t for _, t, _ in got.device] == pytest.approx([75e-6, 10e-6, 2e-6])
+    # busy [75, 85], [105, 145], [150, 160], [165, 182], [220, 230] over
+    # [0, 230]; the gaps [0, 75], [85, 105], [145, 150], [160, 165] and
+    # [182, 220], cut at 60, 70, 90, 100 and 200
+    assert got.gaps[:3] == [("fdtd.prepare.voxelize", pytest.approx(60e-6)),
+                            ("between spans", pytest.approx(20e-6)),
+                            ("fdtd.run.sync", pytest.approx(18e-6))]
+    assert [g[1] for g in got.gaps] == pytest.approx(
+        [60e-6, 20e-6, 18e-6, 10e-6, 10e-6] + [5e-6] * 5)
+    idle = got.idle_by_label()
+    assert idle == pytest.approx({
+        "fdtd.prepare.voxelize": 60e-6, "fdtd.prepare": 20e-6,
+        "fdtd.prepare.upload": 10e-6, "fdtd.run": 10e-6,
+        "fdtd.run.sync": 23e-6, "between spans": 20e-6})
     with pytest.raises(FileNotFoundError):
         summarize_trace(str(tmp_path / "empty"))
     rep = cell_rate(1000, 10, 0.5)
@@ -224,9 +267,6 @@ def test_trace_and_summary(tmp_path):
     with timed() as box:
         pass
     assert box["wall_time_s"] >= 0
-    t = StepTimer(1000)
-    t.tick(5)
-    assert t.mcells_per_s > 0
 
 
 def test_launch_gui_reports_missing_card(capsys):
