@@ -10,7 +10,8 @@ and the script exits non-zero without printing a result:
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: compile ``csrc/fdtd_chunk.cu``, ``csrc/fdtd_chunk_march.cu``,
    ``csrc/fdtd_stream.cu``,
-   ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu`` and ``csrc/roll_chain.cu``
+   ``csrc/fdtd_shard.cu``, ``csrc/fdtd_steps.cu``, ``csrc/roll_chain.cu``
+   and ``csrc/grid_build.cu``
    with nvcc for sm_90a and the voxelizer's core ``native/voxelize.cpp``
    with g++, all at once; print ptxas registers and memory;
 3. K1 vs plain: one 500-step chunk of the small test scene and of the
@@ -43,9 +44,15 @@ and the script exits non-zero without printing a result:
    through ``MultiPatchScene.simulate``, which resolves to the stream
    kernel and goes through the march, with launch counts, its wall time
    and idle share (the march's device time per launch timed on the same
-   grid); the prepare's seconds and its ``voxelize`` seconds (the native
-   core), the NumPy twin's ``voxelize`` on the same scene and grid, timed,
-   and the two bit-equal (eps_r, sigma, the three PEC masks);
+   grid); the prepare's seconds and its ``build_simulation``'s, which
+   builds the grid on the card (``ops/grid_build.py``; the run's own
+   launch counts say it did), beside the CPU's ``build_simulation`` of
+   the same scene and grid (the plain twins) and the host's reference
+   raster and coefficients (``host_coeffs``), timed, all three bit-equal
+   by a measured max |err| (every ca/cb; the port source columns and
+   stamps of the two builds); the grid build's two kernels alone at the
+   scene's shapes against their plain twins and the host, device time per
+   launch beside the bound by bytes and the twins' time;
    ``probe_gather`` on the scene's grouped probe table against its
    twin, bit for bit, its device time beside its bound, the plain twin's
    and a cuSPARSE SpMV's over the same entries, and the table's bytes on
@@ -322,6 +329,9 @@ K4_REPLACES = "fdtd_solver_antennas_tpu/ops/fdtd_pallas.py:64"
 SWEEP_STEPS = 2000  # bench.py's geometry sweep (bench_geometry_sweep)
 K5_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/roll_chain.cu"
 K5_REPLACES = "examples/chunk_roofline.py:46"
+GB_SOURCE = "fdtd_solver_antennas_tpu_torch/csrc/grid_build.cu"
+GB_REPLACES = ("none: the host's voxelize and Ca/Cb build "
+               "(ops/fdtd.py::host_coeffs)")
 # NVIDIA H100 SXM data sheet peaks (at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1006,7 +1016,8 @@ def phase_mixed_main_path(card):
     """The large-grid slice through ``MultiPatchScene.simulate``; it must
     resolve to the stream kernel and end on the energy criterion. Then
     ~2,000 steps of the same simulation, kernels against plain twins."""
-    from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.ops import (
+        fdtd_cuda, fdtd_stream, grid_build)
 
     scene = mixed_designer()
     seen = {}
@@ -1020,21 +1031,26 @@ def phase_mixed_main_path(card):
 
     scene.prepare = prepare
     logs = []
-    with voxelize_recorded() as vox:
+    with build_recorded() as built:
         fdtd_cuda.reset_launch_counts()
         fdtd_stream.reset_launch_counts()
+        grid_build.reset_launch_counts()
         res = scene.simulate(log_cb=logs.append)
         counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
                   **fdtd_stream.launches_by_kernel}
+        built_launches = dict(grid_build.launches)
     prep = seen["prep"]
     assert prep.ok, prep.message
     assert res.ok, res.message
     sim = prep.sim
     T, decim, steps = sim.stream_T, sim.probe_decim, res.steps_run
-    say("8", f"mixed scene prepared in {seen['seconds']:.1f} s on the host: "
+    say("8", f"mixed scene prepared in {seen['seconds']:.1f} s: "
              f"grid {sim.grid.shape} ({sim.grid.num_cells} cells); "
              f"{logs[-1]}")
-    voxelize_twin_check(vox, "8", seen["seconds"])
+    # the main path's build_simulation built the grid on the card
+    assert built_launches == {"paint_cells": 1, "edge_coeffs": 1}, (
+        built_launches)
+    grid = grid_build_alone(built, built_launches, "8", card)
     assert sim.pallas_mode == "stream" and T >= 2, sim.pallas_mode_reason
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
     assert counts["stream_march"] == steps // T, counts
@@ -1090,50 +1106,128 @@ def phase_mixed_main_path(card):
     say("8", f"mixed scene, {ko['steps']} steps: stream kernel == plain "
              f"(uf, if_, nf_e, nf_h, fields), max |err| {err:.3e}; kernel "
              f"{tk:.3f} s, plain {tp:.3f} s [{card}]")
-    k2["prep"], k2["f_run"] = prep, f_run
+    k2["prep"], k2["f_run"], k2["grid_build"] = prep, f_run, grid
     return sim, res, counts, k2
 
 
-class voxelize_recorded:
-    """Within the block, ``build_simulation``'s voxelize calls (the native
-    core) are timed on the host and their inputs and output kept."""
+class build_recorded:
+    """Within the block, ``multi_patch_3d``'s ``build_simulation`` calls are
+    timed on the host (to their return: the port columns' reads wait for
+    the card's build), and their scene, grid, options and result kept."""
 
     def __enter__(self):
-        from fdtd_solver_antennas_tpu_torch.ops import fdtd as engine
+        from fdtd_solver_antennas_tpu_torch.solvers import multi_patch_3d
 
-        self.engine, self.real, self.calls = engine, engine.voxelize, []
+        self.module, self.calls = multi_patch_3d, []
+        self.real = multi_patch_3d.build_simulation
 
-        def timed(scene, grid, *a, **kw):
+        def timed(scene, grid, **kw):
             t0 = time.perf_counter()
-            out = self.real(scene, grid, *a, **kw)
-            self.calls.append((scene, grid, out, time.perf_counter() - t0))
+            out = self.real(scene, grid, **kw)
+            self.calls.append((scene, grid, kw, out, time.perf_counter() - t0))
             return out
 
-        engine.voxelize = timed
+        multi_patch_3d.build_simulation = timed
         return self
 
     def __exit__(self, *exc):
-        self.engine.voxelize = self.real
+        self.module.build_simulation = self.real
         return False
 
 
-def voxelize_twin_check(vox, phase, prepare_s):
-    """The recorded voxelization against the NumPy twin on the same scene
-    and grid, bit for bit; both timed on the host."""
+def _max_err(a, b) -> float:
+    """max |a − b| of two tensors or arrays of one shape, in float64."""
+    a, b = (torch.as_tensor(v).detach().cpu().double() for v in (a, b))
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float((a - b).abs().max())
+
+
+def grid_build_alone(built, built_launches, phase, card):
+    """The recorded card build (``built_launches`` its kernel launches)
+    against the CPU's ``build_simulation`` of the same scene and grid
+    (the kernels' plain twins: every ca/cb, the port source columns and
+    stamps) and against the host's reference raster and coefficients
+    (``voxelize`` and ``host_coeffs``), max |err| measured, each timed on
+    the host; then each grid-build kernel alone at the scene's shapes
+    against its plain twin, device time per launch behind the sleep kernel
+    beside its bound by bytes (each cell's eps and sigma written once;
+    each cell's read once and each edge's Ca and Cb written once) and the
+    twin's time."""
+    from fdtd_solver_antennas_tpu_torch.ops import grid_build
+    from fdtd_solver_antennas_tpu_torch.ops.fdtd import (build_simulation,
+                                                         host_coeffs)
     from fdtd_solver_antennas_tpu_torch.ops.voxelize import voxelize
 
-    assert vox.calls, "the prepare voxelized nothing"
-    scene, grid, native, native_s = vox.calls[-1]
+    assert built.calls, "the prepare built no simulation"
+    scene, grid, kw, sim, card_s = built.calls[-1]
+    mur = sim.cfg.boundary.upper().startswith("MUR")
+    pshape = sim.padded_shape
     t0 = time.perf_counter()
-    twin = voxelize(scene, grid, native=False)
-    twin_s = time.perf_counter() - t0
-    for name in ("eps_r", "sigma", "pec_ex", "pec_ey", "pec_ez"):
-        assert np.array_equal(getattr(native, name), getattr(twin, name)), name
-    say(phase, f"voxelize on the card host: native core {native_s:.3f} s of "
-               f"the {prepare_s:.1f} s prepare, NumPy twin {twin_s:.3f} s on "
-               f"the same scene and grid {grid.shape}; eps_r, sigma, pec_ex, "
-               f"pec_ey, pec_ez bit-equal")
-    return native_s, twin_s
+    cpu = build_simulation(scene, grid, **{**kw, "device": "cpu"})
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = host_coeffs(scene, grid, sim.ports, sim.dt, mur, pshape)
+    host_s = time.perf_counter() - t0
+    assert set(sim.coeffs) == set(cpu.coeffs) == set(ref)
+    err_cpu = max(_max_err(sim.coeffs[k], cpu.coeffs[k]) for k in ref)
+    err_ref = max(_max_err(sim.coeffs[k], ref[k]) for k in ref)
+    assert err_cpu == 0.0 and err_ref == 0.0, (err_cpu, err_ref)
+    for a, b in zip(sim.ports + sim.msl_ports, cpu.ports + cpu.msl_ports,
+                    strict=True):
+        assert np.array_equal(a.src_col, b.src_col)
+    for a, b in zip(sim.operands.src, cpu.operands.src):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a.cpu(), b)
+    del cpu, ref
+    say(phase, f"build_simulation of the mixed scene: {card_s:.3f} s with "
+               f"the grid built on the card; on the CPU {cpu_s:.3f} s (the "
+               f"plain twins), the host's reference raster and coefficients "
+               f"{host_s:.3f} s (the same scene and grid); every ca/cb "
+               f"max |err| {err_cpu!r} against the CPU build, {err_ref!r} "
+               f"against the reference, the port columns and stamps "
+               f"bit-equal")
+
+    t = grid_build.pack_scene(scene, grid, sim.ports).to(sim.device)
+    cells = grid_build.paint_cells(t)
+    coeffs = grid_build.edge_coeffs(t, *cells, sim.dt, mur, pshape)
+    plain_cells = grid_build.paint_cells_plain(t)
+    plain = grid_build.edge_coeffs_plain(t, *plain_cells, sim.dt, mur, pshape)
+    vox = voxelize(scene, grid)
+    errs = {
+        "paint_cells": max(_max_err(a, b) for a, b in (
+            *zip(cells, plain_cells), (cells[0], vox.eps_r),
+            (cells[1], vox.sigma))),
+        "edge_coeffs": max(max(_max_err(coeffs[k], v),
+                               _max_err(coeffs[k], sim.coeffs[k]))
+                           for k, v in plain.items()),
+    }
+    assert errs == {"paint_cells": 0.0, "edge_coeffs": 0.0}, errs
+    del plain_cells, plain, coeffs, vox
+    n_cells = int(np.prod([n - 1 for n in t.q]))
+    n_edges = int(np.prod(pshape))
+    rows = {}
+    for name, fn, plain_fn, nbytes in (
+            ("paint_cells", lambda: grid_build.paint_cells(t),
+             lambda: grid_build.paint_cells_plain(t), 16 * n_cells),
+            ("edge_coeffs",
+             lambda: grid_build.edge_coeffs(t, *cells, sim.dt, mur, pshape),
+             lambda: grid_build.edge_coeffs_plain(t, *cells, sim.dt, mur,
+                                                  pshape),
+             16 * n_cells + 3 * 8 * n_edges)):
+        ms = device_ms(fn)
+        plain_ms = events_ms(plain_fn, reps=3, warmup=1)
+        bound_ms, by = bound(nbytes, 0.0)
+        rows[name] = dict(launches=built_launches[name],
+                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+        say(phase, f"{name} alone on the mixed grid ({t.n_mat} materials, "
+                   f"{t.n_pec} PEC, {t.n_sheet} sheets, {t.n_fold} ports): "
+                   f"{ms * 1e3:.1f} us a launch [bound {bound_ms * 1e3:.1f} us "
+                   f"by {nbytes / 1e6:.1f} MB], plain twin "
+                   f"{plain_ms * 1e3:.1f} us; max |err| {errs[name]!r} "
+                   f"against the twin and the host [{card}]")
+    rows["card_s"], rows["cpu_s"], rows["host_s"] = card_s, cpu_s, host_s
+    return rows
 
 
 def k1_launch_alone(sim, phase, card, label):
@@ -5135,10 +5229,10 @@ def main() -> int:
              f"count {torch.cuda.device_count()}")
     print(card, flush=True)
 
-    # 2. build the six libraries at once
+    # 2. build the seven libraries at once
     from fdtd_solver_antennas_tpu_torch.ops import (
         _build, chunk_march, fdtd_cuda, fdtd_shard, fdtd_steps, fdtd_stream,
-        roll_chain)
+        grid_build, roll_chain)
 
     from fdtd_solver_antennas_tpu_torch.native import build as native_build
 
@@ -5149,7 +5243,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = ("fdtd_chunk", "fdtd_chunk_march", "fdtd_stream", "fdtd_shard",
-            "fdtd_steps", "roll_chain")
+            "fdtd_steps", "roll_chain", "grid_build")
     with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
         native = pool.submit(build_native)
         builds = {name: pool.submit(_build.build, name) for name in libs}
@@ -5168,6 +5262,7 @@ def main() -> int:
     fdtd_shard._library()
     fdtd_steps._library()
     roll_chain._library()
+    grid_build._library()
     say("2", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 vs plain on the card
@@ -5381,6 +5476,12 @@ def main() -> int:
          **{k: k24[name][k] for k in (*keys, "bound_ms", "bound_by")},
          "library_ms": None}
         for name in ("h_update", "e_update", "mur_faces", "e_update_mur")
+    ] + [
+        # the grid build on the card (phase 8): one launch of each a CUDA
+        # build_simulation; no PyTorch call computes the raster
+        {"name": name, "route": "cuda", "source": GB_SOURCE,
+         "replaces": GB_REPLACES, **k2["grid_build"][name]}
+        for name in ("paint_cells", "edge_coeffs")
     ]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -26,11 +26,20 @@ import numpy as np
 def _rigid_to_local(pts, rotation, rotation_origin, translation):
     """World → local for the shared rigid transform (translation, then
     rotation about ``rotation_origin``); one definition keeps Box and
-    ConvexPolyhedron (and the native C++ mirror's contract) in sync."""
+    ConvexPolyhedron (and the native C++ and CUDA mirrors' contract) in
+    sync. The row-vector product ``(pts − o) @ R + o`` is summed element
+    by element, ``((q0·R0j + q1·R1j) + q2·R2j) + oj``, the order the
+    native core (``native/voxelize.cpp``) and the card's grid build
+    (``csrc/grid_build.cu``) use, so all three round alike whatever BLAS
+    the host has."""
     pts = np.asarray(pts, float) - np.asarray(translation, float)
     if rotation is not None:
         o = np.asarray(rotation_origin, float)
-        pts = (pts - o) @ np.asarray(rotation, float) + o
+        R = np.asarray(rotation, float)
+        q = pts - o
+        pts = np.stack([
+            q[..., 0] * R[0, j] + q[..., 1] * R[1, j] + q[..., 2] * R[2, j]
+            + o[j] for j in range(3)], axis=-1)
     return pts
 
 
@@ -155,9 +164,18 @@ class ConvexPolyhedron:
             pts, self.rotation, self.rotation_origin, self.translation)
 
     def contains(self, pts: np.ndarray, tol: float = 1e-9) -> np.ndarray:
+        """Boolean mask: world points inside every half-space. Each
+        n̂·x is summed element by element, ``(n0·x + n1·y) + n2·z``, as
+        the card's grid build (``csrc/grid_build.cu``) sums it, so both
+        round alike whatever BLAS the host has."""
         local = self.to_local(pts)
         n = np.asarray(self.planes, float)
-        return np.all(local @ n[:, :3].T <= n[:, 3] + tol, axis=-1)
+        lim = n[:, 3] + tol
+        inside = np.ones(local.shape[:-1], bool)
+        for p in range(len(n)):
+            inside &= (local[..., 0] * n[p, 0] + local[..., 1] * n[p, 1]
+                       + local[..., 2] * n[p, 2]) <= lim[p]
+        return inside
 
     def world_corners(self) -> np.ndarray:
         lo = np.asarray(self.bounds_lo, float)

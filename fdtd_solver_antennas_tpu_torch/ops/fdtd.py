@@ -44,7 +44,7 @@ import torch
 from ..models.scene import LumpedPortSpec, Scene
 from ..physics import C0, EPS0, ETA0, MU0
 from ..utils.tracing import span
-from . import fdtd_cuda, fdtd_stream
+from . import fdtd_cuda, fdtd_stream, grid_build
 from .fdtd_cuda import PSI_KEYS, ProbeTable, YeeOperands
 from .mesh import YeeGrid
 from .source import gaussian_excitation, source_active_steps
@@ -132,6 +132,8 @@ class PortRuntime:
     i_lengths: Tuple[float, float]
     # excite=1 basis of src_col, the column a re-excitation rescales
     src_col_unit: Optional[np.ndarray] = None
+    # the resistor's conductivity, added to the sigma of the edges ``sl``
+    sigma_p: float = 0.0
 
 
 @dataclasses.dataclass
@@ -245,7 +247,8 @@ class PreparedSimulation:
     operands: YeeOperands
     face_layout: List[Tuple[int, int, int]]  # (offset, nu, nv) per face
     n_face_slots: int  # T: E (or H) face samples per probe interval
-    _coeffs_np: Dict[str, np.ndarray] = None  # host copies of ``coeffs``
+    # host copies of ``coeffs``, made at the first read of :attr:`_coeffs_np`
+    _coeffs_host: Dict[str, np.ndarray] = None
     # host copies of (inv_p, inv_d, mur_coef, pml): the 1-D spacing
     # profiles per axis, the MUR coefficients ((x0, x1), (y0, y1), (z0, z1))
     # or None, and the CPML profiles {axis: {"node"|"half": (b, c)}} or None
@@ -260,6 +263,16 @@ class PreparedSimulation:
     @property
     def shape(self) -> Tuple[int, int, int]:
         return self.grid.shape
+
+    @property
+    def _coeffs_np(self) -> Dict[str, np.ndarray]:
+        """Host copies of ``coeffs``, copied at the first read (the
+        explicit path cuts its slabs from them; no single-card run reads
+        them)."""
+        if self._coeffs_host is None:
+            self._coeffs_host = {k: v.detach().cpu().numpy()
+                                 for k, v in self.coeffs.items()}
+        return self._coeffs_host
 
     @property
     def dft_dt(self) -> float:
@@ -436,15 +449,12 @@ def _cpml_profiles(
 # builders
 # ---------------------------------------------------------------------------
 
-def _build_port_runtime(
-    spec: LumpedPortSpec,
-    grid: YeeGrid,
-    sigma_edges: Dict[str, np.ndarray],
-) -> PortRuntime:
-    """Resolve a port spec to grid edges; folds its resistance into the
-    edge conductivity arrays (mutates ``sigma_edges``) — the Piket-May
-    lumped-element formulation: a resistor R across edges of length dl and
-    dual area A is exactly an added conductivity σ_p = L_total/(R·A)."""
+def _build_port_runtime(spec: LumpedPortSpec, grid: YeeGrid) -> PortRuntime:
+    """Resolve a port spec to grid edges. Its resistance is the edge
+    conductivity ``sigma_p`` that the coefficient build adds on the edges
+    ``sl`` — the Piket-May lumped-element formulation: a resistor R across
+    edges of length dl and dual area A is exactly an added conductivity
+    σ_p = L_total/(R·A)."""
     axis = _AXIS_OF[spec.direction]
     t_axes = [a for a in range(3) if a != axis]
     lines = [grid.x, grid.y, grid.z]
@@ -470,10 +480,7 @@ def _build_port_runtime(
     sl[t_axes[1]] = ti[1]
     sl = tuple(sl)
 
-    # fold resistor conductivity into the E-edge sigma for this component
-    comp = "e" + spec.direction
     sigma_p = dl.sum() / (spec.resistance * area)
-    sigma_edges[comp][sl] += sigma_p
 
     # current probe: H loop around the middle edge. With (a, u, v) a cyclic
     # right-handed triple, ∮H·dl over the dual face is ΔH_v·dd_v − ΔH_u·dd_u.
@@ -514,6 +521,7 @@ def _build_port_runtime(
         src_col=np.zeros_like(dl, dtype=np.float32),  # filled after cb known
         i_gather=i_gather,
         i_lengths=i_lengths,
+        sigma_p=sigma_p,
     )
 
 
@@ -761,6 +769,69 @@ def probe_blocks(gathers, n_cells: int):
             (pg_e_idx, pg_e_w), (pg_h_idx + h_off, pg_h_w)]
 
 
+def host_coeffs(scene: Scene, grid: YeeGrid, ports: List[PortRuntime],
+                dt: float, mur: bool,
+                padded_shape: Tuple[int, int, int]) -> Dict[str, np.ndarray]:
+    """The host's reference ``ca_*``/``cb_*`` (float32, ``padded_shape``,
+    zero in the pad cells), as the JAX package builds them: the raster of
+    :func:`voxelize` on the native core, the node averages of ε and σ,
+    the sheets' and the ports' added σ, then β, Ca and Cb in float64, the
+    invalid trailing slot, the outer planes tangential to each component,
+    PEC last. No simulation is built from it: :func:`build_simulation`
+    builds through ``ops/grid_build.py`` (its kernels on a card, their
+    plain twins on the CPU), and the tests and ``chip_smoke.py`` hold that
+    build to this one bit for bit."""
+    vox = voxelize(scene, grid)
+    # --- per-edge material arrays -----------------------------------------
+    sigma_edges = {
+        "ex": cell_to_edge_average(vox.sigma, "ex"),
+        "ey": cell_to_edge_average(vox.sigma, "ey"),
+        "ez": cell_to_edge_average(vox.sigma, "ez"),
+    }
+    # finite-conductivity metallization: per-edge added conductivity
+    for comp, sheet in (("ex", vox.sheet_sigma_ex),
+                        ("ey", vox.sheet_sigma_ey),
+                        ("ez", vox.sheet_sigma_ez)):
+        if sheet is not None:
+            sigma_edges[comp] = sigma_edges[comp] + sheet
+    eps_edges = {
+        c: cell_to_edge_average(vox.eps_r, c) * EPS0 for c in ("ex", "ey", "ez")
+    }
+
+    # --- ports fold their resistance into sigma ---------------------------
+    for prt in ports:
+        sigma_edges["e" + prt.spec.direction][prt.sl] += prt.sigma_p
+
+    # --- Ca/Cb per component ----------------------------------------------
+    pec = {"ex": vox.pec_ex, "ey": vox.pec_ey, "ez": vox.pec_ez}
+    coeffs_np: Dict[str, np.ndarray] = {}
+    for comp, d_axis in (("ex", 0), ("ey", 1), ("ez", 2)):
+        eps_a = eps_edges[comp]
+        sig_a = sigma_edges[comp]
+        beta = sig_a * dt / (2.0 * eps_a)
+        ca = (1.0 - beta) / (1.0 + beta)
+        cb = (dt / eps_a) / (1.0 + beta)
+        # invalid trailing slot along the component's own axis
+        sl = [slice(None)] * 3
+        sl[d_axis] = -1
+        ca[tuple(sl)] = 0.0
+        cb[tuple(sl)] = 0.0
+        # outer boundary planes tangential to this component
+        for b_axis in (a for a in range(3) if a != d_axis):
+            for idx in (0, grid.shape[b_axis] - 1):
+                slb = [slice(None)] * 3
+                slb[b_axis] = idx
+                cb[tuple(slb)] = 0.0
+                ca[tuple(slb)] = 1.0 if mur else 0.0
+        # PEC objects win last
+        ca[pec[comp]] = 0.0
+        cb[pec[comp]] = 0.0
+        coeffs_np["ca_" + comp] = ca.astype(np.float32, copy=False)
+        coeffs_np["cb_" + comp] = cb.astype(np.float32, copy=False)
+    pads = [(0, padded_shape[a] - grid.shape[a]) for a in range(3)]
+    return {k: np.pad(v, pads) for k, v in coeffs_np.items()}
+
+
 def build_simulation(
     scene: Scene,
     grid: YeeGrid,
@@ -777,6 +848,12 @@ def build_simulation(
     """Voxelize, build the coefficients and probes, and move them to
     ``device`` ('cuda' runs the kernels, 'cpu' the plain twins).
 
+    The material raster and the float32 ``ca_*``/``cb_*`` are built on
+    ``device`` from a packed table of the scene (``ops/grid_build.py``):
+    by its CUDA kernels on a card, by their plain twins on the CPU, the
+    same bits as the host's :func:`host_coeffs`. The span
+    ``fdtd.prepare.voxelize`` counts ``on_device``, 1 on a card, else 0.
+
     ``nf_margin_cells`` is the gap between the outer wall (or the CPML
     slab, plus 3) and the Huygens box. ``pad_multiple`` zero-pads every
     3-D array so each axis is a multiple of the given value; pad cells
@@ -787,69 +864,36 @@ def build_simulation(
     dev = resolve_device(device)
     Qx, Qy, Qz = grid.shape
     dt = grid.courant_dt(cfg.courant)
+    mur = cfg.boundary.upper().startswith("MUR")
+    padded_shape = tuple(
+        int(-(-grid.shape[a] // pad_multiple[a]) * pad_multiple[a])
+        for a in range(3))
+    # the lumped ports' resistances are folds of the grid's table
+    ports = [_build_port_runtime(p, grid) for p in scene.ports]
 
-    with span("fdtd.prepare.voxelize"):
-        vox = voxelize(scene, grid)
+    with span("fdtd.prepare.voxelize") as vox_span:
+        vox_span.add("on_device", int(dev.type == "cuda"))
+        table = grid_build.pack_scene(scene, grid, ports)
+        with span("fdtd.prepare.upload"):
+            table = table.to(dev)
+        cells = grid_build.paint_cells(table)
 
-    # the host's build; the uploads nest inside as their own spans
+    # the rest of the build; the uploads nest inside as their own spans
     with span("fdtd.prepare.coeffs"):
-        # --- per-edge material arrays -------------------------------------
-        sigma_edges = {
-            "ex": cell_to_edge_average(vox.sigma, "ex"),
-            "ey": cell_to_edge_average(vox.sigma, "ey"),
-            "ez": cell_to_edge_average(vox.sigma, "ez"),
-        }
-        # finite-conductivity metallization: per-edge added conductivity
-        for comp, sheet in (("ex", vox.sheet_sigma_ex),
-                            ("ey", vox.sheet_sigma_ey),
-                            ("ez", vox.sheet_sigma_ez)):
-            if sheet is not None:
-                sigma_edges[comp] = sigma_edges[comp] + sheet
-        eps_edges = {
-            c: cell_to_edge_average(vox.eps_r, c) * EPS0 for c in ("ex", "ey", "ez")
-        }
-
-        # --- ports fold their resistance into sigma -----------------------
-        ports = [_build_port_runtime(p, grid, sigma_edges) for p in scene.ports]
+        coeffs = grid_build.edge_coeffs(table, *cells, dt, mur, padded_shape)
+        del cells
         msl_ports = [_build_msl_runtime(m, grid) for m in scene.msl_ports]
-
-        # --- Ca/Cb per component ------------------------------------------
-        pec = {"ex": vox.pec_ex, "ey": vox.pec_ey, "ez": vox.pec_ez}
-        coeffs_np: Dict[str, np.ndarray] = {}
-        mur = cfg.boundary.upper().startswith("MUR")
-        for comp, d_axis in (("ex", 0), ("ey", 1), ("ez", 2)):
-            eps_a = eps_edges[comp]
-            sig_a = sigma_edges[comp]
-            beta = sig_a * dt / (2.0 * eps_a)
-            ca = (1.0 - beta) / (1.0 + beta)
-            cb = (dt / eps_a) / (1.0 + beta)
-            # invalid trailing slot along the component's own axis
-            sl = [slice(None)] * 3
-            sl[d_axis] = -1
-            ca[tuple(sl)] = 0.0
-            cb[tuple(sl)] = 0.0
-            # outer boundary planes tangential to this component
-            for b_axis in (a for a in range(3) if a != d_axis):
-                for idx in (0, grid.shape[b_axis] - 1):
-                    slb = [slice(None)] * 3
-                    slb[b_axis] = idx
-                    cb[tuple(slb)] = 0.0
-                    ca[tuple(slb)] = 1.0 if mur else 0.0
-            # PEC objects win last
-            ca[pec[comp]] = 0.0
-            cb[pec[comp]] = 0.0
-            coeffs_np["ca_" + comp] = ca.astype(np.float32, copy=False)
-            coeffs_np["cb_" + comp] = cb.astype(np.float32, copy=False)
 
         # --- MSL excitation planes (need cb): uniform quasi-TEM profile ---
         for msl in msl_ports:
-            msl.src_col_unit = coeffs_np["cb_ez"][msl.sl].astype(np.float32)
+            msl.src_col_unit = coeffs["cb_ez"][msl.sl].cpu().numpy().astype(
+                np.float32)
             msl.src_col = (msl.src_col_unit * msl.spec.excite).astype(np.float32)
 
         # --- port source columns (need cb) --------------------------------
         dd = [grid.dual_deltas_m("xyz"[a]) for a in range(3)]
         for prt in ports:
-            cb_col = coeffs_np["cb_e" + prt.spec.direction][prt.sl]
+            cb_col = coeffs["cb_e" + prt.spec.direction][prt.sl].cpu().numpy()
             t_axes = [a for a in range(3) if a != prt.axis]
             idx_probe = prt.i_gather[0]
             area = (dd[t_axes[0]][idx_probe[t_axes[0]]]
@@ -857,14 +901,6 @@ def build_simulation(
             prt.src_col_unit = (cb_col / (prt.spec.resistance * area)).astype(
                 np.float32)
             prt.src_col = (prt.src_col_unit * prt.spec.excite).astype(np.float32)
-
-        # --- zero padding for shard divisibility ------------------------
-        padded_shape = tuple(
-            int(-(-grid.shape[a] // pad_multiple[a]) * pad_multiple[a])
-            for a in range(3))
-        if padded_shape != tuple(grid.shape):
-            pads = [(0, padded_shape[a] - grid.shape[a]) for a in range(3)]
-            coeffs_np = {k: np.pad(v, pads) for k, v in coeffs_np.items()}
 
         # --- inverse spacing vectors ---------------------------------------
         inv_p, inv_d = {}, {}
@@ -926,8 +962,6 @@ def build_simulation(
         def to_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        with span("fdtd.prepare.upload"):
-            coeffs = {k: to_dev(v) for k, v in coeffs_np.items()}
         sim = PreparedSimulation(
             grid=grid,
             dt=dt,
@@ -948,7 +982,6 @@ def build_simulation(
             operands=None,
             face_layout=[],
             n_face_slots=0,
-            _coeffs_np=coeffs_np,
             pallas_mode=mode,
             stream_T=stream_T,
             pallas_mode_reason=mode_reason,

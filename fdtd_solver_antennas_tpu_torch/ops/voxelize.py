@@ -13,8 +13,10 @@ selects it, and a core that fails to build raises. Produces:
   ground metallization — capture the edges lying in their plane),
 - per-edge added conductivity of finite-conductivity sheets.
 
-Everything here runs once on the host at prepare time; the output feeds
-the coefficient builder in ``ops.fdtd``.
+Everything here runs on the host, for the host's reference coefficients
+(``ops/fdtd.py::host_coeffs``) that the tests hold the simulations' build
+to: ``build_simulation`` rasterizes on the simulation's device
+(``ops/grid_build.py``, the same bits).
 """
 
 from __future__ import annotations
@@ -178,6 +180,20 @@ def _poly_window(poly, xs, ys, zs, pad: float = 1e-9):
     return tuple(sls)
 
 
+def sheet_normal_axis(box: Box) -> int:
+    """The world axis normal to a conductive sheet: the box's thinnest
+    local axis, for a rotated box the world axis that local axis turns
+    most onto. ``voxelize`` and the card's grid build
+    (``ops/grid_build.py::pack_scene``) both take it from here."""
+    n_axis = int(np.argmin(box.hi - box.lo))
+    if box.rotation is not None:
+        n_local = np.zeros(3)
+        n_local[n_axis] = 1.0
+        n_world = np.asarray(box.rotation, float) @ n_local
+        n_axis = int(np.argmax(np.abs(n_world)))
+    return n_axis
+
+
 def _poly_contains_windowed(poly, xs, ys, zs, out_or: np.ndarray) -> None:
     """OR the polyhedron's containment mask into ``out_or`` touching only
     the AABB window."""
@@ -339,13 +355,7 @@ def voxelize(scene: Scene, grid: YeeGrid, background_eps: float = 1.0,
             for box in sorted(
                 sheet_boxes, key=lambda b: b.priority, reverse=True
             ):
-                ext = box.hi - box.lo
-                n_axis = int(np.argmin(ext))
-                if box.rotation is not None:
-                    n_local = np.zeros(3)
-                    n_local[n_axis] = 1.0
-                    n_world = np.asarray(box.rotation, float) @ n_local
-                    n_axis = int(np.argmax(np.abs(n_world)))
+                n_axis = sheet_normal_axis(box)
                 if comp_axis[comp] == n_axis:
                     continue  # normal component carries no sheet current
                 sl = _poly_window(box, *axes, pad=_SHEET_TOL_MM)

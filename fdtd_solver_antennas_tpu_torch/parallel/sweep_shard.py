@@ -126,9 +126,8 @@ def trim_sweep_out(prepared, out):
 
 def _variant_sim(sim, coeffs, b: int):
     """``sim`` with variant ``b``'s coefficients (the explicit path cuts
-    its slabs from the host copies)."""
-    host = {k: v[b].detach().cpu().numpy() for k, v in coeffs.items()}
-    return dataclasses.replace(sim, _coeffs_np=host,
+    its slabs from their host copies, made at its first read)."""
+    return dataclasses.replace(sim, _coeffs_host=None,
                                coeffs={k: v[b] for k, v in coeffs.items()})
 
 

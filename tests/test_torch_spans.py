@@ -196,9 +196,12 @@ def test_canonical_prepare_and_run_spans(canonical):
         (r,) = by[name]
         assert r.parent == pre.index
     (coeffs,) = by["fdtd.prepare.coeffs"]
-    # the coefficients; the probe table with the spacings, stamps and walls
-    assert len(by["fdtd.prepare.upload"]) == 2
-    assert all(u.parent == coeffs.index and root_of(u, recs) == pre.index
+    (vox,) = by["fdtd.prepare.voxelize"]
+    # the scene's table, under voxelize; the probe table with the
+    # spacings, stamps and walls, under coeffs
+    assert [u.parent for u in by["fdtd.prepare.upload"]] == [
+        vox.index, coeffs.index]
+    assert all(root_of(u, recs) == pre.index
                for u in by["fdtd.prepare.upload"])
     runs = by["fdtd.run"]
     assert len(runs) == 2  # the solver's run and one more
