@@ -1196,6 +1196,32 @@ def chunk_geometry(sim: PreparedSimulation) -> Tuple[int, int, int, int]:
     return decim, n_sub, chunk, int(math.ceil(sim.cfg.n_steps_max / chunk))
 
 
+def psi_cell_updates_per_step(sim: PreparedSimulation) -> int:
+    """The CPML ψ cell-updates of one step of one variant as the run's
+    kernels plan them, 0 without CPML. In stream mode K2's march steps
+    each of the twelve ψ outside its axis's flat profile run
+    (``fdtd_stream.flat_runs``) over the padded cross-section; in chunk
+    mode K1 steps all twelve on every padded cell. Reckoned from the
+    host's profiles, with no device read."""
+    pml = sim._aux[3]
+    if pml is None:
+        return 0
+    shape = sim.padded_shape
+    cells = int(np.prod(shape))
+    if sim.pallas_mode != "stream":
+        return 2 * len(PSI_KEYS) * cells
+    runs = fdtd_stream.flat_runs({
+        key: tuple(pml[a][where][i] for a in range(3))
+        for key, where, i in (("bh", "half", 0), ("ch", "half", 1),
+                              ("be", "node", 0), ("ce", "node", 1))})
+    n = 0
+    for side in runs:
+        for ax in fdtd_stream.PSI_AXIS:
+            lo, hi = side[ax]
+            n += (shape[ax] - (hi - lo)) * (cells // shape[ax])
+    return n
+
+
 def padded_waveform(sim: PreparedSimulation) -> List[float]:
     """The source samples as Python floats, zero-padded to whole chunks
     past any start: a chunk that overruns ``n_steps_max`` injects zeros,
@@ -1247,8 +1273,9 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
     if T_stream and decim % T_stream:
         raise ValueError(f"probe decimation {decim} is not a multiple of "
                          f"stream_T={T_stream}")
-    with span("fdtd.run"):
+    with span("fdtd.run") as run_span:
         f32 = dict(dtype=torch.float32, device=dev)
+        psi_step = psi_cell_updates_per_step(sim)
 
         st = fdtd_cuda.new_state(sim.padded_shape, dev, ops.pml is not None)
         probes = ProbeDFT(sim, n_sub, dev)
@@ -1290,6 +1317,8 @@ def run_simulation(sim: PreparedSimulation, impl, resume_state=None,
             else:
                 impl.chunk_steps(ops, st, wf, n0, n_sub, decim, bufs)
                 n += n_sub * decim
+            if psi_step:
+                run_span.add("psi_cell_updates", psi_step * (n - n0))
             probes.flush(n0)
 
             # energy-decay check over the current E
@@ -1413,6 +1442,7 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
         f32 = dict(dtype=torch.float32, device=dev)
 
         st = fdtd_cuda.new_batch_state(sim.padded_shape, dev, ops.pml is not None, B)
+        psi_step = psi_cell_updates_per_step(sim)
         probes = ProbeDFT(sim, n_sub, dev, batch=B)
         wf = padded_waveform(sim)
         if not T_stream:  # chunk_steps_batch reads the samples on the device
@@ -1440,6 +1470,8 @@ def run_batched(sim: PreparedSimulation, coeffs: Dict[str, torch.Tensor],
                 impl.chunk_steps_batch(ops, st, wf, n0, n_sub, decim, probes.bufs,
                                        active)
                 n += chunk
+            if psi_step:
+                run_span.add("psi_cell_updates", psi_step * live * (n - n0))
             probes.flush(n0, on)
             # energy-decay check over each variant's current E: every active
             # variant is at the same parity

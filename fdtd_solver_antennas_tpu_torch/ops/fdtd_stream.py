@@ -201,12 +201,15 @@ def flat_runs(pml) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
     c = 0 exactly: a ψ whose derivative runs along that axis keeps its 0
     there (``ops/fdtd.py::_cpml_profiles`` gives σ = α = 0 between the
     slabs), so the march skips it (``csrc/fdtd_stream.cu``'s header).
-    ``(0, 0)`` where no index is flat."""
+    ``(0, 0)`` where no index is flat. The profiles may be device tensors
+    or host arrays."""
     out = []
     for b_key, c_key in (("bh", "ch"), ("be", "ce")):
         side = []
         for b, c in zip(pml[b_key], pml[c_key]):
-            flat = ((b == 1) & (c == 0)).cpu().numpy()
+            flat = (b == 1) & (c == 0)
+            if torch.is_tensor(flat):
+                flat = flat.cpu().numpy()
             best, lo = (0, 0), None
             for i, f in enumerate([*flat, False]):
                 if f and lo is None:

@@ -27,6 +27,7 @@ from ..ops.fdtd import FDTDConfig, build_simulation
 from ..ops.mesh import MeshBuilder
 from ..physics import C0, design_patch_for_frequency, substrate_conductivity
 from ..post.ports import msl_port_spectra
+from ..utils.tracing import span, traced
 from .base import FDTDSolverResult, SolverPrepared, SolverProbe
 from .patch_fixed import lumped_port_spectra, probe_fdtd, run_single_port
 
@@ -214,6 +215,7 @@ def microstrip_port_freqs(f0: float) -> np.ndarray:
     return np.linspace(min(max(1e8, 0.7 * f0), 0.9 * f0), f0 * 1.3, 201)
 
 
+@traced("fdtd.prepare")
 def prepare_at_mesh(
     params: PatchAntennaParams,
     mesh_res: float,
@@ -237,11 +239,12 @@ def prepare_at_mesh(
     message. Raises on failure."""
     f0 = params.frequency_hz
     feed_direction = FeedDirection(feed_direction)
-    scene, mb, info = build_microstrip_scene(
-        params, feed_direction, feed_line_length_mm, mesh_res,
-        port_mode=port_mode,
-    )
-    grid = mb.build(mesh_res, ratio=1.4)
+    with span("fdtd.prepare.scene"):  # the scene, its feed width, its mesh
+        scene, mb, info = build_microstrip_scene(
+            params, feed_direction, feed_line_length_mm, mesh_res,
+            port_mode=port_mode,
+        )
+        grid = mb.build(mesh_res, ratio=1.4)
     cfg = FDTDConfig(
         n_steps_max=n_steps_max, end_criteria=end_criteria, boundary=boundary
     )

@@ -68,14 +68,16 @@ def run_prepared_microstrip_3d(
     *,
     frequency_hz: float,
     verbose: int = 1,
+    run=None,
 ) -> FDTDSolverResult:
-    """Run + S11 + the full-sphere pattern."""
+    """Run + S11 + the full-sphere pattern. ``run`` replaces
+    ``sim.run`` (``patch_fixed.run_single_port``)."""
     try:
         if not prepared.ok or prepared.sim is None:
             return FDTDSolverResult(False, prepared.message)
         return run_single_port(
             prepared, frequency_hz=frequency_hz,
-            message="Microstrip 3D pattern computed")
+            message="Microstrip 3D pattern computed", run=run)
     except Exception as e:
         return FDTDSolverResult(False, f"Microstrip 3D run failed: {e}")
 
