@@ -986,17 +986,24 @@ def phase_stream_vs_plain(card):
                 base = random_state(sim, seed=11)
                 sk, sp = clone_state(base), clone_state(base)
                 wf = [0.37, -0.21, 0.55, 0.13][:T]
+                pml = boundary.startswith("PML")
                 fdtd_stream.reset_launch_counts()
                 fdtd_stream.stream_steps(sim.operands, sk, wf)
                 assert fdtd_stream.launches_by_kernel[route] == 1, route
+                assert fdtd_stream.cpml_staged_launches == int(pml)
                 fdtd_stream.stream_steps_plain(sim.operands, sp, wf)
                 torch.cuda.synchronize()
                 e1 = max(close(f"stream_steps {i}", a, b) for i, (a, b) in
                          enumerate(zip(fields_of(sk), fields_of(sp))))
+                if pml:  # cpml_march_kernel: bit for bit, psi included
+                    assert all(torch.equal(a, b) for a, b in
+                               zip(fields_of(sk), fields_of(sp))), T
                 fdtd_stream.reset_launch_counts()
                 ko, tk = timed_run(sim, fdtd_stream.kernels)
                 counts = dict(fdtd_stream.launches_by_kernel)
                 assert counts[route] == 480 // T == sum(counts.values()), counts
+                assert fdtd_stream.cpml_staged_launches == (
+                    counts[route] if pml else 0)
                 po, tp = timed_run(sim, fdtd_stream.plain)
                 e2 = compare_runs(ko, po, f"{label} {boundary} T={T}")
                 csim = one_chunk_sim(make, boundary, 480, "chunk", decim=48)
@@ -1468,6 +1475,7 @@ def phase_solvers_main_path(card):
     twin), the legacy solver and the quasi-2D slice (chunk mode under
     CPML: ``chunk_steps`` alone; one launch held to the twin), each to its
     energy stop and held to tests/test_solvers.py's bounds."""
+    from fdtd_solver_antennas_tpu_torch.ops import fdtd_stream
     from fdtd_solver_antennas_tpu_torch.solvers.microstrip_3d import (
         prepare_microstrip_patch_3d, run_prepared_microstrip_3d)
     from fdtd_solver_antennas_tpu_torch.solvers.patch_2d import (
@@ -1495,6 +1503,7 @@ def phase_solvers_main_path(card):
         sim = prep.sim
         assert sim.operands.pml is not None
         res, counts = counted(lambda: run(prep, frequency_hz=f0, verbose=0))
+        staged = fdtd_stream.cpml_staged_launches
         check_result(res, sphere)
         steps = res.steps_run
         assert res.diagnostics["energy_ratio"] < sim.cfg.end_criteria
@@ -1503,7 +1512,7 @@ def phase_solvers_main_path(card):
             T = sim.stream_T
             assert sim.pallas_mode == "stream", sim.pallas_mode_reason
             assert res.intensity.shape == (91, 73)
-            assert counts["stream_march"] == steps // T, counts
+            assert counts["stream_march"] == steps // T == staged, (counts, staged)
             assert counts["probe_gather"] == steps // sim.probe_decim, counts
             assert_only(counts, {"stream_steps", "stream_march",
                                  "probe_gather"}, label)
@@ -1512,7 +1521,7 @@ def phase_solvers_main_path(card):
                     + counts["probe_gather"] * row["probe_ms"]) / 1e3
             row = dict(row, launches=counts["stream_march"])
         else:
-            assert sim.pallas_mode == "chunk", sim.pallas_mode_reason
+            assert sim.pallas_mode == "chunk" and staged == 0, sim.pallas_mode_reason
             assert_only(counts, {"chunk_steps"}, label)
             row = k1_launch_alone(sim, "21", card, label)
             busy = counts["chunk_steps"] * row["ms"] / 1e3
@@ -1557,6 +1566,7 @@ def phase_mixed_pml_main_path(card):
     res = scene.simulate(log_cb=logs.append)
     counts = {**fdtd_cuda.launches, **fdtd_stream.launches,
               **fdtd_stream.launches_by_kernel}
+    staged = fdtd_stream.cpml_staged_launches
     prep = seen["prep"]
     assert prep.ok, prep.message
     assert res.ok, res.message
@@ -1565,7 +1575,7 @@ def phase_mixed_pml_main_path(card):
     assert sim.operands.pml is not None and sim.operands.mur is None
     assert sim.pallas_mode == "stream" and T == 4, sim.pallas_mode_reason
     assert steps % T == 0 and counts["stream_steps"] == steps // T, counts
-    assert counts["stream_march"] == steps // T, counts
+    assert counts["stream_march"] == steps // T == staged, (counts, staged)
     assert counts["probe_gather"] == steps // decim > 0, counts
     for name in ("shard_march", "stream_march_batch", "stream_shard_steps",
                  "stream_steps_batch", "h_update", "e_update", "mur_faces",
@@ -1588,7 +1598,7 @@ def phase_mixed_pml_main_path(card):
               f"{e_ratio:.3e} < {sim.cfg.end_criteria:.3e} before "
               f"{sim.cfg.n_steps_max}; Dmax {10 * np.log10(res.Dmax):.3f} dBi, "
               f"|S11|min per port {s11_db[0]:.2f} / {s11_db[1]:.2f} dB; "
-              f"launches {counts} [{card}]")
+              f"launches {counts}, cpml_staged_launches {staged} [{card}]")
     # the same preparation run again, warm, as phase 8 does: the first run
     # of a process pays one-time set-up (a library not yet built is built
     # inside its wall)
@@ -1796,10 +1806,15 @@ def stream_kernel_alone(sim, phase, card):
     probe_b_ms, probe_b_by = k1_bound("probe_gather", sim)
     core, _o, mt, (seg, _so, segs), m_smem = fdtd_stream.march_plan(
         ops.shape, ops.grid_shape, T, mur, pml=pml)
-    route = (f"march{' (CPML)' if pml else ''}: {mt[0] * mt[1] * segs} blocks "
+    kernel = f"cpml_march_kernel<0,{T}>" if pml else "march_kernel<0>"
+    regs, spill = built_kernel("fdtd_stream", kernel)
+    if pml:
+        assert same, "cpml_march_kernel is not bit-equal to its twin"
+    route = (f"{kernel}: {mt[0] * mt[1] * segs} blocks "
              f"({mt[0]}x{mt[1]} tiles of {core[0]}x{core[1]}, {segs} x "
              f"segments of {seg}), {m_smem} B dynamic shared memory, "
-             f"{fdtd_stream.blocks_per_sm(sk, T)} block(s) an SM")
+             f"{fdtd_stream.blocks_per_sm(sk, T)} block(s) an SM, ptxas "
+             f"{regs}{'; ' + spill if spill else ''}")
     all_text = ""
     if pml:
         a_ms, a_by = k2_bound(ops, T, all_psi=True)
@@ -2926,7 +2941,8 @@ def phase_slab_vs_plain(mixed, k2, card):
         ("z131", tall131_scene, "MUR", 1, 0, 9, "rem", None),
         ("z131", tall131_scene, "PEC", 1, 0, 9, "T", None),
         ("tall z", tall_z_scene, "PML_4", 1, 0, 10, "T", None),
-        ("tall z", tall_z_scene, "PML_4", 1, 0, 10, "rem", None),
+        # D = 9: the one-rank CPML slab marches T = 5, so D % T = 4
+        ("tall z", tall_z_scene, "PML_4", 1, 0, 9, "rem", None),
         ("tall z", tall_z_scene, "PML_4", 4, 1, 10, "T", None),
         ("tall z", tall_z_scene, "PEC", 4, 2, 10, "rem", None),
         ("tall straddle", tall_straddle_scene, "MUR", 4, 0, 4, "T", None),
@@ -3103,10 +3119,12 @@ def phase_slab_cpml(card):
     fdtd_stream.reset_launch_counts()
     eo = run()
     counts = {**fdtd_shard.launches, **fdtd_stream.launches_by_kernel,
-              "probe_gather": fdtd_cuda.launches["probe_gather"]}
+              "probe_gather": fdtd_cuda.launches["probe_gather"],
+              "cpml_staged_launches": fdtd_stream.cpml_staged_launches}
     T, D = sh.K, sim.probe_decim
     per_interval = D // T + (D % T > 0)
     assert counts["shard_march"] == eo["steps"] // D * per_interval, counts
+    assert counts["cpml_staged_launches"] == counts["shard_march"], counts
     assert counts["shard_steps"] == counts["stream_march"] == 0, counts
     so = sim.run()
     err = compare_runs(eo, so, "tall PML_8 explicit vs stream")
@@ -3127,6 +3145,7 @@ def phase_slab_cpml(card):
               for i, (a, b) in enumerate(zip(fields_of(sk), fields_of(sp))))
     same = all(torch.equal(a[sh.owned], b[sh.owned])
                for a, b in zip(fields_of(sk), fields_of(sp)))
+    assert same, "the CPML slab march is not bit-equal to its twin"
     ms = device_ms(lambda: fdtd_stream.stream_shard_steps(sh.ops, sk, wf), reps=10)
     plain_ms = events_ms(lambda: fdtd_shard.shard_steps_plain(sh.ops, sp, wf),
                          reps=2, warmup=1)
@@ -3241,6 +3260,7 @@ def phase_stream_batch_vs_plain(card):
         fdtd_stream.stream_steps_batch(ops, a, wf, mask)
         assert fdtd_stream.launches_by_kernel[route] == 1, dict(
             fdtd_stream.launches_by_kernel)
+        assert fdtd_stream.cpml_staged_launches == int(not march)
         fdtd_stream.stream_steps_batch_plain(ops, b, wf, mask)
         torch.cuda.synchronize()
         got, ref = stream_batch_current(a), stream_batch_current(b)
@@ -3253,6 +3273,7 @@ def phase_stream_batch_vs_plain(card):
                              for t in (*a.h1, *a.psi_e1, *a.psi_h1))
                      and (a.parity[3], a.hset[3]) == (1, 0))
         assert untouched, "stream_steps_batch wrote a frozen variant"
+        assert same or march, "cpml_march_kernel (batched) is not bit-equal"
         del got, ref, a
         on = [True] * B  # timed with every variant stepping, from base
         ms = device_ms(lambda: fdtd_stream.stream_steps_batch(ops, base, wf, on),
@@ -3299,6 +3320,7 @@ def phase_stream_batch_vs_plain(card):
             assert res.ok, res.message
             counts = {**fdtd_cuda.launches, **fdtd_stream.launches_by_kernel}
             assert counts[route] == res.steps_run // T > 0, counts
+            assert fdtd_stream.cpml_staged_launches == counts[route]
             assert counts["probe_gather_batch"] == res.steps_run // sim.probe_decim
             assert counts["chunk_steps_batch"] == counts["stream_march"] == 0
             assert np.isfinite(np.stack([sp.uf for sp in res.spectra])).all()
@@ -5205,6 +5227,20 @@ def ptxas_kernels(log):
             rows.append((fn, ln.split(":", 1)[-1].strip(), spill))
             fn = None
     return rows
+
+
+def built_kernel(lib, fn):
+    """(registers line, spill line) of kernel ``fn`` (named as
+    :func:`ptxas_kernels` names it) from the ptxas log of ``lib``'s build
+    (written beside the library when this checkout built it)."""
+    from fdtd_solver_antennas_tpu_torch.ops import _build
+
+    log = _build.BUILD_DIR / f"lib{lib}_{_build.tag(lib)}.log"
+    if log.exists():
+        for name, regs, spill in ptxas_kernels(log.read_text()):
+            if name == fn:
+                return regs, spill
+    return "not in the build log", ""
 
 
 def timed_phase(tag, fn, *args):

@@ -86,8 +86,12 @@
 // work and the block barriers between their phases, with 20 warps an SM
 // to hide it (two cells a thread, half the warps, was slower).
 //
-// CPML is not taken: its twelve psi slots and the staged coefficients do
-// not fit one block together (the plan keeps the streamed form there).
+// CPML is not taken: beside these rings (a field ring of T + 3, the
+// stamps staged with ca and cb, kP = 640) its twelve psi slots do not fit
+// one block. K2's cpml_march_kernel (csrc/fdtd_stream.cu) stages ca, cb
+// and the x scalars beside the psi at T = 4 on a 14x14 core, with the
+// dense stamps out of its rings; the plan keeps CPML batches on the
+// streamed form in the L2 and on that kernel past it.
 //
 // What bounds it: per round each item reads its region's fields once and
 // writes its core once, reads its coefficients once, and the variant's

@@ -18,7 +18,8 @@ and the card's name and power limit.
 
 prints one JSON line per root: µs per launch of K2's CPML route at T = 4
 (whatever kernel the root launches for it) on the mixed patch+horn scene
-under PML_8 (``stream_steps``), the tall grid's one-rank PML_8 slab
+under PML_8 (``stream_steps``), microstrip_3d at mesh quality 5 under
+PML_8 (105×90×73, ``stream_steps``), the tall grid's one-rank PML_8 slab
 (``stream_shard_steps``) and the 8-variant sweep under PML_8
 (``stream_steps_batch``), each from a seeded random state whose ψ are 0
 where the profile is flat (as a run leaves them), three timings of ten
@@ -133,6 +134,8 @@ def _time_stream(root: str) -> dict:
     import torch
 
     from fdtd_solver_antennas_tpu_torch.ops import fdtd_cuda, fdtd_stream
+    from fdtd_solver_antennas_tpu_torch.solvers.microstrip_3d import (
+        prepare_microstrip_patch_3d)
     from fdtd_solver_antennas_tpu_torch.solvers.sweep import prepare_patch_geometry_sweep
 
     if not fdtd_stream.__file__.startswith(str(Path(root).resolve())):
@@ -162,6 +165,13 @@ def _time_stream(root: str) -> dict:
     out["mixed_pml8"] = [round(sc.device_ms(lambda: fdtd_stream.stream_steps(
         sim.operands, st, wf), reps=10) * 1e3, 1) for _ in range(3)]
     del sim, st, scene
+    sim = prepare_microstrip_patch_3d(sc.canonical_params(), device="cuda",
+                                      mesh_quality=5, boundary="PML_8").sim
+    assert sim.stream_T == 4, sim.pallas_mode_reason
+    st = fill(sim.operands, fdtd_cuda.new_state(sim.padded_shape, sim.device, True), 17)
+    out["microstrip_q5_pml8"] = [round(sc.device_ms(lambda: fdtd_stream.stream_steps(
+        sim.operands, st, wf), reps=10) * 1e3, 1) for _ in range(3)]
+    del sim, st
     sh = fdtd_stream.build_stream_shard_stepper(
         sc.shard_sim(sc.tall_scene, "PML_8", 1, 48), 1, 0, t_steps=4)
     st = fill(sh.ops, sh.new_state(), 37)

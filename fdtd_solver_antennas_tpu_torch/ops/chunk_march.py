@@ -22,9 +22,11 @@ D is the base's, never rounded.
   current E buffer and H set and leaves the result in the set its last
   round wrote, recorded in the variants' ``parity`` and ``hset``.
 
-MUR and PEC only: under CPML the ψ slots and the staged coefficients do
-not fit one block together, and the plan keeps the streamed form. A
-failed plan, build or launch raises; nothing falls back.
+MUR and PEC only: beside this form's rings the twelve ψ slots do not fit
+one block. CPML batches stay on the streamed form in the L2 and on K2's
+batched ``cpml_march_kernel`` past it (``ops/fdtd_stream.py``), which
+stages its operands on a smaller core with the stamps out of its rings.
+A failed plan, build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations

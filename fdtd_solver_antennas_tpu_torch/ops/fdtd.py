@@ -684,6 +684,18 @@ def build_src_mats(sim, Px, Py, Pz) -> Dict[int, np.ndarray]:
     return src_mats
 
 
+def build_src_planes(sim, Px) -> Tuple[Tuple[int, ...], ...]:
+    """Per E component m, the x planes where its stamp may be nonzero
+    under any drive: the planes of the columns of the ports on m (every
+    MSL port's on Ez), which :func:`set_port_excitation` keeps
+    (``YeeOperands.src_planes``)."""
+    flags = np.zeros((3, Px), bool)
+    for axis, sl in ([(p.axis, p.sl) for p in sim.ports]
+                     + [(2, m.sl) for m in sim.msl_ports]):
+        flags[axis, sl[0]] = True
+    return tuple(tuple(int(x) for x in np.flatnonzero(f)) for f in flags)
+
+
 def build_probe_gathers(sim: "PreparedSimulation"):
     """Flat gather indices + weights for every probe quantity.
 
@@ -1013,6 +1025,7 @@ def build_simulation(
             cb=tuple(coeffs["cb_" + c] for c in ("ex", "ey", "ez")),
             mur=mur_coef,
             probes=probes,
+            src_planes=build_src_planes(sim, padded_shape[0]),
             **on_dev,
         )
     return sim
@@ -1038,7 +1051,9 @@ def set_port_excitation(sim: PreparedSimulation, scales) -> None:
     ``fdtd_stream``'s ``_StreamBuffers``) point at these tensors, and K1's
     resident form copies them to shared memory at the start of each
     launch, so the next launch of any of them, even on a state that is
-    already running, steps with the new drive. A K4 stepper
+    already running, steps with the new drive; K2's CPML march reads the
+    stamps on the planes of every port's column, driven or not
+    (``YeeOperands.src_planes``). A K4 stepper
     (``ops/fdtd_steps.py::build_stepper``) on the simulation's device
     shares the tensors and sees it too. A stepper on a copy does not: an
     explicit run (``parallel.build_explicit_run``) builds each slab's

@@ -231,6 +231,11 @@ class YeeOperands:
     # block's planes of the MUR y walls, as ``mur_x_rows``. None when y is
     # whole.
     mur_y_rows: Optional[Tuple[int, int]] = None
+    # Per E component m, the x planes where stamp ``src[m]`` may be nonzero
+    # under any drive: the planes of the ports' columns
+    # (``ops/fdtd.py::build_src_planes``), which a re-excitation keeps.
+    # K2's CPML march reads a stamp there only. None: where it is nonzero now.
+    src_planes: Optional[Tuple[Tuple[int, ...], ...]] = None
 
     @property
     def device(self) -> torch.device:

@@ -3,13 +3,16 @@
 Counterpart of ``build_pallas_stream_stepper`` in
 ``fdtd_solver_antennas_tpu/ops/fdtd_pallas.py`` (the TPU kernel K2), which
 carries the grids whose working set does not fit the chunk kernel. The
-port computes the same T steps with ``march_kernel`` of
-``csrc/fdtd_stream.cu``: a y–z tile that marches along x over a segment
-of planes and keeps T + 1 time levels of a few planes in shared memory
-(2.5-D temporal blocking), under MUR and PEC walls and under CPML, whose
-ψ move through the levels in each thread's own slots (:func:`march_plan`
-cuts the grid into tiles and segments; :func:`flat_runs` gives the
-profile runs where a ψ stays 0 and the kernel skips it).
+port computes the same T steps with a march of ``csrc/fdtd_stream.cu``: a
+y–z tile that marches along x over a segment of planes and keeps T + 1
+time levels of a few planes in shared memory (2.5-D temporal blocking).
+``march_kernel`` takes MUR and PEC walls; ``cpml_march_kernel`` takes
+CPML, whose ψ move through the levels in each thread's own slots and
+whose ca, cb, x spacings and x profiles it stages in shared memory a
+plane ahead (:func:`march_plan` cuts the grid into tiles and segments;
+:func:`flat_runs` gives the profile runs where a ψ stays 0 and the kernel
+skips it; :func:`stamp_planes` the planes whose source stamp it reads).
+The operands choose: ``ops.pml`` set takes the CPML kernel.
 
 - :func:`stream_steps`: T = ``len(wf_t)`` leapfrog steps (H, E with source
   sample ``wf_t[k]`` at inner step k, MUR walls x → y → z), with ψ under
@@ -36,7 +39,8 @@ The engine samples probes between launches with K1's ``probe_gather``
 ``stream_steps``, ``stream_shard_steps`` and ``stream_steps_batch``
 launches, as ``fdtd_cuda.launches`` does for K1, and
 ``launches_by_kernel`` counts them per route (``stream_march``,
-``shard_march``, ``stream_march_batch``). :data:`kernels` and
+``shard_march``, ``stream_march_batch``); ``cpml_staged_launches`` counts
+those of them that ran ``cpml_march_kernel``. :data:`kernels` and
 :data:`plain` are the engine's full sets of entry points (K1's
 ``chunk_steps``, ``chunk_steps_batch`` and per-step kernels, and
 ``stream_steps`` and ``stream_steps_batch``) that
@@ -63,6 +67,8 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the same launches by the route that ran
 ROUTES = ("stream_march", "shard_march", "stream_march_batch")
 launches_by_kernel: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+# the launches of any route that ran cpml_march_kernel (ops.pml set)
+cpml_staged_launches = 0
 
 # Shared memory one block may use on Hopper (H100/H200), bytes.
 SMEM_LIMIT = 232_448
@@ -71,14 +77,34 @@ SMEM_LIMIT = 232_448
 MAX_T = 8
 # The march: y-z core tile per boundary kind, one thread per region cell
 # (core + 2T per axis, at most MARCH_THREADS: a 24x24 region at T = 4
-# under MUR and CPML, T = 5 under PEC), and the H100's SMs, over which its
-# x cut spreads the blocks (march_blocks).
-_MARCH_CORE = {"mur": (16, 16), "pec": (14, 14), "pml": (16, 16)}
+# under MUR, T = 5 under PEC; 22x22 at T = 4 under CPML, whose staged
+# rings fill the shared memory), and the H100's SMs, over which its x cut
+# spreads the blocks (march_blocks).
+_MARCH_CORE = {"mur": (16, 16), "pec": (14, 14), "pml": (14, 14)}
 MARCH_THREADS = 576
 SMS = 132
+# floats of one plane's x scalars in cpml_march_kernel's scalar ring
+_CPML_XS = 8
+
+
+def _cpml_floats(T: int) -> int:
+    """Floats a cell holds in ``cpml_march_kernel``'s rings at T: E and H
+    of T + 2 planes, ca and cb of T + 1, the twelve ψ of T."""
+    return 6 * (T + 2) + 6 * (T + 1) + 12 * T
+
+
+def cpml_stride(T: int) -> int:
+    """Cells a component and plane take in ``cpml_march_kernel``'s rings at
+    T, whatever a block's region (at most this many cells): the most that
+    fit the shared memory beside the x scalars, at most MARCH_THREADS, a
+    multiple of 4 (``csrc/fdtd_stream.cu::cpml_stride``): 508 at T = 4."""
+    fit = (SMEM_LIMIT // 4 - _CPML_XS * (T + 1)) // _cpml_floats(T) // 4 * 4
+    return min(MARCH_THREADS, fit)
 
 
 def reset_launch_counts() -> None:
+    global cpml_staged_launches
+    cpml_staged_launches = 0
     for k in KERNELS:
         launches[k] = 0
     for k in ROUTES:
@@ -98,7 +124,7 @@ def march_core(mur: bool, pml: bool = False) -> Tuple[int, int]:
 
 def march_blocks(pml: bool) -> int:
     """The resident blocks the march's x cut aims for: two an SM, one
-    under CPML, whose ψ slots and registers fill an SM."""
+    under CPML, whose ψ slots and staged rings fill an SM."""
     return SMS if pml else 2 * SMS
 
 
@@ -155,8 +181,12 @@ def _march_cells_smem(shape, T: int, mur: bool, pml: bool = False):
     core = march_core(mur, pml)
     cells = (min(int(shape[1]), core[0] + 2 * T)
              * min(int(shape[2]), core[1] + 2 * T))
-    smem = 4 * cells * (6 * (T + 2) + (8 if mur else 0) + (12 * T if pml else 0))
-    fits = cells <= MARCH_THREADS and smem <= SMEM_LIMIT
+    if pml:  # rings of fields, ca/cb and T ψ slots at a fixed stride
+        smem = 4 * (cpml_stride(T) * _cpml_floats(T) + _CPML_XS * (T + 1))
+        fits = cells <= cpml_stride(T) and smem <= SMEM_LIMIT
+    else:
+        smem = 4 * cells * (6 * (T + 2) + (8 if mur else 0))
+        fits = cells <= MARCH_THREADS and smem <= SMEM_LIMIT
     return cells, smem if fits else None
 
 
@@ -180,8 +210,11 @@ def march_plan(shape, grid_shape, T: int, mur: bool, x_wall=None,
     holds the region core + T cells per side in y and z, one thread per
     region cell; ``smem_bytes`` is the largest block's shared memory: the
     E and H rings of T + 2 planes, under MUR the old E of two planes and
-    the upper x wall's two fixed components, under CPML T slots of the
-    twelve ψ. ``csrc/fdtd_stream.cu`` computes the same from the packed
+    the upper x wall's two fixed components; under CPML at the fixed
+    stride of :func:`cpml_stride` cells, whatever the region, the rings,
+    T slots of the twelve ψ, the ca/cb ring of T + 1 planes, and T + 1
+    planes' x scalars.
+    ``csrc/fdtd_stream.cu`` computes the same from the packed
     arguments. Raises ``ValueError`` where a region outgrows the threads
     or the shared memory."""
     core, origin, tiles, segments = _march_layout(shape, grid_shape, mur,
@@ -224,6 +257,21 @@ def flat_runs(pml) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
 
 # the derivative axis of each ψ (order xy xz yz yx zx zy): its profile's
 PSI_AXIS = (1, 2, 2, 0, 0, 1)
+
+
+def stamp_planes(ops: YeeOperands, rows: int, device=None) -> torch.Tensor:
+    """Per x plane of ``ops``' three source stamps (each (rows, Py, Pz) or
+    None), an int32 whose bit m is set where stamp m holds a nonzero value
+    on that plane or may hold one under another drive (``ops.src_planes``):
+    the planes whose stamps ``cpml_march_kernel`` reads and adds
+    (everywhere else the stamp is 0 and the twin adds 0)."""
+    flags = torch.zeros(rows, dtype=torch.int32, device=device)
+    for m, t in enumerate(ops.src):
+        if t is not None:
+            flags |= t.reshape(rows, -1).ne(0).any(1).to(torch.int32) << m
+    for m, planes in enumerate(ops.src_planes or ()):
+        flags[list(planes)] |= 1 << m
+    return flags
 
 
 def psi_slabs(ops: YeeOperands) -> Tuple[torch.Tensor, ...]:
@@ -319,6 +367,7 @@ class _StreamArgs(ctypes.Structure):
         ("m_seg_origin", ctypes.c_int), ("m_segs", ctypes.c_int),
         ("x_lo", ctypes.c_int), ("x_hi", ctypes.c_int),
         ("active", _P), ("vstride", ctypes.c_longlong),
+        ("src_planes", _P),
     ]
 
 
@@ -406,6 +455,8 @@ def _pack(ops: YeeOperands, src, dst, view, blocks, batch: int = 0,
             a.ph_out[m] = _ptr(dst[12 + m], own, dev=dev)
         a.flat[:] = [i for side in flat_runs(ops.pml) for run in side
                      for i in run]
+        a._src_planes = stamp_planes(ops, shp[0], dev)  # kept alive here
+        a.src_planes = _ptr(a._src_planes, (shp[0],), torch.int32, dev)
     a.n[:] = shp
     a.q[:] = ops.grid_shape
     a.has_pml = int(pml)
@@ -622,14 +673,18 @@ def _launch(lib, fn, addr: int, wf_t, dev, wrapper: str, route: str,
             *batch) -> None:
     """Launch ``fn`` on the packed arguments at ``addr`` with the samples
     ``wf_t`` (and the batch size for a batched kernel); raise on a failed
-    launch, else count it."""
+    launch, else count it, in ``cpml_staged_launches`` too where the
+    arguments carry CPML (``has_pml``, which the C side launches
+    ``cpml_march_kernel`` for)."""
     samples = (ctypes.c_float * MAX_T)(*[float(s) for s in wf_t])
     code = launch(dev, fn, addr, ctypes.addressof(samples), len(wf_t), *batch)
     if code != 0:
         msg = lib.fdtd_stream_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {route} failed: {msg} ({code})")
+    global cpml_staged_launches
     launches[wrapper] += 1
     launches_by_kernel[route] += 1
+    cpml_staged_launches += _StreamArgs.from_address(addr).has_pml
 
 
 def _stream_launch(ops, st, wf_t, wrapper: str, route: str,

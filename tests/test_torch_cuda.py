@@ -314,6 +314,7 @@ def test_stream_steps_equals_its_twin(cuda, boundary, tall, T):
     assert fdtd_stream.launches == {"stream_steps": 1, "stream_shard_steps": 0,
                                    "stream_steps_batch": 0}
     assert fdtd_stream.launches_by_kernel["stream_march"] == 1
+    assert fdtd_stream.cpml_staged_launches == int(boundary.startswith("PML"))
     assert a.h[0] is not before
     fdtd_stream.stream_steps_plain(ops, b, wf)
     torch.cuda.synchronize()
@@ -340,7 +341,8 @@ def test_stream_steps_refuses_psi_outside_slabs(cuda):
 @pytest.mark.parametrize("boundary", ["MUR", "PEC", "PML_4"])
 def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     """A forced stream run through the kernel equals the same run through
-    the plain twins and the chunk kernels; every launch is counted."""
+    the plain twins and the chunk kernels; every launch is counted, under
+    CPML each in ``cpml_staged_launches`` too."""
     sim = _stream_sim(boundary, T=4)
     assert sim.pallas_mode == "stream" and sim.stream_T == 4
     fdtd_stream.reset_launch_counts()
@@ -349,6 +351,8 @@ def test_stream_run_matches_plain_and_chunk(cuda, boundary):
     assert fdtd_stream.launches["stream_steps"] == 120 // 4
     assert fdtd_stream.launches_by_kernel == {
         "stream_march": 120 // 4, "shard_march": 0, "stream_march_batch": 0}
+    staged = 120 // 4 if boundary.startswith("PML") else 0
+    assert fdtd_stream.cpml_staged_launches == staged
     assert fdtd_cuda.launches["probe_gather"] == 120 // 4
     assert fdtd_cuda.launches["h_update"] == 0
     p = run_simulation(sim, fdtd_stream.plain)
@@ -512,6 +516,70 @@ def test_stream_shared_memory_formula_matches_the_kernel(cuda):
         for i in range(2):
             assert lib.fdtd_march_smem_bytes(st._stream.addr[i], T) == plan[4]
         assert fdtd_stream.blocks_per_sm(st, T) >= 1
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["grid", "batch", "slab"])
+def test_cpml_staged_march_is_bit_equal_to_its_twins(cuda, case, T):
+    """Every CPML launch runs ``cpml_march_kernel`` (counted in
+    ``cpml_staged_launches`` beside its wrapper's and route's counters)
+    and equals its plain twin bit for bit, ψ included, from a random
+    state whose ψ are nonzero in their slabs: ``stream_steps`` on the
+    tall grid, ``stream_steps_batch`` of three variants with variant 1
+    frozen (left as it was), ``stream_shard_steps`` on rank 1 of a
+    two-rank slab (its owned rows). One block an SM under CPML, two
+    or more under MUR, at the tall grid's T = 4."""
+    wf = [0.37, -0.21, 0.55, 0.13][:T]
+    fdtd_stream.reset_launch_counts()
+    if case == "slab":
+        sim = _z131_sim("tall_z", "PML_4", 2, decim=T)
+        sh = fdtd_stream.build_stream_shard_stepper(sim, 2, 1, t_steps=T)
+        rng = np.random.default_rng(71 + T)
+        a = sh.new_state()
+        for t in (*a.e[0], *a.e[1], *a.h, *a.psi_e, *a.psi_h):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        _psi_to_slabs(sh.ops, a)
+        b = _clone(a)
+        fdtd_stream.stream_shard_steps(sh.ops, a, wf)
+        fdtd_shard.shard_steps_plain(sh.ops, b, wf)
+        route, wrapper = "shard_march", "stream_shard_steps"
+        pairs = [(x[sh.owned], y[sh.owned]) for x, y in zip(
+            (*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+            (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True)]
+    elif case == "batch":
+        sim = _stream_sim("PML_4", T=T)
+        ops, a, _wf, _bufs = _batch_inputs(sim, cuda, 3, seed=149 + T)
+        b = _clone_batch(a)
+        frozen = [t[1].clone() for t in _batch_tensors(a)]
+        mask = [True, False, True]
+        fdtd_stream.stream_steps_batch(ops, a, wf, mask)
+        fdtd_stream.stream_steps_batch_plain(ops, b, wf, mask)
+        route, wrapper = "stream_march_batch", "stream_steps_batch"
+        pairs = list(zip(_stream_batch(a), _stream_batch(b), strict=True))
+        pairs += [(t[1], t0) for t, t0 in zip(_batch_tensors(a), frozen, strict=True)]
+    else:
+        sim = _stream_sim("PML_4", tall=True, T=T)
+        a = _random_state(sim, cuda, seed=67 + T)
+        b = _clone(a)
+        fdtd_stream.stream_steps(sim.operands, a, wf)
+        fdtd_stream.stream_steps_plain(sim.operands, b, wf)
+        route, wrapper = "stream_march", "stream_steps"
+        pairs = list(zip((*a.e[a.parity], *a.h, *a.psi_e, *a.psi_h),
+                         (*b.e[b.parity], *b.h, *b.psi_e, *b.psi_h), strict=True))
+        if T == 4:
+            assert fdtd_stream.blocks_per_sm(a, T) == 1
+            mur = _stream_sim("MUR", tall=True, T=T)
+            st = fdtd_cuda.new_state(mur.padded_shape, cuda, pml=False)
+            fdtd_stream.stream_steps(mur.operands, st, wf)
+            assert fdtd_stream.blocks_per_sm(st, T) >= 2
+            fdtd_stream.launches_by_kernel[route] -= 1
+            fdtd_stream.launches[wrapper] -= 1
+    torch.cuda.synchronize()
+    assert fdtd_stream.launches_by_kernel[route] == 1
+    assert fdtd_stream.launches[wrapper] == 1
+    assert fdtd_stream.cpml_staged_launches == 1
+    for x, y in pairs:
+        assert torch.equal(x, y)
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -1103,8 +1171,9 @@ def test_probe_gather_batch_equals_its_twin(cuda):
 @pytest.mark.parametrize("boundary", ["MUR", "PML_4"])
 def test_run_batched_in_stream_mode_matches_plain(cuda, boundary):
     """``run_batched`` on a stream-mode sim: one batched stream launch per
-    T steps and one batched gather per interval, no chunk launch; equal to
-    the same run through the plain twins on the card."""
+    T steps and one batched gather per interval, no chunk launch (under
+    CPML each counted in ``cpml_staged_launches``); equal to the same run
+    through the plain twins on the card."""
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import run_batched
 
     sim = _stream_sim(boundary, T=4)
@@ -1114,6 +1183,8 @@ def test_run_batched_in_stream_mode_matches_plain(cuda, boundary):
     fdtd_cuda.reset_launch_counts()
     k = run_batched(sim, coeffs)
     assert fdtd_stream.launches["stream_steps_batch"] == 120 // 4
+    staged = 120 // 4 if boundary.startswith("PML") else 0
+    assert fdtd_stream.cpml_staged_launches == staged
     assert fdtd_cuda.launches["probe_gather_batch"] == 120 // 4
     assert fdtd_cuda.launches["chunk_steps_batch"] == 0
     assert fdtd_cuda.launches["probe_gather"] == 0
@@ -1500,7 +1571,10 @@ def test_msl_stream_run_equals_plain(cuda, boundary):
 def _two_patch_sim(mode, n_steps=1344):
     """tests/test_sparams.py's two-patch scene (63×20×21, two lumped
     z-ports) on the card for a fixed 1,344 steps (3 chunks of 4 × 112);
-    ``mode`` forces K1's chunk kernel or K2's march (T = 4)."""
+    ``mode`` forces K1's chunk kernel or K2's march (T = 4), under MUR, or
+    under PML_4 for ``stream_pml`` (K2's CPML march)."""
+    pml = mode == "stream_pml"
+    mode = "stream" if pml else mode
     scene = Scene()
     scene.add_material_box("sub", 2.2, 0.0, [-30, -15, 0], [30, 15, 1.6], 0)
     scene.add_metal_box("gnd", [-30, -15, 0], [30, 15, 0], priority=10)
@@ -1515,7 +1589,8 @@ def _two_patch_sim(mode, n_steps=1344):
     mb.add_line("y", np.linspace(-19, 19, 20))
     mb.add_line("z", list(np.linspace(-8, 12, 11)) + [0.0, 0.8, 1.6])
     cfg = FDTDConfig(n_steps_max=n_steps, end_criteria=1e-30, check_every=500,
-                     pallas_mode=mode, stream_T=4 if mode == "stream" else None)
+                     pallas_mode=mode, stream_T=4 if mode == "stream" else None,
+                     boundary="PML_4" if pml else "MUR")
     return build_simulation(
         scene, mb.build(3.0), f0=2.45e9, fc=1.225e9, cfg=cfg, device="cuda",
         port_freqs_hz=np.linspace(2e9, 3e9, 11),
@@ -1536,11 +1611,11 @@ def _assert_linear(a, b, ab):
                                    atol=1e-4 * np.abs(fab).max())
 
 
-@pytest.mark.parametrize("mode", ["chunk", "stream"])
+@pytest.mark.parametrize("mode", ["chunk", "stream", "stream_pml"])
 def test_reexcitation_is_linear_on_the_card(cuda, mode):
     """Three drives of one prepared scene, re-excited in place between the
     runs: K1's resident form (it copies the stamps to shared memory at
-    each launch) and K2's march see each new stamp."""
+    each launch) and K2's march, MUR and CPML, see each new stamp."""
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import set_port_excitation
 
     sim = _two_patch_sim(mode)
@@ -1561,17 +1636,21 @@ def test_reexcitation_is_linear_on_the_card(cuda, mode):
             assert sum(fdtd_cuda.launches.values()) == 3
         else:
             assert fdtd_stream.launches_by_kernel["stream_march"] == 1344 // 4
+            assert fdtd_stream.cpml_staged_launches == (
+                1344 // 4 if mode == "stream_pml" else 0)
             assert fdtd_cuda.launches["chunk_steps"] == 0
     _assert_linear(*runs)
     assert not np.allclose(runs[0]["uf"], runs[1]["uf"])
 
 
-@pytest.mark.parametrize("mode", ["chunk", "stream"])
+@pytest.mark.parametrize("mode", ["chunk", "stream", "stream_pml"])
 def test_reexcitation_reaches_a_running_state(cuda, mode):
     """Re-excited between two launches on one state: the packed launch
     arguments kept on the state (K1's ``_chunk``, K2's ``_stream``) are
     reused and point at the rewritten stamps, so the second launch steps
-    with the new drive, as the plain twin does."""
+    with the new drive, as the plain twin does; under CPML the flags of
+    the planes whose stamps the march reads, packed while port 2 was
+    undriven, cover its plane too."""
     from fdtd_solver_antennas_tpu_torch.ops.fdtd import (
         ProbeDFT, padded_waveform, set_port_excitation)
 
@@ -1581,7 +1660,7 @@ def test_reexcitation_reaches_a_running_state(cuda, mode):
 
     def go(impl, second):
         set_port_excitation(sim, (1.0, 0.0))
-        st = fdtd_cuda.new_state(sim.padded_shape, cuda, False)
+        st = fdtd_cuda.new_state(sim.padded_shape, cuda, ops.pml is not None)
         bufs = ProbeDFT(sim, 2, cuda).bufs
         if mode == "chunk":
             wf_t = torch.tensor(wf, dtype=torch.float32, device=cuda)

@@ -1,19 +1,23 @@
 """The stream march's plan (``fdtd_stream.march_plan``) and its schedule, on the CPU.
 
-The march (``march_kernel`` in ``csrc/fdtd_stream.cu``) carries stream
-mode under MUR and PEC walls: each block owns a y–z tile of one x segment
-and marches along x with T time levels of a few planes in shared memory.
-The kernel itself runs only on the card (``tests/test_torch_cuda.py``
-holds it to its twin there). Here the plan is checked on its own terms
-(every core cell of every plane written by exactly one block, no core or
-segment a lone wall plane, shared memory within the card's limit, the
-mixed scene filling the card) and the kernel's schedule, transcribed
-step for step into NumPy (:func:`emulate_march`), is held to the plain
+The march carries stream mode: each block owns a y–z tile of one x
+segment and marches along x with T time levels of a few planes in shared
+memory, ``march_kernel`` in ``csrc/fdtd_stream.cu`` under MUR and PEC
+walls, ``cpml_march_kernel`` under CPML (its ca, cb and x scalars staged
+in rings a plane ahead, its source stamps read on flagged planes only).
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``
+holds them to their twins there). Here the plan is checked on its own
+terms (every core cell of every plane written by exactly one block, no
+core or segment a lone wall plane, shared memory within the card's
+limit, the mixed scene filling the card, the CPML cells' T, D and cut)
+and each kernel's schedule, transcribed step for step into NumPy
+(:func:`emulate_march`, :func:`emulate_cpml_march`), is held to the plain
 twin ``stream_steps_plain`` bit for bit: the same planes, levels, boxes,
-ring slots, deferred lower wall and held-over upper wall, on grids cut
-into several tiles and segments.
+ring slots, deferred lower wall and held-over upper wall, staged slots
+and stamp flags, on grids cut into several tiles and segments.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -27,6 +31,7 @@ from fdtd_solver_antennas_tpu_torch.ops.mesh import MeshBuilder
 
 MIXED = (141, 201, 152)  # the 4.2M-cell mixed patch+horn scene
 TALL = (161, 121, 160)  # the tall patch
+MICROSTRIP = (105, 90, 73)  # microstrip_3d at mesh quality 5
 SHAPES = [MIXED, TALL, (56, 55, 50), (19, 17, 13), (33, 49, 17), (161, 121, 131)]
 
 
@@ -93,30 +98,89 @@ def test_plan_shared_memory_fits_every_T_max_T_allows(mur, pml):
             assert smem <= fdtd_stream.SMEM_LIMIT, (shape, mur, pml, T)
     # the depths the engine picks at the large grids: 4 under MUR and
     # CPML, 5 under PEC; two blocks an SM under MUR and PEC (two 1 KB
-    # reserves), one under CPML, whose ψ slots take 12 T floats a cell
+    # reserves), one under CPML, whose ψ slots (12 T floats a cell) and
+    # staged ca/cb ring (6 (T + 1)) fill it
     T = 5 if not (mur or pml) else 4
-    for shape in (MIXED, TALL, (100, 109, 50)):
+    for shape in (MIXED, TALL, (100, 109, 50), MICROSTRIP):
         assert fdtd_stream.max_T(shape, mur, pml) == T
         smem = fdtd_stream.march_plan(shape, shape, T, mur, pml=pml)[4]
         blocks_per_sm = 233_472 // (smem + 1024)
         assert blocks_per_sm == (1 if pml else 2), (shape, smem)
         assert fdtd_stream.march_blocks(pml) == blocks_per_sm * 132
-    floats = {(True, False): 44, (False, False): 42, (False, True): 84}
-    assert fdtd_stream.march_plan(MIXED, MIXED, T, mur, pml=pml)[4] == (
-        24 * 24 * 4 * floats[mur, pml])
+    # per region cell: E and H rings 6 (T + 2), under MUR 8 more; under
+    # CPML the ca/cb ring 6 (T + 1) and the ψ slots 12 T at a fixed stride
+    # of 508 cells (a 14x14 core's region is 22x22 = 484), and T + 1
+    # planes' 8 x scalars
+    smem = {(True, False): 24 * 24 * 4 * 44, (False, False): 24 * 24 * 4 * 42,
+            (False, True): 508 * 4 * 114 + 4 * 8 * 5}
+    assert fdtd_stream.march_plan(MIXED, MIXED, T, mur, pml=pml)[4] == smem[mur, pml]
+    assert fdtd_stream.cpml_stride(4) == 508 >= 22 * 22
+    assert [fdtd_stream.cpml_stride(t) for t in range(1, 9)] == [
+        576, 576, 576, 508, 420, 356, 312, 276]
 
 
 @pytest.mark.parametrize("pml", [False, True])
 def test_mixed_scene_fills_the_card(pml):
-    """Under MUR two segments of 130 tiles fill the 264 two-a-SM slots;
-    under CPML one segment of 130 blocks takes 130 of the 132 SMs."""
+    """Under MUR two segments of 130 tiles fill the 264 two-a-SM slots.
+    Under CPML the 14x14 core cuts the mixed scene into 165 tiles: three
+    segments of 47 planes, 495 blocks in four rounds of the 132 one-a-SM
+    slots, finish sooner (4 × 55 planes) than one segment (2 × 149) or
+    two (3 × 79); the tall grid's 108 tiles take one round of 161."""
     core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
         MIXED, MIXED, 4, not pml, pml=pml)
-    assert tiles == (13, 10) and segs == (1 if pml else 2)
+    slots = fdtd_stream.march_blocks(pml)
+    if pml:
+        assert core == (14, 14) and tiles == (15, 11) and (seg, segs) == (47, 3)
+        blocks = tiles[0] * tiles[1] * segs
+        assert 3 * slots < blocks <= 4 * slots
+        assert fdtd_stream.march_plan(TALL, TALL, 4, False, pml=True)[2:4] == (
+            (9, 12), (161, 0, 1))
+        return
+    assert tiles == (13, 10) and segs == 2
     blocks = tiles[0] * tiles[1] * segs
-    assert 0.98 * fdtd_stream.march_blocks(pml) <= blocks <= fdtd_stream.march_blocks(pml)
-    assert fdtd_stream.march_plan(TALL, TALL, 4, not pml, pml=pml)[2:4] == (
+    assert 0.98 * slots <= blocks <= slots
+    assert fdtd_stream.march_plan(TALL, TALL, 4, True)[2:4] == (
         (8, 10), (54, 0, 3))
+
+
+def test_cpml_cells_keep_their_depth_decimation_and_cut():
+    """The two CPML cells' grids on the CPU as the benchmark prepares them:
+    the GUI's microstrip_3d at mesh quality 5 under PML_8 (105×90×73) and
+    the 8-variant canonical sweep under PML_8 (100×109×50 a variant).
+    Both resolve to stream mode at T = 4 = ``max_T`` with D = 160 and 244;
+    the microstrip's 42 tiles take three segments of 35 planes, 126
+    blocks in one round, the sweep's 32 tiles a variant one segment of
+    100 planes, 256 blocks in two rounds."""
+    from fdtd_solver_antennas_tpu_torch.examples.scenes import sweep_variants
+    from fdtd_solver_antennas_tpu_torch.models.params import PatchAntennaParams
+    from fdtd_solver_antennas_tpu_torch.solvers.microstrip_3d import (
+        prepare_microstrip_patch_3d)
+    from fdtd_solver_antennas_tpu_torch.solvers.sweep import (
+        prepare_patch_geometry_sweep)
+
+    params = PatchAntennaParams.from_user_units(frequency_ghz=2.45, er=4.3,
+                                                h_mm=1.6, loss_tangent=0.02)
+    micro = prepare_microstrip_patch_3d(
+        params, device="cpu", feed_direction="-X", feed_line_length_mm=20.0,
+        mesh_quality=5, boundary="PML_8", n_steps_max=30000, end_criteria=1e-4)
+    sweep = prepare_patch_geometry_sweep(
+        sweep_variants(), feed_pos_mm=-6.0, n_steps_max=30000,
+        end_criteria=1e-4, boundary="PML_8", device="cpu")
+    for prep, D, batch, cut in ((micro, 160, 1, ((7, 6), (35, 0, 3))),
+                                (sweep, 244, 8, ((8, 4), (100, 0, 1)))):
+        assert prep.ok, prep.message
+        sim = prep.sim
+        shape = tuple(sim.padded_shape)
+        assert sim.operands.pml is not None
+        assert fdtd_stream.max_T(shape, False, True) == 4
+        assert (sim.pallas_mode, sim.stream_T, sim.probe_decim) == (
+            "stream", 4, D), sim.pallas_mode_reason
+        core, _o, tiles, segments, smem = fdtd_stream.march_plan(
+            shape, sim.grid.shape, 4, False, batch=batch, pml=True)
+        assert (tiles, segments) == cut
+        blocks = tiles[0] * tiles[1] * segments[2] * batch
+        assert -(-blocks // fdtd_stream.march_blocks(True)) == (1 if batch == 1 else 2)
+        assert smem == 231_808 <= fdtd_stream.SMEM_LIMIT
 
 
 def test_plan_refuses_what_does_not_fit():
@@ -133,26 +197,25 @@ def _np(t):
 
 
 def emulate_march(ops, st, wf, blocks=None, batch=1):
-    """``march_kernel`` of ``csrc/fdtd_stream.cu`` block by block, in
-    float32 with the kernel's order of operations, on the rows
-    ``[v0, m)`` the host launches it on (``fdtd_stream.march_view``: a
-    slab's walls), cut as ``march_plan`` cuts it for ``blocks`` resident
-    blocks (default ``march_blocks``) over ``batch`` variants. Under CPML
-    each cell's ψ moves through T thread-private slots (level 1 from the
-    registers loaded the iteration before, level T to the other set), and
-    a ψ in its axis's ``flat_runs`` run is skipped. Returns the new E3, H3
-    and, under CPML, ψ_e6 and ψ_h6; cells no block writes stay NaN (a
-    skipped ψ, 0: the other set starts at 0 there)."""
+    """The march the host launches for ``ops`` block by block, in float32
+    with the kernel's order of operations: under CPML
+    :func:`emulate_cpml_march`, else ``march_kernel`` of
+    ``csrc/fdtd_stream.cu`` on the rows ``[v0, m)`` the host launches it
+    on (``fdtd_stream.march_view``: a slab's walls), cut as ``march_plan``
+    cuts it for ``blocks`` resident blocks (default ``march_blocks``) over
+    ``batch`` variants. Returns the new E3 and H3; cells no block writes
+    stay NaN."""
+    if ops.pml is not None:
+        return emulate_cpml_march(ops, st, wf, blocks, batch)
     v0, x_lo, x_hi = fdtd_stream.march_view(ops)
     n0, n1, n2 = ops.shape
     n0 -= v0
     q1, q2 = ops.grid_shape[1:]
     T = len(wf)
     mur = ops.mur is not None
-    pml = ops.pml is not None
     f32 = np.float32
     core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
-        (n0, n1, n2), ops.grid_shape, T, mur, x_hi, blocks, batch, pml)
+        (n0, n1, n2), ops.grid_shape, T, mur, x_hi, blocks, batch)
 
     def view(t):
         return None if t is None else _np(t)[v0:]
@@ -168,25 +231,6 @@ def emulate_march(ops, st, wf, blocks=None, batch=1):
     H_all = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
     E_out, H_out = [e[v0:] for e in E_all], [h[v0:] for h in H_all]
     R = T + 2
-    if pml:  # no walls: v0 is 0
-        psi_in = [_np(p) for p in (*st.psi_e, *st.psi_h)]  # ψ_e 0..5, ψ_h 6..11
-        keep = [k.numpy() for k in fdtd_stream.psi_slabs(ops)]
-        psi_out = [np.where(k, np.nan, 0).astype(f32) * np.ones(ops.shape, f32)
-                   for k in keep]
-        runs = fdtd_stream.flat_runs(ops.pml)
-        prof = {key: [_np(a) for a in ops.pml[key]] for key in ("bh", "ch", "be", "ce")}
-
-    def shift(a, axis, d):
-        """a[i + d] along ``axis`` (d = ±1), 0 past the region."""
-        out = np.zeros_like(a)
-        src_ = [slice(None)] * a.ndim
-        dst = [slice(None)] * a.ndim
-        if d > 0:
-            src_[axis], dst[axis] = slice(1, None), slice(0, -1)
-        else:
-            src_[axis], dst[axis] = slice(0, -1), slice(1, None)
-        out[tuple(dst)] = a[tuple(src_)]
-        return out
 
     for sg, by, bz in itertools.product(range(segs), range(tiles[0]), range(tiles[1])):
         cy0, cy1 = max(0, by * core[0] - origin[0]), min(n1, (by + 1) * core[0] - origin[0])
@@ -206,57 +250,9 @@ def emulate_march(ops, st, wf, blocks=None, batch=1):
         ipy, ipz = ip[1][sy][:, None], ip[2][sz][None, :]
         idy, idz = idd[1][sy][:, None], idd[2][sz][None, :]
         core_m = (gy >= cy0) & (gy < cy1) & (gz >= cz0) & (gz < cz1)
-        if pml:
-            Ps = np.zeros((T, 12, Ly, Lz), f32)  # each cell's T slots
-            pin = np.zeros((12, Ly, Lz), f32)  # level 1's ψ, loaded ahead
-
-            def on(side, ax, x):
-                """Whether side's ψ of derivative axis ``ax`` can change."""
-                lo, hi = runs[side][ax]
-                i = (x, gy, gz)[ax]
-                return (i < lo) | (i >= hi)
-
-            def bc(side, ax, x):
-                b, c = (prof["bh"], prof["ch"]) if side == 0 else (prof["be"], prof["ce"])
-                if ax == 0:
-                    return b[0][x], c[0][x]
-                sl = sy if ax == 1 else sz
-                shp = (-1, 1) if ax == 1 else (1, -1)
-                return b[ax][sl].reshape(shp), c[ax][sl].reshape(shp)
-
-            def psi_level(side, x, t, d, act, write):
-                """One side's ψ at level t of plane x (side 0: H, slots
-                6..11; 1: E, slots 0..5), stored as the kernel stores it;
-                returns the six ψ, 0 where skipped."""
-                off = 6 if side == 0 else 0
-                out = []
-                for m, ax in enumerate(fdtd_stream.PSI_AXIS):
-                    o = on(side, ax, x) & act
-                    b, c = bc(side, ax, x)
-                    old = pin[off + m] if t == 1 else Ps[x % T, off + m]
-                    new = np.where(o, b * old + c * d[m], f32(0)).astype(f32)
-                    if t < T:
-                        Ps[x % T, off + m][o] = new[o]
-                    else:
-                        w = o & write
-                        psi_out[off + m][x, sy, sz][w] = new[w]
-                    out.append(new)
-                return out
 
         def dh(H, Hm, idx_):
-            """Backward differences of H in ψ order."""
-            hx, hy, hz = H
-            hz_xm = Hm[2] if Hm is not None else np.zeros_like(hz)
-            hy_xm = Hm[1] if Hm is not None else np.zeros_like(hy)
-            return ((hz - shift(hz, 0, -1)) * idy, (hy - shift(hy, 1, -1)) * idz,
-                    (hx - shift(hx, 1, -1)) * idz, (hz - hz_xm) * idx_,
-                    (hy - hy_xm) * idx_, (hx - shift(hx, 0, -1)) * idy)
-
-        def curl(d, p=None):
-            if p is None:
-                return d[0] - d[1], d[2] - d[3], d[4] - d[5]
-            return ((d[0] + p[0]) - (d[1] + p[1]), (d[2] + p[2]) - (d[3] + p[3]),
-                    (d[4] + p[4]) - (d[5] + p[5]))
+            return _dh(H, Hm, idx_, idy, idz)
 
         def e_cell(E, x, cu, s):
             g = (x, sy, sz)
@@ -301,21 +297,14 @@ def emulate_march(ops, st, wf, blocks=None, batch=1):
                 defer0 = mur and x_lo and x == 0
                 with0 = mur and x_lo and x == 1 and lo == 0
                 # H
-                ex, ey, ez = E
                 Ep = Er[(x + 1) % R] if x + 1 < n0 else np.zeros_like(E)
-                ipx = ip[0][x]
-                d = ((shift(ez, 0, 1) - ez) * ipy, (shift(ey, 1, 1) - ey) * ipz,
-                     (shift(ex, 1, 1) - ex) * ipz, (Ep[2] - ez) * ipx,
-                     (Ep[1] - ey) * ipx, (shift(ex, 0, 1) - ex) * ipy)
-                write = core_m & (x0 <= x < x1)
-                ps = psi_level(0, x, t, d, act, write) if pml else None
-                for m, cu in enumerate(curl(d, ps)):
+                d = _de(E, Ep, ip[0][x], ipy, ipz)
+                for m, cu in enumerate(_curl(d)):
                     H[m][act] = (H[m] - dtmu * cu)[act]
                 # E
                 if not defer0:
                     Ox = O[x & 1]
-                    d = dh(H, Hm, idd[0][x])
-                    cu = curl(d, psi_level(1, x, t, d, act, write) if pml else None)
+                    cu = _curl(dh(H, Hm, idd[0][x]))
                     old = E.copy()
                     v = e_cell(old, x, cu, s)
                     if mur:
@@ -332,7 +321,7 @@ def emulate_march(ops, st, wf, blocks=None, batch=1):
                         W[1][act] = (Ox[2] + cx * (v[2] - Ew[2]))[act]
                     if with0:
                         E0 = Er[0]
-                        cu0 = curl(dh(Hr[0], None, idd[0][0]))
+                        cu0 = _curl(dh(Hr[0], None, idd[0][0]))
                         old0 = E0.copy()
                         v0 = e_cell(old0, 0, cu0, s)
                         O[0][:, act] = old0[:, act]
@@ -358,12 +347,195 @@ def emulate_march(ops, st, wf, blocks=None, batch=1):
                         for m in range(3):
                             E_out[m][px, sy, sz][core_m] = Er[px % R, m][core_m]
                             H_out[m][px, sy, sz][core_m] = Hr[px % R, m][core_m]
-            if pml and p < xl:  # plane p's ψ, for its level 1 next iteration
-                for m, ax in enumerate(fdtd_stream.PSI_AXIS):
-                    for side, off in ((0, 6), (1, 0)):
-                        pin[off + m] = np.where(on(side, ax, p),
-                                                psi_in[off + m][p, sy, sz], f32(0))
-    return (*E_all, *H_all, *(psi_out if pml else ()))
+    return (*E_all, *H_all)
+
+
+def _shift(a, axis, d):
+    """a[i + d] along ``axis`` (d = ±1), 0 past the region."""
+    out = np.zeros_like(a)
+    src_ = [slice(None)] * a.ndim
+    dst = [slice(None)] * a.ndim
+    if d > 0:
+        src_[axis], dst[axis] = slice(1, None), slice(0, -1)
+    else:
+        src_[axis], dst[axis] = slice(0, -1), slice(1, None)
+    out[tuple(dst)] = a[tuple(src_)]
+    return out
+
+
+def _de(E, Ep, ipx, ipy, ipz):
+    """Forward differences of E in ψ order (Ep: plane x + 1's E)."""
+    ex, ey, ez = E
+    return ((_shift(ez, 0, 1) - ez) * ipy, (_shift(ey, 1, 1) - ey) * ipz,
+            (_shift(ex, 1, 1) - ex) * ipz, (Ep[2] - ez) * ipx,
+            (Ep[1] - ey) * ipx, (_shift(ex, 0, 1) - ex) * ipy)
+
+
+def _dh(H, Hm, idx_, idy, idz):
+    """Backward differences of H in ψ order (Hm: plane x − 1's H or None)."""
+    hx, hy, hz = H
+    hz_xm = Hm[2] if Hm is not None else np.zeros_like(hz)
+    hy_xm = Hm[1] if Hm is not None else np.zeros_like(hy)
+    return ((hz - _shift(hz, 0, -1)) * idy, (hy - _shift(hy, 1, -1)) * idz,
+            (hx - _shift(hx, 1, -1)) * idz, (hz - hz_xm) * idx_,
+            (hy - hy_xm) * idx_, (hx - _shift(hx, 0, -1)) * idy)
+
+
+def _curl(d, p=None):
+    """The curl from the differences d (ψ order), plus the ψ p."""
+    if p is None:
+        return d[0] - d[1], d[2] - d[3], d[4] - d[5]
+    return ((d[0] + p[0]) - (d[1] + p[1]), (d[2] + p[2]) - (d[3] + p[3]),
+            (d[4] + p[4]) - (d[5] + p[5]))
+
+
+def emulate_cpml_march(ops, st, wf, blocks=None, batch=1):
+    """``cpml_march_kernel`` of ``csrc/fdtd_stream.cu`` block by block, in
+    float32 with the kernel's order of operations, cut as ``march_plan``
+    cuts it (no walls: the whole array) for ``blocks`` resident blocks
+    over ``batch`` variants. Its rings as the kernel keeps them, each slot
+    advanced by a counter: plane p's fields enter slot p mod (T + 2) and
+    its ca, cb (per cell) and x scalars (1 / spacings, the four x profile
+    values, the stamp flags of ``fdtd_stream.stamp_planes``) slot
+    p mod (T + 1) when it enters, and every level reads them from there;
+    each cell's ψ moves through T slots by p mod T (level 1 from the
+    registers loaded the iteration before, level T to the other set), a ψ
+    in its axis's ``flat_runs`` run skipped; a level adds src s only on a
+    plane whose flag has the component's bit. Returns the new E3, H3, ψ_e6
+    and ψ_h6; cells no block writes stay NaN (a skipped ψ, 0: the other
+    set starts at 0 there)."""
+    n0, n1, n2 = ops.shape
+    T = len(wf)
+    R, Rc = T + 2, T + 1
+    f32 = np.float32
+    core, origin, tiles, (seg, so, segs), _ = fdtd_stream.march_plan(
+        ops.shape, ops.grid_shape, T, False, -1, blocks, batch, True)
+    E_in = [_np(e) for e in st.e[st.parity]]
+    H_in = [_np(h) for h in st.h]
+    coef = [_np(a) for a in (*ops.ca, *ops.cb)]
+    src = [_np(a) for a in ops.src]
+    flags = fdtd_stream.stamp_planes(ops, n0).numpy()
+    prof = {key: [_np(a) for a in ops.pml[key]] for key in ("bh", "ch", "be", "ce")}
+    # the x scalars of every plane, as the kernel's seven threads copy them
+    xsc = np.zeros((n0, 8), f32)
+    for i, a in enumerate((_np(ops.inv_p[0]), _np(ops.inv_d[0]),
+                           *(prof[k][0] for k in ("bh", "ch", "be", "ce")))):
+        xsc[:, i] = a
+    xsc[:, 6] = flags.view(f32)
+    ip1, ip2, id1, id2 = (_np(a) for a in (ops.inv_p[1], ops.inv_p[2],
+                                           ops.inv_d[1], ops.inv_d[2]))
+    dtmu = f32(ops.dtmu)
+    E_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    H_out = [np.full(ops.shape, np.nan, f32) for _ in range(3)]
+    psi_in = [_np(p) for p in (*st.psi_e, *st.psi_h)]  # ψ_e 0..5, ψ_h 6..11
+    keep = [k.numpy() for k in fdtd_stream.psi_slabs(ops)]
+    psi_out = [np.where(k, np.nan, 0).astype(f32) * np.ones(ops.shape, f32)
+               for k in keep]
+    runs = fdtd_stream.flat_runs(ops.pml)
+
+    for sg, by, bz in itertools.product(range(segs), range(tiles[0]), range(tiles[1])):
+        cy0, cy1 = max(0, by * core[0] - origin[0]), min(n1, (by + 1) * core[0] - origin[0])
+        cz0, cz1 = max(0, bz * core[1] - origin[1]), min(n2, (bz + 1) * core[1] - origin[1])
+        x0, x1 = max(0, sg * seg - so), min(n0, (sg + 1) * seg - so)
+        if cy0 >= cy1 or cz0 >= cz1 or x0 >= x1:
+            continue
+        ry, rz = max(0, cy0 - T), max(0, cz0 - T)
+        Ly, Lz = min(n1, cy1 + T) - ry, min(n2, cz1 + T) - rz
+        sy, sz = slice(ry, ry + Ly), slice(rz, rz + Lz)
+        gy = ry + np.arange(Ly)[:, None]
+        gz = rz + np.arange(Lz)[None, :]
+        ipy, ipz = ip1[sy][:, None], ip2[sz][None, :]
+        idy, idz = id1[sy][:, None], id2[sz][None, :]
+        core_m = (gy >= cy0) & (gy < cy1) & (gz >= cz0) & (gz < cz1)
+        dist = np.maximum(np.maximum(cy0 - gy - 1, gy - cy1 + 1),
+                          np.maximum(cz0 - gz - 1, gz - cz1 + 1))
+        Er = np.zeros((R, 3, Ly, Lz), f32)
+        Hr = np.zeros((R, 3, Ly, Lz), f32)
+        C = np.zeros((Rc, 6, Ly, Lz), f32)  # ca 0..2, cb 3..5
+        X = np.zeros((Rc, 8), f32)
+        Ps = np.zeros((T, 12, Ly, Lz), f32)
+        pin = np.zeros((12, Ly, Lz), f32)  # level 1's ψ, loaded ahead
+
+        def on(side, ax, x):
+            """Whether side's ψ of derivative axis ``ax`` can change."""
+            lo, hi = runs[side][ax]
+            i = (x, gy, gz)[ax]
+            return (i < lo) | (i >= hi)
+
+        def yz_bc(side, ax):
+            b, c = (prof["bh"], prof["ch"]) if side == 0 else (prof["be"], prof["ce"])
+            sl, shp = (sy, (-1, 1)) if ax == 1 else (sz, (1, -1))
+            return b[ax][sl].reshape(shp), c[ax][sl].reshape(shp)
+
+        def psi_level(side, x, t, px, Xp, d, act, write):
+            """One side's ψ at level t of plane x (side 0: H, slots 6..11;
+            1: E, slots 0..5), the x profile from the scalar slot ``Xp``,
+            stored as the kernel stores it; the six ψ, 0 where skipped."""
+            off = 6 if side == 0 else 0
+            out = []
+            for m, ax in enumerate(fdtd_stream.PSI_AXIS):
+                o = on(side, ax, x) & act
+                b, c = (Xp[2 + 2 * side], Xp[3 + 2 * side]) if ax == 0 else yz_bc(side, ax)
+                old = pin[off + m] if t == 1 else Ps[px, off + m]
+                new = np.where(o, b * old + c * d[m], f32(0)).astype(f32)
+                if t < T:
+                    Ps[px, off + m][o] = new[o]
+                else:
+                    w = o & write
+                    psi_out[off + m][x, sy, sz][w] = new[w]
+                out.append(new)
+            return out
+
+        xs_, xl = max(0, x0 - T), min(n0, x1 + T)
+        sp, cp, pp = xs_ % R, xs_ % Rc, xs_ % T
+        for p in range(xs_, x1 + T):
+            if p < xl:
+                for m in range(3):
+                    Er[sp, m] = E_in[m][p, sy, sz]
+                    Hr[sp, m] = H_in[m][p, sy, sz]
+                for m in range(6):
+                    C[cp, m] = coef[m][p, sy, sz]
+                X[cp] = xsc[p]
+            for t in range(1, T + 1):
+                x = p - t
+                lo = max(0, x0 - T + t - 1)
+                if lo <= x < min(n0, x1 + T - t):
+                    s = f32(wf[t - 1])
+                    sx = sp - t + R if sp - t < 0 else sp - t
+                    cx = cp - t + Rc if cp - t < 0 else cp - t
+                    px = pp - t + T if pp - t < 0 else pp - t
+                    E, H, Xp = Er[sx], Hr[sx], X[cx]
+                    Hm = Hr[R - 1 if sx == 0 else sx - 1] if x > 0 else None
+                    Ep = Er[0 if sx == R - 1 else sx + 1] if x + 1 < n0 else np.zeros_like(E)
+                    act = dist <= T - t
+                    write = core_m & (x0 <= x < x1)
+                    # H
+                    d = _de(E, Ep, Xp[0], ipy, ipz)
+                    ps = psi_level(0, x, t, px, Xp, d, act, write)
+                    for m, cu in enumerate(_curl(d, ps)):
+                        H[m][act] = (H[m] - dtmu * cu)[act]
+                    # E
+                    d = _dh(H, Hm, Xp[1], idy, idz)
+                    cu = _curl(d, psi_level(1, x, t, px, Xp, d, act, write))
+                    stamped = int(Xp[6:7].view(np.int32)[0])
+                    for m in range(3):
+                        v = C[cx, m] * E[m] + C[cx, 3 + m] * cu[m]
+                        if stamped >> m & 1:
+                            v = v + src[m][x, sy, sz] * s
+                        E[m][act] = v[act]
+                    if t == T:
+                        for m in range(3):
+                            E_out[m][x, sy, sz][write] = E[m][write]
+                            H_out[m][x, sy, sz][write] = H[m][write]
+                if t == 1 and p < xl:  # plane p's ψ, for its level 1 next
+                    for m, ax in enumerate(fdtd_stream.PSI_AXIS):
+                        for side, off in ((0, 6), (1, 0)):
+                            pin[off + m] = np.where(on(side, ax, p),
+                                                    psi_in[off + m][p, sy, sz], f32(0))
+            sp = 0 if sp + 1 == R else sp + 1
+            cp = 0 if cp + 1 == Rc else cp + 1
+            pp = 0 if pp + 1 == T else pp + 1
+    return (*E_out, *H_out, *psi_out)
 
 
 def _sim(boundary, tall=False):
@@ -496,6 +668,91 @@ def test_batch_schedule_equals_the_plain_twin(monkeypatch, boundary):
         else:
             for x, y in zip((*v.fields, *v.psi_e, *v.psi_h), frozen, strict=True):
                 assert torch.equal(x, y)
+
+
+def _stamped(ops, planes):
+    """``ops`` with random source stamps of Ex and Ez on the x planes
+    ``planes`` (Ez's on the first of them only) and none of Ey, in place
+    of its ports' (no ``src_planes``)."""
+    rng = np.random.default_rng(59)
+    src = []
+    for m in range(3):
+        if m == 1:
+            src.append(None)
+            continue
+        t = torch.zeros(tuple(ops.shape))
+        for x in planes[: 1 if m == 2 else None]:
+            t[x] = torch.from_numpy(rng.standard_normal(t.shape[1:]).astype(np.float32))
+            t[x][rng.random(t.shape[1:]) < 0.9] = 0.0  # a few cells a plane
+        src.append(t)
+    return dataclasses.replace(ops, src=tuple(src), src_planes=None)
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["grid", "batch", "slab", "stamps"])
+def test_staged_cpml_schedule_equals_the_plain_twin(monkeypatch, case, T):
+    """``cpml_march_kernel``'s schedule (:func:`emulate_cpml_march`: its
+    rings of fields, ca/cb, x scalars and ψ slots advanced by counters,
+    its stamps read on flagged planes only) against ``stream_steps_plain``
+    bit for bit at every T it takes, from a random state whose ψ are
+    nonzero in their slabs, on 5×4 cores and several x segments: a whole
+    grid; a batch of three variants with their own ca/cb, variant 1
+    frozen; rank 1 of a two-rank x-slab; stamps on planes off plane 0
+    (Ex on planes 3 and n0 − 4, Ez on plane 3, no Ey)."""
+    monkeypatch.setitem(fdtd_stream._MARCH_CORE, "pml", (5, 4))
+    wf = [0.37, -0.21, 0.55, 0.13][:T]
+    if case == "slab":
+        ops = _slab("PML_4", 2, 1, T).ops
+        assert fdtd_stream.march_view(ops) == (0, 0, -1)
+    else:
+        ops = _sim("PML_4").operands
+    n0 = ops.shape[0]
+    if case == "stamps":
+        ops = _stamped(ops, (3, n0 - 4))
+        flags = fdtd_stream.stamp_planes(ops, n0)
+        assert flags[3] == 0b101 and flags[n0 - 4] == 0b001
+        assert int(torch.count_nonzero(flags)) == 2
+    elif case != "slab":  # the lumped port's plane only, off plane 0
+        assert torch.nonzero(fdtd_stream.stamp_planes(ops, n0)).flatten().tolist() != [0]
+    if case == "batch":
+        B, act = 3, (True, False, True)
+        bops = fdtd_cuda.batch_operands(
+            ops, tuple(torch.stack([c * (1 + 0.01 * (b + 1) * (m + 1)) for b in range(B)])
+                       for m, c in enumerate(ops.ca)),
+            tuple(torch.stack([c * (1 - 0.02 * b) for b in range(B)]) for c in ops.cb))
+        rng = np.random.default_rng(43 + T)
+        st = fdtd_cuda.new_batch_state(tuple(ops.shape), "cpu", True, B)
+        for t in (*st.e[0], *st.e[1], *st.h, *st.psi_e, *st.psi_h):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        for t, keep in zip((*st.psi_e, *st.psi_h), fdtd_stream.psi_slabs(ops)):
+            t.masked_fill_(~keep, 0.0)
+        before = [st.variant(b) for b in range(B)]
+        got = [emulate_cpml_march(fdtd_cuda.variant_operands(bops, b), before[b], wf,
+                                  batch=B) if act[b] else None for b in range(B)]
+        frozen = [t.clone() for t in (*before[1].fields, *before[1].psi_e,
+                                      *before[1].psi_h)]
+        fdtd_stream.stream_steps_batch_plain(bops, st, wf, act)
+        for b in range(B):
+            v = st.variant(b)
+            if act[b]:
+                _assert_equal(got[b], v)
+            else:
+                for x, y in zip((*v.fields, *v.psi_e, *v.psi_h), frozen, strict=True):
+                    assert torch.equal(x, y)
+        return
+    tiles = fdtd_stream.march_plan(ops.shape, ops.grid_shape, T, False, pml=True)[2]
+    blocks = tiles[0] * tiles[1] * 4  # several x segments on the slab too
+    segs = fdtd_stream.march_plan(ops.shape, ops.grid_shape, T, False,
+                                  blocks=blocks, pml=True)[3][2]
+    assert segs >= 2 and tiles[0] >= 2 and tiles[1] >= 2
+    st = _random_state(tuple(ops.shape), 61 + T, ops)
+    assert all(bool(p.ne(0).any()) for p in (*st.psi_e, *st.psi_h))
+    got = emulate_cpml_march(ops, st, wf, blocks)
+    if case == "slab":  # the slab's twin: the steps with its halo rows
+        fdtd_shard.shard_steps_plain(ops, st, wf)
+    else:
+        fdtd_stream.stream_steps_plain(ops, st, wf)
+    _assert_equal(got, st)
 
 
 def test_schedule_with_the_lone_plane_shift(monkeypatch):

@@ -221,6 +221,29 @@ def test_set_port_excitation_writes_the_stamps_in_place():
     assert torch.equal(src[2], before)
 
 
+def test_cpml_stamp_flags_cover_a_port_driven_later():
+    """K2's CPML march adds a stamp only on the planes its packed launch
+    arguments flag, and those arguments outlive a re-excitation: packed
+    while port 2 is undriven, they flag port 2's plane all the same, so
+    each drive the stamps take later is read where it is nonzero."""
+    sim = two_patches(TORCH, pol2=0.0, n_steps=224, boundary="PML_4")
+    ops, Px = sim.operands, sim.padded_shape[0]
+    st = fdtd_cuda.new_state(sim.padded_shape, sim.device, True)
+    f = fdtd_stream._field_set(st)
+    k2 = fdtd_stream._pack(ops, f, tuple(torch.zeros_like(t) for t in f),
+                           fdtd_stream.march_view(ops), None)
+    flagged = (k2._src_planes >> 2) & 1 == 1
+    assert not ((k2._src_planes & 0b011) != 0).any()
+    planes = [ops.src[2].reshape(Px, -1).ne(0).any(1)]
+    for scales in ([0.0, 1.0], [1.0, 1.0]):
+        set_port_excitation(sim, scales)
+        planes.append(ops.src[2].reshape(Px, -1).ne(0).any(1))
+    assert not torch.equal(planes[0], planes[1])  # the ports lie on two planes
+    assert torch.equal(flagged, planes[2])
+    for on in planes:
+        assert flagged[on].all()
+
+
 def test_k4_stepper_built_before_steps_with_the_new_drive():
     sim = two_patches(TORCH, n_steps=224)
     D = sim.probe_decim

@@ -158,12 +158,15 @@ def test_one_rank_matches_the_jax_shard_stream_kernel_under_cpml():
     field face carries signal: at 20 the first H face holds 8e-9 against
     9e-5 on the next, and float32 rounding of the terms it sums (the
     port's single-card run differs there from the JAX package by as much
-    as its explicit run does) exceeds 1e-5 of that. The ψ slots bound the
-    CPML march's T at 6 here (6 + 4 steps an interval)."""
+    as its explicit run does) exceeds 1e-5 of that. The ψ slots and the
+    staged ca/cb ring bound the CPML march's T at 5 here (two launches of
+    5 steps an interval; at T = 6 the 16×26 region passes the fixed
+    stride of ``fdtd_stream.cpml_stride(6)``)."""
     ctl = dict(n_steps=40, check_every=40)
     ref = jax_explicit("tall_z", "PML_4", 1, **ctl)
     run = build_explicit_run(port_sim("tall_z", "PML_4", 1, **ctl))
-    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (6, 7, 4)
+    assert (run.kernel_window, run.stepper.W, run.stepper.rem) == (5, 6, 0)
+    assert 16 * 26 > fdtd_stream.cpml_stride(6) and 16 * 24 <= fdtd_stream.cpml_stride(5)
     out = run()
     assert set(out["state"]["psi_e"]) and set(out["state"]["psi_h"])
     assert_close_surface(out, ref, RTOL, ATOL_REL)
